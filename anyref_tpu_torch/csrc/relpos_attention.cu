@@ -1,0 +1,22 @@
+// SAM ViTDet attention with decomposed relative-position bias:
+// softmax(q k^T * scale + rh[q, key // W] + rw[q, key % W]) v.
+//
+// Replaces anyref_tpu/ops/flash.py flash_relpos_attention, both its window
+// kernel (_relpos_multihead_kernel, one 14x14 window per grid step) and its
+// query-blocked global kernel (_relpos_kernel, L = 4096). One kernel serves
+// both shapes here: window [B*25, 16, 196, 80] and global [B, 16, 4096, 80].
+//
+// Bound on the H100: tensor-core operations (4 * BH * L^2 * hd). The bias is
+// never expanded to [L, L]: the block keeps its 64 rows of the [L, H] and
+// [L, W] factors in shared memory and adds the two terms per key as it scores
+// a tile (see attention.cuh for the tiling and the online softmax).
+#include "attention.cuh"
+
+ANYREF_API int anyref_relpos_attention(const void* q, const void* k, const void* v,
+                                       const void* rh, const void* rw, void* out, int BH, int L,
+                                       int hd, int H, int W, float scale, int vec,
+                                       void* stream) {
+  if (H <= 0 || W <= 0 || H * W != L) return (int)cudaErrorInvalidValue;
+  return anyref_attn::launch<false>(q, k, v, out, (const float*)rh, (const float*)rw, H, W,
+                                    nullptr, 1, BH, L, hd, scale, vec, stream);
+}

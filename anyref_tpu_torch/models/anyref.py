@@ -1,0 +1,282 @@
+"""AnyRef model core, text-referring inference (port of
+anyref_tpu/models/anyref.py generate and what it calls).
+
+A LLaVA-style LLaMA emits [SEG] tokens; their post-norm hidden states project
+(text_hidden_fcs) into SAM's prompt space and SAM's mask decoder turns them
+into masks. Prompts arrive left-padded; the decode loop runs on the host
+with early exit (greedy) or as batched prompt-lookup speculative decoding
+whose output equals the greedy stream. Reference-image, RoI and audio
+prompts and rephrase pooling are not part of the port yet and raise.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..config import NUM_IMAGE_TOKENS, AnyRefConfig
+from ..ops.common import linear
+from ..params import resolve_device
+from ..tokenizer import EOS_ID, PAD_ID
+from . import clip_vit, llama
+from . import sam as sam_mod
+
+
+def encode_clip_images(params: dict, cfg: AnyRefConfig, clip_pixels):
+    """CLIP tower + mm_projector -> [B, 256, llama_hidden]."""
+    feats = clip_vit.apply_patch_features(params["clip"], clip_pixels,
+                                          cfg.clip)
+    return linear(params["mm_projector"], feats)
+
+
+def _expand_image(ids, img_pos, fill_value: int, out_len: int):
+    """[B, T] -> [B, T+255]: the <image> token at img_pos[b] becomes
+    NUM_IMAGE_TOKENS positions of fill_value."""
+    T = ids.shape[1]
+    j = torch.arange(out_len, device=ids.device)[None, :]
+    p = img_pos[:, None]
+    in_img = (j >= p) & (j < p + NUM_IMAGE_TOKENS)
+    src = torch.where(j < p, j, j - (NUM_IMAGE_TOKENS - 1)).clamp(0, T - 1)
+    gathered = torch.gather(ids, 1, src)
+    return torch.where(in_img, torch.full_like(gathered, fill_value),
+                       gathered)
+
+
+def assemble_embeds(params: dict, cfg: AnyRefConfig, input_ids, clip_feats):
+    """input_ids [B, T] with one <image> token per row -> (embeds
+    [B, T+255, D] with the CLIP features spliced in, expanded ids)."""
+    tk = cfg.tokens
+    T = input_ids.shape[1]
+    L = T + NUM_IMAGE_TOKENS - 1
+    img_pos = (input_ids == tk.image).to(torch.uint8).argmax(1)
+    exp_ids = _expand_image(input_ids, img_pos, tk.image, L)
+    embeds = llama.embed(params["llama"], exp_ids)
+    j = torch.arange(L, device=input_ids.device)[None, :]
+    p = img_pos[:, None]
+    in_img = (j >= p) & (j < p + NUM_IMAGE_TOKENS)
+    img_idx = (j - p).clamp(0, NUM_IMAGE_TOKENS - 1)
+    D = clip_feats.shape[-1]
+    img = torch.gather(clip_feats, 1, img_idx[:, :, None].expand(-1, -1, D))
+    embeds = torch.where(in_img[:, :, None], img.to(embeds.dtype), embeds)
+    return embeds, exp_ids
+
+
+def _seg_slots(ids, seg_id: int, max_seg: int):
+    """Positions of up to max_seg [SEG] tokens per row (pos [B, S], valid
+    [B, S]); overflow [SEG]s land in a dropped column."""
+    B, L = ids.shape
+    is_seg = ids == seg_id
+    occ = torch.cumsum(is_seg.long(), 1) - 1
+    slot = torch.where(is_seg, occ, torch.full_like(occ, max_seg))
+    slot = slot.clamp(0, max_seg)
+    lidx = torch.arange(L, device=ids.device)[None, :].expand(B, L)
+    pos = torch.zeros((B, max_seg + 1), dtype=torch.long, device=ids.device)
+    pos = pos.scatter_reduce(1, slot, torch.where(is_seg, lidx, 0),
+                             reduce="amax")[:, :max_seg]
+    count = is_seg.sum(1)
+    valid = torch.arange(max_seg, device=ids.device)[None, :] < count[:, None]
+    return pos, valid
+
+
+def project_seg_hidden(params: dict, hidden):
+    """text_hidden_fcs in fp32."""
+    h = torch.relu(linear(params["text_hidden_fcs"]["lin1"], hidden.float()))
+    return linear(params["text_hidden_fcs"]["lin2"], h)
+
+
+def _prompt_lookup_draft(seq, cur_len: int, ngram: int, draft_len: int):
+    """Per row of seq [B, LT]: draft the next ``draft_len`` tokens by
+    copying what followed the latest earlier occurrence of the current
+    ``ngram``-suffix, with periodic wrap inside the known region (falls back
+    to repeating the last token)."""
+    B, LT = seq.shape
+    dev = seq.device
+    gram = seq[:, cur_len - ngram:cur_len]
+    idx = torch.arange(LT, device=dev)
+    eq = torch.ones((B, LT), dtype=torch.bool, device=dev)
+    for t in range(ngram):
+        eq &= seq[:, (idx + t).clamp(0, LT - 1)] == gram[:, t:t + 1]
+    valid = idx + ngram <= cur_len - 1
+    score = torch.where(eq & valid, idx, -1)
+    j = score.max(1).values
+    start = torch.where(j >= 0, j + ngram, torch.full_like(j, cur_len - 1))
+    period = (cur_len - start).clamp_min(1)
+    offs = torch.arange(draft_len, device=dev)[None, :] % period[:, None]
+    return torch.gather(seq, 1, (start[:, None] + offs).clamp(0, LT - 1))
+
+
+def _speculative_decode(params, cfg, exp_ids, pad_len, cache, first_tok,
+                        Lp: int, mnt: int, G: int, ngram: int, dtype,
+                        max_accept: Optional[int] = None,
+                        force_accept: bool = False):
+    """Batched prompt-lookup speculative decode, lockstep-min acceptance:
+    each pass verifies the pending token plus G per-row drafts in one chunk;
+    all rows advance by the minimum accepted length over unfinished rows.
+    ``max_accept`` caps tokens accepted per pass; ``force_accept``
+    (benchmark only) accepts exactly max_accept drafts regardless of
+    verification. Returns (ids [B, mnt], hidden [B, mnt, D], passes)."""
+    eos = EOS_ID
+    B = exp_ids.shape[0]
+    dev = exp_ids.device
+    D = params["llama"]["final_norm"]["scale"].shape[0]
+    ext = mnt + G + 1
+    toks = torch.full((B, ext), eos, dtype=torch.long, device=dev)
+    hids = torch.zeros((B, ext, D), dtype=dtype, device=dev)
+    all_ids = torch.cat([exp_ids, torch.full((B, ext), eos, dtype=torch.long,
+                                             device=dev)], 1)
+    arange_g = torch.arange(G + 1, device=dev)
+    ones = torch.ones((B, 1), dtype=torch.long, device=dev)
+    i, n_pass = 0, 0
+    tok = first_tok
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    while i < mnt and not bool(done.all()):
+        all_ids[:, Lp + i] = tok
+        draft = _prompt_lookup_draft(all_ids, Lp + i + 1, ngram, G)
+        feed = torch.cat([tok[:, None], draft], 1)
+        feed = torch.where(done[:, None], eos, feed)
+        emb = llama.embed(params["llama"], feed, dtype=dtype)
+        h, cache = llama.decode_chunk(params["llama"], cfg.llama, emb, Lp + i,
+                                      cache, pad_len=pad_len)
+        nxt = llama.logits(params["llama"], h).argmax(-1)       # [B, G+1]
+
+        match = torch.cumprod((feed[:, 1:] == nxt[:, :G]).long(), 1)
+        acc = torch.cat([ones, match], 1)
+        no_eos_before = torch.cumprod(
+            torch.cat([ones, (feed[:, :G] != eos).long()], 1), 1)
+        ok = acc * no_eos_before
+        if force_accept and max_accept is not None:
+            ok = no_eos_before * (arange_g < max_accept).long()[None]
+        elif max_accept is not None:
+            ok = ok * (arange_g < max_accept).long()[None]
+        n_emit_row = ok.sum(1)
+        # finished rows must not throttle the batch
+        n_emit = int(torch.where(done, G + 1, n_emit_row).min())
+        n_emit = max(n_emit, 1)
+        # EOS only counts as emitted inside the accepted prefix
+        ok_eff = ok * (arange_g[None] < n_emit).long()
+        done_next = done | ((feed == eos) & (ok_eff == 1)).any(1)
+
+        toks[:, i:i + G + 1] = feed
+        hids[:, i:i + G + 1] = h
+        all_ids[:, Lp + i:Lp + i + G + 1] = feed
+        next_tok = nxt[:, min(max(n_emit - 1, 0), G)]
+        tok = torch.where(done_next, eos, next_tok)
+        done = done_next
+        i += n_emit
+        n_pass += 1
+    live = torch.arange(ext, device=dev)[None, :] < i
+    toks = torch.where(live, toks, eos)
+    hids = torch.where(live[:, :, None], hids, 0)
+    return toks[:, :mnt], hids[:, :mnt], n_pass
+
+
+def _greedy_decode(params, cfg, pad_len, cache, first_tok, Lp: int, mnt: int,
+                   dtype):
+    """Greedy decode with early exit once every row has emitted EOS.
+    Returns (ids [B, mnt], hidden [B, mnt, D], steps)."""
+    eos = EOS_ID
+    B = first_tok.shape[0]
+    dev = first_tok.device
+    D = params["llama"]["final_norm"]["scale"].shape[0]
+    toks = torch.full((B, mnt), eos, dtype=torch.long, device=dev)
+    hids = torch.zeros((B, mnt, D), dtype=dtype, device=dev)
+    tok = first_tok
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    i = 0
+    while i < mnt and not bool(done.all()):
+        emb = llama.embed(params["llama"], tok[:, None], dtype=dtype)
+        h, cache = llama.decode_step(params["llama"], cfg.llama, emb, Lp + i,
+                                     cache, pad_len=pad_len)
+        nxt = llama.logits(params["llama"], h[:, 0]).argmax(-1)
+        done_next = done | (tok == eos)
+        toks[:, i] = torch.where(done, eos, tok)
+        hids[:, i] = h[:, 0]
+        tok = torch.where(done_next, eos, nxt)
+        done = done_next
+        i += 1
+    return toks, hids, i
+
+
+class GenerateOutput(NamedTuple):
+    output_ids: torch.Tensor      # [B, max_new_tokens]
+    num_generated: torch.Tensor   # [B]
+    low_res_masks: torch.Tensor   # [B, S, 4g, 4g] logits (SAM low-res grid)
+    seg_valid: torch.Tensor       # [B, S]
+    seg_embeddings: torch.Tensor  # [B, S, out_dim]
+    decode_passes: int            # decode weight streams (tokens/pass =
+                                  # num_generated / decode_passes)
+
+
+@torch.inference_mode()
+def generate(params: dict, cfg: AnyRefConfig, batch: dict,
+             max_new_tokens: Optional[int] = None,
+             speculative: bool = False, draft_len: int = 31,
+             lookup_ngram: int = 2, max_accept: Optional[int] = None,
+             force_accept: bool = False, device="cuda") -> GenerateOutput:
+    """Greedy (or speculative) decode + SAM mask synthesis.
+
+    batch: input_ids [B, T] (prompt only, LEFT-padded, one <image> per
+    row), clip_images [B, 3, 224, 224] and sam_images [B, 3, S, S]
+    normalized; arrays or tensors, moved to ``device``. The params must
+    already live on ``device``."""
+    dev = resolve_device(device)
+    if params["llama"]["lm_head"].device.type != dev.type:
+        raise ValueError(f"params live on {params['llama']['lm_head'].device}"
+                         f", generate was asked to run on {dev}")
+    for key in ("ref_images", "roi_boxes", "audio_mels"):
+        if key in batch:
+            raise NotImplementedError(f"{key}: only text references are "
+                                      "part of the port yet")
+    if cfg.rephrase_weight > 0:
+        raise NotImplementedError("rephrase pooling is not part of the port "
+                                  "yet")
+    mnt = max_new_tokens or cfg.max_new_tokens
+    tk = cfg.tokens
+    input_ids = torch.as_tensor(batch["input_ids"], device=dev).long()
+    clip_images = torch.as_tensor(batch["clip_images"], device=dev)
+    sam_images = torch.as_tensor(batch["sam_images"], device=dev)
+
+    clip_feats = encode_clip_images(params, cfg, clip_images)
+    embeds, exp_ids = assemble_embeds(params, cfg, input_ids, clip_feats)
+    # left pad: pad keys are masked and rope positions shift so each row's
+    # first real token is position 0
+    pad_len = (input_ids != PAD_ID).to(torch.uint8).argmax(1)
+
+    B, Lp, D = embeds.shape
+    # speculative chunks write up to draft_len past the last accepted slot;
+    # capacity rounded up to 16 as the reference rounds it
+    cache_len = Lp + mnt + (draft_len + 1 if speculative else 0)
+    cache_len = -(-cache_len // 16) * 16
+    cache = llama.init_cache(cfg.llama, B, cache_len, dtype=embeds.dtype,
+                             device=dev)
+    hidden, cache = llama.prefill(params["llama"], cfg.llama, embeds, cache,
+                                  pad_len=pad_len)
+    sam_embeddings = sam_mod.encode_image(params["sam"], sam_images, cfg.sam)
+    first_tok = llama.logits(params["llama"], hidden[:, -1]).argmax(-1)
+
+    if speculative:
+        output_ids, gen_hidden, decode_passes = _speculative_decode(
+            params, cfg, exp_ids, pad_len, cache, first_tok, Lp, mnt,
+            draft_len, lookup_ngram, embeds.dtype, max_accept=max_accept,
+            force_accept=force_accept)
+    else:
+        output_ids, gen_hidden, decode_passes = _greedy_decode(
+            params, cfg, pad_len, cache, first_tok, Lp, mnt, embeds.dtype)
+    num_generated = (output_ids != EOS_ID).sum(1)
+
+    # the hidden state that EMITS [SEG] at output k is gen_hidden[k-1], or
+    # the last prefill state for k = 0
+    S = cfg.max_seg_per_sample
+    pos, seg_valid = _seg_slots(output_ids, tk.seg, S)
+    all_hidden = torch.cat([hidden[:, -1:], gen_hidden], 1)
+    seg_hidden = torch.gather(all_hidden, 1, pos[:, :, None].expand(-1, -1, D))
+    pred_emb = project_seg_hidden(params, seg_hidden)            # [B, S, out]
+    img_index = torch.arange(B, device=dev)[:, None].expand(B, S).reshape(-1)
+    low_res, _ = sam_mod.decode_text_prompts(
+        params["sam"], cfg.sam, sam_embeddings, pred_emb.reshape(B * S, -1),
+        img_index)
+    g4 = 4 * cfg.sam.embedding_size
+    return GenerateOutput(output_ids, num_generated,
+                          low_res.reshape(B, S, g4, g4), seg_valid, pred_emb,
+                          decode_passes)

@@ -1,0 +1,103 @@
+"""The port's kernel plain versions (anyref_tpu_torch/ops/flash.py) against
+the JAX package's Pallas kernels run in interpret mode, fp32, same inputs.
+
+On the CPU every port wrapper runs its plain version; the CUDA kernels are
+held against these same plain versions on the card by chip_smoke.py.
+Tolerance: atol = rtol = 1e-5 in fp32 unless a test says otherwise (the two
+sides sum in different orders; a wrong mask, bias or index is O(1))."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from anyref_tpu.ops import flash as jflash
+from anyref_tpu_torch.ops import flash as tflash
+
+TOL = {"atol": 1e-5, "rtol": 1e-5}
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+@pytest.mark.parametrize("ws,nh,hd", [(14, 2, 80), (32, 1, 16)],
+                         ids=["window-L196", "blocked-L1024"])
+def test_relpos_attention_matches_pallas(ws, nh, hd):
+    """ws 14 runs the reference's one-window-per-step kernel, 32x32 its
+    query-blocked kernel (L >= 1024)."""
+    rng = np.random.default_rng(0)
+    L = ws * ws
+    q, k, v = (rng.standard_normal((2, nh, L, hd)).astype(np.float32)
+               for _ in range(3))
+    th = (rng.standard_normal((ws, ws, hd)) * 0.1).astype(np.float32)
+    tw = (rng.standard_normal((ws, ws, hd)) * 0.1).astype(np.float32)
+    want = np.asarray(jflash.flash_relpos_attention(
+        *(jnp.asarray(a) for a in (q, k, v, th, tw)), (ws, ws),
+        interpret=True))
+    got = tflash.flash_relpos_attention(*(_t(a) for a in (q, k, v, th, tw)),
+                                        (ws, ws))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("mh", ["1", "0"])
+def test_causal_attention_matches_pallas(monkeypatch, mh):
+    """kv_start 70 leaves rows 0..69 of batch row 1 with no key: they must
+    be finite and equal to the reference's uniform mean of V, like every
+    other row. mh selects the reference's multi-head or per-head kernel."""
+    monkeypatch.setenv("ANYREF_CAUSAL_MH_KERNEL", mh)
+    rng = np.random.default_rng(1)
+    B, nh, L, hd = 2, 2, 256, 64
+    q, k, v = (rng.standard_normal((B, nh, L, hd)).astype(np.float32)
+               for _ in range(3))
+    ks = np.asarray([0, 70], np.int32)
+    want = np.asarray(jflash.flash_causal_attention(
+        *(jnp.asarray(a) for a in (q, k, v)), kv_start=jnp.asarray(ks),
+        interpret=True))
+    got = tflash.flash_causal_attention(*(_t(a) for a in (q, k, v)),
+                                        _t(ks)).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_allclose(got[1, :, :70],
+                               np.broadcast_to(v[1].mean(1, keepdims=True),
+                                               (nh, 70, hd)), **TOL)
+
+
+@pytest.mark.parametrize("kind", ["layer", "rms"])
+def test_norms_match_pallas(kind):
+    """300 rows (not a multiple of the reference's 256-row block), C 128."""
+    rng = np.random.default_rng(2)
+    x = (rng.standard_normal((3, 100, 128)) * 3 + 1).astype(np.float32)
+    s = rng.standard_normal(128).astype(np.float32)
+    b = rng.standard_normal(128).astype(np.float32)
+    if kind == "layer":
+        want = jflash.layer_norm_fused(jnp.asarray(x), jnp.asarray(s),
+                                       jnp.asarray(b), 1e-6, interpret=True)
+        got = tflash.layer_norm_fused(_t(x), _t(s), _t(b), 1e-6)
+    else:
+        want = jflash.rms_norm_fused(jnp.asarray(x), jnp.asarray(s), 1e-6,
+                                     interpret=True)
+        got = tflash.rms_norm_fused(_t(x), _t(s), 1e-6)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_plain_runs_only_for_cpu_tensors():
+    """A wrapper takes its plain version only for a CPU tensor: any other
+    device gets the kernel or an error, never the plain math, and a plain
+    run launches nothing."""
+    before = [f.launches for f in tflash.KERNELS]
+    x = torch.ones(4, 8, device="meta")
+    with pytest.raises(ValueError):
+        tflash.layer_norm_fused(x, torch.ones(8), torch.zeros(8), 1e-6)
+    with pytest.raises(ValueError):
+        tflash.rms_norm_fused(x, torch.ones(8), 1e-6)
+    q = torch.ones(1, 1, 16, 8, device="meta")
+    with pytest.raises(ValueError):
+        tflash.flash_causal_attention(q, q, q)
+    with pytest.raises(ValueError):
+        tflash.flash_relpos_attention(q, q, q, torch.zeros(4, 4, 8),
+                                      torch.zeros(4, 4, 8), (4, 4))
+    tflash.layer_norm_fused(torch.ones(4, 8), torch.ones(8), torch.zeros(8),
+                            1e-6)
+    assert [f.launches for f in tflash.KERNELS] == before
