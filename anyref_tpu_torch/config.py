@@ -56,6 +56,26 @@ def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+# The port's two paths through the image towers (SAM and CLIP), chosen by an
+# explicit argument of every entry point:
+# * "fused": the reference's default on its accelerator (in the JAX package
+#   ANYREF_FUSED_WINDOW_BLOCK=1 ANYREF_FUSED_GLOBAL_BLOCK=1
+#   ANYREF_FUSED_SPLIT=1 ANYREF_QKV_MHA_KERNEL=1 ANYREF_QKV_WINDOW_KERNEL=0):
+#   SAM window and global layers as fused kernels where the reference's
+#   gates take the shape, CLIP attention read off the fused QKV;
+# * "unfused": its unfused configuration (the first four switches at 0):
+#   SAM blocks op by op with the rel-pos attention kernel, CLIP attention
+#   plain.
+ENCODER_PATHS = ("fused", "unfused")
+
+
+def check_encoder_path(path: str) -> str:
+    if path not in ENCODER_PATHS:
+        raise ValueError(f"encoder_path must be one of {ENCODER_PATHS}, got "
+                         f"{path!r}")
+    return path
+
+
 # ---------------------------------------------------------------------------
 # LLaMA decoder
 # ---------------------------------------------------------------------------

@@ -16,6 +16,7 @@
 ANYREF_API int anyref_causal_attention(const void* q, const void* k, const void* v,
                                        const void* kv_start, void* out, int B, int nh, int L,
                                        int hd, float scale, int vec, void* stream) {
-  return anyref_attn::launch<true>(q, k, v, out, nullptr, nullptr, 0, 0, (const int*)kv_start,
-                                   nh, B * nh, L, hd, scale, vec, stream);
+  anyref_attn::Args a = anyref_attn::split_heads(q, k, v, out, nh, L, hd, scale, vec);
+  a.kv_start = (const int*)kv_start;
+  return anyref_attn::launch<anyref_attn::CAUSAL>(a, B * nh, stream);
 }

@@ -17,15 +17,6 @@
 // reference does inside its kernel).
 #include "common.cuh"
 
-// 8 consecutive floats as two 16-byte loads (with `vec` the wrapper has
-// checked that scale and bias are 16-byte aligned).
-__device__ __forceinline__ void load8f(const float* p, float* out) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
-}
-
 template <bool LAYER>
 __global__ void norm_kernel(const bf16* __restrict__ x, const float* __restrict__ scale,
                             const float* __restrict__ bias, bf16* __restrict__ y, int C,

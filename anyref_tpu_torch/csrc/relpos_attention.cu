@@ -13,10 +13,14 @@
 #include "attention.cuh"
 
 ANYREF_API int anyref_relpos_attention(const void* q, const void* k, const void* v,
-                                       const void* rh, const void* rw, void* out, int BH, int L,
-                                       int hd, int H, int W, float scale, int vec,
+                                       const void* rh, const void* rw, void* out, int B, int nh,
+                                       int L, int hd, int H, int W, float scale, int vec,
                                        void* stream) {
   if (H <= 0 || W <= 0 || H * W != L) return (int)cudaErrorInvalidValue;
-  return anyref_attn::launch<false>(q, k, v, out, (const float*)rh, (const float*)rw, H, W,
-                                    nullptr, 1, BH, L, hd, scale, vec, stream);
+  anyref_attn::Args a = anyref_attn::split_heads(q, k, v, out, nh, L, hd, scale, vec);
+  a.H = H;
+  a.W = W;
+  a.rh = (const float*)rh;
+  a.rw = (const float*)rw;
+  return anyref_attn::launch<anyref_attn::RELPOS>(a, B * nh, stream);
 }

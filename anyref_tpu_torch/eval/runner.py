@@ -16,7 +16,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..config import SAM_PIXEL_MEAN, SAM_PIXEL_STD, AnyRefConfig
+from ..config import (SAM_PIXEL_MEAN, SAM_PIXEL_STD, AnyRefConfig,
+                      check_encoder_path)
 from ..models import anyref, clip_vit
 from ..ops.resize import postprocess_low_res_np
 from ..params import resolve_device
@@ -48,10 +49,11 @@ class Predictor:
                  force_accept: bool = False,
                  mask_fetch_dtype: str = "float32",
                  fetch_segs: Optional[int] = None,
-                 device="cuda"):
+                 device="cuda", encoder_path: str = "fused"):
         # buckets = 1 (mod 128): the +255 image expansion lands prefill on
         # multiples of 128 (384/448/512/640/768)
         self.device = resolve_device(device)
+        self.encoder_path = check_encoder_path(encoder_path)
         self.params = params
         self.cfg = cfg
         self.mnt = max_new_tokens or cfg.max_new_tokens
@@ -121,7 +123,8 @@ class Predictor:
         out = anyref.generate(self.params, self.cfg, dev,
                               max_new_tokens=self.mnt,
                               speculative=self.speculative,
-                              device=self.device, **self.gen_kw)
+                              device=self.device,
+                              encoder_path=self.encoder_path, **self.gen_kw)
         low = out.low_res_masks
         if self.fetch_segs is not None:
             low = low[:, :self.fetch_segs]

@@ -15,7 +15,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..config import NUM_IMAGE_TOKENS, AnyRefConfig
+from ..config import NUM_IMAGE_TOKENS, AnyRefConfig, check_encoder_path
 from ..ops.common import linear
 from ..params import resolve_device
 from ..tokenizer import EOS_ID, PAD_ID
@@ -23,10 +23,11 @@ from . import clip_vit, llama
 from . import sam as sam_mod
 
 
-def encode_clip_images(params: dict, cfg: AnyRefConfig, clip_pixels):
+def encode_clip_images(params: dict, cfg: AnyRefConfig, clip_pixels,
+                       encoder_path: str = "fused"):
     """CLIP tower + mm_projector -> [B, 256, llama_hidden]."""
     feats = clip_vit.apply_patch_features(params["clip"], clip_pixels,
-                                          cfg.clip)
+                                          cfg.clip, encoder_path)
     return linear(params["mm_projector"], feats)
 
 
@@ -213,13 +214,16 @@ def generate(params: dict, cfg: AnyRefConfig, batch: dict,
              max_new_tokens: Optional[int] = None,
              speculative: bool = False, draft_len: int = 31,
              lookup_ngram: int = 2, max_accept: Optional[int] = None,
-             force_accept: bool = False, device="cuda") -> GenerateOutput:
+             force_accept: bool = False, device="cuda",
+             encoder_path: str = "fused") -> GenerateOutput:
     """Greedy (or speculative) decode + SAM mask synthesis.
 
     batch: input_ids [B, T] (prompt only, LEFT-padded, one <image> per
     row), clip_images [B, 3, 224, 224] and sam_images [B, 3, S, S]
     normalized; arrays or tensors, moved to ``device``. The params must
-    already live on ``device``."""
+    already live on ``device``. ``encoder_path`` selects the towers' path
+    ("fused" or "unfused", config.ENCODER_PATHS)."""
+    check_encoder_path(encoder_path)
     dev = resolve_device(device)
     if params["llama"]["lm_head"].device.type != dev.type:
         raise ValueError(f"params live on {params['llama']['lm_head'].device}"
@@ -237,7 +241,7 @@ def generate(params: dict, cfg: AnyRefConfig, batch: dict,
     clip_images = torch.as_tensor(batch["clip_images"], device=dev)
     sam_images = torch.as_tensor(batch["sam_images"], device=dev)
 
-    clip_feats = encode_clip_images(params, cfg, clip_images)
+    clip_feats = encode_clip_images(params, cfg, clip_images, encoder_path)
     embeds, exp_ids = assemble_embeds(params, cfg, input_ids, clip_feats)
     # left pad: pad keys are masked and rope positions shift so each row's
     # first real token is position 0
@@ -252,7 +256,8 @@ def generate(params: dict, cfg: AnyRefConfig, batch: dict,
                              device=dev)
     hidden, cache = llama.prefill(params["llama"], cfg.llama, embeds, cache,
                                   pad_len=pad_len)
-    sam_embeddings = sam_mod.encode_image(params["sam"], sam_images, cfg.sam)
+    sam_embeddings = sam_mod.encode_image(params["sam"], sam_images, cfg.sam,
+                                          encoder_path)
     first_tok = llama.logits(params["llama"], hidden[:, -1]).argmax(-1)
 
     if speculative:

@@ -9,8 +9,9 @@ from ...config import SamConfig
 from . import image_encoder, mask_decoder, prompt_encoder
 
 
-def encode_image(params: dict, x, cfg: SamConfig):
-    return image_encoder.apply(params["image_encoder"], x, cfg)
+def encode_image(params: dict, x, cfg: SamConfig,
+                 encoder_path: str = "fused"):
+    return image_encoder.apply(params["image_encoder"], x, cfg, encoder_path)
 
 
 def decode_text_prompts(params: dict, cfg: SamConfig, image_embeddings,

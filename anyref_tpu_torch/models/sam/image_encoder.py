@@ -1,12 +1,21 @@
-"""SAM ViTDet image encoder (port of the unfused path of
-anyref_tpu/models/sam/image_encoder.py apply).
+"""SAM ViTDet image encoder (port of anyref_tpu/models/sam/image_encoder.py
+apply, fused and unfused paths).
 
 Windowed attention (size 14) with global layers at
 cfg.encoder_global_attn_indexes, decomposed relative-position bias, absolute
 position embeddings and an fp32 conv neck to 256 channels. The windowed run
 keeps the stream window-resident [B*nw, ws, ws, C] and re-zeroes the pad
-positions after every LN1, as the reference does. LN1/LN2 run the LayerNorm
-kernel and attention the rel-pos attention kernel (ops/flash.py).
+positions after every LN1, as the reference does.
+
+Two paths (config.ENCODER_PATHS), chosen by the caller:
+* "unfused": each block op by op, LN1/LN2 in the LayerNorm kernel and
+  attention in the rel-pos attention kernel (ops/flash.py);
+* "fused": the reference's accelerator default. A window layer is
+  fused_window_attn + fused_mlp_stream where 64 <= ws^2 <= 1024, a global
+  layer LN1 (LayerNorm kernel) + QKV matmul + fused_global_tail where
+  flash.supported_global_fused takes the grid; the reference's gates, so
+  each shape gets the reference's numerics. Where a gate refuses, the block
+  runs as on the unfused path.
 """
 
 from __future__ import annotations
@@ -15,7 +24,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ...config import SamConfig
+from ...config import SamConfig, check_encoder_path
+from ...ops import flash
 from ...ops.attention import attention_with_decomposed_relpos
 from ...ops.common import conv2d, gelu, layer_norm, layer_norm_2d, linear
 
@@ -87,6 +97,46 @@ def _block_windowed_resident(p, xw, mask, cfg: SamConfig):
     return x + h
 
 
+def fused_window_ok(cfg: SamConfig) -> bool:
+    """The reference's gate for its fused window layer (image_encoder.py
+    _fused_window_layer_enabled with the kernels on)."""
+    return 64 <= cfg.window_size ** 2 <= 1024
+
+
+def _fused_window_layer(p, xw, cfg: SamConfig, grid_hw, nwc: int):
+    """Window layer on the window-resident stream [NW, ws*ws, C]: attention
+    half (LN1 + pad mask + QKV + rel-pos attention + proj + residual) then
+    MLP half over the flat rows, as the reference's split variant
+    (ANYREF_FUSED_SPLIT=1)."""
+    ws = cfg.window_size
+    tht = _get_rel_pos_table(ws, p["attn"]["rel_pos_h"]).reshape(ws * ws, -1)
+    twt = _get_rel_pos_table(ws, p["attn"]["rel_pos_w"]).reshape(ws * ws, -1)
+    NW, L, C = xw.shape
+    x1 = flash.fused_window_attn(xw, p["norm1"], p["attn"]["qkv"], tht, twt,
+                                 p["attn"]["proj"], (ws, ws),
+                                 cfg.encoder_num_heads, grid_hw, nwc,
+                                 cfg.layer_norm_eps)
+    return flash.fused_mlp_stream(x1.reshape(NW * L, C), p["norm2"],
+                                  p["mlp"]["lin1"], p["mlp"]["lin2"],
+                                  cfg.layer_norm_eps).reshape(NW, L, C)
+
+
+def _fused_global_layer(p, x, cfg: SamConfig):
+    """Global block: LN1 in the LayerNorm kernel and the QKV projection as a
+    matmul (the reference keeps both outside its kernel), then
+    fused_global_tail."""
+    B, H, W, C = x.shape
+    tht = _get_rel_pos_table(H, p["attn"]["rel_pos_h"])
+    twt = _get_rel_pos_table(W, p["attn"]["rel_pos_w"])
+    h = layer_norm(p["norm1"], x, eps=cfg.layer_norm_eps, fused=True)
+    qkv = linear(p["attn"]["qkv"], h.reshape(B, H * W, C))
+    out = flash.fused_global_tail(x.reshape(B, H * W, C), qkv, tht, twt,
+                                  p["attn"]["proj"], p["norm2"],
+                                  p["mlp"]["lin1"], p["mlp"]["lin2"], (H, W),
+                                  cfg.encoder_num_heads, cfg.layer_norm_eps)
+    return out.reshape(B, H, W, C)
+
+
 def patch_embed(p, x, patch: int):
     """[B, 3, H, W] -> [B, H/ps, W/ps, D] via reshape + matmul."""
     B, C, H, W = x.shape
@@ -96,9 +146,11 @@ def patch_embed(p, x, patch: int):
     return linear(p, x)
 
 
-def apply(params: dict, x, cfg: SamConfig):
+def apply(params: dict, x, cfg: SamConfig, encoder_path: str = "fused"):
     """[B, 3, image_size, image_size] normalized pixels -> [B, 256, g, g]
-    image embeddings, computed in the param dtype; fp32 neck."""
+    image embeddings, computed in the param dtype; fp32 neck.
+    ``encoder_path``: "fused" or "unfused" (see the module docstring)."""
+    fused = check_encoder_path(encoder_path) == "fused"
     x = x.to(params["patch_embed"]["w"].dtype)
     x = patch_embed(params["patch_embed"], x, cfg.patch_size)
     x = x + params["pos_embed"].to(x.dtype)
@@ -106,18 +158,27 @@ def apply(params: dict, x, cfg: SamConfig):
     ws = cfg.window_size
     pad_mask, _ = _window_partition(
         torch.ones((1, H, W, 1), dtype=x.dtype, device=x.device), ws)
+    fused_window = fused and fused_window_ok(cfg)
+    fused_global = fused and flash.supported_global_fused(
+        H, W, x.shape[-1] // cfg.encoder_num_heads)
     win_x = pad_hw = mask = None
     for i, bp in enumerate(params["blocks"]):
         if i in cfg.encoder_global_attn_indexes:
             if win_x is not None:
                 x = _window_unpartition(win_x, ws, pad_hw, (H, W))
                 win_x = None
-            x = _block(bp, x, cfg)
+            x = (_fused_global_layer(bp, x, cfg) if fused_global
+                 else _block(bp, x, cfg))
         else:
             if win_x is None:
                 win_x, pad_hw = _window_partition(x, ws)
                 mask = pad_mask.repeat(B, 1, 1, 1)
-            win_x = _block_windowed_resident(bp, win_x, mask, cfg)
+            if fused_window:
+                win_x = _fused_window_layer(
+                    bp, win_x.reshape(win_x.shape[0], ws * ws, -1), cfg,
+                    (H, W), pad_hw[1] // ws).reshape(win_x.shape)
+            else:
+                win_x = _block_windowed_resident(bp, win_x, mask, cfg)
     if win_x is not None:
         x = _window_unpartition(win_x, ws, pad_hw, (H, W))
     # fp32 island for the neck

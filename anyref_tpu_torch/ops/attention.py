@@ -4,7 +4,8 @@ The call sites choose between the CUDA kernels of ops/flash.py and plain
 attention exactly where the reference chooses between its Pallas kernels and
 XLA: SAM rel-pos attention and causal prefill go through the kernels; decode
 steps and speculative verify chunks (``q_offset``/``kv_len`` given, or
-Lq != Lk) and CLIP attention run plain.
+Lq != Lk) run plain; CLIP attention takes the QKV-direct kernel on the fused
+encoder path and runs plain on the unfused one.
 """
 
 from __future__ import annotations
@@ -60,9 +61,13 @@ def causal_attention(q, k, v, q_offset=0, kv_len=None, kv_start=None):
                         v.float()).to(v.dtype)
 
 
-def mha_qkv(qkv, num_heads: int):
-    """Self-attention from a fused [B, L, 3C] QKV tensor, split into heads
-    and run plain (the reference's ANYREF_QKV_MHA_KERNEL=0 path)."""
+def mha_qkv(qkv, num_heads: int, kernel: bool):
+    """Self-attention from a fused [B, L, 3C] QKV tensor -> [B, L, C]: with
+    ``kernel`` the QKV-direct kernel (ops/flash.py flash_attention_qkv, the
+    reference's ANYREF_QKV_MHA_KERNEL=1), else split into heads and run
+    plain (its ANYREF_QKV_MHA_KERNEL=0 path)."""
+    if kernel:
+        return flash.flash_attention_qkv(qkv, num_heads)
     B, L, C3 = qkv.shape
     C = C3 // 3
     hd = C // num_heads

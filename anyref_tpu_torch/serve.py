@@ -52,7 +52,7 @@ class Server:
                  fetch_segs: Optional[int] = 1,
                  fill_wait_ms: float = 500.0,
                  pipeline_depth: int = 3,
-                 device="cuda"):
+                 device="cuda", encoder_path: str = "fused"):
         self.cfg = cfg
         self.tok = tokenizer or AnyRefTokenizer()
         # bf16 mask fetch and one fetched [SEG] slot: serving answers carry
@@ -64,7 +64,8 @@ class Server:
                                    force_accept=force_accept,
                                    batch_buckets=(max_batch,),
                                    mask_fetch_dtype="bfloat16",
-                                   fetch_segs=fetch_segs, device=device)
+                                   fetch_segs=fetch_segs, device=device,
+                                   encoder_path=encoder_path)
         self.collator = Collator(self.tok, cfg)
         self.max_batch = max_batch
         self.max_wait = max_wait_ms / 1000.0

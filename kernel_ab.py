@@ -1,0 +1,98 @@
+"""Time the port's attention kernels in several checkouts, in turns, on one
+CUDA card.
+
+    python3 kernel_ab.py ROOT [ROOT ...]     # e.g. parent change change parent
+
+Each ROOT is a checkout holding anyref_tpu_torch/. Each runs in a process of
+its own (and builds its own kernels), in the order given, so that two trees
+are compared on the same card within one run. Per root it prints one JSON
+line: the median device time (CUDA events, L2 flushed by a 256 MB read
+and a ~0.5 ms spin kernel before every launch, so host work is not timed)
+of each case, in ms:
+  relpos_window  flash_relpos_attention [50, 16, 196, 80] (SAM-H windows,
+                 batch 2), the whole wrapper with its fp32 factor einsums
+  relpos_global  flash_relpos_attention [2, 16, 4096, 80]
+  factors_window / factors_global  relpos_factors alone at those shapes
+  causal         flash_causal_attention [2, 32, 640, 128], kv_start (0, 200)
+Exits non-zero where there is no CUDA device.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+ITERS = 20
+
+
+def time_root(root: str) -> dict:
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+    from anyref_tpu_torch.ops import flash
+
+    flash.build()
+    g = torch.Generator(device="cuda").manual_seed(1234)
+    flush = torch.ones(64 << 20, dtype=torch.float32, device="cuda")
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale).to(
+            torch.bfloat16)
+
+    def ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(ITERS):
+            flush.amax()
+            torch.cuda._sleep(1_000_000)  # ~0.5 ms: the host gets ahead
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+        return float(np.median(times))
+
+    out = {}
+    for name, B, S in (("window", 50, 14), ("global", 2, 64)):
+        q, k, v = (rnd(B, 16, S * S, 80) for _ in range(3))
+        th, tw = rnd(S, S, 80, scale=0.1), rnd(S, S, 80, scale=0.1)
+        out[f"relpos_{name}"] = ms(
+            lambda: flash.flash_relpos_attention(q, k, v, th, tw, (S, S)))
+        out[f"factors_{name}"] = ms(
+            lambda: flash.relpos_factors(q, th, tw, (S, S)))
+    q, k, v = (rnd(2, 32, 640, 128) for _ in range(3))
+    ks = torch.tensor([0, 200], dtype=torch.int32, device="cuda")
+    out["causal"] = ms(lambda: flash.flash_causal_attention(q, k, v, ks))
+    return out
+
+
+def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--one":
+        print(json.dumps({"root": sys.argv[2], "ms": time_root(sys.argv[2])}),
+              flush=True)
+        return 0
+    import torch
+    if not torch.cuda.is_available() or len(sys.argv) < 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "-i", "0",
+                          "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    print(smi.stdout.strip(), flush=True)
+    for root in sys.argv[1:]:
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--one", root])
+        if r.returncode:
+            return r.returncode
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,6 +1,7 @@
 """The port's main path end to end at anyref_tiny(): generate against the
-JAX package's generate (this slice's configuration), speculative decode
-against greedy, and Predictor / Server against generate.
+JAX package's generate in its unfused configuration (the port's
+encoder_path="unfused"; tests/test_torch_fused.py holds the fused path),
+speculative decode against greedy, and Predictor / Server against generate.
 
 Both packages run the decoder on bf16 activations here (generate embeds in
 bf16 whatever the param dtype) with fp32 weights, so token ids must be EQUAL
@@ -82,7 +83,8 @@ def float_batch(images):
 @pytest.fixture(scope="module")
 def port_greedy(tp, float_batch):
     return tanyref.generate(tp, CFG, _left_padded(float_batch),
-                            max_new_tokens=MNT, device="cpu")
+                            max_new_tokens=MNT, device="cpu",
+                            encoder_path="unfused")
 
 
 def test_generate_matches_jax(jp, port_greedy, float_batch):
@@ -109,7 +111,8 @@ def test_speculative_matches_greedy(tp, port_greedy, float_batch):
     """Prompt-lookup speculative decode is lossless: the greedy ids."""
     spec = tanyref.generate(tp, CFG, _left_padded(float_batch),
                             max_new_tokens=MNT, speculative=True,
-                            draft_len=3, device="cpu")
+                            draft_len=3, device="cpu",
+                            encoder_path="unfused")
     np.testing.assert_array_equal(spec.output_ids.numpy(),
                                   port_greedy.output_ids.numpy())
     np.testing.assert_array_equal(spec.seg_valid.numpy(),
@@ -149,7 +152,7 @@ def test_seg_slots_match_jax():
 
 def test_predictor_matches_generate(tp, port_greedy, float_batch):
     pred = Predictor(tp, CFG, max_new_tokens=MNT, prompt_buckets=(BUCKET,),
-                     batch_buckets=(2,), device="cpu")
+                     batch_buckets=(2,), device="cpu", encoder_path="unfused")
     ids, masks = pred.predict(float_batch)
     np.testing.assert_array_equal(ids, port_greedy.output_ids.numpy())
     assert len(masks) == 2 and pred.completed_batches == 1
@@ -164,11 +167,12 @@ def test_server_matches_predictor(tp, images):
                for im, t in zip(images, TEXTS)]
     batch = Collator(AnyRefTokenizer(), CFG)(samples)
     pred = Predictor(tp, CFG, max_new_tokens=MNT, batch_buckets=(2,),
-                     speculative=True, draft_len=3, device="cpu")
+                     speculative=True, draft_len=3, device="cpu",
+                     encoder_path="unfused")
     want_ids, _ = pred.predict(batch)
 
     srv = Server(tp, CFG, max_batch=2, max_new_tokens=MNT, draft_len=3,
-                 preprocess_workers=2, device="cpu")
+                 preprocess_workers=2, device="cpu", encoder_path="unfused")
     try:
         results = [None, None]
 

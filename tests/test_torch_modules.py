@@ -1,11 +1,12 @@
 """Port modules against the JAX package at anyref_tiny(), fp32, with the JAX
 weights bridged by anyref_tpu_torch.params.from_numpy.
 
-The JAX side runs this slice's configuration (the four switches below), so
+The JAX side runs the unfused configuration (the four switches below), so
 its Pallas kernels (relpos global layer, causal prefill, RMSNorm) run in
-interpret mode and everything else as XLA. Tolerance: atol = rtol = 1e-4 in
-fp32 (several layers summed in different orders; a wrong mask, layout or
-index is O(1))."""
+interpret mode and everything else as XLA; the port runs the same path,
+encoder_path="unfused" (tests/test_torch_fused.py holds the fused one).
+Tolerance: atol = rtol = 1e-4 in fp32 (several layers summed in different
+orders; a wrong mask, layout or index is O(1))."""
 
 import numpy as np
 import pytest
@@ -74,7 +75,7 @@ def test_clip_patch_features(jp, tp):
         (2, 3, 224, 224)).astype(np.float32)
     want = jclip.apply_patch_features(jp["clip"], jnp.asarray(px), CFG.clip)
     got = tclip.apply_patch_features(tp["clip"], torch.from_numpy(px),
-                                     CFG.clip)
+                                     CFG.clip, encoder_path="unfused")
     np.testing.assert_allclose(_np(got), _np(want), **TOL)
 
 
@@ -123,7 +124,8 @@ def test_sam_image_encoder(jp, tp):
     x = np.random.default_rng(2).standard_normal(
         (2, 3, CFG.sam.image_size, CFG.sam.image_size)).astype(np.float32)
     want = jsam.encode_image(jp["sam"], jnp.asarray(x), CFG.sam)
-    got = tsam.encode_image(tp["sam"], torch.from_numpy(x), CFG.sam)
+    got = tsam.encode_image(tp["sam"], torch.from_numpy(x), CFG.sam,
+                            encoder_path="unfused")
     assert got.shape == (2, CFG.sam.prompt_embed_dim,
                          CFG.sam.embedding_size, CFG.sam.embedding_size)
     np.testing.assert_allclose(_np(got), _np(want), **TOL)
@@ -147,7 +149,7 @@ def test_sam_window_padding(jp, tp):
                              cfg.image_size)).astype(np.float32)
     want = jsam.encode_image(sp, jnp.asarray(x), cfg)
     got = tsam.encode_image(tparams.from_numpy(jax.device_get(sp), "cpu"),
-                            torch.from_numpy(x), cfg)
+                            torch.from_numpy(x), cfg, encoder_path="unfused")
     np.testing.assert_allclose(_np(got), _np(want), **TOL)
 
 
