@@ -46,7 +46,11 @@
 //   uniform mean of V over every key of the walk, as the plain version
 //   gives, and never NaN. Key tiles above the diagonal (or before the pad)
 //   are skipped only when no row of the block is fully masked, because for
-//   any other row those tiles add exactly zero.
+//   any other row those tiles add exactly zero. With the template flag LSE
+//   (the training forward) each row also writes its log-sum-exp
+//   m + log(max(l, 1e-20)) in fp32 to lse [BH, L], as the reference's
+//   _causal_fwd_kernel does; a fully masked row's is -FLT_MAX + log(L),
+//   which rounds to -FLT_MAX there too.
 // - NONE: plain softmax attention.
 #pragma once
 
@@ -77,6 +81,7 @@ struct Args {
   const float *rh, *rw;  // RELPOS factors
   const bf16 *th, *tw;   // WINDOW tables
   const int* kv_start;   // CAUSAL left pad per batch entry, or null
+  float* lse;            // CAUSAL with LSE: [BH, L] fp32 out
 };
 
 struct Layout {
@@ -113,20 +118,21 @@ __host__ __device__ inline Layout make_layout(int hd, int H, int W) {
   return t;
 }
 
-// rows [row0, row0 + 64) x cols [0, hdp) of an [L, hd] matrix with row
+// rows [row0, row0 + ROWS) x cols [0, hdp) of an [L, hd] matrix with row
 // stride ld into shared memory with leading dimension lds; zero outside
 // [0, L) x [0, hd). With `vec` the copy is asynchronous.
+template <int ROWS = 64>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0, int L, int hd,
                                           int ld, int hdp, int lds, int vec) {
   if (vec) {
     const int vpr = hdp / 8;
-    for (int i = threadIdx.x; i < 64 * vpr; i += NTHREADS) {
+    for (int i = threadIdx.x; i < ROWS * vpr; i += NTHREADS) {
       const int r = i / vpr, c = (i % vpr) * 8;
       const bool ok = row0 + r < L && c < hd;
       cp_async16(dst + r * lds + c, ok ? src + (size_t)(row0 + r) * ld + c : src, ok);
     }
   } else {
-    for (int i = threadIdx.x; i < 64 * hdp; i += NTHREADS) {
+    for (int i = threadIdx.x; i < ROWS * hdp; i += NTHREADS) {
       const int r = i / hdp, c = i % hdp;
       dst[r * lds + c] = (row0 + r < L && c < hd) ? src[(size_t)(row0 + r) * ld + c]
                                                    : __float2bfloat16(0.f);
@@ -134,8 +140,9 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0, 
   }
 }
 
-// NKS = padded hd / 16.
-template <int MODE, int NKS>
+// NKS = padded hd / 16; LSE (CAUSAL only) also writes each row's
+// log-sum-exp.
+template <int MODE, int NKS, bool LSE = false>
 __global__ void __launch_bounds__(NTHREADS) attn_kernel(const Args a) {
   constexpr bool BIAS = MODE == RELPOS || MODE == WINDOW;
   constexpr int HDP = NKS * 16, LDH = HDP + 8, NDT = 2 * NKS;
@@ -353,6 +360,10 @@ __global__ void __launch_bounds__(NTHREADS) attn_kernel(const Args a) {
   // out = O / l; the clamp matches the reference's max(denom, 1e-20)
   l0 = fmaxf(l0, 1e-20f);
   l1 = fmaxf(l1, 1e-20f);
+  if (LSE && tig == 0) {
+    if (qi0 < L) a.lse[(size_t)bh * L + qi0] = m0 + logf(l0);
+    if (qi1 < L) a.lse[(size_t)bh * L + qi1] = m1 + logf(l1);
+  }
   const int osr = a.outv.sr;
 #pragma unroll
   for (int dt = 0; dt < NDT; ++dt) {
@@ -367,27 +378,27 @@ __global__ void __launch_bounds__(NTHREADS) attn_kernel(const Args a) {
   }
 }
 
-template <int MODE, int NKS>
+template <int MODE, int NKS, bool LSE>
 inline int launch_nks(const Args& a, int BH, void* stream) {
   const bool bias = MODE == RELPOS || MODE == WINDOW;
   const Layout t = make_layout(a.hd, bias ? a.H : 0, bias ? a.W : 0);
-  cudaError_t e = cudaFuncSetAttribute(attn_kernel<MODE, NKS>,
+  cudaError_t e = cudaFuncSetAttribute(attn_kernel<MODE, NKS, LSE>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)t.total);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((a.L + BQ - 1) / BQ, BH);
-  attn_kernel<MODE, NKS><<<grid, NTHREADS, t.total, (cudaStream_t)stream>>>(a);
+  attn_kernel<MODE, NKS, LSE><<<grid, NTHREADS, t.total, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 // Launch over BH = B * nh heads; the kernel runs any hd in [1, 128].
-template <int MODE>
+template <int MODE, bool LSE = false>
 inline int launch(const Args& a, int BH, void* stream) {
   if (BH <= 0 || a.L <= 0) return 0;
   if (a.nh <= 0) return (int)cudaErrorInvalidValue;
 #define ANYREF_NKS(n) \
   case n:             \
-    return launch_nks<MODE, n>(a, BH, stream);
+    return launch_nks<MODE, n, LSE>(a, BH, stream);
   switch ((a.hd + 15) / 16) {
     ANYREF_NKS(1) ANYREF_NKS(2) ANYREF_NKS(3) ANYREF_NKS(4)
     ANYREF_NKS(5) ANYREF_NKS(6) ANYREF_NKS(7) ANYREF_NKS(8)

@@ -1,5 +1,5 @@
 """Host image preprocessing in numpy (port of anyref_tpu/data/preprocess.py,
-image half).
+image half and the ground-truth mask canvas).
 
 Per image: a CLIP image [3, 224, 224] (CLIP-normalized, force-resized), a
 SAM image [3, S, S] (longest side S, bottom/right zero pad, SAM-normalized)
@@ -86,3 +86,17 @@ def preprocess_sam_u8_np(image_rgb_u8: np.ndarray, image_size: int = 1024
     out = np.zeros((3, image_size, image_size), np.uint8)
     out[:, :nh, :nw] = np.clip(np.rint(x), 0, 255).astype(np.uint8)
     return out, (nh, nw)
+
+
+def mask_to_canvas_np(mask: np.ndarray, resized_hw: tuple[int, int],
+                      image_size: int = 1024) -> np.ndarray:
+    """GT mask [H, W] {0,1} -> float32 [S, S] canvas aligned with the SAM
+    frame (nearest resize to the resized extent, zero pad). The losses run
+    on this canvas with the padded region masked out."""
+    nh, nw = resized_hw
+    H, W = mask.shape
+    ys = np.minimum((np.arange(nh) + 0.5) * H / nh, H - 1).astype(np.int64)
+    xs = np.minimum((np.arange(nw) + 0.5) * W / nw, W - 1).astype(np.int64)
+    out = np.zeros((image_size, image_size), np.float32)
+    out[:nh, :nw] = mask[ys][:, xs].astype(np.float32)
+    return out

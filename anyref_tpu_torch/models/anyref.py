@@ -1,12 +1,14 @@
-"""AnyRef model core, text-referring inference (port of
-anyref_tpu/models/anyref.py generate and what it calls).
+"""AnyRef model core, text references (port of anyref_tpu/models/anyref.py
+generate, train_forward and what they call).
 
 A LLaVA-style LLaMA emits [SEG] tokens; their post-norm hidden states project
 (text_hidden_fcs) into SAM's prompt space and SAM's mask decoder turns them
 into masks. Prompts arrive left-padded; the decode loop runs on the host
 with early exit (greedy) or as batched prompt-lookup speculative decoding
-whose output equals the greedy stream. Reference-image, RoI and audio
-prompts and rephrase pooling are not part of the port yet and raise.
+whose output equals the greedy stream. ``train_forward`` is the training
+forward: LM loss plus mask BCE and DICE on the SAM canvas, with the frozen
+towers under ``torch.no_grad``. Reference-image, RoI and audio prompts,
+rephrase pooling and loc tokens are not part of the port yet and raise.
 """
 
 from __future__ import annotations
@@ -15,8 +17,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..config import NUM_IMAGE_TOKENS, AnyRefConfig, check_encoder_path
+from ..config import (IGNORE_INDEX, NUM_IMAGE_TOKENS, AnyRefConfig,
+                      check_encoder_path)
 from ..ops.common import linear
+from ..ops.losses import dice_loss, lm_cross_entropy, sigmoid_ce_loss
 from ..params import resolve_device
 from ..tokenizer import EOS_ID, PAD_ID
 from . import clip_vit, llama
@@ -44,9 +48,11 @@ def _expand_image(ids, img_pos, fill_value: int, out_len: int):
                        gathered)
 
 
-def assemble_embeds(params: dict, cfg: AnyRefConfig, input_ids, clip_feats):
+def assemble_embeds(params: dict, cfg: AnyRefConfig, input_ids, clip_feats,
+                    labels=None):
     """input_ids [B, T] with one <image> token per row -> (embeds
-    [B, T+255, D] with the CLIP features spliced in, expanded ids)."""
+    [B, T+255, D] with the CLIP features spliced in, expanded ids, expanded
+    labels (IGNORE_INDEX over the image) or None)."""
     tk = cfg.tokens
     T = input_ids.shape[1]
     L = T + NUM_IMAGE_TOKENS - 1
@@ -60,7 +66,10 @@ def assemble_embeds(params: dict, cfg: AnyRefConfig, input_ids, clip_feats):
     D = clip_feats.shape[-1]
     img = torch.gather(clip_feats, 1, img_idx[:, :, None].expand(-1, -1, D))
     embeds = torch.where(in_img[:, :, None], img.to(embeds.dtype), embeds)
-    return embeds, exp_ids
+    exp_labels = None
+    if labels is not None:
+        exp_labels = _expand_image(labels, img_pos, IGNORE_INDEX, L)
+    return embeds, exp_ids, exp_labels
 
 
 def _seg_slots(ids, seg_id: int, max_seg: int):
@@ -199,6 +208,91 @@ def _greedy_decode(params, cfg, pad_len, cache, first_tok, Lp: int, mnt: int,
     return toks, hids, i
 
 
+class TrainOutput(NamedTuple):
+    loss: torch.Tensor
+    lm_loss: torch.Tensor
+    bce_loss: torch.Tensor
+    dice_loss: torch.Tensor
+    pred_masks: torch.Tensor      # [B, S, image_size, image_size] logits
+    seg_valid: torch.Tensor       # [B, S]
+
+
+def _check_text_only(cfg: AnyRefConfig, batch: dict) -> None:
+    for key in ("ref_images", "roi_boxes", "audio_mels"):
+        if key in batch:
+            raise NotImplementedError(f"{key}: only text references are "
+                                      "part of the port yet")
+    if cfg.rephrase_weight > 0:
+        raise NotImplementedError("rephrase pooling is not part of the port "
+                                  "yet")
+
+
+def train_forward(params: dict, cfg: AnyRefConfig, batch: dict,
+                  encoder_path: str = "fused",
+                  remat: bool = False) -> TrainOutput:
+    """One training forward, on the device the params live on.
+
+    batch (arrays or tensors): input_ids [B, T], labels [B, T],
+    clip_images [B, 3, 224, 224], sam_images [B, 3, S, S], gt_masks
+    [B, S_seg, S, S] on the SAM canvas, mask_valid [B, S_seg],
+    sam_resized_sizes [B, 2]. CLIP, mm_projector and the SAM image encoder
+    run under ``torch.no_grad`` (frozen towers; the reference's
+    stop_gradient). ``remat`` checkpoints each decoder layer."""
+    check_encoder_path(encoder_path)
+    _check_text_only(cfg, batch)
+    if cfg.use_loc_tokens:
+        raise NotImplementedError("loc tokens are not part of the port yet")
+    tk = cfg.tokens
+    dev = params["llama"]["lm_head"].device
+
+    def t(key, dtype=None):
+        x = torch.as_tensor(batch[key], device=dev)
+        return x if dtype is None else x.to(dtype)
+
+    input_ids, labels = t("input_ids", torch.long), t("labels", torch.long)
+    with torch.no_grad():
+        clip_feats = encode_clip_images(params, cfg, t("clip_images"),
+                                        encoder_path)
+        image_embeddings = sam_mod.encode_image(params["sam"],
+                                                t("sam_images"), cfg.sam,
+                                                encoder_path)
+    embeds, exp_ids, exp_labels = assemble_embeds(params, cfg, input_ids,
+                                                  clip_feats, labels)
+    hidden = llama.forward(params["llama"], cfg.llama, embeds, remat=remat)
+    lm_loss = lm_cross_entropy(llama.logits(params["llama"], hidden),
+                               exp_labels, IGNORE_INDEX)
+
+    seg_pos, seg_valid = _seg_slots(exp_ids, tk.seg, cfg.max_seg_per_sample)
+    B, S = seg_pos.shape
+    D = hidden.shape[-1]
+    hid_idx = (seg_pos - 1).clamp(0, hidden.shape[1] - 1)
+    seg_hidden = torch.gather(hidden, 1, hid_idx[:, :, None].expand(-1, -1, D))
+    pred_emb = project_seg_hidden(params, seg_hidden)           # [B, S, out]
+    img_index = torch.arange(B, device=dev)[:, None].expand(B, S).reshape(-1)
+    low_res, _ = sam_mod.decode_text_prompts(
+        params["sam"], cfg.sam, image_embeddings, pred_emb.reshape(B * S, -1),
+        img_index)                                              # [B*S, 1, 4g, 4g]
+
+    # mask losses on the image_size^2 canvas in fp32, over the in-image
+    # pixels (the bottom/right padding excluded)
+    g = cfg.sam.image_size
+    canvas = sam_mod.upscale_masks(low_res, cfg.sam).reshape(B, S, g, g)
+    valid = seg_valid & t("mask_valid", torch.bool)
+    sizes = t("sam_resized_sizes")
+    ar = torch.arange(g, device=dev)
+    rows = ar[None, :, None] < sizes[:, 0][:, None, None]
+    cols = ar[None, None, :] < sizes[:, 1][:, None, None]
+    pixel_mask = (rows & cols)[:, None].expand(B, S, g, g).reshape(B * S, g, g)
+    flat_pred = canvas.reshape(B * S, g, g)
+    flat_gt = t("gt_masks", torch.float32).reshape(B * S, g, g)
+    flat_valid = valid.reshape(B * S)
+    bce = sigmoid_ce_loss(flat_pred, flat_gt, flat_valid, pixel_mask)
+    dce = dice_loss(flat_pred, flat_gt, flat_valid, pixel_mask)
+    loss = (cfg.ce_loss_weight * lm_loss + cfg.bce_loss_weight * bce
+            + cfg.dice_loss_weight * dce)
+    return TrainOutput(loss, lm_loss, bce, dce, canvas, valid)
+
+
 class GenerateOutput(NamedTuple):
     output_ids: torch.Tensor      # [B, max_new_tokens]
     num_generated: torch.Tensor   # [B]
@@ -228,13 +322,7 @@ def generate(params: dict, cfg: AnyRefConfig, batch: dict,
     if params["llama"]["lm_head"].device.type != dev.type:
         raise ValueError(f"params live on {params['llama']['lm_head'].device}"
                          f", generate was asked to run on {dev}")
-    for key in ("ref_images", "roi_boxes", "audio_mels"):
-        if key in batch:
-            raise NotImplementedError(f"{key}: only text references are "
-                                      "part of the port yet")
-    if cfg.rephrase_weight > 0:
-        raise NotImplementedError("rephrase pooling is not part of the port "
-                                  "yet")
+    _check_text_only(cfg, batch)
     mnt = max_new_tokens or cfg.max_new_tokens
     tk = cfg.tokens
     input_ids = torch.as_tensor(batch["input_ids"], device=dev).long()
@@ -242,7 +330,7 @@ def generate(params: dict, cfg: AnyRefConfig, batch: dict,
     sam_images = torch.as_tensor(batch["sam_images"], device=dev)
 
     clip_feats = encode_clip_images(params, cfg, clip_images, encoder_path)
-    embeds, exp_ids = assemble_embeds(params, cfg, input_ids, clip_feats)
+    embeds, exp_ids, _ = assemble_embeds(params, cfg, input_ids, clip_feats)
     # left pad: pad keys are masked and rope positions shift so each row's
     # first real token is position 0
     pad_len = (input_ids != PAD_ID).to(torch.uint8).argmax(1)

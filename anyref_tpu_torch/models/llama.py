@@ -9,7 +9,9 @@ each layer writes its fresh k/v into it IN PLACE at ``write_pos`` (the
 reference returns an updated copy; in place saves the copy). Prefill runs
 the causal CUDA kernel and the fused RMSNorm kernel; decode steps and
 speculative verify chunks run plain attention and plain norms, as the
-reference does.
+reference does. ``forward`` (training) writes no cache and runs the
+differentiable causal kernel with plain norms (the reference's fused
+RMSNorm has no gradient); with ``remat`` each layer is checkpointed.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..config import LlamaConfig
 from ..ops.attention import causal_attention
@@ -61,11 +64,13 @@ def _merge_heads(x):
     return x.transpose(1, 2).reshape(B, L, n * hd)
 
 
-def _layer(p, cfg: LlamaConfig, x, mode: str, cache: KVCache,
-           write_pos: int, layer_idx: int, rope_tables,
-           kv_start=None, fused_norms: bool = False):
+def _layer(p, cfg: LlamaConfig, x, mode: str, cache, write_pos: int,
+           layer_idx: int, rope_tables, kv_start=None, kv_len=None,
+           fused_norms: bool = False):
     """mode "prefill" attends over the fresh prompt keys (causal kernel);
-    "decode" attends over the whole cache after writing the new keys."""
+    "decode" attends over the whole cache after writing the new keys;
+    "full" (training) writes no cache and takes the differentiable causal
+    kernel (``cache`` is None there)."""
     h = rms_norm(p["input_norm"], x, eps=cfg.rms_norm_eps, fused=fused_norms)
     q = _split_heads(linear(p["attn"]["q"], h), cfg.num_heads, cfg.head_dim)
     k = _split_heads(linear(p["attn"]["k"], h), cfg.num_kv_heads,
@@ -75,9 +80,10 @@ def _layer(p, cfg: LlamaConfig, x, mode: str, cache: KVCache,
     q = _rope(q, rope_tables)
     k = _rope(k, rope_tables)
 
-    L = k.shape[2]
-    cache.k[layer_idx, :, :, write_pos:write_pos + L] = k
-    cache.v[layer_idx, :, :, write_pos:write_pos + L] = v
+    if mode != "full":
+        L = k.shape[2]
+        cache.k[layer_idx, :, :, write_pos:write_pos + L] = k
+        cache.v[layer_idx, :, :, write_pos:write_pos + L] = v
     if mode == "decode":
         k, v = cache.k[layer_idx], cache.v[layer_idx]
     rep = cfg.num_heads // cfg.num_kv_heads
@@ -87,13 +93,42 @@ def _layer(p, cfg: LlamaConfig, x, mode: str, cache: KVCache,
 
     attn = causal_attention(q, k, v,
                             q_offset=write_pos if mode == "decode" else 0,
-                            kv_start=kv_start)
+                            kv_len=kv_len, kv_start=kv_start,
+                            differentiable=mode == "full")
     x = x + linear(p["attn"]["o"], _merge_heads(attn))
     h = rms_norm(p["post_attn_norm"], x, eps=cfg.rms_norm_eps,
                  fused=fused_norms)
     h = linear(p["mlp"]["down"],
                silu(linear(p["mlp"]["gate"], h)) * linear(p["mlp"]["up"], h))
     return x + h
+
+
+def forward(params: dict, cfg: LlamaConfig, embeds, positions=None,
+            kv_len=None, return_last_input: bool = False,
+            remat: bool = False):
+    """Full-sequence forward (training, no cache): post-final-norm hidden
+    [B, L, D]; with ``return_last_input`` also the residual stream entering
+    the final layer. ``kv_len`` [B] masks trailing keys and takes plain
+    attention, as in the reference. ``remat`` checkpoints each layer
+    (``torch.utils.checkpoint``, non-reentrant): only the layer inputs stay
+    alive between the passes and the backward recomputes each layer, the
+    attention kernel's forward included."""
+    B, L, _ = embeds.shape
+    if positions is None:
+        positions = torch.arange(L, device=embeds.device)
+    rt = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    x = embeds
+    last_in = None
+    for i, p in enumerate(params["layers"]):
+        if i == len(params["layers"]) - 1:
+            last_in = x
+        args = (p, cfg, x, "full", None, 0, i, rt, None, kv_len)
+        x = (checkpoint(_layer, *args, use_reentrant=False) if remat
+             else _layer(*args))
+    out = rms_norm(params["final_norm"], x, eps=cfg.rms_norm_eps)
+    if return_last_input:
+        return out, last_in
+    return out
 
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int,

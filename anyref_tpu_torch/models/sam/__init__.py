@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 
 from ...config import SamConfig
+from ...ops.resize import postprocess_masks_fixed
 from . import image_encoder, mask_decoder, prompt_encoder
 
 
@@ -31,3 +32,9 @@ def decode_text_prompts(params: dict, cfg: SamConfig, image_embeddings,
     return mask_decoder.apply(params["mask_decoder"], cfg, per_prompt,
                               pe.to(dt), sparse.to(dt), dense.to(dt),
                               multimask_output)
+
+
+def upscale_masks(low_res_masks, cfg: SamConfig):
+    """Low-res logits -> the full input frame (stage 1 of the SAM
+    postprocess), differentiable."""
+    return postprocess_masks_fixed(low_res_masks, cfg.image_size)

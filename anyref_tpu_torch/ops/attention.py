@@ -2,10 +2,12 @@
 
 The call sites choose between the CUDA kernels of ops/flash.py and plain
 attention exactly where the reference chooses between its Pallas kernels and
-XLA: SAM rel-pos attention and causal prefill go through the kernels; decode
-steps and speculative verify chunks (``q_offset``/``kv_len`` given, or
-Lq != Lk) run plain; CLIP attention takes the QKV-direct kernel on the fused
-encoder path and runs plain on the unfused one.
+XLA: SAM rel-pos attention and causal prefill go through the kernels (the
+training forward through the differentiable one); decode steps, speculative
+verify chunks and a training forward with ``kv_len`` (``q_offset``/``kv_len``
+given, or Lq != Lk) run plain, which autograd differentiates; CLIP attention
+takes the QKV-direct kernel on the fused encoder path and runs plain on the
+unfused one.
 """
 
 from __future__ import annotations
@@ -27,12 +29,15 @@ def attention_with_decomposed_relpos(q, k, v, rel_h_table, rel_w_table,
                                         size_hw)
 
 
-def causal_attention(q, k, v, q_offset=0, kv_len=None, kv_start=None):
-    """Causal (prefill or decode) attention.
+def causal_attention(q, k, v, q_offset=0, kv_len=None, kv_start=None,
+                     differentiable: bool = False):
+    """Causal (prefill, training or decode) attention.
 
     q: [B, heads, Lq, hd]; k/v: [B, heads, Lk, hd]. Query i attends to keys
     <= i + q_offset; ``kv_len`` [B] masks trailing keys, ``kv_start`` [B]
-    leading (left-padded) keys."""
+    leading (left-padded) keys. ``differentiable`` takes the training
+    kernel (ops/flash.py flash_causal_attention_diff) on the prefill
+    branch; autograd carries the gradient through the pad and the slice."""
     B, nh, Lq, hd = q.shape
     Lk = k.shape[2]
     if (kv_len is None and Lq == Lk and isinstance(q_offset, int)
@@ -44,7 +49,9 @@ def causal_attention(q, k, v, q_offset=0, kv_len=None, kv_start=None):
         Lp = -(-Lq // 128) * 128
         if Lp != Lq:
             q, k, v = (F.pad(t, (0, 0, 0, Lp - Lq)) for t in (q, k, v))
-        return flash.flash_causal_attention(q, k, v, kv_start)[:, :, :Lq]
+        fn = (flash.flash_causal_attention_diff if differentiable else
+              flash.flash_causal_attention)
+        return fn(q, k, v, kv_start)[:, :, :Lq]
 
     logits = torch.einsum("bnqd,bnkd->bnqk", q.float(), k.float()) * hd ** -0.5
     qpos = torch.arange(Lq, device=q.device)[:, None] + q_offset

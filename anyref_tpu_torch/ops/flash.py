@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels of the port, their plain PyTorch versions, their
 launch counters and their build.
 
-Eight kernels, each the Hopper counterpart of a Pallas kernel of
+Nine kernels, each the Hopper counterpart of a Pallas kernel of
 ``anyref_tpu/ops/flash.py`` (the sources under ``anyref_tpu_torch/csrc/``
 say which, what bounds each on the H100 and how its design answers that):
 
@@ -15,6 +15,8 @@ say which, what bounds each on the H100 and how its design answers that):
 * ``fused_mlp_stream``        <- ``fused_mlp_stream``
 * ``fused_global_tail``       <- ``fused_global_tail``
 * ``flash_attention_qkv``     <- ``flash_attention_qkv`` / ``_mha_qkv_kernel``
+* ``flash_causal_attention_diff`` <- ``flash_causal_attention_diff``
+  (forward with LSE, dq, dk/dv), a ``torch.autograd.Function``
 
 The first four and ``flash_attention_qkv`` are one CUDA kernel each. The
 three fused layers are each a short chain of the port's own kernels (row
@@ -22,13 +24,19 @@ moments, the GEMM of ``csrc/gemm.cuh`` with a LayerNorm prologue and a
 bias / GELU / residual epilogue, QKV-direct attention), with no other torch
 op between them than allocation, views and, in the global tail, the fp32
 bias-factor einsums the reference's wrapper also computes outside its
-kernel.
+kernel. ``flash_causal_attention_diff`` is the training attention: its
+forward is the causal kernel with a log-sum-exp output, its backward two
+kernels (dq over query blocks, dk/dv over key blocks) after
+delta = rowsum(dO * O), a torch op here as in the reference's wrapper.
 
 Each wrapper runs its plain version when, and only when, its input lies on
 the CPU (the tests). For a CUDA tensor it launches its kernels or raises:
 there is no fallback. Each wrapper carries ``.launches``, a plain int it
 raises by one per call that launched its kernel (or chain), so a run can
-show which kernels its path went through.
+show which kernels its path went through;
+``flash_causal_attention_diff`` counts forward calls in ``.launches``
+(recomputation under checkpointing included) and backward calls in
+``.backward_launches``.
 
 Build: at first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a``
 (one process per source, all started together) and links them into one
@@ -53,7 +61,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = ("norms.cu", "relpos_attention.cu", "causal_attention.cu",
-           "fused_layers.cu", "qkv_attention.cu")
+           "causal_attention_bwd.cu", "fused_layers.cu", "qkv_attention.cu")
 HEADERS = ("common.cuh", "attention.cuh", "gemm.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -122,8 +130,10 @@ def _library():
                 "anyref_rms_norm": [P, P, P, I, I, F, I, P],
                 "anyref_relpos_attention": [P, P, P, P, P, P, I, I, I, I, I,
                                             I, F, I, P],
-                "anyref_causal_attention": [P, P, P, P, P, I, I, I, I, F, I,
-                                            P],
+                "anyref_causal_attention": [P, P, P, P, P, P, I, I, I, I, F,
+                                            I, P],
+                "anyref_causal_attention_bwd": [P] * 10 + [I, I, I, I, F, I,
+                                                           P],
                 "anyref_row_stats": [P, P, I, I, F, I, P],
                 "anyref_gemm": [P, P, P, P, P, I, I, I, P, P, P, I, I, I, I,
                                 I, I, I, I, I, I, P],
@@ -295,51 +305,188 @@ flash_relpos_attention.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# causal prefill attention with a left-pad mask
+# causal attention with a left-pad mask: prefill, and the training forward
 # ---------------------------------------------------------------------------
-def causal_attention_plain(q, k, v, kv_start=None):
-    """Causal attention over [B, nh, L, hd] where row b drops keys before
-    kv_start[b]. Dropped logits are float32.min and the denominator is
-    clamped at 1e-20, so a fully masked row is the mean of V over all L keys
-    (_causal_mh_kernel)."""
-    B, nh, L, hd = q.shape
-    s = torch.einsum("bnqd,bnkd->bnqk", q.float(), k.float()) * hd ** -0.5
-    pos = torch.arange(L, device=q.device)
+def _causal_keep(L: int, kv_start, device):
+    """[B or 1, 1, L, L] bool: query i keeps key j <= i at or after the
+    row's pad."""
+    pos = torch.arange(L, device=device)
     keep = (pos[None, :] <= pos[:, None])[None]                  # [1, L, L]
     if kv_start is not None:
         keep = keep & (pos[None, None, :]
-                       >= kv_start.to(q.device)[:, None, None])
-    s = torch.where(keep[:, None], s, torch.finfo(torch.float32).min)
-    p = torch.exp(s - s.amax(-1, keepdim=True))
+                       >= kv_start.to(device)[:, None, None])
+    return keep[:, None]
+
+
+def causal_attention_diff_fwd_plain(q, k, v, kv_start=None):
+    """Causal attention over [B, nh, L, hd] where row b drops keys before
+    kv_start[b] -> (out [B, nh, L, hd] in q's dtype, lse [B, nh, L] fp32),
+    as _causal_fwd_kernel and _causal_mh_kernel: fp32 scores, float32.min
+    where masked, P = exp(s - m) unnormalised and rounded to v's dtype for
+    P V, the product divided by max(denom, 1e-20), so a fully masked row is
+    the mean of V over all L keys; lse = m + log(max(denom, 1e-20))."""
+    hd = q.shape[-1]
+    s = torch.einsum("bnqd,bnkd->bnqk", q.float(), k.float()) * hd ** -0.5
+    s = torch.where(_causal_keep(q.shape[2], kv_start, q.device), s,
+                    torch.finfo(torch.float32).min)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    denom = p.sum(-1, keepdim=True).clamp_min(1e-20)
     o = torch.einsum("bnqk,bnkd->bnqd", p.to(v.dtype).float(), v.float())
-    return (o / p.sum(-1, keepdim=True).clamp_min(1e-20)).to(q.dtype)
+    return (o / denom).to(q.dtype), (m + torch.log(denom))[..., 0]
+
+
+def causal_attention_plain(q, k, v, kv_start=None):
+    """The prefill attention's plain version: the output of
+    causal_attention_diff_fwd_plain."""
+    return causal_attention_diff_fwd_plain(q, k, v, kv_start)[0]
+
+
+def _causal_args(name: str, q, k, v, kv_start):
+    """Shape check of the causal kernels; kv_start as contiguous int32 on
+    q's device, or None."""
+    B, nh, L, hd = q.shape
+    if k.shape != q.shape or v.shape != q.shape or hd > 128:
+        raise ValueError(f"{name}: shapes {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    ks = (None if kv_start is None else
+          kv_start.to(device=q.device, dtype=torch.int32).contiguous())
+    return B, nh, L, hd, ks
+
+
+def _causal_forward(wrapper, q, k, v, kv_start, with_lse: bool):
+    """Launch the causal kernel on contiguous q/k/v -> (out, lse or None)."""
+    B, nh, L, hd, ks = _causal_args(wrapper.__name__, q, k, v, kv_start)
+    out = torch.empty_like(q)
+    lse = (torch.empty(B, nh, L, dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    if out.numel() == 0:
+        return out, lse
+    vec = int(hd % 8 == 0 and _aligned(q, k, v))
+    with torch.cuda.device(q.device):
+        _launch("anyref_causal_attention", q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), None if ks is None else ks.data_ptr(),
+                out.data_ptr(), None if lse is None else lse.data_ptr(),
+                B, nh, L, hd, hd ** -0.5, vec, _stream(q))
+    wrapper.launches += 1
+    return out, lse
 
 
 def flash_causal_attention(q, k, v, kv_start=None):
     """q/k/v [B, nh, L, hd] prefill attention; kv_start [B] int or None."""
     if _on_cpu("flash_causal_attention", q, k, v):
         return causal_attention_plain(q, k, v, kv_start)
-    B, nh, L, hd = q.shape
-    if k.shape != q.shape or v.shape != q.shape or hd > 128:
-        raise ValueError(f"flash_causal_attention: shapes {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     qc, kc, vc = (t.contiguous() for t in (q, k, v))
-    ks = (torch.zeros(B, dtype=torch.int32, device=q.device)
-          if kv_start is None else
-          kv_start.to(device=q.device, dtype=torch.int32).contiguous())
-    out = torch.empty_like(qc)
-    if out.numel() == 0:
-        return out
-    vec = int(hd % 8 == 0 and _aligned(qc, kc, vc))
-    with torch.cuda.device(q.device):
-        _launch("anyref_causal_attention", qc.data_ptr(), kc.data_ptr(),
-                vc.data_ptr(), ks.data_ptr(), out.data_ptr(), B, nh, L, hd,
-                hd ** -0.5, vec, _stream(q))
-    flash_causal_attention.launches += 1
-    return out
+    return _causal_forward(flash_causal_attention, qc, kc, vc, kv_start,
+                           with_lse=False)[0]
 
 
 flash_causal_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# differentiable causal attention (training): forward with LSE, backward
+# ---------------------------------------------------------------------------
+def causal_attention_dq_plain(q, k, v, do, lse, delta, kv_start=None):
+    """dq as _causal_dq_kernel: p = exp(s - lse), zero where masked;
+    dp = dO V^T in fp32; ds = p (dp - delta) scale; dq = bf16(ds) K (ds in
+    k's dtype). lse, delta [B, nh, L] fp32."""
+    hd = q.shape[-1]
+    scale = hd ** -0.5
+    s = torch.einsum("bnqd,bnkd->bnqk", q.float(), k.float()) * scale
+    keep = _causal_keep(q.shape[2], kv_start, q.device)
+    p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
+    dp = torch.einsum("bnqd,bnkd->bnqk", do.float(), v.float())
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bnqk,bnkd->bnqd", ds.to(k.dtype).float(), k.float())
+    return dq.to(q.dtype)
+
+
+def causal_attention_dkv_plain(q, k, v, do, lse, delta, kv_start=None):
+    """(dk, dv) as _causal_dkv_kernel, over the transposed blocks:
+    p^T = exp(s^T - lse), zero where masked; dv = p^T dO with both in fp32;
+    dp^T = V dO^T; ds^T = p^T (dp^T - delta) scale; dk = bf16(ds^T) Q."""
+    hd = q.shape[-1]
+    scale = hd ** -0.5
+    st = torch.einsum("bnkd,bnqd->bnkq", k.float(), q.float()) * scale
+    keep = _causal_keep(q.shape[2], kv_start, q.device).transpose(-1, -2)
+    pt = torch.where(keep, torch.exp(st - lse[..., None, :]), 0.0)
+    dof = do.float()
+    dv = torch.einsum("bnkq,bnqd->bnkd", pt, dof)
+    dpt = torch.einsum("bnkd,bnqd->bnkq", v.float(), dof)
+    dst = pt * (dpt - delta[..., None, :]) * scale
+    dk = torch.einsum("bnkq,bnqd->bnkd", dst.to(q.dtype).float(), q.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def causal_attention_diff_fwd(q, k, v, kv_start=None):
+    """The training forward's kernel: (out, lse [B, nh, L] fp32). q/k/v
+    contiguous bf16 [B, nh, L, hd] on the card."""
+    return _causal_forward(flash_causal_attention_diff, q, k, v, kv_start,
+                           with_lse=True)
+
+
+def causal_attention_diff_bwd(q, k, v, out, lse, do, kv_start=None):
+    """The training backward's kernels: delta = rowsum(dO * O) in fp32 (a
+    torch op, as the reference's wrapper computes it), then the dq and dk/dv
+    kernels. All contiguous, bf16 but lse; returns (dq, dk, dv)."""
+    B, nh, L, hd, ks = _causal_args("flash_causal_attention_diff", q, k, v,
+                                    kv_start)
+    delta = (do.float() * out.float()).sum(-1)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if dq.numel() == 0:
+        return dq, dk, dv
+    vec = int(hd % 8 == 0 and _aligned(q, k, v, do))
+    with torch.cuda.device(q.device):
+        _launch("anyref_causal_attention_bwd", q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                None if ks is None else ks.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), B, nh, L, hd, hd ** -0.5, vec,
+                _stream(q))
+    flash_causal_attention_diff.backward_launches += 1
+    return dq, dk, dv
+
+
+class _CausalAttentionDiff(torch.autograd.Function):
+    """Saves q, k, v, out, lse and kv_start; the backward runs the plain
+    versions for CPU tensors and the kernels for CUDA ones."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_start):
+        ctx.plain = _on_cpu("flash_causal_attention_diff", q, k, v)
+        if ctx.plain:
+            out, lse = causal_attention_diff_fwd_plain(q, k, v, kv_start)
+        else:
+            q, k, v = (t.contiguous() for t in (q, k, v))
+            out, lse = causal_attention_diff_fwd(q, k, v, kv_start)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kv_start = kv_start
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        ks = ctx.kv_start
+        do = do.contiguous()
+        if ctx.plain:
+            delta = (do.float() * out.float()).sum(-1)
+            dq = causal_attention_dq_plain(q, k, v, do, lse, delta, ks)
+            dk, dv = causal_attention_dkv_plain(q, k, v, do, lse, delta, ks)
+        else:
+            _on_cpu("flash_causal_attention_diff", do)
+            dq, dk, dv = causal_attention_diff_bwd(q, k, v, out, lse, do, ks)
+        return dq, dk, dv, None
+
+
+def flash_causal_attention_diff(q, k, v, kv_start=None):
+    """Differentiable causal attention over [B, nh, L, hd] (the training
+    path), kv_start [B] int or None. Neither direction materialises the
+    [B, nh, L, L] scores on the card."""
+    return _CausalAttentionDiff.apply(q, k, v, kv_start)
+
+
+flash_causal_attention_diff.launches = 0
+flash_causal_attention_diff.backward_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -669,4 +816,5 @@ flash_attention_qkv.launches = 0
 
 KERNELS = (layer_norm_fused, rms_norm_fused, flash_relpos_attention,
            flash_causal_attention, fused_window_attn, fused_mlp_stream,
-           fused_global_tail, flash_attention_qkv)
+           fused_global_tail, flash_attention_qkv,
+           flash_causal_attention_diff)

@@ -1,8 +1,10 @@
-"""Host-side bilinear resize and SAM mask postprocess in numpy (the port's
-own copy of the numpy half of anyref_tpu/ops/resize.py).
+"""Bilinear resize and SAM mask postprocess (the port's own copy of
+anyref_tpu/ops/resize.py).
 
 Semantics match torch.nn.functional.interpolate(mode="bilinear",
-align_corners=False), evaluated as a 2-tap gather + lerp per axis.
+align_corners=False). On the host (numpy) it is a 2-tap gather + lerp per
+axis; on tensors (the training loss canvas) two fp32 products with dense
+[out, in] weight matrices, which autograd differentiates.
 """
 
 from __future__ import annotations
@@ -10,6 +12,47 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
+
+
+@functools.lru_cache(maxsize=512)
+def _bilinear_weight_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """[out, in] fp32, at most two nonzeros per row: pytorch's
+    area_pixel_compute_source_index with align_corners=False,
+    src = max(0, scale * (dst + 0.5) - 0.5), in fp32 coordinates."""
+    if in_size == out_size:
+        return np.eye(in_size, dtype=np.float32)
+    scale = np.float32(in_size) / np.float32(out_size)
+    dst = np.arange(out_size, dtype=np.float32)
+    src = np.maximum(scale * (dst + np.float32(0.5)) - np.float32(0.5),
+                     np.float32(0.0))
+    x0 = np.floor(src).astype(np.int64)
+    x0 = np.minimum(x0, in_size - 1)
+    x1 = np.minimum(x0 + 1, in_size - 1)
+    lam = (src - x0.astype(np.float32)).astype(np.float64)
+    w = np.zeros((out_size, in_size), dtype=np.float64)
+    rows = np.arange(out_size)
+    np.add.at(w, (rows, x0), 1.0 - lam)
+    np.add.at(w, (rows, x1), lam)
+    return w.astype(np.float32)
+
+
+def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Resize the last two dims of ``x`` [..., H, W] in fp32 (full fp32
+    products, as the reference's HIGHEST precision), back in x's dtype."""
+    h, w = x.shape[-2], x.shape[-1]
+    wh = torch.from_numpy(_bilinear_weight_matrix(h, out_h)).to(x.device)
+    ww = torch.from_numpy(_bilinear_weight_matrix(w, out_w)).to(x.device)
+    y = torch.einsum("...hw,vw->...hv", x.float(), ww)
+    y = torch.einsum("...hv,uh->...uv", y, wh)
+    return y.to(x.dtype)
+
+
+def postprocess_masks_fixed(masks: torch.Tensor,
+                            image_size: int) -> torch.Tensor:
+    """Stage 1 of the SAM postprocess: low-res logits -> image_size^2
+    canvas (the crop and original-size resize are host-side)."""
+    return resize_bilinear(masks, image_size, image_size)
 
 
 @functools.lru_cache(maxsize=512)

@@ -11,11 +11,12 @@ yet.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
 import numpy as np
 
-from .config import LLAMA_BASE_VOCAB, SpecialTokens
+from .config import IGNORE_INDEX, LLAMA_BASE_VOCAB, SpecialTokens
 
 # token ids shared with LLaMA
 PAD_ID = 0   # unk used as pad (reference train.py:64 tokenizer.pad_token = unk)
@@ -151,6 +152,33 @@ def wrap_image_token(conversation: str) -> str:
     return conversation.replace("<image>", "<im_start><image><im_end>")
 
 
+@dataclass
+class TokenizedConversation:
+    input_ids: np.ndarray   # [T] int32
+    labels: np.ndarray      # [T] int32, IGNORE_INDEX outside the answer span
+    prompt_len: int         # tokens before the answer starts
+
+
+def tokenize_conversation(tokenizer: AnyRefTokenizer, question: str,
+                          answer: str,
+                          use_mm_start_end: bool = True
+                          ) -> TokenizedConversation:
+    """Tokenize one round and build its labels: everything through
+    "ASSISTANT:" is IGNORE_INDEX, the answer tokens (with the trailing </s>)
+    are supervised. The boundary is exact by construction: the prompt is
+    tokenized on its own."""
+    conv = build_conversation(question, answer)
+    prompt = build_conversation(question, None)
+    if use_mm_start_end:
+        conv = wrap_image_token(conv)
+        prompt = wrap_image_token(prompt)
+    ids = np.asarray(tokenizer.encode(conv), np.int32)
+    prompt_len = len(tokenizer.encode(prompt))
+    labels = ids.copy()
+    labels[:prompt_len] = IGNORE_INDEX
+    return TokenizedConversation(ids, labels, prompt_len)
+
+
 def tokenize_prompt(tokenizer: AnyRefTokenizer, question: str,
                     use_mm_start_end: bool = True) -> np.ndarray:
     prompt = build_conversation(question, None)
@@ -165,3 +193,10 @@ def tokenize_prompt(tokenizer: AnyRefTokenizer, question: str,
 def seg_question(class_text: str) -> str:
     """reference utils/refer_seg.py:403"""
     return f"<image>\nCan you segment {class_text} in this image?"
+
+
+def seg_answer(class_text: str, itisseg: bool = False) -> str:
+    """reference utils/refer_seg.py:405-407"""
+    if itisseg:
+        return "it is [SEG]."
+    return f"{class_text}[SEG]."

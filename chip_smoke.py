@@ -6,25 +6,33 @@ Phases (any failure exits non-zero before the result line):
   1. print the card's name and power limit; build the CUDA kernels from
      anyref_tpu_torch/csrc with nvcc (sm_90a, one process per source) and
      print each kernel's ptxas registers and spills;
-  2. hold each of the eight kernels against its plain PyTorch version on
+  2. hold each of the nine kernels against its plain PyTorch version on
      the card, in bf16, at the shapes the main path gives it (batch 2 at
      anyref_7b) and at one small odd shape, and time kernel, plain version
      and one library call (CUDA events, L2 flushed before every launch,
      median); for the three fused SAM layers, where no one library call
      computes the function, time instead the unfused chain of the same
-     layer (the rel-pos / LayerNorm kernels plus cuBLAS matmuls);
+     layer (the rel-pos / LayerNorm kernels plus cuBLAS matmuls); for the
+     training attention, its forward (O and LSE) and its backward (dq, dk,
+     dv), against SDPA's forward and forward plus backward;
   3. check the slice on the card against the same weights and inputs on the
      CPU (whose plain versions the CPU tests hold against the JAX package),
      on both encoder paths: "unfused" at anyref_tiny(), "fused" at
      anyref_tiny() with a 512-pixel SAM image and windows of 8, where both
-     fused SAM gates open;
+     fused SAM gates open; and one train step's losses and gradients at
+     anyref_tiny();
   4. for each encoder path, "fused" (the default) then "unfused": serve 4
      text requests at anyref_7b width and depth (random weights from a
      seed) through Server -> Predictor -> generate with speculative decode,
      max_batch 2, and check every answer and each kernel's launch count on
      that path; then serve them again, warm, under torch.profiler for the
      wall time, the device's busy share and the top kernels;
-  5. print {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+  5. train LoRA at anyref_7b (random bf16 weights from a seed) with the
+     Trainer: 8 synthetic samples, batch 2, 2 micro-steps per step, 3
+     steps, per-layer checkpointing, the fused encoder path; check the
+     losses, the moved LoRA weights, the untouched frozen weights and each
+     kernel's launch count; then one more step under torch.profiler;
+  6. print {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -45,6 +54,18 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # bf16 at a different running max than the plain version, and sum in
 # another order.
 ATOL = RTOL = 2e-2
+# The training attention against its plain versions, per output: |a - b| <=
+# DIFF_ATOL_RMS * rms(b) + RTOL * |b| element by element, and a relative L2
+# error of at most DIFF_REL_L2. Its gradients are small on most rows (dq_i
+# and dk_j fall as 1/sqrt(row)), so a fixed ATOL would be as large as the
+# values it checks. The gradients add TERM_TOL x the size of their terms
+# (see term_sizes): dS is rounded to bf16 in both versions, at values that
+# differ in their last fp32 bits, and P^T in the dv kernel only, so each
+# term may differ by one bf16 ulp (at most 2^-7 relative) of its rounded
+# factor; where terms cancel, that sets the error, not the gradient's size.
+DIFF_ATOL_RMS = 1e-2
+DIFF_REL_L2 = 1e-2
+TERM_TOL = 2.0 ** -7
 # The tiny slice on the card against the CPU: bf16 through two layers of
 # each tower, relative to the largest magnitude of the reference.
 SLICE_REL_TOL = 5e-2
@@ -127,6 +148,11 @@ def causal_ops(L: int, hd: int, nh: int, kv_start) -> float:
     return total
 
 
+def kept_pairs(L: int, kv_start) -> int:
+    """(query, key) pairs the causal and pad mask keep, over the batch."""
+    return sum(sum(q - pad + 1 for q in range(pad, L)) for pad in kv_start)
+
+
 # ---------------------------------------------------------------------------
 # phase 2: each kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -151,6 +177,22 @@ def check_kernels(torch, F, flash, port):
             fail(f"{name}: kernel disagrees with its plain version, max abs "
                  f"err {err.max().item()}")
         return float(err.max().item())
+
+    def compare_scaled(name, got, want, term_tol=None):
+        """-> (max abs err, relative L2 err) under diff_errors' limits."""
+        torch.cuda.synchronize()
+        if got.shape != want.shape:
+            fail(f"{name}: kernel output {tuple(got.shape)}, plain "
+                 f"{tuple(want.shape)}")
+        if not bool(torch.isfinite(got).all()):
+            fail(f"{name}: non-finite kernel output")
+        err, rel_l2, bad = diff_errors(got, want, term_tol)
+        if bad or rel_l2 > DIFF_REL_L2:
+            fail(f"{name}: kernel disagrees with its plain version: {bad} "
+                 f"elements over {DIFF_ATOL_RMS} x rms + {RTOL} x |plain| "
+                 f"(+ term limit), max abs err {err}, relative L2 err "
+                 f"{rel_l2:.4g} (limit {DIFF_REL_L2})")
+        return err, rel_l2
 
     results = {}
 
@@ -227,10 +269,179 @@ def check_kernels(torch, F, flash, port):
              4 * B * nh * L * hd * 2 + B * 4,
              causal_ops(L, hd, nh, (0, 200)), H100_BF16_OPS_PER_S)
     del q, k, v, keep
+    check_causal_diff(torch, F, flash, timer, rnd, compare_scaled, results)
+    check_causal_diff_wrapper(torch, F, flash, port["attention"], rnd,
+                              compare_scaled)
     check_fused_kernels(torch, F, flash, port, rnd, run_case)
     del timer
     torch.cuda.empty_cache()
     return results
+
+
+def check_causal_diff(torch, F, flash, timer, rnd, compare, results):
+    """The training attention at LLaMA-7B training (batch 2, L = 512 + 255
+    padded to 768, no pad), then at [2, 4, 200 -> 256, 32] with kv_start
+    [0, 50], the cotangent zero on left-pad and right-pad rows as the
+    slice and the reference's test give it. Forward: O and LSE; backward:
+    delta = rowsum(dO * O), dq and dk/dv from the forward's O and LSE, each
+    side from its own forward."""
+    for B, nh, L, Lp, hd, pads in ((2, 32, 768, 768, 128, None),
+                                   (2, 4, 200, 256, 32, (0, 50))):
+        q, k, v = (torch.nn.functional.pad(rnd(B, nh, L, hd, scale=0.5),
+                                           (0, 0, 0, Lp - L))
+                   for _ in range(3))
+        ks = (None if pads is None else
+              torch.tensor(pads, dtype=torch.int32, device="cuda"))
+        rows = torch.arange(Lp, device="cuda")[None, None, :, None]
+        live = rows < L
+        if ks is not None:
+            live = live & (rows >= ks[:, None, None, None])
+        do = torch.where(live, rnd(B, nh, Lp, hd), 0).to(torch.bfloat16)
+        desc = f"{B}x{nh}x{L}->{Lp}x{hd}" + ("" if ks is None else
+                                             f" kv_start {list(pads)}")
+        o, lse = flash.causal_attention_diff_fwd(q, k, v, ks)
+        po, plse = flash.causal_attention_diff_fwd_plain(q, k, v, ks)
+        grads = flash.causal_attention_diff_bwd(q, k, v, o, lse, do, ks)
+
+        def plain_bwd():
+            delta = (do.float() * po.float()).sum(-1)
+            return (flash.causal_attention_dq_plain(q, k, v, do, plse, delta,
+                                                    ks),
+                    *flash.causal_attention_dkv_plain(q, k, v, do, plse,
+                                                      delta, ks))
+        terms = dict(zip(("dq", "dk", "dv"), term_sizes(
+            torch, flash, q, k, v, do, po, plse, ks)))
+        errs, rel_l2 = {}, {}
+        for n, a, b in zip(("o", "lse", "dq", "dk", "dv"), (o, lse, *grads),
+                           (po, plse, *plain_bwd())):
+            errs[n], rel_l2[n] = compare(
+                f"flash_causal_attention_diff {desc} {n}", a, b,
+                terms.get(n))
+        del terms
+        del grads
+        qg, kg, vg = (t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v))
+        mask = None if ks is None else flash._causal_keep(Lp, ks, "cuda")
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=mask is None)
+
+        def sdpa_fwd_bwd():
+            qg.grad = kg.grad = vg.grad = None
+            out = F.scaled_dot_product_attention(
+                qg, kg, vg, attn_mask=mask, is_causal=mask is None)
+            out.backward(do)
+
+        n_el = B * nh * Lp * hd
+        kept = kept_pairs(Lp, pads or (0,) * B)
+        fwd_ops = causal_ops(Lp, hd, nh, pads or (0,) * B)
+        row = {"shape": desc, "max_abs_err": max(errs.values()),
+               "max_abs_err_by_output": errs, "rel_l2_err_by_output": rel_l2,
+               "ms": timer.ms(lambda: flash.causal_attention_diff_fwd(
+                   q, k, v, ks), 10),
+               "plain_ms": timer.ms(lambda: flash.causal_attention_diff_fwd_plain(
+                   q, k, v, ks), 3),
+               "library_ms": timer.ms(sdpa, 10),
+               "backward_ms": timer.ms(lambda: flash.causal_attention_diff_bwd(
+                   q, k, v, o, lse, do, ks), 10),
+               "backward_plain_ms": timer.ms(plain_bwd, 3),
+               "library_fwd_bwd_ms": timer.ms(sdpa_fwd_bwd, 10)}
+        row["bound_ms"], row["bound_by"] = bound(
+            4 * n_el * 2 + B * nh * Lp * 4, fwd_ops, H100_BF16_OPS_PER_S)
+        row["backward_bound_ms"], row["backward_bound_by"] = bound(
+            8 * n_el * 2 + B * nh * Lp * 4,
+            10 * hd * nh * kept + 2 * n_el, H100_BF16_OPS_PER_S)
+        log(f"[kernel] flash_causal_attention_diff {desc}: max_abs_err "
+            f"{json.dumps(errs)}, relative L2 err {json.dumps(rel_l2)}; "
+            f"forward kernel {row['ms']:.4f} ms plain "
+            f"{row['plain_ms']:.4f} ms SDPA {row['library_ms']:.4f} ms bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}); backward kernel "
+            f"{row['backward_ms']:.4f} ms plain {row['backward_plain_ms']:.4f}"
+            f" ms, SDPA forward+backward {row['library_fwd_bwd_ms']:.4f} ms, "
+            f"bound {row['backward_bound_ms']:.4f} ms "
+            f"({row['backward_bound_by']})")
+        results.setdefault("flash_causal_attention_diff", []).append(row)
+        del q, k, v, qg, kg, vg, o, lse, po, plse, do
+
+
+def diff_errors(got, want, term_tol=None):
+    """The training attention's output against its plain version ->
+    (max abs err, relative L2 err, number of elements over DIFF_ATOL_RMS x
+    rms(want) + RTOL x |want| + term_tol)."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    lim = DIFF_ATOL_RMS * want.square().mean().sqrt() + RTOL * want.abs()
+    if term_tol is not None:
+        lim = lim + term_tol.float()
+    rel_l2 = float(err.norm() / want.norm().clamp_min(1e-30))
+    return float(err.max()), rel_l2, int((err > lim).sum())
+
+
+def term_sizes(torch, flash, q, k, v, do, o, lse, kv_start):
+    """TERM_TOL x the size of the terms each element of dq, dk and dv sums:
+    |dS| |K|, |dS|^T |Q| and P^T |dO|, from the plain versions' P and dS
+    (P = exp(S - lse) where kept, dS = P (dP - delta) scale)."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bnqd,bnkd->bnqk", q.float(), k.float()) * scale
+    p = torch.where(flash._causal_keep(q.shape[2], kv_start, q.device),
+                    torch.exp(s - lse[..., None]), 0.0)
+    del s
+    dof = do.float()
+    delta = (dof * o.float()).sum(-1)
+    dp = torch.einsum("bnqd,bnkd->bnqk", dof, v.float())
+    ds = (p * (dp - delta[..., None]) * scale).abs()
+    del dp
+    return tuple(TERM_TOL * t for t in (
+        torch.einsum("bnqk,bnkd->bnqd", ds, k.float().abs()),
+        torch.einsum("bnqk,bnqd->bnkd", ds, q.float().abs()),
+        torch.einsum("bnqk,bnqd->bnkd", p, dof.abs())))
+
+
+def check_causal_diff_wrapper(torch, F, flash, attention, rnd, compare):
+    """The training attention as the decoder calls it:
+    ops.attention.causal_attention(differentiable=True) at L = 767 on
+    head-transposed views of [2, 767, 32, 128] leaves, then .backward of a
+    seeded dO through the 128-pad and the slice. O and dq/dk/dv against the
+    plain versions on the explicitly padded inputs, under the limits of
+    compare; the wrapper must launch its forward and backward once each."""
+    B, L, nh, hd, Lp = 2, 767, 32, 128, 768
+    leaves = [rnd(B, L, nh, hd, scale=0.5).requires_grad_(True)
+              for _ in range(3)]
+    q, k, v = (t.transpose(1, 2) for t in leaves)
+    do = rnd(B, nh, L, hd)
+    diff = flash.flash_causal_attention_diff
+    n0, b0 = diff.launches, diff.backward_launches
+    o = attention.causal_attention(q, k, v, differentiable=True)
+    o.backward(do)
+    if (diff.launches - n0, diff.backward_launches - b0) != (1, 1):
+        fail(f"causal_attention(differentiable=True): "
+             f"{diff.launches - n0} forward and "
+             f"{diff.backward_launches - b0} backward launches, want 1 each")
+    with torch.no_grad():
+        qp, kp, vp, dop = (F.pad(t.detach(), (0, 0, 0, Lp - L))
+                           for t in (q, k, v, do))
+        po, plse = flash.causal_attention_diff_fwd_plain(qp, kp, vp)
+        delta = (dop.float() * po.float()).sum(-1)
+        want = (po, flash.causal_attention_dq_plain(qp, kp, vp, dop, plse,
+                                                    delta),
+                *flash.causal_attention_dkv_plain(qp, kp, vp, dop, plse,
+                                                  delta))
+        terms = dict(zip(("dq", "dk", "dv"), term_sizes(
+            torch, flash, qp, kp, vp, dop, po, plse, None)))
+    desc = f"{B}x{nh}x{L}x{hd}"
+    errs = {}
+    for n, a, b in zip(("o", "dq", "dk", "dv"),
+                       (o.detach(), *(t.grad.transpose(1, 2)
+                                      for t in leaves)), want):
+        errs[n] = compare(f"causal_attention(differentiable=True) {desc} {n}",
+                          a, b[:, :, :L],
+                          None if n == "o" else terms[n][:, :, :L])
+    log(f"[kernel] flash_causal_attention_diff through "
+        f"ops.attention.causal_attention(differentiable=True) {desc}, "
+        f"autograd backward: (max abs err, relative L2 err) {json.dumps(errs)}")
+    del leaves, q, k, v, do, o, qp, kp, vp, dop, po, plse, delta, want, \
+        terms
 
 
 def check_fused_kernels(torch, F, flash, port, rnd, run_case):
@@ -389,12 +600,212 @@ def check_tiny_slice(torch, cfg, encoder_path, tparams, anyref_mod):
              f"CPU: {rel}")
 
 
+def train_samples(cfg, mods, texts, images, seed: int):
+    """Collator-ready training samples: the given images (shortest edge 224,
+    so CLIP needs no resize), the answer seg_answer(text), one rectangle
+    mask each."""
+    ds = mods["SegDataset"](cfg)
+    out = []
+    for i, (text, (h, w)) in enumerate(zip(texts, images)):
+        rng = np.random.default_rng(seed + i)
+        mask = np.zeros((h, w), np.uint8)
+        y0, x0 = int(rng.integers(0, h // 2)), int(rng.integers(0, w // 2))
+        mask[y0:y0 + h // 3, x0:x0 + w // 3] = 1
+        out.append(ds.make_sample(
+            rng.integers(0, 256, (h, w, 3), np.uint8),
+            mods["seg_question"](text), mods["seg_answer"](text), mask[None],
+            file_name=f"{i}.jpg"))
+    return out
+
+
+def check_tiny_train(torch, cfg, mods):
+    """One train step's losses and gradients at anyref_tiny() (bf16
+    weights, per-layer checkpointing, the fused encoder path), on the card
+    and on the CPU from the same weights, LoRA draw and batch: every loss
+    term and every trainable leaf's gradient within SLICE_REL_TOL of the
+    CPU's largest magnitude."""
+    step, lora = mods["step"], mods["lora"]
+    p_cpu = mods["tparams"].init(cfg, torch.Generator().manual_seed(0),
+                                 torch.bfloat16, device="cpu")
+    batch = step.device_batch(mods["Collator"](
+        mods["AnyRefTokenizer"](), cfg, train=True)(train_samples(
+            cfg, mods, ("the cat", "the red mug"), ((224, 300), (280, 224)),
+            seed=5)))
+    lcfg = lora.LoraConfig()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = p_cpu if dev == "cpu" else _to_device(p_cpu, dev)
+        state, frozen = step.init_state(torch.Generator().manual_seed(1),
+                                        params, lcfg, step.make_optimizer())
+        g = torch.Generator().manual_seed(2)
+        with torch.no_grad():   # B != 0, so A gets a gradient too
+            for layer in state.lora["layers"]:
+                for t in layer.values():
+                    t["b"].copy_(0.02 * torch.randn(t["b"].shape,
+                                                    generator=g))
+        out[dev] = step.value_and_grad(state.lora, state.dense, frozen, cfg,
+                                       lcfg, batch, encoder_path="fused",
+                                       remat=True)
+    torch.cuda.synchronize()
+    (_, m_cpu, g_cpu), (_, m_gpu, g_gpu) = out["cpu"], out["cuda"]
+    worst = 0.0
+    for k in m_cpu:
+        rel = abs(m_gpu[k].item() - m_cpu[k].item()) / abs(m_cpu[k].item())
+        worst = max(worst, rel)
+    leaves = list(zip(step.tree_leaves(g_gpu), step.tree_leaves(g_cpu)))
+    worst_grad = 0.0
+    for a, b in leaves:
+        a, b = a.float().cpu(), b.float()
+        if not bool(torch.isfinite(a).all()):
+            fail("tiny train step: non-finite gradient on the card")
+        scale = b.abs().max().item()
+        err = (a - b).abs().max().item()
+        worst_grad = max(worst_grad, err / scale if scale else err)
+    log(f"[train-tiny] anyref_tiny, bf16, remat, fused path, card vs CPU: "
+        f"loss {m_gpu['loss'].item():.5f} vs {m_cpu['loss'].item():.5f}, "
+        f"worst loss-term rel err {worst:.4g}, worst gradient err "
+        f"{worst_grad:.4g} of its leaf's largest magnitude over "
+        f"{len(leaves)} leaves (limit {SLICE_REL_TOL})")
+    if worst > SLICE_REL_TOL or worst_grad > SLICE_REL_TOL:
+        fail("tiny train step on the card disagrees with the CPU")
+
+
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_to_device(v, device) for v in tree]
     return tree.to(device)
+
+
+# ---------------------------------------------------------------------------
+# phase 5: LoRA training at anyref_7b
+# ---------------------------------------------------------------------------
+TRAIN_DIR = os.path.join(ROOT, "anyref_tpu_torch", "build", "train_smoke")
+
+
+def train_7b(torch, flash, mods):
+    """The Trainer at anyref_7b on random bf16 weights: 3 optimizer steps
+    of 2 micro-steps of batch 2 (warmup 1, so steps 2 and 3 move the
+    weights). Returns the training attention's launch counts."""
+    cfg = mods["anyref_7b"]()
+    step = mods["step"]
+    params = mods["tparams"].init(
+        cfg, torch.Generator(device="cuda").manual_seed(0), torch.bfloat16)
+    samples = train_samples(cfg, mods, TEXTS * 2, IMAGE_SIZES * 2, seed=0)
+    tok = mods["AnyRefTokenizer"]()
+    lens = [len(mods["tokenize_conversation"](tok, s["question"],
+                                              s["answer"]).input_ids)
+            for s in samples]
+    if max(lens) > cfg.max_text_len:
+        fail(f"conversations of {lens} tokens > max_text_len")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    tc = mods["TrainConfig"](
+        output_dir=TRAIN_DIR, per_device_batch_size=2, grad_accum_steps=2,
+        max_steps=3, warmup_steps=1, save_steps=10 ** 9, log_steps=1,
+        resume=False, remat=True, encoder_path="fused",
+        profile_dir=os.path.join(TRAIN_DIR, "profile"))
+    trainer = mods["Trainer"](cfg, tc, params, dataset=samples)
+    frozen = [t.cpu() for t in step.tree_leaves(trainer.frozen)]
+    lora0 = [t.detach().clone() for t in step.tree_leaves(trainer.state.lora)]
+    for kernel in flash.KERNELS:
+        kernel.launches = 0
+    flash.flash_causal_attention_diff.backward_launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    state = trainer.train()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {k.__name__: k.launches for k in flash.KERNELS}
+    backward = flash.flash_causal_attention_diff.backward_launches
+    peak = torch.cuda.max_memory_allocated()
+
+    with open(os.path.join(TRAIN_DIR, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    if state.step != 3 or [r["step"] for r in recs] != [1, 2, 3]:
+        fail(f"trainer ended at step {state.step}, logged "
+             f"{[r['step'] for r in recs]}")
+    if not all(np.isfinite(r[k]) for r in recs for k in step.METRICS):
+        fail(f"non-finite losses {recs}")
+    bs = [layer[t]["b"] for layer in state.lora["layers"] for t in layer]
+    if not all(bool(b.detach().abs().max() > 0) for b in bs):
+        fail("a LoRA B is still zero after 3 steps")
+    if all(torch.equal(a.detach(), b) for a, b in
+           zip(step.tree_leaves(state.lora), lora0)):
+        fail("the LoRA weights did not move")
+    if not all(torch.equal(a.cpu(), b) for a, b in
+               zip(step.tree_leaves(trainer.frozen), frozen)):
+        fail("a frozen weight changed")
+    del frozen, lora0
+
+    s, l, c = cfg.sam, cfg.llama, cfg.clip
+    n_global = len(s.encoder_global_attn_indexes)
+    micro = tc.max_steps * tc.grad_accum_steps
+    per_micro = {"flash_causal_attention_diff": 2 * l.num_layers,
+                 "fused_window_attn": s.encoder_depth - n_global,
+                 "fused_mlp_stream": s.encoder_depth - n_global,
+                 "fused_global_tail": n_global,
+                 "layer_norm_fused": n_global,
+                 "flash_attention_qkv": c.num_layers + c.select_layer + 1,
+                 "flash_relpos_attention": 0, "rms_norm_fused": 0,
+                 "flash_causal_attention": 0}
+    for name, n in per_micro.items():
+        if launches[name] != n * micro:
+            fail(f"{name}: {launches[name]} launches in training, want {n} "
+                 f"per micro-step x {micro}")
+    if backward != l.num_layers * micro:
+        fail(f"flash_causal_attention_diff: {backward} backward launches, "
+             f"want {l.num_layers} x {micro}")
+
+    step_s = [1.0 / r["steps_per_s"] for r in recs]
+    # every sequence is padded to max_seq_len; the real (non-pad) positions
+    # of a sample are its text tokens plus the image's expansion
+    per_step = tc.per_device_batch_size * tc.grad_accum_steps
+    padded = per_step * cfg.max_seq_len
+    real = per_step * float(np.mean(lens)) + per_step * (
+        cfg.max_seq_len - cfg.max_text_len)
+    med = float(np.median(step_s[1:]))
+    log(f"[train] anyref_7b LoRA, batch {tc.per_device_batch_size} x "
+        f"{tc.grad_accum_steps} micro-steps, L {cfg.max_seq_len}, remat, "
+        f"fused encoder path: {tc.max_steps} steps in {wall:.2f} s; losses "
+        + "; ".join(f"step {r['step']}: loss {r['loss']:.4f} lm "
+                    f"{r['lm_loss']:.4f} bce {r['bce_loss']:.4f} dice "
+                    f"{r['dice_loss']:.4f}" for r in recs))
+    log(f"[train] step wall {[round(t, 4) for t in step_s]} s; median of "
+        f"steps 2-3 {med:.4f} s -> {padded / med:.1f} padded positions/s "
+        f"({padded} per step), {real / med:.1f} real tokens/s ({real:.1f} "
+        f"real positions per step on average: text tokens {lens} per sample "
+        f"plus {cfg.max_seq_len - cfg.max_text_len} image positions); peak "
+        f"memory allocated {peak / 2**30:.2f} GiB")
+    log(f"[train] kernel launches over {micro} micro-steps "
+        f"{json.dumps(launches)}, flash_causal_attention_diff backward "
+        f"{backward} (per micro-step {json.dumps(per_micro)})")
+
+    # one more step under the profiler (after the counts were read)
+    tc.max_steps, tc.profile_steps = 4, (3, 3)
+    t0 = time.time()
+    trainer.train()
+    torch.cuda.synchronize()
+    pwall = time.time() - t0
+    by_name = {}
+    for e in trainer.profiler.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+    busy_ms = sum(by_name.values()) / 1e3
+    log(f"[train-profile] step 4 under torch.profiler: {pwall:.3f} s wall, "
+        f"kernels busy {busy_ms:.1f} ms -> device idle "
+        f"{100 * (1 - busy_ms / 1e3 / pwall):.1f}% of the wall; the "
+        f"profiler's host cost stretches the wall. Estimate from two "
+        f"different steps: this step's busy time over the median unprofiled "
+        f"step's wall ({med:.4f} s) leaves "
+        f"{100 * (1 - busy_ms / 1e3 / med):.1f}% idle")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        log(f"[train-profile]   {us / 1e3:9.3f} ms  {name[:90]}")
+    del trainer, state, params
+    torch.cuda.empty_cache()
+    return {"launches": launches["flash_causal_attention_diff"],
+            "backward_launches": backward, "steps": 3}
 
 
 # ---------------------------------------------------------------------------
@@ -534,6 +945,21 @@ def profile_warm_round(torch, server, Request, images):
             "top": [(n[:90], us / 1e3) for n, us in top]}
 
 
+def log_ptxas(src: str, text: str) -> None:
+    """One line per compiled kernel of a ptxas -v report: its (mangled)
+    name, registers and spill bytes."""
+    name = spill = None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line:
+            spill = line.split("stack frame, ")[-1].strip()
+        elif "registers" in line and name:
+            regs = line.split("Used ")[1].split(",")[0]
+            log(f"[build] {src} {name}: {regs}, {spill}")
+            name = None
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -544,12 +970,18 @@ def main() -> int:
         import torch.nn.functional as F
         from anyref_tpu_torch import params as tparams
         from anyref_tpu_torch.config import anyref_7b, anyref_tiny
+        from anyref_tpu_torch.data.base import SegDataset
+        from anyref_tpu_torch.data.collator import Collator
         from anyref_tpu_torch.models import anyref as anyref_mod
         from anyref_tpu_torch.models.sam import image_encoder
-        from anyref_tpu_torch.ops import common, flash
+        from anyref_tpu_torch.ops import attention, common, flash
         from anyref_tpu_torch.serve import Request, Server
-        from anyref_tpu_torch.tokenizer import (AnyRefTokenizer,
-                                                seg_question, tokenize_prompt)
+        from anyref_tpu_torch.tokenizer import (AnyRefTokenizer, seg_answer,
+                                                seg_question,
+                                                tokenize_conversation,
+                                                tokenize_prompt)
+        from anyref_tpu_torch.train import lora, step
+        from anyref_tpu_torch.train.trainer import TrainConfig, Trainer
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
@@ -569,27 +1001,35 @@ def main() -> int:
         tag = lib.stem.rsplit("-", 1)[1]
         logf = flash.BUILD_DIR / f"{src.rsplit('.', 1)[0]}-{tag}.log"
         if logf.exists():
-            for line in logf.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"[build] {src}: {line.strip()}")
+            log_ptxas(src, logf.read_text())
 
     # phase 2
     results = check_kernels(torch, F, flash, {"image_encoder": image_encoder,
-                                              "common": common})
+                                              "common": common,
+                                              "attention": attention})
+    mods = {"anyref_7b": anyref_7b, "tparams": tparams, "Server": Server,
+            "Request": Request, "AnyRefTokenizer": AnyRefTokenizer,
+            "seg_question": seg_question, "seg_answer": seg_answer,
+            "tokenize_prompt": tokenize_prompt,
+            "tokenize_conversation": tokenize_conversation,
+            "SegDataset": SegDataset, "Collator": Collator, "lora": lora,
+            "step": step, "TrainConfig": TrainConfig, "Trainer": Trainer}
     # phase 3: the unfused path at anyref_tiny, the fused one where both
-    # fused SAM gates open (64 <= ws^2 and a 32 x 32 global grid)
+    # fused SAM gates open (64 <= ws^2 and a 32 x 32 global grid), and one
+    # train step
     tiny = anyref_tiny()
     check_tiny_slice(torch, tiny, "unfused", tparams, anyref_mod)
     check_tiny_slice(torch, dataclasses.replace(tiny, sam=dataclasses.replace(
         tiny.sam, image_size=512, window_size=8)), "fused", tparams,
         anyref_mod)
+    check_tiny_train(torch, tiny, mods)
     # phase 4
-    launches = serve_7b(torch, flash, {
-        "anyref_7b": anyref_7b, "tparams": tparams, "Server": Server,
-        "Request": Request, "AnyRefTokenizer": AnyRefTokenizer,
-        "seg_question": seg_question, "tokenize_prompt": tokenize_prompt})
-
+    launches = serve_7b(torch, flash, mods)
+    torch.cuda.empty_cache()
     # phase 5
+    trained = train_7b(torch, flash, mods)
+
+    # phase 6
     meta = {
         "layer_norm_fused": ("anyref_tpu_torch/csrc/norms.cu",
                              "anyref_tpu/ops/flash.py:615"),
@@ -609,6 +1049,26 @@ def main() -> int:
                                 "anyref_tpu/ops/flash.py:1395"),
     }
     kernels = []
+    diff = results["flash_causal_attention_diff"]
+    kernels.append({
+        "name": "flash_causal_attention_diff", "route": "cuda",
+        "source": "anyref_tpu_torch/csrc/causal_attention_bwd.cu",
+        "forward_source": "anyref_tpu_torch/csrc/causal_attention.cu",
+        "replaces": "anyref_tpu/ops/flash.py:566",
+        # forward calls over the 3 train steps (the recompute of each
+        # checkpointed layer included), and per step
+        "launches": trained["launches"],
+        "launches_per_train_step": trained["launches"] / trained["steps"],
+        "backward_launches": trained["backward_launches"],
+        "shape": diff[0]["shape"],
+        "max_abs_err": max(r["max_abs_err"] for r in diff),
+        **{k: diff[0][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "backward_ms", "backward_plain_ms", "backward_bound_ms",
+            "backward_bound_by", "library_fwd_bwd_ms",
+            "max_abs_err_by_output", "rel_l2_err_by_output")},
+        "other_shapes": diff[1:],
+    })
     for name, (src, replaces) in meta.items():
         rows = results[name]
         head = rows[0]

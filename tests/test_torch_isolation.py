@@ -1,6 +1,7 @@
-"""The port stands alone: importing it loads neither JAX nor the JAX package,
-its sources (and chip_smoke.py) import neither, and its entry points refuse
-to carry on on the CPU when no device was named and no GPU exists."""
+"""The port stands alone: importing it loads neither JAX (nor optax or
+orbax) nor the JAX package, its sources (and chip_smoke.py) import none of
+them, a train step loads none of them either, and its entry points refuse to
+carry on on the CPU when no device was named and no GPU exists."""
 
 import os
 import pathlib
@@ -14,8 +15,10 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|jaxlib|anyref_tpu)(?![\w])"
-    r"|import_module\(\s*['\"](?:jax|anyref_tpu)(?![\w])", re.M)
+    r"^\s*(?:import|from)\s+(?:jax|jaxlib|optax|orbax|anyref_tpu)(?![\w])"
+    r"|import_module\(\s*['\"](?:jax|optax|orbax|anyref_tpu)(?![\w])",
+    re.M)
+JAX_FAMILY = "('jax', 'jaxlib', 'optax', 'orbax', 'anyref_tpu')"
 
 
 def test_import_loads_no_jax():
@@ -27,8 +30,8 @@ def test_import_loads_no_jax():
         "    anyref_tpu_torch.__path__, 'anyref_tpu_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'anyref_tpu'))\n"
+        f"bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
+        f"             {JAX_FAMILY})\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -50,6 +53,7 @@ def test_sources_import_no_jax():
     assert not bad
     assert FORBIDDEN.search("import jax.numpy as jnp")
     assert FORBIDDEN.search("from anyref_tpu.config import x")
+    assert FORBIDDEN.search("import optax")
     assert not FORBIDDEN.search("from anyref_tpu_torch.config import x")
 
 
@@ -61,6 +65,7 @@ def test_entry_points_refuse_cpu_without_gpu(monkeypatch):
     from anyref_tpu_torch.eval.runner import Predictor
     from anyref_tpu_torch.models import anyref
     from anyref_tpu_torch.serve import Server
+    from anyref_tpu_torch.train.trainer import TrainConfig, Trainer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = anyref_tiny()
@@ -79,3 +84,41 @@ def test_entry_points_refuse_cpu_without_gpu(monkeypatch):
         Server(p, cfg, preprocess_workers=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tparams.from_numpy({"w": np.zeros(2, np.float32)})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg, TrainConfig(), p, dataset=[])
+
+
+def test_train_step_loads_no_jax():
+    """A tiny train step (make_train_step -> train_forward -> the kernels'
+    plain versions and their backward) in a fresh interpreter leaves no JAX,
+    optax, orbax or JAX-package module loaded."""
+    code = (
+        "import sys, numpy as np, torch\n"
+        "from anyref_tpu_torch import params\n"
+        "from anyref_tpu_torch.config import anyref_tiny\n"
+        "from anyref_tpu_torch.data.collator import Collator\n"
+        "from anyref_tpu_torch.tokenizer import (AnyRefTokenizer,\n"
+        "    seg_answer, seg_question)\n"
+        "from anyref_tpu_torch.train import lora, step\n"
+        "cfg = anyref_tiny()\n"
+        "p = params.init(cfg, torch.Generator().manual_seed(0),\n"
+        "                torch.float32, device='cpu')\n"
+        "s = {'clip_image': np.zeros((3, 224, 224), np.float32),\n"
+        "     'sam_image': np.zeros((3, 256, 256), np.float32),\n"
+        "     'sam_resized_size': (256, 256), 'question': seg_question('x'),\n"
+        "     'answer': seg_answer('x'), 'gt_masks': np.ones((1, 4, 4))}\n"
+        "b = Collator(AnyRefTokenizer(), cfg, train=True)([s])\n"
+        "opt = step.make_optimizer()\n"
+        "st, fr = step.init_state(torch.Generator().manual_seed(1), p,\n"
+        "                         lora.LoraConfig(), opt)\n"
+        "fn = step.make_train_step(cfg, lora.LoraConfig(), opt)\n"
+        "st, m = fn(st, fr, step.device_batch(b))\n"
+        "assert st.step == 1 and np.isfinite(float(m['loss']))\n"
+        f"bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
+        f"             {JAX_FAMILY})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
