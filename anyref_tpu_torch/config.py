@@ -56,17 +56,29 @@ def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-# The port's two paths through the image towers (SAM and CLIP), chosen by an
-# explicit argument of every entry point:
-# * "fused": the reference's default on its accelerator (in the JAX package
+# The port's four paths through the image towers (SAM and CLIP), chosen by an
+# explicit argument of every entry point; each is one configuration of the
+# JAX package's switches:
+# * "fused" (the default): the reference's default on its accelerator,
 #   ANYREF_FUSED_WINDOW_BLOCK=1 ANYREF_FUSED_GLOBAL_BLOCK=1
-#   ANYREF_FUSED_SPLIT=1 ANYREF_QKV_MHA_KERNEL=1 ANYREF_QKV_WINDOW_KERNEL=0):
-#   SAM window and global layers as fused kernels where the reference's
-#   gates take the shape, CLIP attention read off the fused QKV;
-# * "unfused": its unfused configuration (the first four switches at 0):
-#   SAM blocks op by op with the rel-pos attention kernel, CLIP attention
-#   plain.
-ENCODER_PATHS = ("fused", "unfused")
+#   ANYREF_FUSED_SPLIT=1 ANYREF_QKV_MHA_KERNEL=1 ANYREF_QKV_WINDOW_KERNEL=0:
+#   a SAM window layer as fused_window_attn + fused_mlp_stream, a global
+#   layer as fused_global_tail, where the reference's gates take the
+#   shape; CLIP attention read off the fused QKV;
+# * "fused_block": ANYREF_FUSED_WINDOW_BLOCK=1 ANYREF_FUSED_GLOBAL_BLOCK=1
+#   ANYREF_FUSED_SPLIT=0 ANYREF_QKV_MHA_KERNEL=1 ANYREF_QKV_WINDOW_KERNEL=0:
+#   as "fused", with a window layer as one fused_window_block (its
+#   post-attention residual kept in fp32 into the MLP half);
+# * "unfused_qkv": ANYREF_FUSED_WINDOW_BLOCK=0 ANYREF_FUSED_GLOBAL_BLOCK=0
+#   ANYREF_QKV_WINDOW_KERNEL=1 ANYREF_QKV_MHA_KERNEL=1, the reference's
+#   default off its accelerator: SAM blocks op by op, attention over grids
+#   of 64 <= H * W < 1024 tokens (the windows) read off the fused QKV
+#   (flash_relpos_attention_qkv), larger grids split into heads for the
+#   rel-pos attention kernel; CLIP attention read off the fused QKV;
+# * "unfused": ANYREF_FUSED_WINDOW_BLOCK=0 ANYREF_FUSED_GLOBAL_BLOCK=0
+#   ANYREF_QKV_WINDOW_KERNEL=0 ANYREF_QKV_MHA_KERNEL=0: SAM blocks op by
+#   op with the rel-pos attention kernel, CLIP attention plain.
+ENCODER_PATHS = ("fused", "fused_block", "unfused_qkv", "unfused")
 
 
 def check_encoder_path(path: str) -> str:

@@ -19,6 +19,7 @@ import torch
 from ..config import (SAM_PIXEL_MEAN, SAM_PIXEL_STD, AnyRefConfig,
                       check_encoder_path)
 from ..models import anyref, clip_vit
+from ..ops.quant import is_quantized
 from ..ops.resize import postprocess_low_res_np
 from ..params import resolve_device
 
@@ -54,6 +55,14 @@ class Predictor:
         # multiples of 128 (384/448/512/640/768)
         self.device = resolve_device(device)
         self.encoder_path = check_encoder_path(encoder_path)
+        if speculative and is_quantized(params["llama"]):
+            # the reference's speculative Predictor first converts the
+            # decoder to its bf16 serving layout (transposed, fused
+            # matrices), which an int8 tree does not have
+            raise ValueError(
+                "an int8 decoder (ops.quant.quantize_llama) is served with "
+                "speculative=False: the reference's speculative serving "
+                "needs the bf16 serving layout of the decoder")
         self.params = params
         self.cfg = cfg
         self.mnt = max_new_tokens or cfg.max_new_tokens

@@ -243,7 +243,7 @@ def train_forward(params: dict, cfg: AnyRefConfig, batch: dict,
     if cfg.use_loc_tokens:
         raise NotImplementedError("loc tokens are not part of the port yet")
     tk = cfg.tokens
-    dev = params["llama"]["lm_head"].device
+    dev = params["llama"]["embed_tokens"].device
 
     def t(key, dtype=None):
         x = torch.as_tensor(batch[key], device=dev)
@@ -316,12 +316,15 @@ def generate(params: dict, cfg: AnyRefConfig, batch: dict,
     row), clip_images [B, 3, 224, 224] and sam_images [B, 3, S, S]
     normalized; arrays or tensors, moved to ``device``. The params must
     already live on ``device``. ``encoder_path`` selects the towers' path
-    ("fused" or "unfused", config.ENCODER_PATHS)."""
+    (config.ENCODER_PATHS). An int8 decoder tree (ops.quant.quantize_llama)
+    runs greedy and speculative decode alike."""
     check_encoder_path(encoder_path)
     dev = resolve_device(device)
-    if params["llama"]["lm_head"].device.type != dev.type:
-        raise ValueError(f"params live on {params['llama']['lm_head'].device}"
-                         f", generate was asked to run on {dev}")
+    # embed_tokens: a leaf of both the float and the int8 decoder tree
+    p_dev = params["llama"]["embed_tokens"].device
+    if p_dev.type != dev.type:
+        raise ValueError(f"params live on {p_dev}, generate was asked to run "
+                         f"on {dev}")
     _check_text_only(cfg, batch)
     mnt = max_new_tokens or cfg.max_new_tokens
     tk = cfg.tokens

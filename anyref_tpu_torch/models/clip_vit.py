@@ -1,9 +1,10 @@
 """CLIP ViT-L/14 vision tower (port of anyref_tpu/models/clip_vit.py).
 
 LLaVA consumes the penultimate layer's hidden states with the CLS token
-dropped. Attention runs off the fused QKV tensor: on the "fused" encoder
-path in the QKV-direct kernel (the reference's ANYREF_QKV_MHA_KERNEL=1), on
-the "unfused" path split into heads and plain (=0).
+dropped. Attention runs off the fused QKV tensor: on the "fused",
+"fused_block" and "unfused_qkv" encoder paths in the QKV-direct kernel (the
+reference's ANYREF_QKV_MHA_KERNEL=1), on the "unfused" path split into
+heads and plain (=0).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ def _encoder_layer(p, x, cfg: ClipVisionConfig, encoder_path: str):
     h = layer_norm(p["ln1"], x, eps=cfg.layer_norm_eps)
     qkv = torch.cat([linear(p["attn"]["q"], h), linear(p["attn"]["k"], h),
                      linear(p["attn"]["v"], h)], dim=-1)
-    o = mha_qkv(qkv, cfg.num_heads, kernel=encoder_path == "fused")
+    o = mha_qkv(qkv, cfg.num_heads, kernel=encoder_path != "unfused")
     x = x + linear(p["attn"]["out"], o)
     h = layer_norm(p["ln2"], x, eps=cfg.layer_norm_eps)
     h = linear(p["mlp"]["fc2"], quick_gelu(linear(p["mlp"]["fc1"], h)))

@@ -181,5 +181,9 @@ def decode_step(params: dict, cfg: LlamaConfig, embeds, pos: int,
 
 
 def logits(params: dict, hidden):
-    """lm_head in fp32."""
+    """lm_head in fp32; on an int8 tree (ops/quant.py) the int8 lm_head in
+    hidden's dtype (bf16 in generate), only then cast to fp32, as the
+    reference rounds it."""
+    if params.get("lm_head_q") is not None:
+        return linear(params["lm_head_q"], hidden).float()
     return torch.matmul(hidden.float(), params["lm_head"].float())

@@ -7,15 +7,20 @@ position embeddings and an fp32 conv neck to 256 channels. The windowed run
 keeps the stream window-resident [B*nw, ws, ws, C] and re-zeroes the pad
 positions after every LN1, as the reference does.
 
-Two paths (config.ENCODER_PATHS), chosen by the caller:
+Four paths (config.ENCODER_PATHS), chosen by the caller:
 * "unfused": each block op by op, LN1/LN2 in the LayerNorm kernel and
   attention in the rel-pos attention kernel (ops/flash.py);
+* "unfused_qkv": as "unfused", but attention over a grid of 64 <= H * W <
+  1024 tokens (flash.supported_relpos_qkv: the windows, and the global
+  layer of anyref_tiny()) reads q/k/v straight off the fused QKV
+  (flash_relpos_attention_qkv);
 * "fused": the reference's accelerator default. A window layer is
   fused_window_attn + fused_mlp_stream where 64 <= ws^2 <= 1024, a global
   layer LN1 (LayerNorm kernel) + QKV matmul + fused_global_tail where
   flash.supported_global_fused takes the grid; the reference's gates, so
   each shape gets the reference's numerics. Where a gate refuses, the block
-  runs as on the unfused path.
+  runs as on the unfused path;
+* "fused_block": as "fused", with a window layer as one fused_window_block.
 """
 
 from __future__ import annotations
@@ -36,12 +41,20 @@ def _get_rel_pos_table(size: int, rel_pos):
     return rel_pos[torch.as_tensor(coords, device=rel_pos.device)]
 
 
-def _attn_block(p, x, num_heads: int, size_hw: tuple[int, int]):
-    """Attention over [B, H, W, C] tokens with decomposed rel-pos bias."""
+def _attn_block(p, x, num_heads: int, size_hw: tuple[int, int],
+                qkv_direct: bool = False):
+    """Attention over [B, H, W, C] tokens with decomposed rel-pos bias.
+    ``qkv_direct`` (the "unfused_qkv" path) reads q/k/v off the fused QKV
+    where the reference's gate takes the grid."""
     B, H, W, C = x.shape
     hd = C // num_heads
     rh = _get_rel_pos_table(size_hw[0], p["rel_pos_h"])
     rw = _get_rel_pos_table(size_hw[1], p["rel_pos_w"])
+    if qkv_direct and flash.supported_relpos_qkv(*size_hw):
+        qkv = linear(p["qkv"], x).reshape(B, H * W, 3 * C)
+        out = flash.flash_relpos_attention_qkv(qkv, rh, rw, size_hw,
+                                               num_heads)
+        return linear(p["proj"], out.reshape(B, H, W, C))
     qkv = linear(p["qkv"], x).reshape(B, H * W, 3, num_heads, hd)
     q, k, v = qkv.permute(2, 0, 3, 1, 4)           # each [B, heads, HW, hd]
     out = attention_with_decomposed_relpos(q, k, v, rh, rw, size_hw)
@@ -71,26 +84,26 @@ def _window_unpartition(wins, ws: int, pad_hw, hw):
     return x[:, :H, :W]
 
 
-def _block(p, x, cfg: SamConfig):
+def _block(p, x, cfg: SamConfig, qkv_direct: bool):
     """Global-attention block on [B, H, W, C]."""
     shortcut = x
     x = layer_norm(p["norm1"], x, eps=cfg.layer_norm_eps, fused=True)
     x = _attn_block(p["attn"], x, cfg.encoder_num_heads,
-                    (x.shape[1], x.shape[2]))
+                    (x.shape[1], x.shape[2]), qkv_direct)
     x = shortcut + x
     h = layer_norm(p["norm2"], x, eps=cfg.layer_norm_eps, fused=True)
     h = linear(p["mlp"]["lin2"], gelu(linear(p["mlp"]["lin1"], h)))
     return x + h
 
 
-def _block_windowed_resident(p, xw, mask, cfg: SamConfig):
+def _block_windowed_resident(p, xw, mask, cfg: SamConfig, qkv_direct: bool):
     """Windowed block on the window-resident stream [B*nw, ws, ws, C]; the
     pad ``mask`` re-zeroes pad positions after LN1 (the reference re-pads
     the post-norm1 values with zeros every layer)."""
     shortcut = xw
     h = layer_norm(p["norm1"], xw, eps=cfg.layer_norm_eps, fused=True) * mask
     h = _attn_block(p["attn"], h, cfg.encoder_num_heads,
-                    (cfg.window_size, cfg.window_size))
+                    (cfg.window_size, cfg.window_size), qkv_direct)
     x = shortcut + h
     h = layer_norm(p["norm2"], x, eps=cfg.layer_norm_eps, fused=True)
     h = linear(p["mlp"]["lin2"], gelu(linear(p["mlp"]["lin1"], h)))
@@ -103,14 +116,21 @@ def fused_window_ok(cfg: SamConfig) -> bool:
     return 64 <= cfg.window_size ** 2 <= 1024
 
 
-def _fused_window_layer(p, xw, cfg: SamConfig, grid_hw, nwc: int):
-    """Window layer on the window-resident stream [NW, ws*ws, C]: attention
-    half (LN1 + pad mask + QKV + rel-pos attention + proj + residual) then
-    MLP half over the flat rows, as the reference's split variant
-    (ANYREF_FUSED_SPLIT=1)."""
+def _fused_window_layer(p, xw, cfg: SamConfig, grid_hw, nwc: int,
+                        block: bool):
+    """Window layer on the window-resident stream [NW, ws*ws, C]: LN1 + pad
+    mask + QKV + rel-pos attention + proj + residual, then LN2 + MLP +
+    residual. ``block``: in one fused_window_block (the reference's
+    ANYREF_FUSED_SPLIT=0); else its split variant (=1), the attention half
+    then the MLP half over the flat rows."""
     ws = cfg.window_size
     tht = _get_rel_pos_table(ws, p["attn"]["rel_pos_h"]).reshape(ws * ws, -1)
     twt = _get_rel_pos_table(ws, p["attn"]["rel_pos_w"]).reshape(ws * ws, -1)
+    if block:
+        return flash.fused_window_block(
+            xw, p["norm1"], p["attn"]["qkv"], tht, twt, p["attn"]["proj"],
+            p["norm2"], p["mlp"]["lin1"], p["mlp"]["lin2"], (ws, ws),
+            cfg.encoder_num_heads, grid_hw, nwc, cfg.layer_norm_eps)
     NW, L, C = xw.shape
     x1 = flash.fused_window_attn(xw, p["norm1"], p["attn"]["qkv"], tht, twt,
                                  p["attn"]["proj"], (ws, ws),
@@ -149,8 +169,10 @@ def patch_embed(p, x, patch: int):
 def apply(params: dict, x, cfg: SamConfig, encoder_path: str = "fused"):
     """[B, 3, image_size, image_size] normalized pixels -> [B, 256, g, g]
     image embeddings, computed in the param dtype; fp32 neck.
-    ``encoder_path``: "fused" or "unfused" (see the module docstring)."""
-    fused = check_encoder_path(encoder_path) == "fused"
+    ``encoder_path``: one of config.ENCODER_PATHS (the module docstring)."""
+    path = check_encoder_path(encoder_path)
+    fused = path in ("fused", "fused_block")
+    qkv_direct = path == "unfused_qkv"
     x = x.to(params["patch_embed"]["w"].dtype)
     x = patch_embed(params["patch_embed"], x, cfg.patch_size)
     x = x + params["pos_embed"].to(x.dtype)
@@ -168,7 +190,7 @@ def apply(params: dict, x, cfg: SamConfig, encoder_path: str = "fused"):
                 x = _window_unpartition(win_x, ws, pad_hw, (H, W))
                 win_x = None
             x = (_fused_global_layer(bp, x, cfg) if fused_global
-                 else _block(bp, x, cfg))
+                 else _block(bp, x, cfg, qkv_direct))
         else:
             if win_x is None:
                 win_x, pad_hw = _window_partition(x, ws)
@@ -176,9 +198,11 @@ def apply(params: dict, x, cfg: SamConfig, encoder_path: str = "fused"):
             if fused_window:
                 win_x = _fused_window_layer(
                     bp, win_x.reshape(win_x.shape[0], ws * ws, -1), cfg,
-                    (H, W), pad_hw[1] // ws).reshape(win_x.shape)
+                    (H, W), pad_hw[1] // ws,
+                    block=path == "fused_block").reshape(win_x.shape)
             else:
-                win_x = _block_windowed_resident(bp, win_x, mask, cfg)
+                win_x = _block_windowed_resident(bp, win_x, mask, cfg,
+                                                 qkv_direct)
     if win_x is not None:
         x = _window_unpartition(win_x, ws, pad_hw, (H, W))
     # fp32 island for the neck

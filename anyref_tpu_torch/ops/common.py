@@ -1,7 +1,8 @@
 """Shared functional NN primitives (port of anyref_tpu/ops/common.py).
 
 Parameter convention: nested dicts of tensors, keys as in the JAX tree.
-  linear: {"w": [in, out], "b": [out]?}
+  linear: {"w": [in, out], "b": [out]?} or, int8 (ops/quant.py),
+          {"w_q": int8 [in, out], "scale": fp32 [out]}
   layer_norm: {"scale": [d], "bias": [d]}
   conv: {"w": [out, in, kh, kw], "b": [out]?}   (OIHW)
 """
@@ -12,12 +13,16 @@ import torch
 import torch.nn.functional as F
 
 from . import flash
+from .quant import quant_linear
 
 
 def linear(p, x: torch.Tensor) -> torch.Tensor:
     """x [..., in] @ w [in, out] (+ b) in x's dtype: the weight is rounded
     to x's dtype and the product accumulates in fp32, as the reference's
-    einsum with preferred_element_type=x.dtype does."""
+    einsum with preferred_element_type=x.dtype does. An int8 leaf goes
+    through quant_linear (the int8_matmul kernel)."""
+    if "w_q" in p:
+        return quant_linear(p, x)
     y = torch.matmul(x, p["w"].to(x.dtype))
     if "b" in p:
         y = y + p["b"].to(y.dtype)

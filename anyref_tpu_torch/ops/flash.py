@@ -1,9 +1,10 @@
 """Hand-written CUDA kernels of the port, their plain PyTorch versions, their
 launch counters and their build.
 
-Nine kernels, each the Hopper counterpart of a Pallas kernel of
-``anyref_tpu/ops/flash.py`` (the sources under ``anyref_tpu_torch/csrc/``
-say which, what bounds each on the H100 and how its design answers that):
+Twelve kernels, each the Hopper counterpart of a Pallas kernel of
+``anyref_tpu/ops/flash.py`` or ``anyref_tpu/ops/quant.py`` (the sources
+under ``anyref_tpu_torch/csrc/`` say which, what bounds each on the H100
+and how its design answers that):
 
 * ``layer_norm_fused``        <- ``layer_norm_fused`` / ``_ln_kernel``
 * ``rms_norm_fused``          <- ``rms_norm_fused`` / ``_rms_kernel``
@@ -14,20 +15,27 @@ say which, what bounds each on the H100 and how its design answers that):
 * ``fused_window_attn``       <- ``fused_window_attn``
 * ``fused_mlp_stream``        <- ``fused_mlp_stream``
 * ``fused_global_tail``       <- ``fused_global_tail``
+* ``fused_window_block``      <- ``fused_window_block``
 * ``flash_attention_qkv``     <- ``flash_attention_qkv`` / ``_mha_qkv_kernel``
+* ``flash_relpos_attention_qkv`` <- ``flash_relpos_attention_qkv`` /
+  ``_relpos_qkv_kernel``
 * ``flash_causal_attention_diff`` <- ``flash_causal_attention_diff``
   (forward with LSE, dq, dk/dv), a ``torch.autograd.Function``
+* ``int8_matmul``             <- ``quant.py`` ``int8_matmul`` (``ops/quant``
+  builds the int8 decoder on it)
 
-The first four and ``flash_attention_qkv`` are one CUDA kernel each. The
-three fused layers are each a short chain of the port's own kernels (row
-moments, the GEMM of ``csrc/gemm.cuh`` with a LayerNorm prologue and a
-bias / GELU / residual epilogue, QKV-direct attention), with no other torch
-op between them than allocation, views and, in the global tail, the fp32
-bias-factor einsums the reference's wrapper also computes outside its
-kernel. ``flash_causal_attention_diff`` is the training attention: its
-forward is the causal kernel with a log-sum-exp output, its backward two
-kernels (dq over query blocks, dk/dv over key blocks) after
-delta = rowsum(dO * O), a torch op here as in the reference's wrapper.
+The norms, the attention kernels and ``int8_matmul`` are one CUDA kernel
+each (``int8_matmul`` two launches at most 16 rows: split-K partial sums,
+then their reduction). The four fused layers are each a short chain of the
+port's own kernels (row moments, the GEMM of ``csrc/gemm.cuh`` with a
+LayerNorm prologue and a bias / GELU / residual epilogue, QKV-direct
+attention), with no other torch op between them than allocation, views and,
+in the global tail, the fp32 bias-factor einsums the reference's wrapper
+also computes outside its kernel (as ``flash_relpos_attention_qkv`` does).
+``flash_causal_attention_diff`` is the training attention: its forward is
+the causal kernel with a log-sum-exp output, its backward two kernels (dq
+over query blocks, dk/dv over key blocks) after delta = rowsum(dO * O), a
+torch op here as in the reference's wrapper.
 
 Each wrapper runs its plain version when, and only when, its input lies on
 the CPU (the tests). For a CUDA tensor it launches its kernels or raises:
@@ -61,7 +69,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = ("norms.cu", "relpos_attention.cu", "causal_attention.cu",
-           "causal_attention_bwd.cu", "fused_layers.cu", "qkv_attention.cu")
+           "causal_attention_bwd.cu", "fused_layers.cu", "qkv_attention.cu",
+           "int8_matmul.cu")
 HEADERS = ("common.cuh", "attention.cuh", "gemm.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -142,11 +151,14 @@ def _library():
                 "anyref_relpos_attention_qkv": [P, P, P, P, I, I, I, I, I, I,
                                                 F, I, P],
                 "anyref_mha_qkv": [P, P, I, I, I, I, F, I, P],
+                "anyref_int8_matmul": [P, P, P, P, P, I, I, I, P],
             }
             for name, args in sigs.items():
                 fn = getattr(lib, name)
                 fn.argtypes = args
                 fn.restype = ctypes.c_int
+            lib.anyref_int8_matmul_workspace.argtypes = [I, I, I]
+            lib.anyref_int8_matmul_workspace.restype = ctypes.c_longlong
             lib.anyref_error_string.argtypes = [I]
             lib.anyref_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -540,8 +552,8 @@ def window_pad_mask(NW: int, L: int, ws: int, nwc: int, nw: int, grid_hw,
     return ((rows < H) & (cols < W)).float()[..., None]
 
 
-def relpos_attention_qkv_plain(qkv, rel_h_table, rel_w_table, size_hw,
-                               num_heads: int):
+def fused_relpos_attention_plain(qkv, rel_h_table, rel_w_table, size_hw,
+                                 num_heads: int):
     """Rel-pos attention of all heads off the fused QKV [B, L, 3C] ->
     [B, L, C] in qkv's dtype, as the fused kernels compute it
     (_window_attn_all, _fused_global_tail_kernel): the fp32 factors of
@@ -556,35 +568,74 @@ def relpos_attention_qkv_plain(qkv, rel_h_table, rel_w_table, size_hw,
     return _merge_heads(o).to(qkv.dtype)
 
 
-def fused_window_attn_plain(xw, ln1, qkv_p, tht, twt, proj_p, size_hw,
-                            num_heads: int, grid_hw, nwc: int, eps: float):
-    """x + proj(attention(qkv(LN1(x) * pad_mask))) over windows [NW, L, C]
-    (_fused_window_attn_kernel): h, qkv and the attention output rounded
-    to x's dtype, the residual sum in fp32."""
+def relpos_attention_qkv_plain(qkv, rel_h_table, rel_w_table, size_hw,
+                               num_heads: int):
+    """flash_relpos_attention_qkv's plain version (_relpos_qkv_kernel): the
+    attention of relpos_attention_plain on the heads of the fused QKV
+    [B, L, 3C], merged into [B, L, C]. Unlike the fused kernels, P is not
+    normalised before its rounding: the product is divided by the row sum
+    afterwards."""
+    q, k, v = _split_qkv(qkv, num_heads)
+    return _merge_heads(relpos_attention_plain(q, k, v, rel_h_table,
+                                               rel_w_table, size_hw))
+
+
+def _window_attn_residual_plain(xw, ln1, qkv_p, tht, twt, proj_p, size_hw,
+                                num_heads: int, grid_hw, nwc: int,
+                                eps: float):
+    """x + proj(attention(qkv(LN1(x) * pad_mask))) over windows [NW, L, C],
+    in fp32: h, qkv and the attention output rounded to x's dtype."""
     ws = size_hw[0]
-    NW, L, _ = xw.shape
+    NW, L, C = xw.shape
     nw = -(-grid_hw[0] // ws) * nwc
-    x = xw.float()
+    x = xw.float().reshape(NW * L, C)
     mask = window_pad_mask(NW, L, ws, nwc, nw, grid_hw, xw.device)
-    h = layer_norm_plain(x, ln1["scale"], ln1["bias"], eps) * mask
+    h = layer_norm_plain(x, ln1["scale"], ln1["bias"], eps) * mask.reshape(
+        NW * L, 1)
     h = h.to(xw.dtype)
     qkv = (_dot(h, qkv_p["w"]) + qkv_p["b"].float()).to(xw.dtype)
-    attn = relpos_attention_qkv_plain(qkv, tht.reshape(ws, ws, -1),
-                                      twt.reshape(ws, ws, -1), size_hw,
-                                      num_heads)
-    proj = _dot(attn, proj_p["w"]) + proj_p["b"].float()
-    return (x + proj).to(xw.dtype)
+    attn = fused_relpos_attention_plain(
+        qkv.reshape(NW, L, 3 * C), tht.reshape(ws, ws, -1),
+        twt.reshape(ws, ws, -1), size_hw, num_heads)
+    proj = _dot(attn.reshape(NW * L, C), proj_p["w"]) + proj_p["b"].float()
+    return x + proj
+
+
+def _mlp_residual_plain(x1, ln2, mlp1_p, mlp2_p, eps: float, dtype):
+    """x1 + fc2(GELU(fc1(LN2(x1)))) on fp32 rows x1 [N, C], in ``dtype``:
+    the LN output and the GELU hidden rounded to ``dtype``, the residual
+    sum in fp32."""
+    h = layer_norm_plain(x1, ln2["scale"], ln2["bias"], eps).to(dtype)
+    m1 = gelu_exact_plain(_dot(h, mlp1_p["w"])
+                          + mlp1_p["b"].float()).to(dtype)
+    m2 = mlp2_p["b"].float() + _dot(m1, mlp2_p["w"])
+    return (x1 + m2).to(dtype)
+
+
+def fused_window_attn_plain(xw, ln1, qkv_p, tht, twt, proj_p, size_hw,
+                            num_heads: int, grid_hw, nwc: int, eps: float):
+    """The attention half of a window layer (_fused_window_attn_kernel),
+    [NW, L, C] rounded to x's dtype."""
+    return _window_attn_residual_plain(
+        xw, ln1, qkv_p, tht, twt, proj_p, size_hw, num_heads, grid_hw, nwc,
+        eps).to(xw.dtype).reshape(xw.shape)
+
+
+def fused_window_block_plain(xw, ln1, qkv_p, tht, twt, proj_p, ln2, mlp1_p,
+                             mlp2_p, size_hw, num_heads: int, grid_hw,
+                             nwc: int, eps: float):
+    """The whole window layer (_fused_window_block_kernel): the attention
+    half's residual x1 stays fp32 into LN2 and the MLP residual, where the
+    split pair rounds it to x's dtype between its two kernels."""
+    x1 = _window_attn_residual_plain(xw, ln1, qkv_p, tht, twt, proj_p,
+                                     size_hw, num_heads, grid_hw, nwc, eps)
+    return _mlp_residual_plain(x1, ln2, mlp1_p, mlp2_p, eps,
+                               xw.dtype).reshape(xw.shape)
 
 
 def fused_mlp_stream_plain(x, ln2, mlp1_p, mlp2_p, eps: float):
-    """x + fc2(GELU(fc1(LN2(x)))) over rows [N, C] (_mlp_stream_kernel):
-    LN output and GELU hidden rounded to x's dtype."""
-    xf = x.float()
-    h = layer_norm_plain(xf, ln2["scale"], ln2["bias"], eps).to(x.dtype)
-    m1 = gelu_exact_plain(_dot(h, mlp1_p["w"])
-                          + mlp1_p["b"].float()).to(x.dtype)
-    acc = mlp2_p["b"].float() + _dot(m1, mlp2_p["w"])
-    return (xf + acc).to(x.dtype)
+    """x + fc2(GELU(fc1(LN2(x)))) over rows [N, C] (_mlp_stream_kernel)."""
+    return _mlp_residual_plain(x.float(), ln2, mlp1_p, mlp2_p, eps, x.dtype)
 
 
 def fused_global_tail_plain(x, qkv, tht, twt, proj_p, ln2, mlp1_p, mlp2_p,
@@ -593,14 +644,10 @@ def fused_global_tail_plain(x, qkv, tht, twt, proj_p, ln2, mlp1_p, mlp2_p,
     residual (x1 kept in fp32), LN2, MLP, residual (_fused_global_tail_kernel).
     Rounded to x's dtype: the attention output, LN2 output, GELU hidden and
     the result."""
-    attn = relpos_attention_qkv_plain(qkv, tht, twt, size_hw,
-                                      num_heads).to(x.dtype)
+    attn = fused_relpos_attention_plain(qkv, tht, twt, size_hw,
+                                        num_heads).to(x.dtype)
     x1 = x.float() + (_dot(attn, proj_p["w"]) + proj_p["b"].float())
-    h2 = layer_norm_plain(x1, ln2["scale"], ln2["bias"], eps).to(x.dtype)
-    m1 = gelu_exact_plain(_dot(h2, mlp1_p["w"])
-                          + mlp1_p["b"].float()).to(x.dtype)
-    m2 = mlp2_p["b"].float() + _dot(m1, mlp2_p["w"])
-    return (x1 + m2).to(x.dtype)
+    return _mlp_residual_plain(x1, ln2, mlp1_p, mlp2_p, eps, x.dtype)
 
 
 def attention_qkv_plain(qkv, num_heads: int, scale=None):
@@ -630,6 +677,14 @@ def supported_global_fused(H: int, W: int, head_dim: int) -> bool:
     L = H * W
     return (L >= 1024 and _pick_bq(L, 256) >= 128 and H % 8 == 0
             and W % 8 == 0 and head_dim % 8 == 0)
+
+
+def supported_relpos_qkv(H: int, W: int) -> bool:
+    """The reference's gate for flash_relpos_attention_qkv
+    (anyref_tpu image_encoder.py _attn_block with supported_relpos): grids
+    of 64 <= H * W < 1024 tokens, the SAM windows (and, at anyref_tiny(),
+    its 16 x 16 global layer)."""
+    return 64 <= H * W < 1024
 
 
 # ---------------------------------------------------------------------------
@@ -685,6 +740,75 @@ def _gemm(a, w, bias, epi: int, ln=None, stats=None, res=None, win=None,
     return out
 
 
+def _window_args(name: str, xw, size_hw, num_heads: int):
+    """(ws, NW, L, C) of window rows xw [NW, ws*ws, C] the window kernels
+    take (square windows, heads of at most 128); else raise."""
+    ws = size_hw[0]
+    NW, L, C = xw.shape
+    hd = C // num_heads
+    if size_hw[1] != ws or L != ws * ws or hd * num_heads != C or hd > 128:
+        raise ValueError(f"{name}: shape {tuple(xw.shape)}, window "
+                         f"{size_hw}, {num_heads} heads")
+    return ws, NW, L, C
+
+
+def _window_attention(x2, ln1, qkv_p, tht, twt, NW: int, L: int,
+                      num_heads: int, ws: int, grid_hw, nwc: int,
+                      eps: float):
+    """Three launches on the window rows x2 [NW * L, C]: row moments, the
+    QKV GEMM with the LayerNorm prologue and the pad mask, window attention
+    off the fused QKV -> attn [NW * L, C] bf16."""
+    dev = x2.device
+    C = x2.shape[1]
+    hd = C // num_heads
+    H, W = grid_hw
+    ln = (_f32(ln1["scale"], dev), _f32(ln1["bias"], dev))
+    th, tw = (t.to(torch.bfloat16).contiguous() for t in (tht, twt))
+    attn = torch.empty(NW * L, C, dtype=torch.bfloat16, device=dev)
+    win = (L, -(-H // ws) * nwc, nwc, ws, H, W)
+    stats = _row_stats(x2, eps)
+    qkv = _gemm(x2, qkv_p["w"], _f32(qkv_p["b"], dev), _E_BIAS, ln=ln,
+                stats=stats, win=win)
+    _launch("anyref_window_attention_qkv", qkv.data_ptr(), th.data_ptr(),
+            tw.data_ptr(), attn.data_ptr(), NW, L, num_heads, hd, ws,
+            hd ** -0.5, int(hd % 8 == 0 and _aligned(th, tw)), _stream(x2))
+    return attn
+
+
+def _mlp_residual(x, ln2, mlp1_p, mlp2_p, eps: float):
+    """Three launches: row moments of x [N, C] (bf16 or fp32), fc1 GEMM with
+    the LayerNorm prologue and GELU epilogue (bf16 hidden), fc2 GEMM with
+    the residual x -> [N, C] bf16."""
+    dev = x.device
+    ln = (_f32(ln2["scale"], dev), _f32(ln2["bias"], dev))
+    stats = _row_stats(x, eps)
+    hid = _gemm(x, mlp1_p["w"], _f32(mlp1_p["b"], dev), _E_GELU, ln=ln,
+                stats=stats)
+    return _gemm(hid, mlp2_p["w"], _f32(mlp2_p["b"], dev), _E_RES, res=x)
+
+
+def _relpos_qkv_attention(qkv, tht, twt, size_hw, num_heads: int):
+    """The fp32 bias factors (two einsums, as the reference's wrappers
+    compute them) and one launch of the rel-pos attention off the
+    contiguous fused QKV [B, L, 3C] -> [B, L, C] bf16."""
+    H, W = size_hw
+    B, L, C3 = qkv.shape
+    C = C3 // 3
+    hd = C // num_heads
+    if H * W != L or C3 != 3 * C or hd * num_heads != C or hd > 128:
+        raise ValueError(f"rel-pos attention off the fused QKV: qkv "
+                         f"{tuple(qkv.shape)}, grid {size_hw}, {num_heads} "
+                         "heads")
+    q = _split_qkv(qkv, num_heads)[0]
+    rh, rw = (t.contiguous() for t in relpos_factors(q, tht, twt, size_hw))
+    out = torch.empty(B, L, C, dtype=torch.bfloat16, device=qkv.device)
+    if out.numel():
+        _launch("anyref_relpos_attention_qkv", qkv.data_ptr(), rh.data_ptr(),
+                rw.data_ptr(), out.data_ptr(), B, L, num_heads, hd, H, W,
+                hd ** -0.5, int(hd % 8 == 0 and _aligned(qkv)), _stream(qkv))
+    return out
+
+
 def fused_window_attn(xw, ln1, qkv_p, tht, twt, proj_p, size_hw,
                       num_heads: int, grid_hw, nwc: int, eps: float):
     """xw [NW, ws*ws, C] window-resident stream -> x + proj(window attention
@@ -695,31 +819,44 @@ def fused_window_attn(xw, ln1, qkv_p, tht, twt, proj_p, size_hw,
     if _on_cpu("fused_window_attn", xw, qkv_p["w"], proj_p["w"]):
         return fused_window_attn_plain(xw, ln1, qkv_p, tht, twt, proj_p,
                                        size_hw, num_heads, grid_hw, nwc, eps)
-    ws = size_hw[0]
-    NW, L, C = xw.shape
-    hd = C // num_heads
-    if size_hw[1] != ws or L != ws * ws or hd * num_heads != C or hd > 128:
-        raise ValueError(f"fused_window_attn: shape {tuple(xw.shape)}, "
-                         f"window {size_hw}, {num_heads} heads")
-    H, W = grid_hw
-    dev = xw.device
+    ws, NW, L, C = _window_args("fused_window_attn", xw, size_hw, num_heads)
     x2 = xw.reshape(NW * L, C).contiguous()
-    wqkv, wproj = qkv_p["w"], proj_p["w"]
-    _gemm_operands("fused_window_attn", x2, wqkv, wproj)
-    ln = (_f32(ln1["scale"], dev), _f32(ln1["bias"], dev))
-    bqkv, bproj = _f32(qkv_p["b"], dev), _f32(proj_p["b"], dev)
-    th, tw = (t.to(torch.bfloat16).contiguous() for t in (tht, twt))
-    attn = torch.empty(NW * L, C, dtype=torch.bfloat16, device=dev)
-    win = (L, -(-H // ws) * nwc, nwc, ws, H, W)
-    with torch.cuda.device(dev):
-        stats = _row_stats(x2, eps)
-        qkv = _gemm(x2, wqkv, bqkv, _E_BIAS, ln=ln, stats=stats, win=win)
-        _launch("anyref_window_attention_qkv", qkv.data_ptr(), th.data_ptr(),
-                tw.data_ptr(), attn.data_ptr(), NW, L, num_heads, hd, ws,
-                hd ** -0.5, int(hd % 8 == 0 and _aligned(th, tw)),
-                _stream(xw))
-        out = _gemm(attn, wproj, bproj, _E_RES, res=x2)
+    _gemm_operands("fused_window_attn", x2, qkv_p["w"], proj_p["w"])
+    with torch.cuda.device(xw.device):
+        attn = _window_attention(x2, ln1, qkv_p, tht, twt, NW, L, num_heads,
+                                 ws, grid_hw, nwc, eps)
+        out = _gemm(attn, proj_p["w"], _f32(proj_p["b"], xw.device), _E_RES,
+                    res=x2)
     fused_window_attn.launches += 1
+    return out.view(NW, L, C)
+
+
+def fused_window_block(xw, ln1, qkv_p, tht, twt, proj_p, ln2, mlp1_p, mlp2_p,
+                       size_hw, num_heads: int, grid_hw, nwc: int,
+                       eps: float):
+    """The whole window layer on the window-resident stream xw [NW, ws*ws,
+    C] -> [NW, ws*ws, C]; arguments as fused_window_attn plus LN2 and the
+    MLP. Seven launches: the four of fused_window_attn with the proj GEMM
+    writing the residual x1 in fp32, then row moments of x1, the fc1 GEMM
+    (LayerNorm prologue on fp32 x1, GELU) and the fc2 GEMM (fp32 residual
+    x1, bf16 out)."""
+    if _on_cpu("fused_window_block", xw, qkv_p["w"], proj_p["w"],
+               mlp1_p["w"], mlp2_p["w"]):
+        return fused_window_block_plain(xw, ln1, qkv_p, tht, twt, proj_p,
+                                        ln2, mlp1_p, mlp2_p, size_hw,
+                                        num_heads, grid_hw, nwc, eps)
+    ws, NW, L, C = _window_args("fused_window_block", xw, size_hw,
+                                num_heads)
+    x2 = xw.reshape(NW * L, C).contiguous()
+    _gemm_operands("fused_window_block", x2, qkv_p["w"], proj_p["w"],
+                   mlp1_p["w"], mlp2_p["w"])
+    with torch.cuda.device(xw.device):
+        attn = _window_attention(x2, ln1, qkv_p, tht, twt, NW, L, num_heads,
+                                 ws, grid_hw, nwc, eps)
+        x1 = _gemm(attn, proj_p["w"], _f32(proj_p["b"], xw.device), _E_RES,
+                   res=x2, out_dtype=torch.float32)
+        out = _mlp_residual(x1, ln2, mlp1_p, mlp2_p, eps)
+    fused_window_block.launches += 1
     return out.view(NW, L, C)
 
 
@@ -729,16 +866,10 @@ def fused_mlp_stream(x, ln2, mlp1_p, mlp2_p, eps: float):
     fc2 GEMM with the residual epilogue."""
     if _on_cpu("fused_mlp_stream", x, mlp1_p["w"], mlp2_p["w"]):
         return fused_mlp_stream_plain(x, ln2, mlp1_p, mlp2_p, eps)
-    dev = x.device
     xc = x.contiguous()
-    w1, w2 = mlp1_p["w"], mlp2_p["w"]
-    _gemm_operands("fused_mlp_stream", xc, w1, w2)
-    ln = (_f32(ln2["scale"], dev), _f32(ln2["bias"], dev))
-    b1, b2 = _f32(mlp1_p["b"], dev), _f32(mlp2_p["b"], dev)
-    with torch.cuda.device(dev):
-        stats = _row_stats(xc, eps)
-        hid = _gemm(xc, w1, b1, _E_GELU, ln=ln, stats=stats)
-        out = _gemm(hid, w2, b2, _E_RES, res=xc)
+    _gemm_operands("fused_mlp_stream", xc, mlp1_p["w"], mlp2_p["w"])
+    with torch.cuda.device(x.device):
+        out = _mlp_residual(xc, ln2, mlp1_p, mlp2_p, eps)
     fused_mlp_stream.launches += 1
     return out
 
@@ -755,35 +886,38 @@ def fused_global_tail(x, qkv, tht, twt, proj_p, ln2, mlp1_p, mlp2_p,
                mlp2_p["w"]):
         return fused_global_tail_plain(x, qkv, tht, twt, proj_p, ln2, mlp1_p,
                                        mlp2_p, size_hw, num_heads, eps)
-    H, W = size_hw
     B, L, C = x.shape
-    hd = C // num_heads
-    if (H * W != L or qkv.shape != (B, L, 3 * C) or hd * num_heads != C
-            or hd > 128):
+    if qkv.shape != (B, L, 3 * C):
         raise ValueError(f"fused_global_tail: x {tuple(x.shape)}, qkv "
-                         f"{tuple(qkv.shape)}, grid {size_hw}, {num_heads} "
-                         "heads")
-    dev = x.device
+                         f"{tuple(qkv.shape)}")
     x2 = x.reshape(B * L, C).contiguous()
-    qkvc = qkv.contiguous()
-    wproj, w1, w2 = proj_p["w"], mlp1_p["w"], mlp2_p["w"]
-    _gemm_operands("fused_global_tail", x2, wproj, w1, w2)
-    ln = (_f32(ln2["scale"], dev), _f32(ln2["bias"], dev))
-    bproj, b1, b2 = (_f32(p["b"], dev) for p in (proj_p, mlp1_p, mlp2_p))
-    q = _split_qkv(qkvc, num_heads)[0]
-    rh, rw = (t.contiguous() for t in relpos_factors(q, tht, twt, size_hw))
-    attn = torch.empty(B * L, C, dtype=torch.bfloat16, device=dev)
-    with torch.cuda.device(dev):
-        _launch("anyref_relpos_attention_qkv", qkvc.data_ptr(), rh.data_ptr(),
-                rw.data_ptr(), attn.data_ptr(), B, L, num_heads, hd, H, W,
-                hd ** -0.5, int(hd % 8 == 0 and _aligned(qkvc)), _stream(x))
-        x1 = _gemm(attn, wproj, bproj, _E_RES, res=x2,
+    _gemm_operands("fused_global_tail", x2, proj_p["w"], mlp1_p["w"],
+                   mlp2_p["w"])
+    with torch.cuda.device(x.device):
+        attn = _relpos_qkv_attention(qkv.contiguous(), tht, twt, size_hw,
+                                     num_heads)
+        x1 = _gemm(attn.view(B * L, C), proj_p["w"],
+                   _f32(proj_p["b"], x.device), _E_RES, res=x2,
                    out_dtype=torch.float32)
-        stats = _row_stats(x1, eps)
-        hid = _gemm(x1, w1, b1, _E_GELU, ln=ln, stats=stats)
-        out = _gemm(hid, w2, b2, _E_RES, res=x1)
+        out = _mlp_residual(x1, ln2, mlp1_p, mlp2_p, eps)
     fused_global_tail.launches += 1
     return out.view(B, L, C)
+
+
+def flash_relpos_attention_qkv(qkv, rel_h_table, rel_w_table, size_hw,
+                               num_heads: int):
+    """SAM window rel-pos attention read off the fused QKV [B, L, 3C]
+    (heads not split), rel_*_table [S, S, hd] -> [B, L, C] with heads
+    merged. The fp32 bias factors are two einsums, as in the reference's
+    wrapper; one launch."""
+    if _on_cpu("flash_relpos_attention_qkv", qkv):
+        return relpos_attention_qkv_plain(qkv, rel_h_table, rel_w_table,
+                                          size_hw, num_heads)
+    with torch.cuda.device(qkv.device):
+        out = _relpos_qkv_attention(qkv.contiguous(), rel_h_table,
+                                    rel_w_table, size_hw, num_heads)
+    flash_relpos_attention_qkv.launches += 1
+    return out
 
 
 def flash_attention_qkv(qkv, num_heads: int, scale=None):
@@ -809,12 +943,68 @@ def flash_attention_qkv(qkv, num_heads: int, scale=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# weight-only int8 matmul (ops/quant.py builds on it)
+# ---------------------------------------------------------------------------
+def int8_matmul_plain(x, w_q, scale):
+    """x [..., K] @ w_q [K, N] int8 in fp32, times scale [N], rounded to x's
+    dtype (the reference's int8_matmul_xla)."""
+    y = torch.matmul(x.float(), w_q.float())
+    return (y * scale.float()).to(x.dtype)
+
+
+def int8_matmul(x, w_q, scale):
+    """x [..., K] bf16, w_q [K, N] int8, scale [N] fp32 -> [..., N] in x's
+    dtype: the fp32 sum of x times the exact bf16 weights, scaled per
+    column once, then rounded. Two launches for at most 16 rows of x
+    (split-K partial sums, then their sum, scale and rounding), one for
+    more (a tensor-core GEMM)."""
+    dev = x.device
+    if w_q.device != dev or scale.device != dev:
+        raise ValueError("int8_matmul: inputs on different devices")
+    if dev.type == "cpu":
+        return int8_matmul_plain(x, w_q, scale)
+    if dev.type != "cuda":
+        raise ValueError(f"int8_matmul: no kernel for device {dev}")
+    if (x.dtype, w_q.dtype, scale.dtype) != (torch.bfloat16, torch.int8,
+                                            torch.float32):
+        raise TypeError(f"int8_matmul: the CUDA kernel takes bf16 x, int8 "
+                        f"w_q and fp32 scale, got {x.dtype}, {w_q.dtype}, "
+                        f"{scale.dtype}")
+    K, N = w_q.shape
+    x2 = x.reshape(-1, K).contiguous()
+    sc = scale.contiguous()
+    if (x.shape[-1] != K or tuple(sc.shape) != (N,) or K % 8 or N % 8
+            or not w_q.is_contiguous() or not _aligned(x2, w_q)):
+        raise ValueError(f"int8_matmul: the kernel takes K and N multiples "
+                         f"of 8, contiguous 16-byte aligned x and w_q and "
+                         f"scale [N], got {tuple(x.shape)} x "
+                         f"{tuple(w_q.shape)}, scale {tuple(scale.shape)}")
+    M = x2.shape[0]
+    out = torch.empty(M, N, dtype=torch.bfloat16, device=dev)
+    if M:
+        nbytes = _library().anyref_int8_matmul_workspace(M, N, K)
+        ws = (torch.empty(nbytes // 4, dtype=torch.float32, device=dev)
+              if nbytes else None)
+        with torch.cuda.device(dev):
+            _launch("anyref_int8_matmul", x2.data_ptr(), w_q.data_ptr(),
+                    sc.data_ptr(), out.data_ptr(),
+                    None if ws is None else ws.data_ptr(), M, N, K,
+                    _stream(x))
+        int8_matmul.launches += 1
+    return out.reshape(*x.shape[:-1], N)
+
+
 fused_window_attn.launches = 0
+fused_window_block.launches = 0
 fused_mlp_stream.launches = 0
 fused_global_tail.launches = 0
+flash_relpos_attention_qkv.launches = 0
 flash_attention_qkv.launches = 0
+int8_matmul.launches = 0
 
 KERNELS = (layer_norm_fused, rms_norm_fused, flash_relpos_attention,
            flash_causal_attention, fused_window_attn, fused_mlp_stream,
            fused_global_tail, flash_attention_qkv,
-           flash_causal_attention_diff)
+           flash_causal_attention_diff, flash_relpos_attention_qkv,
+           fused_window_block, int8_matmul)

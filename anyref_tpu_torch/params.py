@@ -36,12 +36,16 @@ def _to_tensor(a, device) -> torch.Tensor:
 
 def from_numpy(tree, device="cuda"):
     """Map a param tree of numpy arrays (e.g. ``jax.device_get`` of the JAX
-    tree) one-for-one onto tensors on ``device``."""
+    tree) one-for-one onto tensors on ``device``, dtypes kept (int8 weights
+    of a quantized decoder included); a None leaf (the quantized tree's
+    ``lm_head``) stays None."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: from_numpy(v, dev) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [from_numpy(v, dev) for v in tree]
+    if tree is None:
+        return None
     return _to_tensor(tree, dev)
 
 

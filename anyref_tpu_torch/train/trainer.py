@@ -54,10 +54,10 @@ class Trainer:
                  device="cuda"):
         check_encoder_path(tc.encoder_path)
         dev = resolve_device(device)
-        if params["llama"]["lm_head"].device.type != dev.type:
-            raise ValueError(f"params live on "
-                             f"{params['llama']['lm_head'].device}, the "
-                             f"Trainer was asked to run on {dev}")
+        p_dev = params["llama"]["embed_tokens"].device
+        if p_dev.type != dev.type:
+            raise ValueError(f"params live on {p_dev}, the Trainer was "
+                             f"asked to run on {dev}")
         if dataset is None:
             raise NotImplementedError("building the reference's datasets is "
                                       "not part of the port yet; pass one")

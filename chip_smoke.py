@@ -4,29 +4,37 @@
 
 Phases (any failure exits non-zero before the result line):
   1. print the card's name and power limit; build the CUDA kernels from
-     anyref_tpu_torch/csrc with nvcc (sm_90a, one process per source) and
-     print each kernel's ptxas registers and spills;
-  2. hold each of the nine kernels against its plain PyTorch version on
+     anyref_tpu_torch/csrc with nvcc (sm_90a, one process per source, all
+     started together) and print each kernel's ptxas registers and spills;
+  2. hold each of the twelve kernels against its plain PyTorch version on
      the card, in bf16, at the shapes the main path gives it (batch 2 at
      anyref_7b) and at one small odd shape, and time kernel, plain version
      and one library call (CUDA events, L2 flushed before every launch,
-     median); for the three fused SAM layers, where no one library call
+     median); for the four fused SAM layers, where no one library call
      computes the function, time instead the unfused chain of the same
-     layer (the rel-pos / LayerNorm kernels plus cuBLAS matmuls); for the
-     training attention, its forward (O and LSE) and its backward (dq, dk,
-     dv), against SDPA's forward and forward plus backward;
+     layer (the rel-pos / LayerNorm kernels plus cuBLAS matmuls), and for
+     fused_window_block also the split pair fused_window_attn +
+     fused_mlp_stream; for int8_matmul, torch.matmul by the bf16 weight it
+     was quantised from; for the training attention, its forward (O and
+     LSE) and its backward (dq, dk, dv), against SDPA's forward and forward
+     plus backward;
   3. check the slice on the card against the same weights and inputs on the
-     CPU (whose plain versions the CPU tests hold against the JAX package),
-     on both encoder paths: "unfused" at anyref_tiny(), "fused" at
-     anyref_tiny() with a 512-pixel SAM image and windows of 8, where both
-     fused SAM gates open; and one train step's losses and gradients at
-     anyref_tiny();
-  4. for each encoder path, "fused" (the default) then "unfused": serve 4
-     text requests at anyref_7b width and depth (random weights from a
-     seed) through Server -> Predictor -> generate with speculative decode,
-     max_batch 2, and check every answer and each kernel's launch count on
-     that path; then serve them again, warm, under torch.profiler for the
-     wall time, the device's busy share and the top kernels;
+     CPU (whose plain versions the CPU tests hold against the JAX package):
+     "unfused" and "unfused_qkv" at anyref_tiny(), "fused" and "fused_block"
+     at anyref_tiny() with a 512-pixel SAM image and windows of 8, where
+     both fused SAM gates open, the int8 decoder at anyref_tiny(); and one
+     train step's losses and gradients at anyref_tiny();
+  4. for each encoder path, "fused" (the default), "fused_block",
+     "unfused_qkv" and "unfused": serve 4 text requests at anyref_7b width
+     and depth (random weights from a seed) through Server -> Predictor ->
+     generate with speculative decode, max_batch 2, and check every answer
+     and each kernel's launch count on that path; then serve them again,
+     warm, under torch.profiler for the wall time, the device's busy share
+     and the top kernels. Then the int8 decoder: time a greedy decode step
+     on the bf16 decoder, quantize_llama the same weights on the card, free
+     the bf16 decoder, time the step again, and serve the 4 requests greedy
+     (Server(speculative=False)) on the default path, answers, launch
+     counts (int8_matmul per decoder pass) and peak memory checked;
   5. train LoRA at anyref_7b (random bf16 weights from a seed) with the
      Trainer: 8 synthetic samples, batch 2, 2 micro-steps per step, 3
      steps, per-layer checkpointing, the fused encoder path; check the
@@ -50,9 +58,9 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # bf16 tolerance of a kernel against its plain version: |a - b| <= ATOL +
-# RTOL * |b|. One bf16 ulp is 2^-8 relative (0.4%); the kernels round P to
-# bf16 at a different running max than the plain version, and sum in
-# another order.
+# RTOL * |b|, and a relative L2 error of at most DIFF_REL_L2 (below). One
+# bf16 ulp is 2^-8 relative (0.4%); the kernels round P to bf16 at a
+# different running max than the plain version, and sum in another order.
 ATOL = RTOL = 2e-2
 # The training attention against its plain versions, per output: |a - b| <=
 # DIFF_ATOL_RMS * rms(b) + RTOL * |b| element by element, and a relative L2
@@ -165,6 +173,10 @@ def check_kernels(torch, F, flash, port):
             torch.bfloat16)
 
     def compare(name, got, want):
+        """-> (max abs err, relative L2 err): every element within ATOL +
+        RTOL |plain|, and the whole within DIFF_REL_L2 of the plain
+        version's norm, so that outputs much smaller than ATOL (attention
+        averages) are held to their own size too."""
         torch.cuda.synchronize()
         got, want = got.float(), want.float()
         if got.shape != want.shape:
@@ -173,10 +185,13 @@ def check_kernels(torch, F, flash, port):
         if not bool(torch.isfinite(got).all()):
             fail(f"{name}: non-finite kernel output")
         err = (got - want).abs()
-        if not bool((err <= ATOL + RTOL * want.abs()).all()):
+        rel_l2 = float(err.norm() / want.norm().clamp_min(1e-30))
+        if not bool((err <= ATOL + RTOL * want.abs()).all()) or \
+                rel_l2 > DIFF_REL_L2:
             fail(f"{name}: kernel disagrees with its plain version, max abs "
-                 f"err {err.max().item()}")
-        return float(err.max().item())
+                 f"err {err.max().item()}, relative L2 err {rel_l2:.4g} "
+                 f"(limit {DIFF_REL_L2})")
+        return float(err.max().item()), rel_l2
 
     def compare_scaled(name, got, want, term_tol=None):
         """-> (max abs err, relative L2 err) under diff_errors' limits."""
@@ -197,23 +212,28 @@ def check_kernels(torch, F, flash, port):
     results = {}
 
     def run_case(kname, shape_desc, kernel, plain, library, nbytes, ops,
-                 ops_rate, iters=10, plain_iters=5, unfused=None):
+                 ops_rate, iters=10, plain_iters=5, others=None):
         """library: one PyTorch call computing the same function, or None;
-        unfused: the unfused chain of the same SAM layer half, timed where
-        there is no library call."""
-        err = compare(f"{kname} {shape_desc}", kernel(), plain())
-        row = {"shape": shape_desc, "max_abs_err": err,
+        others: {name: fn} of other chains timed beside it as <name>_ms
+        (for the fused SAM layers, where there is no library call, the
+        unfused chain of the same layer, and for fused_window_block the
+        split pair)."""
+        err, rel_l2 = compare(f"{kname} {shape_desc}", kernel(), plain())
+        row = {"shape": shape_desc, "max_abs_err": err, "rel_l2_err": rel_l2,
                "ms": timer.ms(kernel, iters),
                "plain_ms": timer.ms(plain, plain_iters),
                "library_ms": None if library is None else
                timer.ms(library, iters)}
-        if unfused is not None:
-            row["unfused_ms"] = timer.ms(unfused, iters)
+        for name, fn in (others or {}).items():
+            row[f"{name}_ms"] = timer.ms(fn, iters)
         row["bound_ms"], row["bound_by"] = bound(nbytes, ops, ops_rate)
-        other = (f"library {row['library_ms']:.4f} ms" if library else
-                 f"unfused chain {row['unfused_ms']:.4f} ms")
-        log(f"[kernel] {kname} {shape_desc}: max_abs_err {err} kernel "
-            f"{row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms {other} "
+        other = "".join(f" {name} {row[f'{name}_ms']:.4f} ms"
+                        for name in (others or {}))
+        lib = ("" if library is None else
+               f" library {row['library_ms']:.4f} ms")
+        log(f"[kernel] {kname} {shape_desc}: max_abs_err {err} relative L2 "
+            f"err {rel_l2:.3g} kernel "
+            f"{row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms{lib}{other} "
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
         results.setdefault(kname, []).append(row)
 
@@ -273,6 +293,7 @@ def check_kernels(torch, F, flash, port):
     check_causal_diff_wrapper(torch, F, flash, port["attention"], rnd,
                               compare_scaled)
     check_fused_kernels(torch, F, flash, port, rnd, run_case)
+    check_relpos_qkv_and_int8(torch, F, flash, port["quant"], rnd, run_case)
     del timer
     torch.cuda.empty_cache()
     return results
@@ -465,8 +486,9 @@ def check_fused_kernels(torch, F, flash, port, rnd, run_case):
     def nbytes(*tensors):
         return sum(t.numel() * t.element_size() for t in tensors)
 
-    # fused_window_attn / fused_mlp_stream: 7B windows, then C 128 (4 heads
-    # of 32) with windows of 8 on a 20 x 20 grid (edge windows overhang)
+    # fused_window_attn / fused_mlp_stream / fused_window_block: 7B
+    # windows, then C 128 (4 heads of 32) with windows of 8 on a 20 x 20
+    # grid (edge windows overhang)
     for B, C, nh, ws, G in ((2, 1280, 16, 14, 64), (2, 128, 4, 8, 20)):
         hd = C // nh
         p = {"norm1": ln(C), "norm2": ln(C),
@@ -498,7 +520,8 @@ def check_fused_kernels(torch, F, flash, port, rnd, run_case):
                         tht, twt) + M * C * 2,
                  gemm_ops(M, (C, 3 * C), (C, C))
                  + NW * nh * (4 * L * L * hd + 2 * L * 2 * ws * hd),
-                 H100_BF16_OPS_PER_S, plain_iters=3, unfused=unfused_attn)
+                 H100_BF16_OPS_PER_S, plain_iters=3,
+                 others={"unfused": unfused_attn})
         xf = xw.reshape(M, C) if C == 1280 else rnd(700, C)
         mlp = (xf, p["norm2"], p["mlp"]["lin1"], p["mlp"]["lin2"], eps)
 
@@ -513,8 +536,35 @@ def check_fused_kernels(torch, F, flash, port, rnd, run_case):
                  nbytes(xf, p["mlp"]["lin1"]["w"], p["mlp"]["lin2"]["w"])
                  + xf.numel() * 2,
                  gemm_ops(xf.shape[0], (C, 4 * C), (4 * C, C)),
-                 H100_BF16_OPS_PER_S, plain_iters=3, unfused=unfused_mlp)
-        del xw4, mask, xw, xf, mlp, args, p
+                 H100_BF16_OPS_PER_S, plain_iters=3,
+                 others={"unfused": unfused_mlp})
+        blk = (xw, p["norm1"], p["attn"]["qkv"], tht, twt, p["attn"]["proj"],
+               p["norm2"], p["mlp"]["lin1"], p["mlp"]["lin2"], (ws, ws), nh,
+               (G, G), nwc, eps)
+
+        def split_pair():
+            x1 = flash.fused_window_attn(*args)
+            return flash.fused_mlp_stream(x1.reshape(M, C), p["norm2"],
+                                          p["mlp"]["lin1"], p["mlp"]["lin2"],
+                                          eps)
+
+        def unfused_block():
+            x1 = unfused_attn()
+            h = common.layer_norm(p["norm2"], x1, eps, fused=True)
+            return x1 + common.linear(p["mlp"]["lin2"], common.gelu(
+                common.linear(p["mlp"]["lin1"], h)))
+
+        run_case("fused_window_block", f"{NW}x{L}x{C}",
+                 lambda: flash.fused_window_block(*blk),
+                 lambda: flash.fused_window_block_plain(*blk), None,
+                 nbytes(xw, p["attn"]["qkv"]["w"], p["attn"]["proj"]["w"],
+                        p["mlp"]["lin1"]["w"], p["mlp"]["lin2"]["w"], tht,
+                        twt) + M * C * 2,
+                 gemm_ops(M, (C, 3 * C), (C, C), (C, 4 * C), (4 * C, C))
+                 + NW * nh * (4 * L * L * hd + 2 * L * 2 * ws * hd),
+                 H100_BF16_OPS_PER_S, plain_iters=2,
+                 others={"split_pair": split_pair, "unfused": unfused_block})
+        del xw4, mask, xw, xf, mlp, args, blk, p
 
     # fused_global_tail: the 7B global layer, then a 16 x 64 grid of 2
     # heads of 32
@@ -544,7 +594,8 @@ def check_fused_kernels(torch, F, flash, port, rnd, run_case):
                         p["lin2"]["w"], tht, twt) + x.numel() * 2,
                  B * nh * (4 * L * L * hd + 2 * L * (H + W) * hd)
                  + gemm_ops(B * L, (C, C), (C, 4 * C), (4 * C, C)),
-                 H100_BF16_OPS_PER_S, plain_iters=2, unfused=unfused_tail)
+                 H100_BF16_OPS_PER_S, plain_iters=2,
+                 others={"unfused": unfused_tail})
         del x, qkv, args, p
 
     # flash_attention_qkv: CLIP-L at batch 2, then L 77 with 4 heads of 36
@@ -562,12 +613,62 @@ def check_fused_kernels(torch, F, flash, port, rnd, run_case):
                  H100_BF16_OPS_PER_S)
 
 
+def check_relpos_qkv_and_int8(torch, F, flash, quant, rnd, run_case):
+    """flash_relpos_attention_qkv at SAM-H's windows ([50, 196, 3840], 16
+    heads of 80) and at 3 windows of 9 x 9 with 2 heads of 36 (unvectorised
+    loads); int8_matmul at the 7B decoder's shapes (a decode step at batch
+    2, the lm_head, a prefill of 2 x 640 rows) and at one odd shape, against
+    torch.matmul by the bf16 weight it was quantised from."""
+    for B, S, nh, hd in ((50, 14, 16, 80), (3, 9, 2, 36)):
+        C, L = nh * hd, S * S
+        qkv = rnd(B, L, 3 * C)
+        th, tw = rnd(S, S, hd, scale=0.1), rnd(S, S, hd, scale=0.1)
+        q, k, v = (qkv[..., i * C:(i + 1) * C].view(B, L, nh, hd)
+                   .transpose(1, 2) for i in range(3))
+        rh, rw = flash.relpos_factors(q, th, tw, (S, S))
+        bias = (rh[..., :, None] + rw[..., None, :]).reshape(
+            B, nh, L, L).to(torch.bfloat16)
+        run_case("flash_relpos_attention_qkv", f"{B}x{L}x{3 * C}",
+                 lambda: flash.flash_relpos_attention_qkv(qkv, th, tw, (S, S),
+                                                          nh),
+                 lambda: flash.relpos_attention_qkv_plain(qkv, th, tw, (S, S),
+                                                          nh),
+                 lambda: F.scaled_dot_product_attention(q, k, v,
+                                                        attn_mask=bias),
+                 B * L * 4 * C * 2 + 2 * S * S * hd * 2,
+                 B * nh * (4 * L * L * hd + 2 * L * 2 * S * hd),
+                 H100_BF16_OPS_PER_S, plain_iters=3)
+        del qkv, q, k, v, rh, rw, bias
+    vocab = 32128   # anyref_7b's padded vocabulary
+    for M, K, N in ((2, 4096, 4096), (2, 4096, 11008), (2, 11008, 4096),
+                    (2, 4096, vocab), (1280, 4096, 4096),
+                    (1280, 4096, 11008), (3, 264, 200)):
+        x = rnd(M, K)
+        w = rnd(K, N, scale=K ** -0.5)
+        wq = quant.quantize_int8(w)
+        run_case("int8_matmul", f"{M}x{K}x{N}",
+                 lambda: flash.int8_matmul(x, wq["w_q"], wq["scale"]),
+                 lambda: flash.int8_matmul_plain(x, wq["w_q"], wq["scale"]),
+                 lambda: torch.matmul(x, w),
+                 M * K * 2 + K * N + N * 4 + M * N * 2, 2 * M * N * K,
+                 H100_BF16_OPS_PER_S, iters=20, plain_iters=3)
+        del x, w, wq
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the tiny slice on the card against the CPU
 # ---------------------------------------------------------------------------
-def check_tiny_slice(torch, cfg, encoder_path, tparams, anyref_mod):
+def check_tiny_slice(torch, cfg, encoder_path, tparams, anyref_mod,
+                     quant=None, flash=None):
+    """Greedy generate on the card and on the CPU from the same weights;
+    with ``quant``, on the int8 decoder (quantize_llama on the CPU), which
+    must have launched int8_matmul (prefill rows > 16, decode rows 2: both
+    of its bodies)."""
     p_cpu = tparams.init(cfg, torch.Generator().manual_seed(0),
                          torch.bfloat16, device="cpu")
+    if quant is not None:
+        p_cpu["llama"] = quant.quantize_llama(p_cpu["llama"])
+        n0 = flash.int8_matmul.launches
     p_gpu = _to_device(p_cpu, "cuda")
     rng = np.random.default_rng(0)
     ids = np.zeros((2, 257), np.int64)
@@ -591,10 +692,13 @@ def check_tiny_slice(torch, cfg, encoder_path, tparams, anyref_mod):
         fail("tiny slice: masks of the wrong shape or not finite")
     rel = float((m_got - m_want).abs().max() / m_want.abs().max())
     same = int((got.output_ids.cpu() == want.output_ids).sum())
+    decoder = "int8 decoder" if quant is not None else "bf16"
     log(f"[slice-tiny] {encoder_path} path, SAM {cfg.sam.image_size} px, "
-        f"windows of {cfg.sam.window_size}, bf16, card vs CPU: mask max rel "
-        f"err {rel:.4g} (limit {SLICE_REL_TOL}), ids equal {same}/"
+        f"windows of {cfg.sam.window_size}, {decoder}, card vs CPU: mask max "
+        f"rel err {rel:.4g} (limit {SLICE_REL_TOL}), ids equal {same}/"
         f"{want.output_ids.numel()}")
+    if quant is not None and flash.int8_matmul.launches == n0:
+        fail("tiny slice, int8 decoder: int8_matmul was never launched")
     if rel > SLICE_REL_TOL:
         fail(f"tiny slice ({encoder_path}) on the card disagrees with the "
              f"CPU: {rel}")
@@ -671,6 +775,8 @@ def check_tiny_train(torch, cfg, mods):
 
 
 def _to_device(tree, device):
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
@@ -749,7 +855,9 @@ def train_7b(torch, flash, mods):
                  "layer_norm_fused": n_global,
                  "flash_attention_qkv": c.num_layers + c.select_layer + 1,
                  "flash_relpos_attention": 0, "rms_norm_fused": 0,
-                 "flash_causal_attention": 0}
+                 "flash_causal_attention": 0,
+                 "flash_relpos_attention_qkv": 0, "fused_window_block": 0,
+                 "int8_matmul": 0}
     for name, n in per_micro.items():
         if launches[name] != n * micro:
             fail(f"{name}: {launches[name]} launches in training, want {n} "
@@ -811,9 +919,13 @@ def train_7b(torch, flash, mods):
 # ---------------------------------------------------------------------------
 # phase 4: the main path at anyref_7b
 # ---------------------------------------------------------------------------
+PATHS = ("fused", "fused_block", "unfused_qkv", "unfused")
+
+
 def serve_7b(torch, flash, mods):
-    """Both encoder paths at anyref_7b on one set of weights; returns the
-    launch counts of each path's counted run."""
+    """The four encoder paths at anyref_7b on one set of weights, then the
+    int8 decoder quantised from the same weights; returns the launch counts
+    of each counted run ("int8" for the last)."""
     cfg = mods["anyref_7b"]()
     t0 = time.time()
     params = mods["tparams"].init(
@@ -835,38 +947,141 @@ def serve_7b(torch, flash, mods):
     if not all(257 < n <= 385 for n in lens):
         fail(f"prompt lengths {lens} miss the 385 bucket")
 
+    # before any profiler session: the wall of a bf16 decode step
+    wall, busy, n, _ = decode_step_ms(torch, mods["llama"], params["llama"],
+                                      cfg)
+    log(f"[slice] greedy decode step (batch 2, 656-slot cache, lm_head, "
+        f"argmax), bf16 decoder, before any other profiler session: "
+        f"{wall:.4f} ms wall back to back, {busy:.4f} ms of kernels, {n:.0f} "
+        f"kernels a step")
+
     rng = np.random.default_rng(0)
     images = [rng.integers(0, 256, (h, w, 3), np.uint8)
               for h, w in IMAGE_SIZES]
     s, l, c = cfg.sam, cfg.llama, cfg.clip
     n_global = len(s.encoder_global_attn_indexes)
+    n_window = s.encoder_depth - n_global
+    n_clip = c.num_layers + c.select_layer + 1
+    zero = {k.__name__: 0 for k in flash.KERNELS}
+    decoder = dict(rms_norm_fused=2 * l.num_layers,
+                   flash_causal_attention=l.num_layers)
+    fused_global = dict(fused_global_tail=n_global, layer_norm_fused=n_global,
+                        flash_attention_qkv=n_clip)
     per_batch = {
-        "fused": {"fused_window_attn": s.encoder_depth - n_global,
-                  "fused_mlp_stream": s.encoder_depth - n_global,
-                  "fused_global_tail": n_global,
-                  "layer_norm_fused": n_global,
-                  "flash_attention_qkv": c.num_layers + c.select_layer + 1,
-                  "flash_relpos_attention": 0},
-        "unfused": {"layer_norm_fused": 2 * s.encoder_depth,
-                    "flash_relpos_attention": s.encoder_depth,
-                    "fused_window_attn": 0, "fused_mlp_stream": 0,
-                    "fused_global_tail": 0, "flash_attention_qkv": 0},
+        "fused": dict(zero, **decoder, **fused_global,
+                      fused_window_attn=n_window, fused_mlp_stream=n_window),
+        "fused_block": dict(zero, **decoder, **fused_global,
+                            fused_window_block=n_window),
+        "unfused_qkv": dict(zero, **decoder,
+                            layer_norm_fused=2 * s.encoder_depth,
+                            flash_relpos_attention_qkv=n_window,
+                            flash_relpos_attention=n_global,
+                            flash_attention_qkv=n_clip),
+        "unfused": dict(zero, **decoder,
+                        layer_norm_fused=2 * s.encoder_depth,
+                        flash_relpos_attention=s.encoder_depth),
     }
     launches = {}
-    for path in ("fused", "unfused"):
-        want = dict(per_batch[path], rms_norm_fused=2 * l.num_layers,
-                    flash_causal_attention=l.num_layers)
-        launches[path] = serve_path(torch, flash, mods, params, cfg, path,
-                                    images, want)
+    for path in PATHS:
+        server = mods["Server"](params, cfg, max_batch=2, speculative=True,
+                                max_new_tokens=8, encoder_path=path)
+        launches[path] = serve_path(torch, flash, mods, server, path, images,
+                                    per_batch[path])
+    launches["int8"] = serve_int8(torch, flash, mods, params, cfg, images,
+                                  dict(per_batch["fused"]))
     return launches
 
 
-def serve_path(torch, flash, mods, params, cfg, path, images, per_batch):
-    """Serve the 4 requests on one encoder path: counted run (every answer
-    and every kernel's launch count checked), then a warm run under the
-    profiler."""
-    server = mods["Server"](params, cfg, max_batch=2, speculative=True,
-                            max_new_tokens=8, encoder_path=path)
+def decode_step_ms(torch, llama, lp, cfg, iters: int = 10):
+    """One greedy decode step (decoder at batch 2 over a 656-slot cache,
+    lm_head, argmax) on decoder tree ``lp`` -> (wall ms, device-busy ms,
+    kernels per step, the 5 kernels that take most of it as (name, ms per
+    step)). Wall: CUDA events around ``iters`` steps back to back, over
+    ``iters``. Busy: the summed kernel time of 3 steps under
+    torch.profiler, over 3 (the step's device time whatever the host
+    does)."""
+    from torch.profiler import ProfilerActivity, profile
+    B, L = 2, 640
+    cache = llama.init_cache(cfg.llama, B, L + 16)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    emb = (torch.randn(B, 1, cfg.llama.hidden_size, generator=g,
+                       device="cuda") * 0.02).to(torch.bfloat16)
+    pad = torch.tensor([0, 200], device="cuda")
+
+    def step():
+        h, _ = llama.decode_step(lp, cfg.llama, emb, L, cache, pad_len=pad)
+        return llama.logits(lp, h[:, 0]).argmax(-1)
+
+    with torch.inference_mode():
+        step()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(iters):
+            step()
+        b.record()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                step()
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return (a.elapsed_time(b) / iters, sum(by_name.values()) / 1e3 / 3,
+            len(kernels) / 3, [(n[:80], us / 1e3 / 3) for n, us in top])
+
+
+def serve_int8(torch, flash, mods, params, cfg, images, per_batch):
+    """The int8 decoder: a decode step timed on the bf16 decoder, then
+    quantize_llama of the same weights on the card (after the [SEG] column
+    scaling, which the column's scale absorbs), the bf16 decoder freed, the
+    step timed again, and the 4 requests served greedy (Server(speculative=
+    False)) on the default encoder path, every answer and launch count
+    checked: int8_matmul 224 products per decoder pass (7 per layer) plus
+    one lm_head call per pass."""
+    llama, quant = mods["llama"], mods["quant"]
+    steps = {"bf16": decode_step_ms(torch, llama, params["llama"], cfg)}
+    t0 = time.time()
+    params["llama"] = quant.quantize_llama(params["llama"])
+    torch.cuda.synchronize()
+    q_s = time.time() - t0
+    torch.cuda.empty_cache()
+    steps["int8"] = decode_step_ms(torch, llama, params["llama"], cfg)
+    log(f"[slice int8] quantize_llama(anyref_7b decoder) on the card "
+        f"{q_s:.2f} s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated after freeing the bf16 decoder")
+    for name, (wall, busy, n, top) in steps.items():
+        log(f"[slice int8] greedy decode step (batch 2, 656-slot cache, "
+            f"lm_head, argmax), {name} decoder: {wall:.4f} ms wall back to "
+            f"back, {busy:.4f} ms of kernels, {n:.0f} kernels a step")
+        for kname, ms in top:
+            log(f"[slice int8]   {name} step {ms:8.4f} ms  {kname}")
+    torch.cuda.reset_peak_memory_stats()
+    server = mods["Server"](params, cfg, max_batch=2, speculative=False,
+                            max_new_tokens=8)
+    layer = params["llama"]["layers"][0]
+    per_layer = sum("w_q" in p for part in ("attn", "mlp")
+                    for p in layer[part].values())
+    launches = serve_path(torch, flash, mods, server, "int8", images,
+                          per_batch, int8_per_pass=per_layer *
+                          cfg.llama.num_layers + 1)
+    log(f"[slice int8] peak memory allocated while serving "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches
+
+
+def serve_path(torch, flash, mods, server, path, images, per_batch,
+               int8_per_pass=None):
+    """Serve the 4 requests on one server: counted run (every answer and
+    every kernel's launch count checked), then a warm run under the
+    profiler. ``int8_per_pass``: int8_matmul launches per decoder pass
+    (prefill or decode step), whose count follows the passes."""
     for kernel in flash.KERNELS:
         kernel.launches = 0
     t0 = time.time()
@@ -899,16 +1114,21 @@ def serve_path(torch, flash, mods, params, cfg, path, images, per_batch):
             f"{int(r['mask'].sum())}")
 
     n_batches = stats["batches"]
-    for name, n in per_batch.items():
-        if launches[name] != n * n_batches or (n and not launches[name]):
+    want = {name: n * n_batches for name, n in per_batch.items()}
+    if int8_per_pass is not None:
+        # one decoder pass for each prefill and each greedy decode step
+        want["int8_matmul"] = int8_per_pass * (n_batches + passes)
+    for name, n in want.items():
+        if launches[name] != n or (per_batch.get(name) and not n):
             fail(f"{name}: {launches[name]} launches on the {path} path, "
-                 f"want {n} per batch x {n_batches} batches")
+                 f"want {n} ({per_batch.get(name)} per batch x {n_batches} "
+                 f"batches)")
     log(f"[slice {path}] anyref_7b, 4 requests in {n_batches} batches "
         f"({stats['rows']} rows), {wall:.2f} s wall -> "
         f"{len(TEXTS) / wall:.3f} q/s (first run, nothing warmed but the "
         f"kernels); decode passes {passes}")
-    log(f"[slice {path}] kernel launches {json.dumps(launches)} (per batch "
-        f"{json.dumps(per_batch)})")
+    log(f"[slice {path}] kernel launches {json.dumps(launches)} (want "
+        f"{json.dumps(want)})")
     log(f"[slice {path}] Server.stats {json.dumps(stats)}")
     log(f"[slice-warm {path}] the same 4 requests again under torch.profiler: "
         f"{warm['wall_s']:.3f} s wall -> {len(TEXTS) / warm['wall_s']:.3f} q/s; "
@@ -973,8 +1193,9 @@ def main() -> int:
         from anyref_tpu_torch.data.base import SegDataset
         from anyref_tpu_torch.data.collator import Collator
         from anyref_tpu_torch.models import anyref as anyref_mod
+        from anyref_tpu_torch.models import llama
         from anyref_tpu_torch.models.sam import image_encoder
-        from anyref_tpu_torch.ops import attention, common, flash
+        from anyref_tpu_torch.ops import attention, common, flash, quant
         from anyref_tpu_torch.serve import Request, Server
         from anyref_tpu_torch.tokenizer import (AnyRefTokenizer, seg_answer,
                                                 seg_question,
@@ -1006,22 +1227,28 @@ def main() -> int:
     # phase 2
     results = check_kernels(torch, F, flash, {"image_encoder": image_encoder,
                                               "common": common,
-                                              "attention": attention})
+                                              "attention": attention,
+                                              "quant": quant})
     mods = {"anyref_7b": anyref_7b, "tparams": tparams, "Server": Server,
             "Request": Request, "AnyRefTokenizer": AnyRefTokenizer,
             "seg_question": seg_question, "seg_answer": seg_answer,
             "tokenize_prompt": tokenize_prompt,
             "tokenize_conversation": tokenize_conversation,
             "SegDataset": SegDataset, "Collator": Collator, "lora": lora,
-            "step": step, "TrainConfig": TrainConfig, "Trainer": Trainer}
-    # phase 3: the unfused path at anyref_tiny, the fused one where both
-    # fused SAM gates open (64 <= ws^2 and a 32 x 32 global grid), and one
-    # train step
+            "step": step, "TrainConfig": TrainConfig, "Trainer": Trainer,
+            "llama": llama, "quant": quant}
+    # phase 3: "unfused" and "unfused_qkv" at anyref_tiny, "fused" and
+    # "fused_block" where both fused SAM gates open (64 <= ws^2 and a 32 x
+    # 32 global grid), the int8 decoder at anyref_tiny, and one train step
     tiny = anyref_tiny()
+    tiny512 = dataclasses.replace(tiny, sam=dataclasses.replace(
+        tiny.sam, image_size=512, window_size=8))
     check_tiny_slice(torch, tiny, "unfused", tparams, anyref_mod)
-    check_tiny_slice(torch, dataclasses.replace(tiny, sam=dataclasses.replace(
-        tiny.sam, image_size=512, window_size=8)), "fused", tparams,
-        anyref_mod)
+    check_tiny_slice(torch, tiny512, "fused", tparams, anyref_mod)
+    check_tiny_slice(torch, tiny, "unfused_qkv", tparams, anyref_mod)
+    check_tiny_slice(torch, tiny512, "fused_block", tparams, anyref_mod)
+    check_tiny_slice(torch, tiny, "fused", tparams, anyref_mod, quant=quant,
+                     flash=flash)
     check_tiny_train(torch, tiny, mods)
     # phase 4
     launches = serve_7b(torch, flash, mods)
@@ -1047,7 +1274,19 @@ def main() -> int:
                               "anyref_tpu/ops/flash.py:1226"),
         "flash_attention_qkv": ("anyref_tpu_torch/csrc/qkv_attention.cu",
                                 "anyref_tpu/ops/flash.py:1395"),
+        "fused_window_block": ("anyref_tpu_torch/csrc/fused_layers.cu",
+                               "anyref_tpu/ops/flash.py:855"),
+        "flash_relpos_attention_qkv": (
+            "anyref_tpu_torch/csrc/qkv_attention.cu",
+            "anyref_tpu/ops/flash.py:1336"),
+        "int8_matmul": ("anyref_tpu_torch/csrc/int8_matmul.cu",
+                        "anyref_tpu/ops/quant.py:73"),
     }
+    # the run of the path each kernel serves ("fused", the default, for the
+    # rest)
+    own_path = {"flash_relpos_attention": "unfused",
+                "flash_relpos_attention_qkv": "unfused_qkv",
+                "fused_window_block": "fused_block", "int8_matmul": "int8"}
     kernels = []
     diff = results["flash_causal_attention_diff"]
     kernels.append({
@@ -1076,18 +1315,16 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
-            # the count of the encoder path the kernel serves: the fused
-            # one (the default) for all but the unfused path's rel-pos
-            # attention
-            "launches": by_path["unfused" if name == "flash_relpos_attention"
-                                else "fused"],
+            "launches": by_path[own_path.get(name, "fused")],
             "launches_by_path": by_path,
             "shape": head["shape"],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "rel_l2_err": max(r["rel_l2_err"] for r in rows),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
             "unfused_ms": head.get("unfused_ms"),
+            "split_pair_ms": head.get("split_pair_ms"),
             "other_shapes": rows[1:],
         })
     log(f"[card] {card}")

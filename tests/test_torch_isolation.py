@@ -1,7 +1,8 @@
-"""The port stands alone: importing it loads neither JAX (nor optax or
-orbax) nor the JAX package, its sources (and chip_smoke.py) import none of
-them, a train step loads none of them either, and its entry points refuse to
-carry on on the CPU when no device was named and no GPU exists."""
+"""The port stands alone: importing it (ops/quant.py included) loads neither
+JAX (nor optax or orbax) nor the JAX package, its sources (and
+chip_smoke.py) import none of them, a train step loads none of them either,
+and its entry points refuse to carry on on the CPU when no device was named
+and no GPU exists, for a float and an int8 decoder alike."""
 
 import os
 import pathlib
@@ -28,6 +29,7 @@ def test_import_loads_no_jax():
         "import anyref_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    anyref_tpu_torch.__path__, 'anyref_tpu_torch.')]\n"
+        "assert 'anyref_tpu_torch.ops.quant' in names, names\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         f"bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
@@ -64,6 +66,7 @@ def test_entry_points_refuse_cpu_without_gpu(monkeypatch):
     from anyref_tpu_torch.config import anyref_tiny
     from anyref_tpu_torch.eval.runner import Predictor
     from anyref_tpu_torch.models import anyref
+    from anyref_tpu_torch.ops.quant import quantize_llama
     from anyref_tpu_torch.serve import Server
     from anyref_tpu_torch.train.trainer import TrainConfig, Trainer
 
@@ -86,6 +89,12 @@ def test_entry_points_refuse_cpu_without_gpu(monkeypatch):
         tparams.from_numpy({"w": np.zeros(2, np.float32)})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(cfg, TrainConfig(), p, dataset=[])
+    # an int8 decoder tree, served greedy, is refused the same way
+    q = dict(p, llama=quantize_llama(p["llama"]))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Predictor(q, cfg, speculative=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Server(q, cfg, speculative=False, preprocess_workers=1)
 
 
 def test_train_step_loads_no_jax():
