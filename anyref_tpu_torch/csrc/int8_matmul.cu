@@ -26,14 +26,33 @@
 //   and a second kernel sums the splits in a fixed order, scales and
 //   rounds. No atomics: the result is the same from run to run.
 // * M > 16 (prefill, M = 1280 at batch 2). Bound by tensor-core operations
-//   (2 M N K: 42.9 GFLOP at 1280 x 4096 x 4096, 0.043 ms at 989 TFLOP/s).
-//   The mma.sync tiles of gemm.cuh (128 x 128 blocks, eight warps of 64 x
-//   32, K steps of 32 through a three-stage cp.async ring) with B copied as
-//   int8 (16 weights per 16-byte copy) and converted to bf16 into the
-//   padded shared tile that ldmatrix reads; the scale is the epilogue.
+//   (2 M N K: 42.9 GFLOP at 1280 x 4096 x 4096, 0.043 ms at 989 TFLOP/s),
+//   which only wgmma reaches on Hopper. A warp-specialised kernel (helpers
+//   in wgmma.cuh), one block of three warpgroups per SM, each block a tile
+//   of 192 rows of x by 128 columns of W, computed transposed (out^T = W^T
+//   x^T) so that the int8 operand is converted in registers and never
+//   written back to shared memory as bf16. The producer warpgroup (40
+//   registers) keeps a 4-stage ring of K steps of 64 in flight: x's tile by
+//   TMA in the 128-byte swizzle that wgmma reads as its B operand, W's int8
+//   tile (8 KB, half the bytes of bf16) by TMA in the same swizzle, or by
+//   8-byte cp.async where N % 16 != 0, each stage on a full / empty
+//   mbarrier pair. Each consumer warpgroup owns 64 columns of W: a thread
+//   loads its int8 weights of a stage at once (two adjacent columns, one
+//   16-bit load per k), converts them exactly to bf16 A fragments in
+//   registers (v = bf16(128 + low 7 bits) - bf16(128 + 128 sign): two LOP3
+//   and half a bf16x2 subtraction a weight) and issues m64n192k16 RS
+//   wgmmas, one per commit group, converting the next slab while three are
+//   in flight. The conversion is what an int8 weight adds to a bf16 GEMM,
+//   and it sets the design: its ALU work is fixed per weight, so the wide
+//   x tile (192, wgmma's N) divides it over more products, and loading a
+//   whole stage's weights at once pays their latency once a step, not once
+//   a slab. The column scale is applied to the fp32 accumulators, rounded,
+//   and stored from registers.
 //
 // K and N must be multiples of 8 and x and w_q 16-byte aligned.
-#include "common.cuh"
+#include <string.h>
+
+#include "wgmma.cuh"
 
 namespace anyref_i8 {
 
@@ -175,15 +194,21 @@ int launch_gemv(const bf16* x, const int8_t* w, const float* scale, bf16* out, f
 }
 
 // ---------------------------------------------------------------------------
-// M > 16: tensor-core GEMM with int8 B
+// M > 16: warp-specialised wgmma GEMM, x by TMA, int8 W converted in
+// registers
 // ---------------------------------------------------------------------------
-constexpr int BM = 128, BN = 128, BK = 32, STAGES = 3, NTHREADS = 256;
-constexpr int LDA = BK + 8;  // 80-byte rows: ldmatrix rows in distinct banks
-constexpr int LDB = BN + 8;  // 272-byte rows
-
-constexpr size_t gemm_smem_bytes() {
-  return (size_t)STAGES * BM * LDA * 2 + (size_t)STAGES * BK * BN + (size_t)BK * LDB * 2;
-}
+// BM rows of x by BN columns of W a block. BM = 192 (wgmma N): 128 left the
+// conversion too large a share of each product and 256 runs out of
+// registers (ptxas serialises the wgmmas, C7512); 192 also cuts M = 1280
+// into 7 tiles, 224 blocks for N = 4096 (1.7 waves on 132 SMs).
+constexpr int BM = 192, BN = 128, BK = 64, STAGES = 4;
+constexpr int NTHREADS = 384;                  // producer + 2 consumer warpgroups
+constexpr int X_TILE = BM * BK * 2;            // bf16 x tile [m][k], 128B-swizzled
+constexpr int WQ_TILE = BK * BN;               // int8 W tile [k][n], 128B-swizzled
+constexpr int OFF_WQ = STAGES * X_TILE;
+constexpr int OFF_BAR = OFF_WQ + STAGES * WQ_TILE;
+constexpr int SMEM_BYTES = OFF_BAR + 2 * STAGES * 8 + 1024;  // + slack to align to 1024
+constexpr int CONSUMER_WARPS = 8;
 
 // 8-byte global -> shared copy (.ca: the .cg form takes 16 bytes only),
 // zero-filled when !valid.
@@ -192,125 +217,247 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid
                "r"(valid ? 8 : 0));
 }
 
-template <bool VEC16>
-__global__ void __launch_bounds__(NTHREADS, 2) gemm_kernel(const bf16* __restrict__ a,
-                                                           const int8_t* __restrict__ b,
-                                                           const float* __restrict__ scale,
-                                                           bf16* __restrict__ out, int M, int N,
-                                                           int K) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);                  // [STAGES][BM][LDA]
-  int8_t* Bq = reinterpret_cast<int8_t*>(As + STAGES * BM * LDA);  // [STAGES][BK][BN]
-  bf16* Bs = reinterpret_cast<bf16*>(Bq + STAGES * BK * BN);  // [BK][LDB]
+// Four int8 (b0, b1, b2, b3) in a word -> the exact bf16 pairs (b0, b2) and
+// (b1, b3). Each byte v = m - 128 s (m its low 7 bits, s its sign bit) is
+// bf16(128 + m) - bf16(128 + 128 s): both terms are bf16 bit patterns 0x43
+// followed by the byte's bits (masked), and the difference is exact.
+__device__ __forceinline__ void i8x4_to_bf16x2(uint32_t u, uint32_t& even, uint32_t& odd) {
+  const uint32_t m = 0x43004300u;
+  __nv_bfloat162 a, b;
+  const uint32_t ae = (u & 0x007F007Fu) | m, be = (u & 0x00800080u) | m;
+  const uint32_t ao = ((u >> 8) & 0x007F007Fu) | m, bo = ((u >> 8) & 0x00800080u) | m;
+  a = *reinterpret_cast<const __nv_bfloat162*>(&ae);
+  b = *reinterpret_cast<const __nv_bfloat162*>(&be);
+  const __nv_bfloat162 e = __hsub2(a, b);
+  a = *reinterpret_cast<const __nv_bfloat162*>(&ao);
+  b = *reinterpret_cast<const __nv_bfloat162*>(&bo);
+  const __nv_bfloat162 o = __hsub2(a, b);
+  even = *reinterpret_cast<const uint32_t*>(&e);
+  odd = *reinterpret_cast<const uint32_t*>(&o);
+}
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;  // warp tile: rows wm * 64, cols wn * 32
-  const int g = lane >> 2, tig = lane & 3;
+// This thread's int8 weights of one stage, for the wgmma A fragments of
+// its four k16 slabs. The warpgroup's 64 A rows are 64 columns of W, mapped
+// so that a thread's rows g and g + 8 are the adjacent columns `col`,
+// `col + 1`: one 16-bit load gives both at one k. raw[j][0] holds (col @ k,
+// col + 1 @ k, col @ k + 1, col + 1 @ k + 1) at k = 16 j + 2 t, raw[j][1]
+// the same at k + 8. off_e / off_o: the swizzled offset of the two bytes in
+// an even / odd row of the tile. All sixteen loads are issued together, so
+// their latency is paid once a stage, not once a slab.
+__device__ __forceinline__ void load_stage(const unsigned char* wq, int t, int off_e, int off_o,
+                                           uint32_t (&raw)[4][2]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const unsigned char* r = wq + (16 * j + 2 * t) * BN;
+    raw[j][0] = *reinterpret_cast<const unsigned short*>(r + off_e) |
+                (uint32_t)*reinterpret_cast<const unsigned short*>(r + BN + off_o) << 16;
+    raw[j][1] = *reinterpret_cast<const unsigned short*>(r + 8 * BN + off_e) |
+                (uint32_t)*reinterpret_cast<const unsigned short*>(r + 9 * BN + off_o) << 16;
+  }
+}
+
+// One slab's raw words -> its A fragment (rows g, g + 8; k, k + 8).
+__device__ __forceinline__ void convert_fragment(const uint32_t (&raw)[2], uint32_t (&f)[4]) {
+  i8x4_to_bf16x2(raw[0], f[0], f[1]);
+  i8x4_to_bf16x2(raw[1], f[2], f[3]);
+}
+
+// One block: a BM (m) x BN (n) tile of out, computed transposed: each
+// consumer warpgroup multiplies 64 columns of W (A, converted into
+// registers) by the BM rows of x (B, [m][k] in shared memory as TMA leaves
+// it). Warpgroup 0 produces: its first warp keeps a ring of STAGES (x tile,
+// int8 W tile) pairs filled, x by TMA and W by TMA (W_TMA, N % 16 == 0) or
+// by 8-byte cp.async from all 32 lanes (N % 16 != 0: TMA needs 16-byte row
+// strides), both in the 128-byte swizzle, each stage signalled on its full
+// barrier. A consumer releases a stage on its empty barrier (one arrival
+// per consumer warp) once the wgmmas that read it have completed.
+template <bool W_TMA>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    wgmma_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
+                 const int8_t* __restrict__ w, const float* __restrict__ scale,
+                 bf16* __restrict__ out, int M, int N, int K) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + OFF_BAR);
+  uint64_t* empty = full + STAGES;
+  const int wg = threadIdx.x >> 7;
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-
-  auto load_async = [&](int st, int kt) {
-    const int k0 = kt * BK;
-    int8_t* bq = Bq + st * BK * BN;
-    constexpr int CW = VEC16 ? 16 : 8;  // weights per copy
-    for (int i = tid; i < BK * BN / CW; i += NTHREADS) {
-      const int r = i / (BN / CW), c = (i % (BN / CW)) * CW;
-      const bool ok = k0 + r < K && n0 + c < N;
-      const int8_t* src = ok ? b + (size_t)(k0 + r) * N + n0 + c : b;
-      if (VEC16) cp_async16(bq + r * BN + c, src, ok);
-      else cp_async8(bq + r * BN + c, src, ok);
-    }
-    bf16* as = As + st * BM * LDA;
-    for (int i = tid; i < BM * BK / 8; i += NTHREADS) {
-      const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-      const int m = m0 + r, k = k0 + c;
-      const bool ok = m < M && k < K;
-      cp_async16(as + r * LDA + c, ok ? a + (size_t)m * K + k : a, ok);
-    }
-  };
-  // the int8 tile of stage st -> bf16 Bs (16 weights a thread)
-  auto convert = [&](int st) {
-    const int8_t* bq = Bq + st * BK * BN;
-    const int r = tid / (BN / 16), c = (tid % (BN / 16)) * 16;
-    const uint4 raw = *reinterpret_cast<const uint4*>(bq + r * BN + c);
-    float f[16];
-    i8x4_to_f32(raw.x, f);
-    i8x4_to_f32(raw.y, f + 4);
-    i8x4_to_f32(raw.z, f + 8);
-    i8x4_to_f32(raw.w, f + 12);
-    store8(Bs + r * LDB + c, f);
-    store8(Bs + r * LDB + c + 8, f + 8);
-  };
-  static_assert(BK * BN / 16 == NTHREADS, "one 16-weight run per thread");
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
   const int KT = (K + BK - 1) / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < KT) load_async(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // stage kt landed for everyone; Bs and stage kt - 1 are free
-    const int nk = kt + STAGES - 1;
-    if (nk < KT) load_async(nk % STAGES, nk);
-    cp_async_commit();
-    convert(kt % STAGES);
-    __syncthreads();  // Bs holds step kt's weights in bf16
-
-    const bf16* as = As + (kt % STAGES) * BM * LDA;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t af[4][4], bfr[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-        ldsm_x4(af[mt], as + (wm * 64 + mt * 16 + (lane & 15)) * LDA + kk + (lane >> 4) * 8);
-#pragma unroll
-      for (int np = 0; np < 2; ++np)
-        ldsm_x4_trans(bfr[np], Bs + (kk + (lane & 15)) * LDB + wn * 32 + np * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          mma16816(acc[mt][nt], af[mt], bfr[nt >> 1][(nt & 1) * 2], bfr[nt >> 1][(nt & 1) * 2 + 1]);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], W_TMA ? 1 : 1 + 32);  // expect_tx (+ a noinc arrival per lane)
+      mbar_init(&empty[s], CONSUMER_WARPS);
     }
+    mbar_fence_init();
   }
-  cp_async_wait<0>();
+  __syncthreads();
 
-  // epilogue: the column scale on the fp32 sum, then bf16. Lane holds rows
-  // g and g + 8 of each 16 x 8 tile, columns tig * 2 and tig * 2 + 1.
+  if (wg == 0) {
+    setmaxnreg_dec<40>();
+    const int lane = threadIdx.x & 31;
+    if (threadIdx.x < 32) {
+      for (int kt = 0; kt < KT; ++kt) {
+        const int s = kt % STAGES;
+        mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);  // passes at once on the first round
+        if (lane == 0) {
+          // expect_tx counts whole boxes: TMA counts the zero-filled bytes too
+          mbar_arrive_expect_tx(&full[s], W_TMA ? X_TILE + WQ_TILE : X_TILE);
+          tma_load_2d(smem + s * X_TILE, &tm_x, &full[s], kt * BK, m0);
+          if (W_TMA) tma_load_2d(smem + OFF_WQ + s * WQ_TILE, &tm_w, &full[s], n0, kt * BK);
+        }
+        if (!W_TMA) {
+          unsigned char* wq = smem + OFF_WQ + s * WQ_TILE;
+          for (int i = lane; i < WQ_TILE / 8; i += 32) {
+            const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
+            const int k = kt * BK + r, n = n0 + c;
+            const bool ok = k < K && n < N;
+            cp_async8(wq + r * BN + ((((c >> 4) ^ (r & 7)) << 4) | (c & 15)),
+                      ok ? w + (size_t)k * N + n : w, ok);
+          }
+          cp_async_mbar_arrive_noinc(&full[s]);
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    const int cw = wg - 1, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int col = 64 * cw + 16 * warp + 2 * g;  // this thread's W columns col, col + 1
+    const int off_e = (((col >> 4) ^ (2 * t)) << 4) | (col & 15);
+    const int off_o = (((col >> 4) ^ (2 * t + 1)) << 4) | (col & 15);
+    float acc[BM / 2];
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
+    for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
+    uint32_t raw[4][2];  // the int8 weights of a step
+    uint32_t f[4][4];    // the fragments of its four k16 slabs
+
+    // One wgmma a commit group, as CUTLASS's mixed-input mainloop: slab j's
+    // wgmma is issued, then, once at most three groups are in flight (slab
+    // j - 3, the last reader of f[(j + 1) % 4], has completed), the next
+    // slab is converted into f[(j + 1) % 4] while the three run; after the
+    // last slab the next stage's weights are loaded all at once. Fragments
+    // are defined only after a wgmma_wait, never between a wgmma_fence and
+    // the wait of its group: ptxas would serialise the wgmmas (C7513).
+    mbar_wait(&full[0], 0);
+    load_stage(smem + OFF_WQ, t, off_e, off_o, raw);
+    convert_fragment(raw[0], f[0]);
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int col = n0 + wn * 32 + nt * 8 + tig * 2;
-      if (col >= N) continue;
-      const float s0 = scale[col], s1 = scale[col + 1];
+    for (int i = 0; i < BM / 2; ++i) fence_operand(acc[i]);
+    for (int kt = 0; kt < KT; ++kt) {
+      const int s = kt % STAGES;
+      const unsigned char* x = smem + s * X_TILE;
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = m0 + wm * 64 + mt * 16 + g + half * 8;
-        if (row >= M) continue;
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * N + col) =
-            __floats2bfloat162_rn(acc[mt][nt][half * 2] * s0, acc[mt][nt][half * 2 + 1] * s1);
+      for (int j = 0; j < 4; ++j) {
+        uint64_t dx = sw128_desc(x + 32 * j);
+        fence_operand(dx);
+        wgmma_fence();
+        wgmma_m64n192k16_bf16_rs(acc, f[j], dx);
+        wgmma_commit();
+        wgmma_wait<3>();
+        if (j < 3) {
+          convert_fragment(raw[j + 1], f[j + 1]);
+        } else {
+          // step kt - 1 has completed: release its stage
+          if (kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % STAGES]);
+          if (kt + 1 < KT) {
+            const int s1 = (kt + 1) % STAGES;
+            mbar_wait(&full[s1], ((kt + 1) / STAGES) & 1);
+            load_stage(smem + OFF_WQ + s1 * WQ_TILE, t, off_e, off_o, raw);
+            convert_fragment(raw[0], f[0]);
+          }
+        }
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < BM / 2; ++i) fence_operand(acc[i]);
+
+    // epilogue: accumulator row g / g + 8 is column n / n + 1 of out,
+    // accumulator columns 8 j + 2 t (+ 1) are rows m (+ 1); the column scale
+    // on the fp32 sum, then bf16
+    const int n = n0 + col;
+    if (n < N) {  // N % 8 == 0: n + 1 < N as well
+      const float s0 = __ldg(scale + n), s1 = __ldg(scale + n + 1);
+#pragma unroll
+      for (int j = 0; j < BM / 8; ++j) {
+        const int m = m0 + 8 * j + 2 * t;
+        if (m < M)
+          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)m * N + n) =
+              __floats2bfloat162_rn(acc[4 * j] * s0, acc[4 * j + 2] * s1);
+        if (m + 1 < M)
+          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(m + 1) * N + n) =
+              __floats2bfloat162_rn(acc[4 * j + 1] * s0, acc[4 * j + 3] * s1);
       }
     }
   }
 }
 
-template <bool VEC16>
-int launch_gemm(const bf16* x, const int8_t* w, const float* scale, bf16* out, int M, int N,
-                int K, cudaStream_t st) {
-  constexpr size_t smem = gemm_smem_bytes();
-  cudaError_t e = cudaFuncSetAttribute(gemm_kernel<VEC16>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// (the library is not linked against libcuda).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+static EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)p;
+  }
+  return fn;
+}
+
+// A row-major [outer, inner] tensor with rows `row_bytes` apart, read in
+// boxes of box_outer x box_inner elements; out-of-bounds elements read 0.
+static bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* p, uint64_t inner,
+                     uint64_t outer, uint64_t row_bytes, uint32_t box_inner, uint32_t box_outer,
+                     CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn f = encode_tiled();
+  if (!f) return false;
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {box_inner, box_outer};
+  const cuuint32_t elem[2] = {1, 1};
+  return f(map, type, 2, const_cast<void*>(p), dims, strides, box, elem,
+           CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int launch_wgmma(const bf16* x, const int8_t* w, const float* scale, bf16* out, int M, int N,
+                 int K, cudaStream_t st) {
+  CUtensorMap tm_x, tm_w;
+  memset(&tm_w, 0, sizeof(tm_w));
+  // x [M, K] bf16 in boxes of 128 rows x 64 (one 128-byte swizzle row)
+  if (!make_map(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, (uint64_t)K * 2, BK, BM,
+                CU_TENSOR_MAP_SWIZZLE_128B))
+    return (int)cudaErrorInvalidValue;
+  // w_q [K, N] int8 in boxes of 64 rows x 128, where its rows are 16-byte
+  // multiples
+  const bool w_tma = N % 16 == 0;
+  if (w_tma && !make_map(&tm_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N, K, N, BN, BK,
+                         CU_TENSOR_MAP_SWIZZLE_128B))
+    return (int)cudaErrorInvalidValue;
+  auto kern = w_tma ? wgmma_kernel<true> : wgmma_kernel<false>;
+  // The consumers' setmaxnreg.inc takes the registers the producer's .dec
+  // gives back; that balances only at the 168 registers a thread that
+  // __launch_bounds__(384, 1) allows. Refuse any other build rather than
+  // let the consumers wait for registers forever.
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kern);
+  if (e != cudaSuccess) return (int)e;
+  if (attr.numRegs != 168) return (int)cudaErrorInvalidConfiguration;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_kernel<VEC16><<<grid, NTHREADS, smem, st>>>(x, w, scale, out, M, N, K);
+  kern<<<grid, NTHREADS, SMEM_BYTES, st>>>(tm_x, tm_w, w, scale, out, M, N, K);
   return (int)cudaGetLastError();
 }
 
@@ -340,6 +487,5 @@ ANYREF_API int anyref_int8_matmul(const void* x, const void* w_q, const void* sc
     if (M == 2) return launch_gemv<2>(xp, wp, sp, op, ws, M, N, K, st);
     return launch_gemv<4>(xp, wp, sp, op, ws, M, N, K, st);
   }
-  return N % 16 == 0 ? launch_gemm<true>(xp, wp, sp, op, M, N, K, st)
-                     : launch_gemm<false>(xp, wp, sp, op, M, N, K, st);
+  return launch_wgmma(xp, wp, sp, op, M, N, K, st);
 }

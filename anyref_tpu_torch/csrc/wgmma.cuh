@@ -1,0 +1,177 @@
+// Hopper (sm_90a) building blocks of the warp-specialised tensor-core
+// kernels: mbarriers, TMA tile loads, register rebalancing between
+// warpgroups, shared-memory matrix descriptors and bf16 wgmma. Written for
+// int8_matmul.cu's prefill body; the fused SAM GEMMs of gemm.cuh can be
+// rebuilt on the same helpers (adding the shapes and the SS form they
+// need).
+//
+// Conventions of the descriptors here: operands K-major in shared
+// memory with the 128-byte swizzle that a TMA load with
+// CU_TENSOR_MAP_SWIZZLE_128B produces: a row of 64 bf16 (128 bytes) per M
+// (or N) index, 16-byte chunk c of row r stored at chunk c ^ (r & 7), 8-row
+// groups 1024 bytes apart, every tile 1024-byte aligned.
+#pragma once
+
+#include <cuda.h>
+
+#include "common.cuh"
+
+// ---------------------------------------------------------------------------
+// mbarrier
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+
+// Make the initialised barriers visible to the async proxy (TMA) and to
+// the other threads; call after mbar_init, before the block-wide barrier.
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// One arrival that also announces `bytes` of asynchronous copies to come.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+      "selp.b32 %0, 1, 0, P1;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done;
+}
+
+// Wait until the phase of parity `parity` has completed. A phase that never
+// completes (a lost arrival or copy) traps after ~2^32 cycles (about two
+// seconds): the launch fails with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > (1ll << 32)) __trap();
+}
+
+// The barrier receives one arrival once every cp.async this thread issued
+// before has landed (the arrival counts against the barrier's initial
+// count: .noinc).
+__device__ __forceinline__ void cp_async_mbar_arrive_noinc(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// TMA
+// ---------------------------------------------------------------------------
+// 2-D tile of `map` at element coordinates (c0 innermost, c1) into shared
+// memory; its bytes complete the transaction count of `bar`. Out-of-bounds
+// elements are zero-filled and counted.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// warpgroups
+// ---------------------------------------------------------------------------
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// ---------------------------------------------------------------------------
+// wgmma
+// ---------------------------------------------------------------------------
+// Descriptor of a K-major, 128-byte-swizzled operand at `p` (see the top of
+// this file): start address >> 4, leading offset 1 (unused by this
+// layout), stride 1024 >> 4 between 8-row groups, layout 1 = 128B swizzle.
+// Each k16 step inside the 64-wide row adds 32 bytes to the start.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pin a register, with its value, at this point of the program. A wgmma
+// reads and writes its register operands asynchronously, which the
+// compiler does not know: pinning the accumulators before the first
+// wgmma_fence and after the last wgmma_wait, and a descriptor just before
+// its wgmma_fence, keeps the instructions that define or read them out of
+// the span between a wgmma_fence and the wait that retires its wgmma
+// (ptxas serialises the wgmmas otherwise, C7513).
+__device__ __forceinline__ void fence_operand(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+__device__ __forceinline__ void fence_operand(uint64_t& r) { asm volatile("" : "+l"(r)::"memory"); }
+
+// d[64 x 192] (fp32, this warpgroup's registers) += A[64 x 16] * B[16 x
+// 192], bf16, A from registers (the "RS" form), B from shared memory through
+// a descriptor. a[0..3] hold this thread's bf16 pairs of A as mma.sync's
+// m16n8k16 A fragment within the warp's 16 rows: rows 16 (t / 32) + g and
+// g + 8 (g = (t % 32) / 4), k = 2 (t % 4) and + 1 in a[0] (row g) and a[1]
+// (row g + 8), k + 8 and + 9 in a[2] and a[3]. Thread t holds rows
+// 16 (t / 32) + g (+ 8) and columns 8 j + 2 (t % 4) (+ 1) of d in
+// d[4 j + {0, 1, 2, 3}] (row, row, row + 8, row + 8; column, column + 1,
+// column, column + 1), j < 24. The registers are read asynchronously: they
+// must not change before the wgmma has completed (wgmma_wait).
+__device__ __forceinline__ void wgmma_m64n192k16_bf16_rs(float (&d)[96], const uint32_t (&a)[4],
+                                                         uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
+        "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}

@@ -71,7 +71,7 @@ BUILD_DIR = _PKG / "build"
 SOURCES = ("norms.cu", "relpos_attention.cu", "causal_attention.cu",
            "causal_attention_bwd.cu", "fused_layers.cu", "qkv_attention.cu",
            "int8_matmul.cu")
-HEADERS = ("common.cuh", "attention.cuh", "gemm.cuh")
+HEADERS = ("common.cuh", "attention.cuh", "gemm.cuh", "wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -958,7 +958,7 @@ def int8_matmul(x, w_q, scale):
     dtype: the fp32 sum of x times the exact bf16 weights, scaled per
     column once, then rounded. Two launches for at most 16 rows of x
     (split-K partial sums, then their sum, scale and rounding), one for
-    more (a tensor-core GEMM)."""
+    more (a warp-specialised wgmma GEMM fed by TMA)."""
     dev = x.device
     if w_q.device != dev or scale.device != dev:
         raise ValueError("int8_matmul: inputs on different devices")

@@ -617,7 +617,9 @@ def check_relpos_qkv_and_int8(torch, F, flash, quant, rnd, run_case):
     """flash_relpos_attention_qkv at SAM-H's windows ([50, 196, 3840], 16
     heads of 80) and at 3 windows of 9 x 9 with 2 heads of 36 (unvectorised
     loads); int8_matmul at the 7B decoder's shapes (a decode step at batch
-    2, the lm_head, a prefill of 2 x 640 rows) and at one odd shape, against
+    2, the lm_head, the three products of a prefill of 2 x 640 rows) and at
+    two odd shapes, one per body: 3 rows (split-K) and 77 rows (wgmma: M
+    and K not multiples of 64, N % 16 != 0, so W goes by cp.async), against
     torch.matmul by the bf16 weight it was quantised from."""
     for B, S, nh, hd in ((50, 14, 16, 80), (3, 9, 2, 36)):
         C, L = nh * hd, S * S
@@ -642,7 +644,8 @@ def check_relpos_qkv_and_int8(torch, F, flash, quant, rnd, run_case):
     vocab = 32128   # anyref_7b's padded vocabulary
     for M, K, N in ((2, 4096, 4096), (2, 4096, 11008), (2, 11008, 4096),
                     (2, 4096, vocab), (1280, 4096, 4096),
-                    (1280, 4096, 11008), (3, 264, 200)):
+                    (1280, 4096, 11008), (1280, 11008, 4096), (3, 264, 200),
+                    (77, 264, 200)):
         x = rnd(M, K)
         w = rnd(K, N, scale=K ** -0.5)
         wq = quant.quantize_int8(w)

@@ -1,5 +1,5 @@
-"""Time the port's attention kernels in several checkouts, in turns, on one
-CUDA card.
+"""Time the port's attention kernels and int8_matmul in several checkouts,
+in turns, on one CUDA card.
 
     python3 kernel_ab.py ROOT [ROOT ...]     # e.g. parent change change parent
 
@@ -14,6 +14,13 @@ of each case, in ms:
   relpos_global  flash_relpos_attention [2, 16, 4096, 80]
   factors_window / factors_global  relpos_factors alone at those shapes
   causal         flash_causal_attention [2, 32, 640, 128], kv_start (0, 200)
+  int8_MxKxN     int8_matmul of bf16 x [M, K] by int8 w_q [K, N]: the 7B
+                 decoder's prefill products at batch 2 (M = 1280: q/k/v/o
+                 4096 x 4096, gate/up 4096 x 11008, down 11008 x 4096) and
+                 one decode product (M = 2); each is first held against
+                 int8_matmul_plain (|a - b| <= 2e-2 + 2e-2 |b|, relative L2
+                 <= 1e-2) and the run fails if it disagrees
+  cublas_MxKxN   torch.matmul by the bf16 weight, the same prefill shapes
 Exits non-zero where there is no CUDA device.
 """
 
@@ -27,6 +34,8 @@ import sys
 import numpy as np
 
 ITERS = 20
+INT8_SHAPES = ((1280, 4096, 4096), (1280, 4096, 11008), (1280, 11008, 4096),
+               (2, 4096, 11008))
 
 
 def time_root(root: str) -> dict:
@@ -69,6 +78,25 @@ def time_root(root: str) -> dict:
     q, k, v = (rnd(2, 32, 640, 128) for _ in range(3))
     ks = torch.tensor([0, 200], dtype=torch.int32, device="cuda")
     out["causal"] = ms(lambda: flash.flash_causal_attention(q, k, v, ks))
+    del q, k, v
+    from anyref_tpu_torch.ops import quant
+    for M, K, N in INT8_SHAPES:
+        x = rnd(M, K)
+        w = rnd(K, N, scale=K ** -0.5)
+        wq = quant.quantize_int8(w)
+        got = flash.int8_matmul(x, wq["w_q"], wq["scale"]).float()
+        want = flash.int8_matmul_plain(x, wq["w_q"], wq["scale"]).float()
+        err = (got - want).abs()
+        if not bool((err <= 2e-2 + 2e-2 * want.abs()).all()) or \
+                float(err.norm() / want.norm()) > 1e-2:
+            raise SystemExit(f"{root}: int8_matmul {M}x{K}x{N} disagrees with "
+                             f"its plain version (max abs err "
+                             f"{err.max().item()})")
+        out[f"int8_{M}x{K}x{N}"] = ms(
+            lambda: flash.int8_matmul(x, wq["w_q"], wq["scale"]))
+        if M > 16:
+            out[f"cublas_{M}x{K}x{N}"] = ms(lambda: torch.matmul(x, w))
+        del x, w, wq, got, want, err
     return out
 
 

@@ -85,14 +85,17 @@ def test_quantize_int8_matches_jax():
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("rows", [1, 16, 300])
-def test_int8_matmul_plain_matches_pallas(rows, dtype):
+@pytest.mark.parametrize("rows,K,N", [(1, 256, 640), (16, 256, 640),
+                                      (300, 256, 640), (77, 264, 200)])
+def test_int8_matmul_plain_matches_pallas(rows, K, N, dtype):
     """The reference's own shapes (tests/test_quant.py): x [rows, 256]
-    against w_q [256, 640], the Pallas kernel in interpret mode."""
+    against w_q [256, 640], the Pallas kernel in interpret mode; and the
+    ragged shape on which chip_smoke.py holds the kernel's tensor-core body
+    (rows > 16) at M, K not multiples of 64 and N % 16 != 0."""
     rng = np.random.default_rng(rows)
-    w = jnp.asarray(rng.standard_normal((256, 640)) * 0.05, jnp.float32)
+    w = jnp.asarray(rng.standard_normal((K, N)) * 0.05, jnp.float32)
     q = jquant.quantize_int8(w)
-    x = jnp.asarray(rng.standard_normal((rows, 256)), jnp.dtype(dtype))
+    x = jnp.asarray(rng.standard_normal((rows, K)), jnp.dtype(dtype))
     want = jquant.int8_matmul(x, q["w_q"], q["scale"], interpret=True)
     tx, tw, ts = _t(x), _t(q["w_q"]), _t(q["scale"])
     got = tquant.int8_matmul_plain(tx, tw, ts)
