@@ -10,10 +10,12 @@
 //   windows [NW, ws*ws, 3C] with the rel-pos factors built in the kernel
 //   from the gathered bf16 tables [ws, ws, hd]. Main path: [50, 196, 3840],
 //   16 heads of 80. Bound: device-memory bytes (qkv in, out back).
-// * anyref_relpos_attention_qkv: the attention of fused_global_tail, with
-//   the fp32 factors rh [B*nh, L, H], rw [B*nh, L, W] that the wrapper
-//   computes, as the reference's wrapper does. Main path: [2, 4096, 3840].
-//   Bound: tensor-core operations (4 * B * nh * L^2 * hd).
+// * anyref_relpos_attention_qkv: the attention of fused_global_tail, and of
+//   flash_relpos_attention_qkv on grids of more than 256 tokens (windows go
+//   to window_attention.cu), with the fp32 factors rh [B*nh, L, H], rw
+//   [B*nh, L, W] that the wrapper computes, as the reference's wrapper
+//   does. Main path: [2, 4096, 3840]. Bound: tensor-core operations
+//   (4 * B * nh * L^2 * hd).
 // * anyref_mha_qkv: flash_attention_qkv (_mha_qkv_kernel), CLIP's bias-free
 //   attention. Main path: [2, 257, 3072], 16 heads of 64. Bound: bytes.
 #include "attention.cuh"

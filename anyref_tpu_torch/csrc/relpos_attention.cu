@@ -1,10 +1,11 @@
 // SAM ViTDet attention with decomposed relative-position bias:
 // softmax(q k^T * scale + rh[q, key // W] + rw[q, key % W]) v.
 //
-// Replaces anyref_tpu/ops/flash.py flash_relpos_attention, both its window
-// kernel (_relpos_multihead_kernel, one 14x14 window per grid step) and its
-// query-blocked global kernel (_relpos_kernel, L = 4096). One kernel serves
-// both shapes here: window [B*25, 16, 196, 80] and global [B, 16, 4096, 80].
+// Replaces anyref_tpu/ops/flash.py flash_relpos_attention on grids of more
+// than 256 tokens: its query-blocked global kernel (_relpos_kernel), main
+// path [B, 16, 4096, 80]. Windows (L <= 256, the reference's
+// _relpos_multihead_kernel) go to window_attention.cu, which holds a whole
+// window in one block and computes the factors itself.
 //
 // Bound on the H100: tensor-core operations (4 * BH * L^2 * hd). The bias is
 // never expanded to [L, L]: the block keeps its 64 rows of the [L, H] and

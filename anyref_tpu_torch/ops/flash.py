@@ -9,7 +9,8 @@ and how its design answers that):
 * ``layer_norm_fused``        <- ``layer_norm_fused`` / ``_ln_kernel``
 * ``rms_norm_fused``          <- ``rms_norm_fused`` / ``_rms_kernel``
 * ``flash_relpos_attention``  <- ``flash_relpos_attention`` (window and
-  global kernels)
+  global kernels: ``csrc/window_attention.cu`` up to 256 tokens, the flash
+  core of ``csrc/attention.cuh`` above)
 * ``flash_causal_attention``  <- ``flash_causal_attention`` (multi-head and
   per-head kernels)
 * ``fused_window_attn``       <- ``fused_window_attn``
@@ -18,7 +19,7 @@ and how its design answers that):
 * ``fused_window_block``      <- ``fused_window_block``
 * ``flash_attention_qkv``     <- ``flash_attention_qkv`` / ``_mha_qkv_kernel``
 * ``flash_relpos_attention_qkv`` <- ``flash_relpos_attention_qkv`` /
-  ``_relpos_qkv_kernel``
+  ``_relpos_qkv_kernel`` (the same two kernels by the same length)
 * ``flash_causal_attention_diff`` <- ``flash_causal_attention_diff``
   (forward with LSE, dq, dk/dv), a ``torch.autograd.Function``
 * ``int8_matmul``             <- ``quant.py`` ``int8_matmul`` (``ops/quant``
@@ -31,7 +32,8 @@ port's own kernels (row moments, the GEMM of ``csrc/gemm.cuh`` with a
 LayerNorm prologue and a bias / GELU / residual epilogue, QKV-direct
 attention), with no other torch op between them than allocation, views and,
 in the global tail, the fp32 bias-factor einsums the reference's wrapper
-also computes outside its kernel (as ``flash_relpos_attention_qkv`` does).
+also computes outside its kernel (as both rel-pos wrappers do above 256
+tokens; up to 256 the window kernel computes the factors itself).
 ``flash_causal_attention_diff`` is the training attention: its forward is
 the causal kernel with a log-sum-exp output, its backward two kernels (dq
 over query blocks, dk/dv over key blocks) after delta = rowsum(dO * O), a
@@ -70,7 +72,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = ("norms.cu", "relpos_attention.cu", "causal_attention.cu",
            "causal_attention_bwd.cu", "fused_layers.cu", "qkv_attention.cu",
-           "int8_matmul.cu")
+           "int8_matmul.cu", "window_attention.cu")
 HEADERS = ("common.cuh", "attention.cuh", "gemm.cuh", "wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -152,6 +154,9 @@ def _library():
                                                 F, I, P],
                 "anyref_mha_qkv": [P, P, I, I, I, I, F, I, P],
                 "anyref_int8_matmul": [P, P, P, P, P, I, I, I, P],
+                "anyref_window_relpos_attention": [P, P, P, I, I, I, P, P, P,
+                                                   I, I, I, I, I, I, I, I, I,
+                                                   F, I, P],
             }
             for name, args in sigs.items():
                 fn = getattr(lib, name)
@@ -257,7 +262,9 @@ rms_norm_fused.launches = 0
 def relpos_factors(q, rel_h_table, rel_w_table, size_hw):
     """The q-dependent bias factors rh = q . Rh [B, nh, L, H] and
     rw = q . Rw [B, nh, L, W] in fp32 (anyref_tpu flash.py:203-207): two
-    small products kept outside the kernel, as the reference keeps them."""
+    small products the flash core takes from outside (grids of more than
+    WINDOW_MAX_L tokens), as the reference keeps them outside its kernels;
+    the window kernel computes the same sums itself."""
     H, W = size_hw
     B, nh, L, hd = q.shape
     qg = q.reshape(B, nh, H, W, hd).float()
@@ -288,27 +295,75 @@ def relpos_attention_plain(q, k, v, rel_h_table, rel_w_table, size_hw):
     return (o / p.sum(-1, keepdim=True)).to(q.dtype)
 
 
+WINDOW_MAX_L = 256   # the most tokens csrc/window_attention.cu holds
+
+
+def _relpos_route(L: int, hd: int) -> str:
+    """The CUDA kernel that takes SAM rel-pos attention over L = H * W
+    tokens with heads of hd: "window" (csrc/window_attention.cu, the whole
+    grid in one block, the bias factors computed in the kernel) up to
+    WINDOW_MAX_L tokens, "flash" (the flash core of csrc/attention.cuh, the
+    factors from relpos_factors) above. Raises where neither runs."""
+    if L <= 0 or not 0 < hd <= 128:
+        raise ValueError(f"rel-pos attention: no CUDA kernel for L {L}, "
+                         f"heads of {hd} (at most 128)")
+    return "window" if L <= WINDOW_MAX_L else "flash"
+
+
+def _window_relpos(q, k, v, rel_h_table, rel_w_table, size_hw, out):
+    """One launch of csrc/window_attention.cu on the views q, k, v and out
+    [B, nh, L, hd] (q, k and v copied contiguous unless they share strides
+    with a contiguous last dim, as split heads or slices of a fused QKV
+    do); tables [H, H, hd] and [W, W, hd]."""
+    H, W = size_hw
+    B, nh, L, hd = q.shape
+    th, tw = (t.to(device=q.device, dtype=torch.bfloat16).contiguous()
+              for t in (rel_h_table, rel_w_table))
+    if th.shape != (H, H, hd) or tw.shape != (W, W, hd):
+        raise ValueError(f"rel-pos attention: tables {tuple(th.shape)}, "
+                         f"{tuple(tw.shape)} for grid {size_hw}, hd {hd}")
+    if k.stride() != q.stride() or v.stride() != q.stride() or \
+            q.stride(-1) != 1:
+        q, k, v = (t.contiguous() for t in (q, k, v))
+    strides = (*q.stride()[:3], *out.stride()[:3])
+    vec = int(hd % 8 == 0 and all(s % 8 == 0 for s in strides)
+              and _aligned(q, k, v, out))
+    _launch("anyref_window_relpos_attention", q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), *strides[:3], th.data_ptr(), tw.data_ptr(),
+            out.data_ptr(), *strides[3:], B, nh, L, hd, H, W, hd ** -0.5,
+            vec, _stream(q))
+    return out
+
+
 def flash_relpos_attention(q, k, v, rel_h_table, rel_w_table, size_hw):
-    """q/k/v [B, nh, L, hd]; rel_*_table [S, S, hd] -> [B, nh, L, hd]."""
+    """q/k/v [B, nh, L, hd]; rel_*_table [S, S, hd] -> [B, nh, L, hd]. One
+    launch: the window kernel up to WINDOW_MAX_L tokens (strided views such
+    as the heads of a fused QKV read in place), else the flash core after
+    the fp32 factor einsums."""
     if _on_cpu("flash_relpos_attention", q, k, v):
         return relpos_attention_plain(q, k, v, rel_h_table, rel_w_table,
                                       size_hw)
     H, W = size_hw
     B, nh, L, hd = q.shape
-    if H * W != L or k.shape != q.shape or v.shape != q.shape or hd > 128:
+    if H * W != L or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"flash_relpos_attention: shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}, {size_hw}")
-    qc, kc, vc = (t.contiguous() for t in (q, k, v))
-    rh, rw = (t.contiguous() for t in
-              relpos_factors(qc, rel_h_table, rel_w_table, size_hw))
-    out = torch.empty_like(qc)
+    route = _relpos_route(L, hd)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    vec = int(hd % 8 == 0 and _aligned(qc, kc, vc))
     with torch.cuda.device(q.device):
-        _launch("anyref_relpos_attention", qc.data_ptr(), kc.data_ptr(),
-                vc.data_ptr(), rh.data_ptr(), rw.data_ptr(), out.data_ptr(),
-                B, nh, L, hd, H, W, hd ** -0.5, vec, _stream(q))
+        if route == "window":
+            _window_relpos(q, k, v, rel_h_table, rel_w_table, size_hw, out)
+        else:
+            qc, kc, vc = (t.contiguous() for t in (q, k, v))
+            rh, rw = (t.contiguous() for t in
+                      relpos_factors(qc, rel_h_table, rel_w_table, size_hw))
+            vec = int(hd % 8 == 0 and _aligned(qc, kc, vc))
+            _launch("anyref_relpos_attention", qc.data_ptr(), kc.data_ptr(),
+                    vc.data_ptr(), rh.data_ptr(), rw.data_ptr(),
+                    out.data_ptr(), B, nh, L, hd, H, W, hd ** -0.5, vec,
+                    _stream(q))
     flash_relpos_attention.launches += 1
     return out
 
@@ -787,18 +842,29 @@ def _mlp_residual(x, ln2, mlp1_p, mlp2_p, eps: float):
     return _gemm(hid, mlp2_p["w"], _f32(mlp2_p["b"], dev), _E_RES, res=x)
 
 
-def _relpos_qkv_attention(qkv, tht, twt, size_hw, num_heads: int):
-    """The fp32 bias factors (two einsums, as the reference's wrappers
-    compute them) and one launch of the rel-pos attention off the
-    contiguous fused QKV [B, L, 3C] -> [B, L, C] bf16."""
+def _qkv_dims(qkv, size_hw, num_heads: int):
+    """(B, L, C, hd) of a fused QKV [B, L, 3C] over an H x W grid; else
+    raise."""
     H, W = size_hw
     B, L, C3 = qkv.shape
     C = C3 // 3
     hd = C // num_heads
-    if H * W != L or C3 != 3 * C or hd * num_heads != C or hd > 128:
+    if H * W != L or C3 != 3 * C or hd * num_heads != C:
         raise ValueError(f"rel-pos attention off the fused QKV: qkv "
                          f"{tuple(qkv.shape)}, grid {size_hw}, {num_heads} "
                          "heads")
+    return B, L, C, hd
+
+
+def _relpos_qkv_attention(qkv, tht, twt, size_hw, num_heads: int):
+    """The fp32 bias factors (two einsums, as the reference's wrappers
+    compute them) and one launch of the flash core's rel-pos attention off
+    the contiguous fused QKV [B, L, 3C] -> [B, L, C] bf16."""
+    H, W = size_hw
+    B, L, C, hd = _qkv_dims(qkv, size_hw, num_heads)
+    if hd > 128:
+        raise ValueError(f"rel-pos attention off the fused QKV: heads of "
+                         f"{hd} (at most 128)")
     q = _split_qkv(qkv, num_heads)[0]
     rh, rw = (t.contiguous() for t in relpos_factors(q, tht, twt, size_hw))
     out = torch.empty(B, L, C, dtype=torch.bfloat16, device=qkv.device)
@@ -908,14 +974,25 @@ def flash_relpos_attention_qkv(qkv, rel_h_table, rel_w_table, size_hw,
                                num_heads: int):
     """SAM window rel-pos attention read off the fused QKV [B, L, 3C]
     (heads not split), rel_*_table [S, S, hd] -> [B, L, C] with heads
-    merged. The fp32 bias factors are two einsums, as in the reference's
-    wrapper; one launch."""
+    merged. One launch: the window kernel up to WINDOW_MAX_L tokens (the
+    bias factors computed in it), else the flash core after the fp32 factor
+    einsums, as the reference's wrapper computes them."""
     if _on_cpu("flash_relpos_attention_qkv", qkv):
         return relpos_attention_qkv_plain(qkv, rel_h_table, rel_w_table,
                                           size_hw, num_heads)
+    B, L, C, hd = _qkv_dims(qkv, size_hw, num_heads)
+    qc = qkv.contiguous()
     with torch.cuda.device(qkv.device):
-        out = _relpos_qkv_attention(qkv.contiguous(), rel_h_table,
-                                    rel_w_table, size_hw, num_heads)
+        if _relpos_route(L, hd) == "window":
+            out = torch.empty(B, L, C, dtype=torch.bfloat16,
+                              device=qkv.device)
+            if out.numel():
+                _window_relpos(*_split_qkv(qc, num_heads), rel_h_table,
+                               rel_w_table, size_hw,
+                               out.view(B, L, num_heads, hd).transpose(1, 2))
+        else:
+            out = _relpos_qkv_attention(qc, rel_h_table, rel_w_table,
+                                        size_hw, num_heads)
     flash_relpos_attention_qkv.launches += 1
     return out
 

@@ -17,7 +17,11 @@ Phases (any failure exits non-zero before the result line):
      fused_mlp_stream; for int8_matmul, torch.matmul by the bf16 weight it
      was quantised from; for the training attention, its forward (O and
      LSE) and its backward (dq, dk, dv), against SDPA's forward and forward
-     plus backward;
+     plus backward; for the two rel-pos wrappers, SDPA given the bias
+     precomputed and SDPA with the bias built inside the timed call, at
+     grids on both sides of the split by length (the window kernel up to
+     256 tokens, where one call must run exactly one CUDA kernel under
+     torch.profiler; the flash core above);
   3. check the slice on the card against the same weights and inputs on the
      CPU (whose plain versions the CPU tests hold against the JAX package):
      "unfused" and "unfused_qkv" at anyref_tiny(), "fused" and "fused_block"
@@ -81,6 +85,17 @@ H100_BYTES_PER_S = 3.35e12    # HBM3, NVIDIA data sheet (SXM)
 H100_BF16_OPS_PER_S = 989e12  # dense bf16 tensor cores
 H100_FP32_OPS_PER_S = 67e12   # fp32 outside the tensor cores
 SPIN_CYCLES = 1_000_000       # ~0.5 ms at the H100's ~1.98 GHz
+# rel-pos attention cases of phase 2, (B, H, W, heads, head width): SAM-H's
+# windows and global layers, the window kernel's upper edge (16 x 16), a
+# grid past it (20 x 20, the flash core), an odd head width (9 x 9, 36:
+# unvectorised loads) and a non-square grid (8 x 12; for the split-head
+# wrapper read as the unfused path reads it, heads permuted out of a fused
+# QKV in place)
+RELPOS_SPLIT_CASES = ((50, 14, 14, 16, 80), (2, 64, 64, 16, 80),
+                      (3, 16, 16, 2, 32), (3, 20, 20, 2, 32),
+                      (3, 8, 12, 2, 32))
+RELPOS_QKV_CASES = ((50, 14, 14, 16, 80), (3, 9, 9, 2, 36),
+                    (3, 16, 16, 2, 32), (3, 8, 12, 2, 32), (3, 20, 20, 2, 32))
 
 TEXTS = (
     "the small brown dog that is sitting on the left side of the wooden "
@@ -167,10 +182,19 @@ def kept_pairs(L: int, kv_start) -> int:
 def check_kernels(torch, F, flash, port):
     timer = Timer(torch)
     g = torch.Generator(device="cuda").manual_seed(1234)
+    # the rel-pos cases added beside the first slices' draw from their own
+    # generator, so every other case keeps its inputs
+    g_extra = torch.Generator(device="cuda").manual_seed(4321)
 
-    def rnd(*shape, scale=1.0):
-        return (torch.randn(shape, generator=g, device="cuda") * scale).to(
+    def rnd(*shape, scale=1.0, gen=g):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(
             torch.bfloat16)
+
+    def rnd_extra(*shape, scale=1.0):
+        return rnd(*shape, scale=scale, gen=g_extra)
+
+    per_call = relpos_kernels_per_call(torch, flash, rnd_extra)
+    torch.cuda.empty_cache()
 
     def compare(name, got, want):
         """-> (max abs err, relative L2 err): every element within ATOL +
@@ -212,14 +236,16 @@ def check_kernels(torch, F, flash, port):
     results = {}
 
     def run_case(kname, shape_desc, kernel, plain, library, nbytes, ops,
-                 ops_rate, iters=10, plain_iters=5, others=None):
+                 ops_rate, iters=10, plain_iters=5, others=None, extra=None):
         """library: one PyTorch call computing the same function, or None;
         others: {name: fn} of other chains timed beside it as <name>_ms
         (for the fused SAM layers, where there is no library call, the
-        unfused chain of the same layer, and for fused_window_block the
-        split pair)."""
+        unfused chain of the same layer, for fused_window_block the split
+        pair, for rel-pos attention SDPA with the bias built in the call);
+        extra: more keys of the row."""
         err, rel_l2 = compare(f"{kname} {shape_desc}", kernel(), plain())
-        row = {"shape": shape_desc, "max_abs_err": err, "rel_l2_err": rel_l2,
+        row = {"shape": shape_desc, **(extra or {}),
+               "max_abs_err": err, "rel_l2_err": rel_l2,
                "ms": timer.ms(kernel, iters),
                "plain_ms": timer.ms(plain, plain_iters),
                "library_ms": None if library is None else
@@ -236,6 +262,7 @@ def check_kernels(torch, F, flash, port):
             f"{row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms{lib}{other} "
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
         results.setdefault(kname, []).append(row)
+        return row
 
     # LayerNorm: SAM LN1/LN2 rows at batch 2 (window run with pad rows,
     # then global layers)
@@ -255,25 +282,19 @@ def check_kernels(torch, F, flash, port):
              lambda: flash.rms_norm_plain(x, s, 1e-6),
              lambda: F.rms_norm(x, (C,), s, 1e-6),
              2 * N * C * 2 + C * 2, 5 * N * C, H100_FP32_OPS_PER_S)
-    # rel-pos attention: SAM-H windows (B*25 windows of 14x14) and global
-    # layers (64x64), 16 heads of 80
-    for B, S in ((50, 14), (2, 64)):
-        nh, hd, L = 16, 80, S * S
-        q, k, v = (rnd(B, nh, L, hd) for _ in range(3))
-        th, tw = rnd(S, S, hd, scale=0.1), rnd(S, S, hd, scale=0.1)
-        rh, rw = flash.relpos_factors(q, th, tw, (S, S))
-        bias = (rh[..., :, None] + rw[..., None, :]).reshape(
-            B, nh, L, L).to(torch.bfloat16)
-        run_case("flash_relpos_attention", f"{B}x{nh}x{L}x{hd}",
-                 lambda: flash.flash_relpos_attention(q, k, v, th, tw, (S, S)),
-                 lambda: flash.relpos_attention_plain(q, k, v, th, tw,
-                                                      (S, S)),
-                 lambda: F.scaled_dot_product_attention(q, k, v,
-                                                        attn_mask=bias),
-                 4 * B * nh * L * hd * 2 + 2 * S * S * hd * 2,
-                 B * nh * (4 * L * L * hd + 2 * L * 2 * S * hd),
-                 H100_BF16_OPS_PER_S, plain_iters=3)
-        del bias, rh, rw
+    # rel-pos attention, RELPOS_SPLIT_CASES (SAM-H's two shapes from the
+    # main generator, the added ones from their own)
+    for B, H, W, nh, hd in RELPOS_SPLIT_CASES:
+        r = rnd if B == 50 or H == 64 else rnd_extra
+        label, q, k, v, th, tw = relpos_split_case(r, B, H, W, nh, hd)
+        relpos_case(torch, F, flash, run_case, "flash_relpos_attention",
+                    label,
+                    lambda: flash.flash_relpos_attention(q, k, v, th, tw,
+                                                         (H, W)),
+                    lambda: flash.relpos_attention_plain(q, k, v, th, tw,
+                                                         (H, W)),
+                    q, k, v, th, tw, (H, W), flash._relpos_route(H * W, hd),
+                    per_call[("flash_relpos_attention", label)])
     # causal prefill: LLaMA-7B, batch 2, prompt bucket 385 -> L 640, one
     # row left-padded by 200
     B, nh, L, hd = 2, 32, 640, 128
@@ -293,7 +314,8 @@ def check_kernels(torch, F, flash, port):
     check_causal_diff_wrapper(torch, F, flash, port["attention"], rnd,
                               compare_scaled)
     check_fused_kernels(torch, F, flash, port, rnd, run_case)
-    check_relpos_qkv_and_int8(torch, F, flash, port["quant"], rnd, run_case)
+    check_relpos_qkv_and_int8(torch, F, flash, port["quant"], rnd, rnd_extra,
+                              run_case, per_call)
     del timer
     torch.cuda.empty_cache()
     return results
@@ -613,34 +635,133 @@ def check_fused_kernels(torch, F, flash, port, rnd, run_case):
                  H100_BF16_OPS_PER_S)
 
 
-def check_relpos_qkv_and_int8(torch, F, flash, quant, rnd, run_case):
+def relpos_split_case(rnd, B, H, W, nh, hd):
+    """(label, q, k, v, th, tw) of a split-head rel-pos case."""
+    L = H * W
+    if (H, W) == (8, 12):
+        q, k, v = rnd(B, L, 3, nh, hd).permute(2, 0, 3, 1, 4)
+    else:
+        q, k, v = (rnd(B, nh, L, hd) for _ in range(3))
+    th, tw = rnd(H, H, hd, scale=0.1), rnd(W, W, hd, scale=0.1)
+    label = f"{B}x{nh}x{L}x{hd}" + (" permuted" if (H, W) == (8, 12) else "")
+    return label, q, k, v, th, tw
+
+
+def relpos_qkv_case(rnd, B, H, W, nh, hd):
+    """(label, qkv, th, tw) of a fused-QKV rel-pos case."""
+    C, L = nh * hd, H * W
+    qkv = rnd(B, L, 3 * C)
+    th, tw = rnd(H, H, hd, scale=0.1), rnd(W, W, hd, scale=0.1)
+    return (f"{B}x{L}x{3 * C}" + ("" if H == W else f" ({H}x{W})"), qkv, th,
+            tw)
+
+
+def relpos_kernels_per_call(torch, flash, rnd, calls: int = 3) -> dict:
+    """{(wrapper, label): CUDA kernels one call runs} for every rel-pos case,
+    counted in one torch.profiler session at the start of phase 2 (short
+    sessions late in a long process were seen to drop device events): each
+    case runs `calls` times inside its own record_function range, and each
+    kernel counts for the range its start falls in."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    cases = {}
+    for shape in RELPOS_SPLIT_CASES:
+        label, q, k, v, th, tw = relpos_split_case(rnd, *shape)
+        cases[("flash_relpos_attention", label)] = (
+            lambda q=q, k=k, v=v, th=th, tw=tw, hw=shape[1:3]:
+            flash.flash_relpos_attention(q, k, v, th, tw, hw))
+    for shape in RELPOS_QKV_CASES:
+        label, qkv, th, tw = relpos_qkv_case(rnd, *shape)
+        cases[("flash_relpos_attention_qkv", label)] = (
+            lambda qkv=qkv, th=th, tw=tw, hw=shape[1:3], nh=shape[3]:
+            flash.flash_relpos_attention_qkv(qkv, th, tw, hw, nh))
+    for fn in cases.values():
+        fn()
+    torch.cuda.synchronize()
+    names = {f"count {i}": key for i, key in enumerate(cases)}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for name, key in names.items():
+            with record_function(name):
+                for _ in range(calls):
+                    cases[key]()
+                torch.cuda.synchronize()
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    # the ranges as the host saw them; on the device side the profiler also
+    # shows them as annotations of the same names, which are no kernels
+    spans = {names[e.name]: e.time_range for e in events
+             if e.name in names and e.device_type != cuda}
+    if len(spans) != len(cases):
+        fail(f"relpos_kernels_per_call: {len(spans)} of {len(cases)} ranges "
+             "in the profile")
+    counts = dict.fromkeys(cases, 0)
+    for e in events:
+        if e.device_type == cuda and e.name not in names:
+            for key, span in spans.items():
+                if span.start <= e.time_range.start <= span.end:
+                    counts[key] += 1
+    return {key: n / calls for key, n in counts.items()}
+
+
+def relpos_case(torch, F, flash, run_case, kname, shape_desc, kernel, plain,
+                q, k, v, th, tw, size_hw, route, per_call):
+    """One rel-pos attention case: the kernel against its plain version,
+    timed beside SDPA given the bias precomputed in bf16 (library) and SDPA
+    with the bias built inside the timed call (relpos_factors, the
+    expansion to [L, L], SDPA: library_with_factors). On the window route
+    one call must run exactly one CUDA kernel (per_call, counted by
+    relpos_kernels_per_call)."""
+    H, W = size_hw
+    B, nh, L, hd = q.shape
+
+    def bias_of(qq):
+        rh, rw = flash.relpos_factors(qq, th, tw, size_hw)
+        return (rh[..., :, None] + rw[..., None, :]).reshape(
+            B, nh, L, L).to(torch.bfloat16)
+
+    bias = bias_of(q)
+    row = run_case(kname, shape_desc, kernel, plain,
+             lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias),
+             4 * B * nh * L * hd * 2 + (H * H + W * W) * hd * 2,
+             B * nh * (4 * L * L * hd + 2 * L * (H + W) * hd),
+             H100_BF16_OPS_PER_S, plain_iters=3,
+             others={"library_with_factors": lambda:
+                     F.scaled_dot_product_attention(q, k, v,
+                                                    attn_mask=bias_of(q))},
+             extra={"route": route})
+    row["cuda_per_call"] = per_call
+    log(f"[kernel] {kname} {shape_desc}: route {route}, {per_call:g} CUDA "
+        "kernel(s) a call")
+    if route == "window" and per_call != 1:
+        fail(f"{kname} {shape_desc}: {per_call:g} CUDA kernels a call on the "
+             "window route, want 1")
+
+
+def check_relpos_qkv_and_int8(torch, F, flash, quant, rnd, rnd_extra,
+                              run_case, per_call):
     """flash_relpos_attention_qkv at SAM-H's windows ([50, 196, 3840], 16
-    heads of 80) and at 3 windows of 9 x 9 with 2 heads of 36 (unvectorised
-    loads); int8_matmul at the 7B decoder's shapes (a decode step at batch
+    heads of 80), then 3 grids of 9 x 9 with 2 heads of 36 (unvectorised
+    loads), of 16 x 16 (the window kernel's upper edge), of 8 x 12 and of
+    20 x 20 (the flash core) with 2 heads of 32; int8_matmul at the 7B decoder's shapes (a decode step at batch
     2, the lm_head, the three products of a prefill of 2 x 640 rows) and at
     two odd shapes, one per body: 3 rows (split-K) and 77 rows (wgmma: M
     and K not multiples of 64, N % 16 != 0, so W goes by cp.async), against
     torch.matmul by the bf16 weight it was quantised from."""
-    for B, S, nh, hd in ((50, 14, 16, 80), (3, 9, 2, 36)):
-        C, L = nh * hd, S * S
-        qkv = rnd(B, L, 3 * C)
-        th, tw = rnd(S, S, hd, scale=0.1), rnd(S, S, hd, scale=0.1)
-        q, k, v = (qkv[..., i * C:(i + 1) * C].view(B, L, nh, hd)
+    for B, H, W, nh, hd in RELPOS_QKV_CASES:
+        r = rnd if (B, H, W) in ((50, 14, 14), (3, 9, 9)) else rnd_extra
+        label, qkv, th, tw = relpos_qkv_case(r, B, H, W, nh, hd)
+        C = nh * hd
+        q, k, v = (qkv[..., i * C:(i + 1) * C].view(B, H * W, nh, hd)
                    .transpose(1, 2) for i in range(3))
-        rh, rw = flash.relpos_factors(q, th, tw, (S, S))
-        bias = (rh[..., :, None] + rw[..., None, :]).reshape(
-            B, nh, L, L).to(torch.bfloat16)
-        run_case("flash_relpos_attention_qkv", f"{B}x{L}x{3 * C}",
-                 lambda: flash.flash_relpos_attention_qkv(qkv, th, tw, (S, S),
-                                                          nh),
-                 lambda: flash.relpos_attention_qkv_plain(qkv, th, tw, (S, S),
-                                                          nh),
-                 lambda: F.scaled_dot_product_attention(q, k, v,
-                                                        attn_mask=bias),
-                 B * L * 4 * C * 2 + 2 * S * S * hd * 2,
-                 B * nh * (4 * L * L * hd + 2 * L * 2 * S * hd),
-                 H100_BF16_OPS_PER_S, plain_iters=3)
-        del qkv, q, k, v, rh, rw, bias
+        relpos_case(torch, F, flash, run_case, "flash_relpos_attention_qkv",
+                    label,
+                    lambda: flash.flash_relpos_attention_qkv(qkv, th, tw,
+                                                             (H, W), nh),
+                    lambda: flash.relpos_attention_qkv_plain(qkv, th, tw,
+                                                             (H, W), nh),
+                    q, k, v, th, tw, (H, W), flash._relpos_route(H * W, hd),
+                    per_call[("flash_relpos_attention_qkv", label)])
+        del qkv, q, k, v
     vocab = 32128   # anyref_7b's padded vocabulary
     for M, K, N in ((2, 4096, 4096), (2, 4096, 11008), (2, 11008, 4096),
                     (2, 4096, vocab), (1280, 4096, 4096),
@@ -1265,7 +1386,7 @@ def main() -> int:
                              "anyref_tpu/ops/flash.py:615"),
         "rms_norm_fused": ("anyref_tpu_torch/csrc/norms.cu",
                            "anyref_tpu/ops/flash.py:651"),
-        "flash_relpos_attention": ("anyref_tpu_torch/csrc/relpos_attention.cu",
+        "flash_relpos_attention": ("anyref_tpu_torch/csrc/window_attention.cu",
                                    "anyref_tpu/ops/flash.py:192"),
         "flash_causal_attention": ("anyref_tpu_torch/csrc/causal_attention.cu",
                                    "anyref_tpu/ops/flash.py:323"),
@@ -1280,11 +1401,17 @@ def main() -> int:
         "fused_window_block": ("anyref_tpu_torch/csrc/fused_layers.cu",
                                "anyref_tpu/ops/flash.py:855"),
         "flash_relpos_attention_qkv": (
-            "anyref_tpu_torch/csrc/qkv_attention.cu",
+            "anyref_tpu_torch/csrc/window_attention.cu",
             "anyref_tpu/ops/flash.py:1336"),
         "int8_matmul": ("anyref_tpu_torch/csrc/int8_matmul.cu",
                         "anyref_tpu/ops/quant.py:73"),
     }
+    # the rel-pos wrappers' flash core, which takes grids of more than 256
+    # tokens (the 7B global layers)
+    long_source = {
+        "flash_relpos_attention": "anyref_tpu_torch/csrc/relpos_attention.cu",
+        "flash_relpos_attention_qkv":
+            "anyref_tpu_torch/csrc/qkv_attention.cu"}
     # the run of the path each kernel serves ("fused", the default, for the
     # rest)
     own_path = {"flash_relpos_attention": "unfused",
@@ -1326,6 +1453,10 @@ def main() -> int:
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
+            **({"long_source": long_source[name],
+                "library_with_factors_ms": head["library_with_factors_ms"],
+                "cuda_per_call": head["cuda_per_call"]}
+               if name in long_source else {}),
             "unfused_ms": head.get("unfused_ms"),
             "split_pair_ms": head.get("split_pair_ms"),
             "other_shapes": rows[1:],

@@ -10,7 +10,14 @@ line: the median device time (CUDA events, L2 flushed by a 256 MB read
 and a ~0.5 ms spin kernel before every launch, so host work is not timed)
 of each case, in ms:
   relpos_window  flash_relpos_attention [50, 16, 196, 80] (SAM-H windows,
-                 batch 2), the whole wrapper with its fp32 factor einsums
+                 batch 2), the whole wrapper
+  relpos_qkv_window  flash_relpos_attention_qkv [50, 196, 3840], 16 heads
+                 of 80, the whole wrapper; both window cases are first held
+                 against their plain versions (as the int8 cases below)
+  sdpa_bias_window  SDPA at the window shape given the bias precomputed in
+                 bf16 (library yardstick, timed only)
+  sdpa_factors_window  relpos_factors, the bias expansion and SDPA, all in
+                 the timed call
   relpos_global  flash_relpos_attention [2, 16, 4096, 80]
   factors_window / factors_global  relpos_factors alone at those shapes
   causal         flash_causal_attention [2, 32, 640, 128], kv_start (0, 200)
@@ -19,7 +26,7 @@ of each case, in ms:
                  4096 x 4096, gate/up 4096 x 11008, down 11008 x 4096) and
                  one decode product (M = 2); each is first held against
                  int8_matmul_plain (|a - b| <= 2e-2 + 2e-2 |b|, relative L2
-                 <= 1e-2) and the run fails if it disagrees
+                 <= 1e-2; the run fails if a checked case disagrees)
   cublas_MxKxN   torch.matmul by the bf16 weight, the same prefill shapes
 Exits non-zero where there is no CUDA device.
 """
@@ -67,14 +74,45 @@ def time_root(root: str) -> dict:
             times.append(a.elapsed_time(b))
         return float(np.median(times))
 
+    def check(name, got, want):
+        got, want = got.float(), want.float()
+        err = (got - want).abs()
+        if not bool((err <= 2e-2 + 2e-2 * want.abs()).all()) or \
+                float(err.norm() / want.norm()) > 1e-2:
+            raise SystemExit(f"{root}: {name} disagrees with its plain "
+                             f"version (max abs err {err.max().item()})")
+
     out = {}
     for name, B, S in (("window", 50, 14), ("global", 2, 64)):
         q, k, v = (rnd(B, 16, S * S, 80) for _ in range(3))
         th, tw = rnd(S, S, 80, scale=0.1), rnd(S, S, 80, scale=0.1)
+        if name == "window":
+            check("relpos_window",
+                  flash.flash_relpos_attention(q, k, v, th, tw, (S, S)),
+                  flash.relpos_attention_plain(q, k, v, th, tw, (S, S)))
         out[f"relpos_{name}"] = ms(
             lambda: flash.flash_relpos_attention(q, k, v, th, tw, (S, S)))
         out[f"factors_{name}"] = ms(
             lambda: flash.relpos_factors(q, th, tw, (S, S)))
+        if name == "window":
+            def bias():
+                rh, rw = flash.relpos_factors(q, th, tw, (S, S))
+                return (rh[..., :, None] + rw[..., None, :]).reshape(
+                    B, 16, S * S, S * S).to(torch.bfloat16)
+            b = bias()
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            out["sdpa_bias_window"] = ms(lambda: sdpa(q, k, v, attn_mask=b))
+            out["sdpa_factors_window"] = ms(
+                lambda: sdpa(q, k, v, attn_mask=bias()))
+            del b
+    qkv = rnd(50, 196, 3 * 1280)
+    th, tw = rnd(14, 14, 80, scale=0.1), rnd(14, 14, 80, scale=0.1)
+    check("relpos_qkv_window",
+          flash.flash_relpos_attention_qkv(qkv, th, tw, (14, 14), 16),
+          flash.relpos_attention_qkv_plain(qkv, th, tw, (14, 14), 16))
+    out["relpos_qkv_window"] = ms(
+        lambda: flash.flash_relpos_attention_qkv(qkv, th, tw, (14, 14), 16))
+    del qkv
     q, k, v = (rnd(2, 32, 640, 128) for _ in range(3))
     ks = torch.tensor([0, 200], dtype=torch.int32, device="cuda")
     out["causal"] = ms(lambda: flash.flash_causal_attention(q, k, v, ks))
@@ -84,19 +122,14 @@ def time_root(root: str) -> dict:
         x = rnd(M, K)
         w = rnd(K, N, scale=K ** -0.5)
         wq = quant.quantize_int8(w)
-        got = flash.int8_matmul(x, wq["w_q"], wq["scale"]).float()
-        want = flash.int8_matmul_plain(x, wq["w_q"], wq["scale"]).float()
-        err = (got - want).abs()
-        if not bool((err <= 2e-2 + 2e-2 * want.abs()).all()) or \
-                float(err.norm() / want.norm()) > 1e-2:
-            raise SystemExit(f"{root}: int8_matmul {M}x{K}x{N} disagrees with "
-                             f"its plain version (max abs err "
-                             f"{err.max().item()})")
+        check(f"int8_matmul {M}x{K}x{N}",
+              flash.int8_matmul(x, wq["w_q"], wq["scale"]),
+              flash.int8_matmul_plain(x, wq["w_q"], wq["scale"]))
         out[f"int8_{M}x{K}x{N}"] = ms(
             lambda: flash.int8_matmul(x, wq["w_q"], wq["scale"]))
         if M > 16:
             out[f"cublas_{M}x{K}x{N}"] = ms(lambda: torch.matmul(x, w))
-        del x, w, wq, got, want, err
+        del x, w, wq
     return out
 
 

@@ -96,10 +96,13 @@ def _ln(rng, d, dtype):
 # each new wrapper's plain version against the Pallas kernel (interpret)
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("ws,nh,hd", [(8, 4, 32), (14, 2, 80)])
+@pytest.mark.parametrize("ws,nh,hd", [(8, 4, 32), (14, 2, 80), (16, 2, 32),
+                                      (20, 2, 32)])
 def test_relpos_attention_qkv_plain_matches_pallas(ws, nh, hd, dtype):
     """Windows of 8 (L 64, 4 heads of 32) and of 14 with SAM-H's heads of
-    80 (L 196), three windows."""
+    80 (L 196), three windows; a 16 x 16 grid (L 256, the most the window
+    kernel takes: anyref_tiny's global layer) and a 20 x 20 one (L 400, the
+    flash core's side of the split by length)."""
     B, C = 3, nh * hd
     rng = np.random.default_rng(ws)
     dt = jnp.dtype(dtype)

@@ -22,11 +22,12 @@ def _t(a):
     return torch.from_numpy(np.asarray(a))
 
 
-@pytest.mark.parametrize("ws,nh,hd", [(14, 2, 80), (32, 1, 16)],
-                         ids=["window-L196", "blocked-L1024"])
+@pytest.mark.parametrize("ws,nh,hd", [(14, 2, 80), (32, 1, 16), (4, 2, 32)],
+                         ids=["window-L196", "blocked-L1024", "window-L16"])
 def test_relpos_attention_matches_pallas(ws, nh, hd):
-    """ws 14 runs the reference's one-window-per-step kernel, 32x32 its
-    query-blocked kernel (L >= 1024)."""
+    """ws 14 and 4 (anyref_7b's and anyref_tiny's windows) run the
+    reference's one-window-per-step kernel, 32x32 its query-blocked kernel
+    (L >= 1024)."""
     rng = np.random.default_rng(0)
     L = ws * ws
     q, k, v = (rng.standard_normal((2, nh, L, hd)).astype(np.float32)
@@ -39,6 +40,33 @@ def test_relpos_attention_matches_pallas(ws, nh, hd):
     got = tflash.flash_relpos_attention(*(_t(a) for a in (q, k, v, th, tw)),
                                         (ws, ws))
     np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def _sam_grids(cfg):
+    """(L, head width) of each rel-pos attention grid of cfg's SAM encoder:
+    its windows and its global layers."""
+    s = cfg.sam
+    hd = s.encoder_embed_dim // s.encoder_num_heads
+    return {"window": (s.window_size ** 2, hd),
+            "global": (s.embedding_size ** 2, hd)}
+
+
+def test_relpos_route_by_grid():
+    """The windows of anyref_7b (14 x 14) and anyref_tiny (4 x 4) and
+    anyref_tiny's 16 x 16 global layer take the window kernel; anyref_7b's
+    64 x 64 global layers the flash core; heads wider than 128 neither."""
+    from anyref_tpu_torch.config import anyref_7b, anyref_tiny
+    big, tiny = _sam_grids(anyref_7b()), _sam_grids(anyref_tiny())
+    assert big == {"window": (196, 80), "global": (4096, 80)}
+    assert tiny == {"window": (16, 32), "global": (256, 32)}
+    route = tflash._relpos_route
+    assert [route(*big["window"]), route(*tiny["window"]),
+            route(*tiny["global"])] == ["window"] * 3
+    assert route(*big["global"]) == "flash"
+    assert route(tflash.WINDOW_MAX_L + 1, 80) == "flash"
+    for L in (196, 4096):
+        with pytest.raises(ValueError):
+            route(L, 144)
 
 
 @pytest.mark.parametrize("mh", ["1", "0"])
