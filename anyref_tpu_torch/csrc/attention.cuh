@@ -1,6 +1,7 @@
-// Flash attention core shared by the port's attention kernels: rel-pos
-// (SAM, bias factors given or built in the kernel), causal (LLaMA prefill)
-// and bias-free (CLIP). Head (b, h) of q, k, v and out is a bf16 [L, hd]
+// Flash attention core shared by the port's bidirectional attention
+// kernels: rel-pos (SAM, bias factors given or built in the kernel) and
+// bias-free (CLIP). The causal attention of the decoder and of training has
+// its own wgmma kernels (causal_attention.cu, causal_attention_bwd.cu). Head (b, h) of q, k, v and out is a bf16 [L, hd]
 // matrix whose row r lies at base + b * sb + h * sh + r * sr (elements), so
 // one kernel reads split heads [B, nh, L, hd] or column slices of a fused
 // [B, L, 3C] QKV tensor ("QKV-direct"), and writes split heads or the
@@ -8,8 +9,8 @@
 //
 // What bounds it on the H100: the two products (Q K^T and P V) are
 // 4 * BH * L^2 * hd operations; at L = 4096 that work, not the bytes of
-// q/k/v/out, sets the least time, and at the window, CLIP and prefill shapes
-// the bytes do. The design keeps the score matrix out of device memory and
+// q/k/v/out, sets the least time, and at the window and CLIP shapes the
+// bytes do. The design keeps the score matrix out of device memory and
 // out of shared memory:
 // - a block owns BQ = 64 query rows, four warps of 16; a warp keeps its Q
 //   fragments, its 16 x 64 scores and its 16 x hd output accumulator in
@@ -40,28 +41,15 @@
 //   gathered bf16 tables th, tw [ws, ws, hd] and the block's bf16 Q:
 //   rh[q, j] = q . th[q / ws, j], rw[q, j] = q . tw[q % ws, j] in fp32, as
 //   _window_attn_all computes them inside the TPU kernel.
-// - CAUSAL: a key the causal or left-pad mask drops gets the finite logit
-//   -FLT_MAX (float32.min), not -inf, as the reference masks. A query row
-//   whose keys are all dropped (a left-pad row) therefore ends as the
-//   uniform mean of V over every key of the walk, as the plain version
-//   gives, and never NaN. Key tiles above the diagonal (or before the pad)
-//   are skipped only when no row of the block is fully masked, because for
-//   any other row those tiles add exactly zero. With the template flag LSE
-//   (the training forward) each row also writes its log-sum-exp
-//   m + log(max(l, 1e-20)) in fp32 to lse [BH, L], as the reference's
-//   _causal_fwd_kernel does; a fully masked row's is -FLT_MAX + log(L),
-//   which rounds to -FLT_MAX there too.
 // - NONE: plain softmax attention.
 #pragma once
-
-#include <float.h>
 
 #include "common.cuh"
 
 namespace anyref_attn {
 
 constexpr int BQ = 64, BK = 64, NWARPS = 4, NTHREADS = 32 * NWARPS;
-enum Mode { CAUSAL = 0, RELPOS = 1, NONE = 2, WINDOW = 3 };
+enum Mode { RELPOS = 1, NONE = 2, WINDOW = 3 };
 
 // Row r of head h of batch entry b lies at base + b * sb + h * sh + r * sr
 // (32-bit strides, widened to 64 bits as they are multiplied).
@@ -80,8 +68,6 @@ struct Args {
   int H, W;              // RELPOS / WINDOW: the key grid (WINDOW: H = W = ws)
   const float *rh, *rw;  // RELPOS factors
   const bf16 *th, *tw;   // WINDOW tables
-  const int* kv_start;   // CAUSAL left pad per batch entry, or null
-  float* lse;            // CAUSAL with LSE: [BH, L] fp32 out
 };
 
 struct Layout {
@@ -140,9 +126,8 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0, 
   }
 }
 
-// NKS = padded hd / 16; LSE (CAUSAL only) also writes each row's
-// log-sum-exp.
-template <int MODE, int NKS, bool LSE = false>
+// NKS = padded hd / 16.
+template <int MODE, int NKS>
 __global__ void __launch_bounds__(NTHREADS) attn_kernel(const Args a) {
   constexpr bool BIAS = MODE == RELPOS || MODE == WINDOW;
   constexpr int HDP = NKS * 16, LDH = HDP + 8, NDT = 2 * NKS;
@@ -167,10 +152,7 @@ __global__ void __launch_bounds__(NTHREADS) attn_kernel(const Args a) {
   bf16* ob = a.out + (size_t)b * a.outv.sb + (size_t)h * a.outv.sh;
   const int ld = a.in.sr;
 
-  int pad = 0;
-  if (MODE == CAUSAL) {
-    pad = a.kv_start ? a.kv_start[b] : 0;
-  } else if (MODE == RELPOS) {
+  if (MODE == RELPOS) {
     for (int i = tid; i < BQ * H; i += NTHREADS) {
       const int r = i / H, j = i % H;
       Rh[r * t.ldrh + j] = q0 + r < L ? a.rh[((size_t)bh * L + q0 + r) * H + j] : 0.f;
@@ -181,14 +163,7 @@ __global__ void __launch_bounds__(NTHREADS) attn_kernel(const Args a) {
     }
   }
 
-  int kt_begin = 0, kt_end = (L + BK - 1) / BK;
-  if (MODE == CAUSAL && q0 >= pad) {
-    // no row of this block is fully masked: tiles wholly before the pad or
-    // above the diagonal contribute exactly zero to every row
-    kt_begin = pad / BK;
-    const int last = (q0 + BQ - 1) / BK + 1;
-    kt_end = last < kt_end ? last : kt_end;
-  }
+  const int kt_begin = 0, kt_end = (L + BK - 1) / BK;
 
   // group 0: Q and the first K/V tile
   load_tile(Qs, qb, q0, L, hd, ld, HDP, LDH, a.vec);
@@ -286,9 +261,6 @@ __global__ void __launch_bounds__(NTHREADS) attn_kernel(const Args a) {
         float v0 = s[nt][e] * a.scale, v1 = s[nt][2 + e] * a.scale;
         if (kj >= L) {
           v0 = v1 = -INFINITY;  // not a key at all: weight exactly 0
-        } else if (MODE == CAUSAL) {
-          if (kj > qi0 || kj < pad) v0 = -FLT_MAX;
-          if (kj > qi1 || kj < pad) v1 = -FLT_MAX;
         } else if (BIAS) {
           const int kh = Kh[c], kw = Kw[c];
           v0 += Rh[r0 * t.ldrh + kh] + Rw[r0 * t.ldrw + kw];
@@ -360,10 +332,6 @@ __global__ void __launch_bounds__(NTHREADS) attn_kernel(const Args a) {
   // out = O / l; the clamp matches the reference's max(denom, 1e-20)
   l0 = fmaxf(l0, 1e-20f);
   l1 = fmaxf(l1, 1e-20f);
-  if (LSE && tig == 0) {
-    if (qi0 < L) a.lse[(size_t)bh * L + qi0] = m0 + logf(l0);
-    if (qi1 < L) a.lse[(size_t)bh * L + qi1] = m1 + logf(l1);
-  }
   const int osr = a.outv.sr;
 #pragma unroll
   for (int dt = 0; dt < NDT; ++dt) {
@@ -378,27 +346,27 @@ __global__ void __launch_bounds__(NTHREADS) attn_kernel(const Args a) {
   }
 }
 
-template <int MODE, int NKS, bool LSE>
+template <int MODE, int NKS>
 inline int launch_nks(const Args& a, int BH, void* stream) {
   const bool bias = MODE == RELPOS || MODE == WINDOW;
   const Layout t = make_layout(a.hd, bias ? a.H : 0, bias ? a.W : 0);
-  cudaError_t e = cudaFuncSetAttribute(attn_kernel<MODE, NKS, LSE>,
+  cudaError_t e = cudaFuncSetAttribute(attn_kernel<MODE, NKS>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)t.total);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((a.L + BQ - 1) / BQ, BH);
-  attn_kernel<MODE, NKS, LSE><<<grid, NTHREADS, t.total, (cudaStream_t)stream>>>(a);
+  attn_kernel<MODE, NKS><<<grid, NTHREADS, t.total, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 // Launch over BH = B * nh heads; the kernel runs any hd in [1, 128].
-template <int MODE, bool LSE = false>
+template <int MODE>
 inline int launch(const Args& a, int BH, void* stream) {
   if (BH <= 0 || a.L <= 0) return 0;
   if (a.nh <= 0) return (int)cudaErrorInvalidValue;
 #define ANYREF_NKS(n) \
   case n:             \
-    return launch_nks<MODE, n, LSE>(a, BH, stream);
+    return launch_nks<MODE, n>(a, BH, stream);
   switch ((a.hd + 15) / 16) {
     ANYREF_NKS(1) ANYREF_NKS(2) ANYREF_NKS(3) ANYREF_NKS(4)
     ANYREF_NKS(5) ANYREF_NKS(6) ANYREF_NKS(7) ANYREF_NKS(8)

@@ -50,8 +50,6 @@
 //   and stored from registers.
 //
 // K and N must be multiples of 8 and x and w_q 16-byte aligned.
-#include <string.h>
-
 #include "wgmma.cuh"
 
 namespace anyref_i8 {
@@ -392,43 +390,15 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   }
 }
 
-// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
-// (the library is not linked against libcuda).
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-static EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)p;
-  }
-  return fn;
-}
-
 // A row-major [outer, inner] tensor with rows `row_bytes` apart, read in
 // boxes of box_outer x box_inner elements; out-of-bounds elements read 0.
 static bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* p, uint64_t inner,
                      uint64_t outer, uint64_t row_bytes, uint32_t box_inner, uint32_t box_outer,
                      CUtensorMapSwizzle swizzle) {
-  const EncodeTiledFn f = encode_tiled();
-  if (!f) return false;
   const cuuint64_t dims[2] = {inner, outer};
   const cuuint64_t strides[1] = {row_bytes};
   const cuuint32_t box[2] = {box_inner, box_outer};
-  const cuuint32_t elem[2] = {1, 1};
-  return f(map, type, 2, const_cast<void*>(p), dims, strides, box, elem,
-           CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return make_tensor_map(map, type, 2, p, dims, strides, box, swizzle);
 }
 
 int launch_wgmma(const bf16* x, const int8_t* w, const float* scale, bf16* out, int M, int N,

@@ -7,8 +7,9 @@ into masks. Prompts arrive left-padded; the decode loop runs on the host
 with early exit (greedy) or as batched prompt-lookup speculative decoding
 whose output equals the greedy stream. ``train_forward`` is the training
 forward: LM loss plus mask BCE and DICE on the SAM canvas, with the frozen
-towers under ``torch.no_grad``. Reference-image, RoI and audio prompts,
-rephrase pooling and loc tokens are not part of the port yet and raise.
+towers under ``torch.no_grad``, and with ``cfg.use_loc_tokens`` the loc
+tokens of a batch that carries ``loc_boxes``. Reference-image, RoI and
+audio prompts and rephrase pooling are not part of the port yet and raise.
 """
 
 from __future__ import annotations
@@ -235,13 +236,13 @@ def train_forward(params: dict, cfg: AnyRefConfig, batch: dict,
     batch (arrays or tensors): input_ids [B, T], labels [B, T],
     clip_images [B, 3, 224, 224], sam_images [B, 3, S, S], gt_masks
     [B, S_seg, S, S] on the SAM canvas, mask_valid [B, S_seg],
-    sam_resized_sizes [B, 2]. CLIP, mm_projector and the SAM image encoder
-    run under ``torch.no_grad`` (frozen towers; the reference's
-    stop_gradient). ``remat`` checkpoints each decoder layer."""
+    sam_resized_sizes [B, 2]; optional loc_boxes [B, S_seg, 4] indices of
+    ``params["loc_embeddings"]``, used with ``cfg.use_loc_tokens``. CLIP,
+    mm_projector and the SAM image encoder run under ``torch.no_grad``
+    (frozen towers; the reference's stop_gradient). ``remat`` checkpoints
+    each decoder layer."""
     check_encoder_path(encoder_path)
     _check_text_only(cfg, batch)
-    if cfg.use_loc_tokens:
-        raise NotImplementedError("loc tokens are not part of the port yet")
     tk = cfg.tokens
     dev = params["llama"]["embed_tokens"].device
 
@@ -268,6 +269,11 @@ def train_forward(params: dict, cfg: AnyRefConfig, batch: dict,
     hid_idx = (seg_pos - 1).clamp(0, hidden.shape[1] - 1)
     seg_hidden = torch.gather(hidden, 1, hid_idx[:, :, None].expand(-1, -1, D))
     pred_emb = project_seg_hidden(params, seg_hidden)           # [B, S, out]
+    if cfg.use_loc_tokens and "loc_boxes" in batch:
+        # the mean of each [SEG] slot's 4 loc embeddings (reference
+        # anyref.py:437-440); without loc_boxes the batch trains without them
+        loc = params["loc_embeddings"][t("loc_boxes", torch.long)]  # [B, S, 4, out]
+        pred_emb = pred_emb + cfg.loc_weight * loc.mean(dim=2)
     img_index = torch.arange(B, device=dev)[:, None].expand(B, S).reshape(-1)
     low_res, _ = sam_mod.decode_text_prompts(
         params["sam"], cfg.sam, image_embeddings, pred_emb.reshape(B * S, -1),

@@ -12,7 +12,8 @@ and how its design answers that):
   global kernels: ``csrc/window_attention.cu`` up to 256 tokens, the flash
   core of ``csrc/attention.cuh`` above)
 * ``flash_causal_attention``  <- ``flash_causal_attention`` (multi-head and
-  per-head kernels)
+  per-head kernels), on the training forward's kernel without its
+  log-sum-exp output
 * ``fused_window_attn``       <- ``fused_window_attn``
 * ``fused_mlp_stream``        <- ``fused_mlp_stream``
 * ``fused_global_tail``       <- ``fused_global_tail``
@@ -35,9 +36,13 @@ in the global tail, the fp32 bias-factor einsums the reference's wrapper
 also computes outside its kernel (as both rel-pos wrappers do above 256
 tokens; up to 256 the window kernel computes the factors itself).
 ``flash_causal_attention_diff`` is the training attention: its forward is
-the causal kernel with a log-sum-exp output, its backward two kernels (dq
+the causal kernel (``csrc/causal_attention.cu``) with a log-sum-exp
+output, its backward two kernels (``csrc/causal_attention_bwd.cu``: dq
 over query blocks, dk/dv over key blocks) after delta = rowsum(dO * O), a
-torch op here as in the reference's wrapper.
+torch op here as in the reference's wrapper. The three causal kernels and
+``int8_matmul``'s prefill body are ``wgmma`` kernels fed by TMA
+(``csrc/wgmma.cuh``); heads whose width is not a multiple of 8 are
+zero-padded to one by the wrapper (``_causal_route``).
 
 Each wrapper runs its plain version when, and only when, its input lies on
 the CPU (the tests). For a CUDA tensor it launches its kernels or raises:
@@ -142,9 +147,8 @@ def _library():
                 "anyref_relpos_attention": [P, P, P, P, P, P, I, I, I, I, I,
                                             I, F, I, P],
                 "anyref_causal_attention": [P, P, P, P, P, P, I, I, I, I, F,
-                                            I, P],
-                "anyref_causal_attention_bwd": [P] * 10 + [I, I, I, I, F, I,
-                                                           P],
+                                            P],
+                "anyref_causal_attention_bwd": [P] * 10 + [I, I, I, I, F, P],
                 "anyref_row_stats": [P, P, I, I, F, I, P],
                 "anyref_gemm": [P, P, P, P, P, I, I, I, P, P, P, I, I, I, I,
                                 I, I, I, I, I, I, P],
@@ -409,42 +413,65 @@ def causal_attention_plain(q, k, v, kv_start=None):
     return causal_attention_diff_fwd_plain(q, k, v, kv_start)[0]
 
 
+def _causal_route(hd: int) -> str:
+    """How the causal kernels (csrc/causal_attention.cu and _bwd.cu) take
+    heads of hd: "tma" where a row of hd bf16 is a multiple of 16 bytes
+    (hd % 8 == 0), the row stride TMA loads need; "pad8" otherwise, where
+    the wrappers zero-pad the head width to the next multiple of 8 (zero
+    columns add nothing to q . k, their output and gradient columns are
+    zero and sliced off). Raises where neither runs."""
+    if not 0 < hd <= 128:
+        raise ValueError(f"causal attention: no CUDA kernel for heads of "
+                         f"{hd} (at most 128)")
+    return "tma" if hd % 8 == 0 else "pad8"
+
+
 def _causal_args(name: str, q, k, v, kv_start):
-    """Shape check of the causal kernels; kv_start as contiguous int32 on
-    q's device, or None."""
+    """Shape check of the causal kernels -> (B, nh, L, hd, the head width
+    the kernels run, kv_start as contiguous int32 on q's device or
+    None)."""
     B, nh, L, hd = q.shape
-    if k.shape != q.shape or v.shape != q.shape or hd > 128:
+    if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"{name}: shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
+    hd8 = hd if _causal_route(hd) == "tma" else -(-hd // 8) * 8
     ks = (None if kv_start is None else
           kv_start.to(device=q.device, dtype=torch.int32).contiguous())
-    return B, nh, L, hd, ks
+    return B, nh, L, hd, hd8, ks
+
+
+def _causal_operand(t, hd8: int):
+    """t [B, nh, L, hd] as the causal kernels read it: contiguous, 16-byte
+    aligned, hd8 wide (zero columns appended)."""
+    t = t.contiguous()
+    if t.shape[-1] != hd8:
+        return torch.nn.functional.pad(t, (0, hd8 - t.shape[-1]))
+    return t if _aligned(t) else t.clone()
 
 
 def _causal_forward(wrapper, q, k, v, kv_start, with_lse: bool):
-    """Launch the causal kernel on contiguous q/k/v -> (out, lse or None)."""
-    B, nh, L, hd, ks = _causal_args(wrapper.__name__, q, k, v, kv_start)
+    """Launch the causal kernel -> (out [B, nh, L, hd], lse or None)."""
+    B, nh, L, hd, hd8, ks = _causal_args(wrapper.__name__, q, k, v, kv_start)
+    q, k, v = (_causal_operand(t, hd8) for t in (q, k, v))
     out = torch.empty_like(q)
     lse = (torch.empty(B, nh, L, dtype=torch.float32, device=q.device)
            if with_lse else None)
     if out.numel() == 0:
-        return out, lse
-    vec = int(hd % 8 == 0 and _aligned(q, k, v))
+        return out[..., :hd], lse
     with torch.cuda.device(q.device):
         _launch("anyref_causal_attention", q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), None if ks is None else ks.data_ptr(),
                 out.data_ptr(), None if lse is None else lse.data_ptr(),
-                B, nh, L, hd, hd ** -0.5, vec, _stream(q))
+                B, nh, L, hd8, hd ** -0.5, _stream(q))
     wrapper.launches += 1
-    return out, lse
+    return out[..., :hd], lse
 
 
 def flash_causal_attention(q, k, v, kv_start=None):
     """q/k/v [B, nh, L, hd] prefill attention; kv_start [B] int or None."""
     if _on_cpu("flash_causal_attention", q, k, v):
         return causal_attention_plain(q, k, v, kv_start)
-    qc, kc, vc = (t.contiguous() for t in (q, k, v))
-    return _causal_forward(flash_causal_attention, qc, kc, vc, kv_start,
+    return _causal_forward(flash_causal_attention, q, k, v, kv_start,
                            with_lse=False)[0]
 
 
@@ -486,32 +513,37 @@ def causal_attention_dkv_plain(q, k, v, do, lse, delta, kv_start=None):
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def causal_delta(do, out):
+    """delta = rowsum(dO * O) [B, nh, L] in fp32 (products in fp32), the
+    backward's torch op, as the reference's wrapper computes it."""
+    return (do.float() * out).sum(-1)
+
+
 def causal_attention_diff_fwd(q, k, v, kv_start=None):
     """The training forward's kernel: (out, lse [B, nh, L] fp32). q/k/v
-    contiguous bf16 [B, nh, L, hd] on the card."""
+    bf16 [B, nh, L, hd] on the card."""
     return _causal_forward(flash_causal_attention_diff, q, k, v, kv_start,
                            with_lse=True)
 
 
 def causal_attention_diff_bwd(q, k, v, out, lse, do, kv_start=None):
-    """The training backward's kernels: delta = rowsum(dO * O) in fp32 (a
-    torch op, as the reference's wrapper computes it), then the dq and dk/dv
-    kernels. All contiguous, bf16 but lse; returns (dq, dk, dv)."""
-    B, nh, L, hd, ks = _causal_args("flash_causal_attention_diff", q, k, v,
-                                    kv_start)
-    delta = (do.float() * out.float()).sum(-1)
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    """The training backward's kernels: delta = causal_delta(dO, O), then
+    the dq and dk/dv kernels. bf16 but lse; returns (dq, dk, dv)."""
+    B, nh, L, hd, hd8, ks = _causal_args("flash_causal_attention_diff", q,
+                                         k, v, kv_start)
+    delta = causal_delta(do, out)
+    q, k, v, do = (_causal_operand(t, hd8) for t in (q, k, v, do))
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     if dq.numel() == 0:
-        return dq, dk, dv
-    vec = int(hd % 8 == 0 and _aligned(q, k, v, do))
+        return dq[..., :hd], dk[..., :hd], dv[..., :hd]
     with torch.cuda.device(q.device):
         _launch("anyref_causal_attention_bwd", q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                 None if ks is None else ks.data_ptr(), dq.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), B, nh, L, hd, hd ** -0.5, vec,
+                dk.data_ptr(), dv.data_ptr(), B, nh, L, hd8, hd ** -0.5,
                 _stream(q))
     flash_causal_attention_diff.backward_launches += 1
-    return dq, dk, dv
+    return dq[..., :hd], dk[..., :hd], dv[..., :hd]
 
 
 class _CausalAttentionDiff(torch.autograd.Function):
@@ -536,7 +568,7 @@ class _CausalAttentionDiff(torch.autograd.Function):
         ks = ctx.kv_start
         do = do.contiguous()
         if ctx.plain:
-            delta = (do.float() * out.float()).sum(-1)
+            delta = causal_delta(do, out)
             dq = causal_attention_dq_plain(q, k, v, do, lse, delta, ks)
             dk, dv = causal_attention_dkv_plain(q, k, v, do, lse, delta, ks)
         else:

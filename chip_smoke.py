@@ -85,6 +85,10 @@ H100_BYTES_PER_S = 3.35e12    # HBM3, NVIDIA data sheet (SXM)
 H100_BF16_OPS_PER_S = 989e12  # dense bf16 tensor cores
 H100_FP32_OPS_PER_S = 67e12   # fp32 outside the tensor cores
 SPIN_CYCLES = 1_000_000       # ~0.5 ms at the H100's ~1.98 GHz
+# kernels_per_call: host pause between two profiled ranges, and how far
+# outside its range (microseconds) a kernel's start may still count for it
+RANGE_GAP_S = 0.005
+RANGE_SLACK_US = 2000.0
 # rel-pos attention cases of phase 2, (B, H, W, heads, head width): SAM-H's
 # windows and global layers, the window kernel's upper edge (16 x 16), a
 # grid past it (20 x 20, the flash core), an odd head width (9 x 9, 36:
@@ -193,8 +197,17 @@ def check_kernels(torch, F, flash, port):
     def rnd_extra(*shape, scale=1.0):
         return rnd(*shape, scale=scale, gen=g_extra)
 
-    per_call = relpos_kernels_per_call(torch, flash, rnd_extra)
+    per_call = kernels_per_call(torch, flash, rnd_extra)
     torch.cuda.empty_cache()
+    causal = {k: per_call[("causal", k)] for k in
+              ("forward", "prefill", "backward", "delta")}
+    log(f"[kernel] causal kernels, CUDA kernels a call (torch.profiler): "
+        f"{json.dumps(causal)}")
+    if (causal["forward"], causal["prefill"]) != (1, 1) or \
+            causal["backward"] != causal["delta"] + 2 or causal["delta"] < 1:
+        fail(f"causal kernels: {json.dumps(causal)} CUDA kernels a call, "
+             "want 1 a forward or prefill call and the delta op's plus 2 a "
+             "backward call")
 
     def compare(name, got, want):
         """-> (max abs err, relative L2 err): every element within ATOL +
@@ -233,7 +246,7 @@ def check_kernels(torch, F, flash, port):
                  f"{rel_l2:.4g} (limit {DIFF_REL_L2})")
         return err, rel_l2
 
-    results = {}
+    results = {"causal_per_call": causal}
 
     def run_case(kname, shape_desc, kernel, plain, library, nbytes, ops,
                  ops_rate, iters=10, plain_iters=5, others=None, extra=None):
@@ -328,9 +341,19 @@ def check_causal_diff(torch, F, flash, timer, rnd, compare, results):
     slice and the reference's test give it. Forward: O and LSE; backward:
     delta = rowsum(dO * O), dq and dk/dv from the forward's O and LSE, each
     side from its own forward."""
-    for B, nh, L, Lp, hd, pads in ((2, 32, 768, 768, 128, None),
-                                   (2, 4, 200, 256, 32, (0, 50))):
-        q, k, v = (torch.nn.functional.pad(rnd(B, nh, L, hd, scale=0.5),
+    # the ragged case draws from its own generator, so the others and the
+    # wrapper check after them keep their inputs
+    g_ragged = torch.Generator(device="cuda").manual_seed(4242)
+
+    def rnd_ragged(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g_ragged, device="cuda")
+                * scale).to(torch.bfloat16)
+
+    for B, nh, L, Lp, hd, pads, draw in (
+            (2, 32, 768, 768, 128, None, rnd),
+            (2, 4, 200, 256, 32, (0, 50), rnd),
+            (1, 2, 300, 300, 64, None, rnd_ragged)):
+        q, k, v = (torch.nn.functional.pad(draw(B, nh, L, hd, scale=0.5),
                                            (0, 0, 0, Lp - L))
                    for _ in range(3))
         ks = (None if pads is None else
@@ -339,7 +362,7 @@ def check_causal_diff(torch, F, flash, timer, rnd, compare, results):
         live = rows < L
         if ks is not None:
             live = live & (rows >= ks[:, None, None, None])
-        do = torch.where(live, rnd(B, nh, Lp, hd), 0).to(torch.bfloat16)
+        do = torch.where(live, draw(B, nh, Lp, hd), 0).to(torch.bfloat16)
         desc = f"{B}x{nh}x{L}->{Lp}x{hd}" + ("" if ks is None else
                                              f" kv_start {list(pads)}")
         o, lse = flash.causal_attention_diff_fwd(q, k, v, ks)
@@ -347,13 +370,12 @@ def check_causal_diff(torch, F, flash, timer, rnd, compare, results):
         grads = flash.causal_attention_diff_bwd(q, k, v, o, lse, do, ks)
 
         def plain_bwd():
-            delta = (do.float() * po.float()).sum(-1)
+            delta = flash.causal_delta(do, po)
             return (flash.causal_attention_dq_plain(q, k, v, do, plse, delta,
                                                     ks),
                     *flash.causal_attention_dkv_plain(q, k, v, do, plse,
                                                       delta, ks))
-        terms = dict(zip(("dq", "dk", "dv"), term_sizes(
-            torch, flash, q, k, v, do, po, plse, ks)))
+        terms = term_sizes(torch, flash, q, k, v, do, po, plse, ks)
         errs, rel_l2 = {}, {}
         for n, a, b in zip(("o", "lse", "dq", "dk", "dv"), (o, lse, *grads),
                            (po, plse, *plain_bwd())):
@@ -389,6 +411,7 @@ def check_causal_diff(torch, F, flash, timer, rnd, compare, results):
                "backward_ms": timer.ms(lambda: flash.causal_attention_diff_bwd(
                    q, k, v, o, lse, do, ks), 10),
                "backward_plain_ms": timer.ms(plain_bwd, 3),
+               "delta_ms": timer.ms(lambda: flash.causal_delta(do, o), 10),
                "library_fwd_bwd_ms": timer.ms(sdpa_fwd_bwd, 10)}
         row["bound_ms"], row["bound_by"] = bound(
             4 * n_el * 2 + B * nh * Lp * 4, fwd_ops, H100_BF16_OPS_PER_S)
@@ -400,7 +423,8 @@ def check_causal_diff(torch, F, flash, timer, rnd, compare, results):
             f"forward kernel {row['ms']:.4f} ms plain "
             f"{row['plain_ms']:.4f} ms SDPA {row['library_ms']:.4f} ms bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}); backward kernel "
-            f"{row['backward_ms']:.4f} ms plain {row['backward_plain_ms']:.4f}"
+            f"{row['backward_ms']:.4f} ms (of which the delta op "
+            f"{row['delta_ms']:.4f} ms) plain {row['backward_plain_ms']:.4f}"
             f" ms, SDPA forward+backward {row['library_fwd_bwd_ms']:.4f} ms, "
             f"bound {row['backward_bound_ms']:.4f} ms "
             f"({row['backward_bound_by']})")
@@ -422,69 +446,133 @@ def diff_errors(got, want, term_tol=None):
 
 
 def term_sizes(torch, flash, q, k, v, do, o, lse, kv_start):
-    """TERM_TOL x the size of the terms each element of dq, dk and dv sums:
-    |dS| |K|, |dS|^T |Q| and P^T |dO|, from the plain versions' P and dS
-    (P = exp(S - lse) where kept, dS = P (dP - delta) scale)."""
+    """{output: TERM_TOL x the size of the terms each of its elements sums}
+    for o, dq, dk and dv: P |V| / sum(P), |dS| |K|, |dS|^T |Q| and P^T |dO|,
+    from the plain versions' P and dS (P = exp(S - lse) where kept, which
+    is the forward's exp(S - m) / sum; dS = P (dP - delta) scale). Both
+    versions round P (o, dv) or dS (dq, dk) to bf16 at values that differ
+    in their last fp32 bits (o: P at another running max), so each term may
+    differ by one bf16 ulp of its rounded factor."""
     scale = q.shape[-1] ** -0.5
     s = torch.einsum("bnqd,bnkd->bnqk", q.float(), k.float()) * scale
     p = torch.where(flash._causal_keep(q.shape[2], kv_start, q.device),
                     torch.exp(s - lse[..., None]), 0.0)
     del s
     dof = do.float()
-    delta = (dof * o.float()).sum(-1)
+    delta = flash.causal_delta(do, o)
     dp = torch.einsum("bnqd,bnkd->bnqk", dof, v.float())
     ds = (p * (dp - delta[..., None]) * scale).abs()
     del dp
-    return tuple(TERM_TOL * t for t in (
+    # a fully masked row's P is the uniform 1 / L over every key, not 0
+    pf = torch.where(p.sum(-1, keepdim=True) > 0, p, 1.0 / q.shape[2])
+    return dict(zip(("o", "dq", "dk", "dv"), (TERM_TOL * t for t in (
+        torch.einsum("bnqk,bnkd->bnqd", pf, v.float().abs())
+        / pf.sum(-1, keepdim=True),
         torch.einsum("bnqk,bnkd->bnqd", ds, k.float().abs()),
         torch.einsum("bnqk,bnqd->bnkd", ds, q.float().abs()),
-        torch.einsum("bnqk,bnqd->bnkd", p, dof.abs())))
+        torch.einsum("bnqk,bnqd->bnkd", p, dof.abs())))))
+
+
+def o_against_fp64(torch, flash, q, k, v, o_kernel, o_plain):
+    """The training forward's o from the kernel and from the plain version
+    (their first rows), each against the exact o in fp64 (unrounded P =
+    exp(s - m), the causal mask and the float32.min rule, the sum clamped
+    at 1e-20) of q/k/v [B, nh, L, hd] without a left pad. -> {kernel /
+    plain max abs err, their largest and their root-mean-square error
+    relative to the size of o's terms P |V| / sum(P), the number of
+    elements where the kernel is further from fp64 than the plain version
+    plus one bf16 ulp of |o|, and the other way round}."""
+    s = torch.einsum("bnqd,bnkd->bnqk", q.double(), k.double()) * \
+        q.shape[-1] ** -0.5
+    s = torch.where(flash._causal_keep(q.shape[2], None, q.device), s,
+                    float(torch.finfo(torch.float32).min))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    del s
+    den = p.sum(-1, keepdim=True).clamp_min(1e-20)
+    rows = o_kernel.shape[2]
+    exact = (torch.einsum("bnqk,bnkd->bnqd", p, v.double()) / den)[:, :, :rows]
+    size = (torch.einsum("bnqk,bnkd->bnqd", p, v.double().abs())
+            / den)[:, :, :rows]
+    del p
+    ek = (o_kernel.double() - exact).abs()
+    ep = (o_plain.double() - exact).abs()
+    ulp = torch.ldexp(torch.ones_like(exact),
+                      torch.frexp(exact.abs().float())[1] - 8).double()
+    rk, rp = ek / size, ep / size
+    return {"kernel_max_abs_err": float(ek.max()),
+            "plain_max_abs_err": float(ep.max()),
+            "kernel_max_err_over_term_size": float(rk.max()),
+            "plain_max_err_over_term_size": float(rp.max()),
+            "kernel_rms_err_over_term_size": float(rk.square().mean().sqrt()),
+            "plain_rms_err_over_term_size": float(rp.square().mean().sqrt()),
+            "kernel_worse_than_plain_plus_ulp": int((ek > ep + ulp).sum()),
+            "plain_worse_than_kernel_plus_ulp": int((ep > ek + ulp).sum()),
+            "elements": ek.numel()}
 
 
 def check_causal_diff_wrapper(torch, F, flash, attention, rnd, compare):
     """The training attention as the decoder calls it:
     ops.attention.causal_attention(differentiable=True) at L = 767 on
     head-transposed views of [2, 767, 32, 128] leaves, then .backward of a
-    seeded dO through the 128-pad and the slice. O and dq/dk/dv against the
-    plain versions on the explicitly padded inputs, under the limits of
-    compare; the wrapper must launch its forward and backward once each."""
+    seeded dO through the 128-pad and the slice, on three draws: the next
+    of the phase's generator and two of generators of their own. O and
+    dq/dk/dv against the plain versions on the explicitly padded inputs,
+    under the limits of compare with each output's term limit
+    (term_sizes); the wrapper must launch its forward and backward once
+    each. Each draw's O, kernel and plain, is also held against the exact
+    O in fp64 (o_against_fp64), and the numbers are logged."""
     B, L, nh, hd, Lp = 2, 767, 32, 128, 768
-    leaves = [rnd(B, L, nh, hd, scale=0.5).requires_grad_(True)
-              for _ in range(3)]
-    q, k, v = (t.transpose(1, 2) for t in leaves)
-    do = rnd(B, nh, L, hd)
     diff = flash.flash_causal_attention_diff
-    n0, b0 = diff.launches, diff.backward_launches
-    o = attention.causal_attention(q, k, v, differentiable=True)
-    o.backward(do)
-    if (diff.launches - n0, diff.backward_launches - b0) != (1, 1):
-        fail(f"causal_attention(differentiable=True): "
-             f"{diff.launches - n0} forward and "
-             f"{diff.backward_launches - b0} backward launches, want 1 each")
-    with torch.no_grad():
-        qp, kp, vp, dop = (F.pad(t.detach(), (0, 0, 0, Lp - L))
-                           for t in (q, k, v, do))
-        po, plse = flash.causal_attention_diff_fwd_plain(qp, kp, vp)
-        delta = (dop.float() * po.float()).sum(-1)
-        want = (po, flash.causal_attention_dq_plain(qp, kp, vp, dop, plse,
-                                                    delta),
-                *flash.causal_attention_dkv_plain(qp, kp, vp, dop, plse,
-                                                  delta))
-        terms = dict(zip(("dq", "dk", "dv"), term_sizes(
-            torch, flash, qp, kp, vp, dop, po, plse, None)))
     desc = f"{B}x{nh}x{L}x{hd}"
-    errs = {}
-    for n, a, b in zip(("o", "dq", "dk", "dv"),
-                       (o.detach(), *(t.grad.transpose(1, 2)
-                                      for t in leaves)), want):
-        errs[n] = compare(f"causal_attention(differentiable=True) {desc} {n}",
-                          a, b[:, :, :L],
-                          None if n == "o" else terms[n][:, :, :L])
-    log(f"[kernel] flash_causal_attention_diff through "
-        f"ops.attention.causal_attention(differentiable=True) {desc}, "
-        f"autograd backward: (max abs err, relative L2 err) {json.dumps(errs)}")
-    del leaves, q, k, v, do, o, qp, kp, vp, dop, po, plse, delta, want, \
-        terms
+    for draw in range(3):
+        if draw == 0:
+            r = rnd
+        else:
+            g = torch.Generator(device="cuda").manual_seed(draw)
+
+            def r(*shape, scale=1.0, g=g):
+                return (torch.randn(shape, generator=g, device="cuda")
+                        * scale).to(torch.bfloat16)
+        leaves = [r(B, L, nh, hd, scale=0.5).requires_grad_(True)
+                  for _ in range(3)]
+        q, k, v = (t.transpose(1, 2) for t in leaves)
+        do = r(B, nh, L, hd)
+        n0, b0 = diff.launches, diff.backward_launches
+        o = attention.causal_attention(q, k, v, differentiable=True)
+        o.backward(do)
+        if (diff.launches - n0, diff.backward_launches - b0) != (1, 1):
+            fail(f"causal_attention(differentiable=True): "
+                 f"{diff.launches - n0} forward and "
+                 f"{diff.backward_launches - b0} backward launches, want 1 "
+                 "each")
+        with torch.no_grad():
+            qp, kp, vp, dop = (F.pad(t.detach(), (0, 0, 0, Lp - L))
+                               for t in (q, k, v, do))
+            po, plse = flash.causal_attention_diff_fwd_plain(qp, kp, vp)
+            delta = flash.causal_delta(dop, po)
+            want = (po, flash.causal_attention_dq_plain(qp, kp, vp, dop,
+                                                        plse, delta),
+                    *flash.causal_attention_dkv_plain(qp, kp, vp, dop, plse,
+                                                      delta))
+            terms = term_sizes(torch, flash, qp, kp, vp, dop, po, plse, None)
+            exact = o_against_fp64(torch, flash, qp, kp, vp, o.detach(),
+                                   po[:, :, :L])
+        errs = {}
+        for n, a, b in zip(("o", "dq", "dk", "dv"),
+                           (o.detach(), *(t.grad.transpose(1, 2)
+                                          for t in leaves)), want):
+            errs[n] = compare(
+                f"causal_attention(differentiable=True) {desc} draw {draw} "
+                f"{n}", a, b[:, :, :L], terms[n][:, :, :L])
+        # o's elements over the limit without its term part, as it was
+        exact["o_over_limit_without_term"] = diff_errors(o.detach(),
+                                                         po[:, :, :L])[2]
+        log(f"[kernel] flash_causal_attention_diff through "
+            f"ops.attention.causal_attention(differentiable=True) {desc}, "
+            f"draw {draw}, autograd backward: (max abs err, relative L2 err) "
+            f"{json.dumps(errs)}; O against fp64 {json.dumps(exact)}")
+        del leaves, q, k, v, do, o, qp, kp, vp, dop, po, plse, delta, want, \
+            terms
 
 
 def check_fused_kernels(torch, F, flash, port, rnd, run_case):
@@ -656,12 +744,18 @@ def relpos_qkv_case(rnd, B, H, W, nh, hd):
             tw)
 
 
-def relpos_kernels_per_call(torch, flash, rnd, calls: int = 3) -> dict:
-    """{(wrapper, label): CUDA kernels one call runs} for every rel-pos case,
-    counted in one torch.profiler session at the start of phase 2 (short
-    sessions late in a long process were seen to drop device events): each
-    case runs `calls` times inside its own record_function range, and each
-    kernel counts for the range its start falls in."""
+def kernels_per_call(torch, flash, rnd, calls: int = 3) -> dict:
+    """{(wrapper, label): CUDA kernels one call runs} for every rel-pos case
+    (inputs from rnd) and for the causal kernels at the 7B shapes (inputs
+    from a generator of their own): the training forward and the prefill,
+    the training backward and, alone, its delta op. Counted in one
+    torch.profiler session at the start of phase 2 (short sessions late in
+    a long process were seen to drop device events): each case runs `calls`
+    times inside its own record_function range, and each kernel counts for
+    the range its start falls in, give or take RANGE_SLACK_US: the ranges
+    lie RANGE_GAP_S apart, so that the device clock's offset against the
+    host's (the kernels' times are the device's) cannot carry a short
+    kernel at a range's edge into the next one."""
     from torch.profiler import ProfilerActivity, profile, record_function
     cases = {}
     for shape in RELPOS_SPLIT_CASES:
@@ -674,6 +768,20 @@ def relpos_kernels_per_call(torch, flash, rnd, calls: int = 3) -> dict:
         cases[("flash_relpos_attention_qkv", label)] = (
             lambda qkv=qkv, th=th, tw=tw, hw=shape[1:3], nh=shape[3]:
             flash.flash_relpos_attention_qkv(qkv, th, tw, hw, nh))
+    g = torch.Generator(device="cuda").manual_seed(2468)
+    q, k, v, do = (torch.randn(2, 32, 768, 128, generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    o, lse = flash.causal_attention_diff_fwd(q, k, v)
+    qp, kp, vp = (torch.randn(2, 32, 640, 128, generator=g, device="cuda")
+                  .to(torch.bfloat16) for _ in range(3))
+    ks = torch.tensor([0, 200], dtype=torch.int32, device="cuda")
+    cases[("causal", "forward")] = lambda: flash.causal_attention_diff_fwd(
+        q, k, v)
+    cases[("causal", "prefill")] = lambda: flash.flash_causal_attention(
+        qp, kp, vp, ks)
+    cases[("causal", "backward")] = lambda: flash.causal_attention_diff_bwd(
+        q, k, v, o, lse, do)
+    cases[("causal", "delta")] = lambda: flash.causal_delta(do, o)
     for fn in cases.values():
         fn()
     torch.cuda.synchronize()
@@ -681,6 +789,7 @@ def relpos_kernels_per_call(torch, flash, rnd, calls: int = 3) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for name, key in names.items():
+            time.sleep(RANGE_GAP_S)
             with record_function(name):
                 for _ in range(calls):
                     cases[key]()
@@ -692,13 +801,14 @@ def relpos_kernels_per_call(torch, flash, rnd, calls: int = 3) -> dict:
     spans = {names[e.name]: e.time_range for e in events
              if e.name in names and e.device_type != cuda}
     if len(spans) != len(cases):
-        fail(f"relpos_kernels_per_call: {len(spans)} of {len(cases)} ranges "
+        fail(f"kernels_per_call: {len(spans)} of {len(cases)} ranges "
              "in the profile")
     counts = dict.fromkeys(cases, 0)
     for e in events:
         if e.device_type == cuda and e.name not in names:
             for key, span in spans.items():
-                if span.start <= e.time_range.start <= span.end:
+                if span.start - RANGE_SLACK_US <= e.time_range.start <= \
+                        span.end + RANGE_SLACK_US:
                     counts[key] += 1
     return {key: n / calls for key, n in counts.items()}
 
@@ -710,7 +820,7 @@ def relpos_case(torch, F, flash, run_case, kname, shape_desc, kernel, plain,
     with the bias built inside the timed call (relpos_factors, the
     expansion to [L, L], SDPA: library_with_factors). On the window route
     one call must run exactly one CUDA kernel (per_call, counted by
-    relpos_kernels_per_call)."""
+    kernels_per_call)."""
     H, W = size_hw
     B, nh, L, hd = q.shape
 
@@ -1304,6 +1414,23 @@ def log_ptxas(src: str, text: str) -> None:
             name = None
 
 
+# the sources of the warp-specialised wgmma kernels, whose ptxas report
+# must show no spill and no serialised wgmma
+WGMMA_SOURCES = ("causal_attention.cu", "causal_attention_bwd.cu",
+                 "int8_matmul.cu")
+
+
+def check_wgmma_build(src: str, text: str) -> None:
+    """Fail on a spill or on a wgmma that ptxas serialised (C7510-C7520:
+    a register operand reused while in flight, too few registers, a
+    compiler-inserted warpgroup arrive) in a wgmma source's ptxas report."""
+    for line in text.splitlines():
+        if ("spill stores" in line and not line.split("stack frame, ")[-1]
+                .startswith("0 bytes spill stores")) or \
+                any(f"C75{n}" in line for n in range(10, 21)):
+            fail(f"ptxas, {src}: {line.strip()}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1347,6 +1474,8 @@ def main() -> int:
         logf = flash.BUILD_DIR / f"{src.rsplit('.', 1)[0]}-{tag}.log"
         if logf.exists():
             log_ptxas(src, logf.read_text())
+            if src in WGMMA_SOURCES:
+                check_wgmma_build(src, logf.read_text())
 
     # phase 2
     results = check_kernels(torch, F, flash, {"image_encoder": image_encoder,
@@ -1434,9 +1563,11 @@ def main() -> int:
         **{k: diff[0][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "backward_ms", "backward_plain_ms", "backward_bound_ms",
-            "backward_bound_by", "library_fwd_bwd_ms",
+            "backward_bound_by", "library_fwd_bwd_ms", "delta_ms",
             "max_abs_err_by_output", "rel_l2_err_by_output")},
         "other_shapes": diff[1:],
+        "cuda_per_call": {"forward": results["causal_per_call"]["forward"],
+                          "backward": results["causal_per_call"]["backward"]},
     })
     for name, (src, replaces) in meta.items():
         rows = results[name]
@@ -1457,6 +1588,8 @@ def main() -> int:
                 "library_with_factors_ms": head["library_with_factors_ms"],
                 "cuda_per_call": head["cuda_per_call"]}
                if name in long_source else {}),
+            **({"cuda_per_call": results["causal_per_call"]["prefill"]}
+               if name == "flash_causal_attention" else {}),
             "unfused_ms": head.get("unfused_ms"),
             "split_pair_ms": head.get("split_pair_ms"),
             "other_shapes": rows[1:],

@@ -20,7 +20,21 @@ of each case, in ms:
                  the timed call
   relpos_global  flash_relpos_attention [2, 16, 4096, 80]
   factors_window / factors_global  relpos_factors alone at those shapes
+  attention_qkv  flash_attention_qkv [2, 257, 3072], 16 heads of 64 (CLIP-L
+                 at batch 2), first held against its plain version
   causal         flash_causal_attention [2, 32, 640, 128], kv_start (0, 200)
+                 (the serving prefill)
+  causal_diff_fwd  causal_attention_diff_fwd [2, 32, 768, 128] (the training
+                 forward: O and the log-sum-exp)
+  causal_diff_bwd  causal_attention_diff_bwd at the same shape (delta =
+                 rowsum(dO * O), then the dq and dk/dv kernels); the prefill
+                 and both training cases are first held against their plain
+                 versions, the training outputs each within a relative L2
+                 error of 1e-2 (the element limits of chip_smoke.py need the
+                 terms' sizes, which are not computed here)
+  sdpa_causal_fwd / sdpa_causal_fwd_bwd  SDPA with is_causal at the training
+                 shape, forward alone and forward plus backward (library
+                 yardsticks, timed only)
   int8_MxKxN     int8_matmul of bf16 x [M, K] by int8 w_q [K, N]: the 7B
                  decoder's prefill products at batch 2 (M = 1280: q/k/v/o
                  4096 x 4096, gate/up 4096 x 11008, down 11008 x 4096) and
@@ -113,10 +127,18 @@ def time_root(root: str) -> dict:
     out["relpos_qkv_window"] = ms(
         lambda: flash.flash_relpos_attention_qkv(qkv, th, tw, (14, 14), 16))
     del qkv
+    qkv = rnd(2, 257, 3 * 1024)
+    check("attention_qkv", flash.flash_attention_qkv(qkv, 16),
+          flash.attention_qkv_plain(qkv, 16))
+    out["attention_qkv"] = ms(lambda: flash.flash_attention_qkv(qkv, 16))
+    del qkv
     q, k, v = (rnd(2, 32, 640, 128) for _ in range(3))
     ks = torch.tensor([0, 200], dtype=torch.int32, device="cuda")
+    check("causal", flash.flash_causal_attention(q, k, v, ks),
+          flash.causal_attention_plain(q, k, v, ks))
     out["causal"] = ms(lambda: flash.flash_causal_attention(q, k, v, ks))
     del q, k, v
+    out.update(time_causal_diff(torch, flash, rnd, ms, root))
     from anyref_tpu_torch.ops import quant
     for M, K, N in INT8_SHAPES:
         x = rnd(M, K)
@@ -131,6 +153,41 @@ def time_root(root: str) -> dict:
             out[f"cublas_{M}x{K}x{N}"] = ms(lambda: torch.matmul(x, w))
         del x, w, wq
     return out
+
+
+def time_causal_diff(torch, flash, rnd, ms, root) -> dict:
+    """The training attention at [2, 32, 768, 128], no pad: its forward and
+    backward kernels, each first held against the plain versions (relative
+    L2 error of each output at most 1e-2), and SDPA's."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v = (rnd(2, 32, 768, 128, scale=0.5) for _ in range(3))
+    do = rnd(2, 32, 768, 128)
+    o, lse = flash.causal_attention_diff_fwd(q, k, v)
+    grads = flash.causal_attention_diff_bwd(q, k, v, o, lse, do)
+    po, plse = flash.causal_attention_diff_fwd_plain(q, k, v)
+    delta = (do.float() * po.float()).sum(-1)
+    want = (po, plse, flash.causal_attention_dq_plain(q, k, v, do, plse, delta),
+            *flash.causal_attention_dkv_plain(q, k, v, do, plse, delta))
+    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), (o, lse, *grads),
+                          want):
+        a, b = a.float(), b.float()
+        rel = float((a - b).norm() / b.norm())
+        if not bool(torch.isfinite(a).all()) or rel > 1e-2:
+            raise SystemExit(f"{root}: causal_diff {name} disagrees with its "
+                             f"plain version (relative L2 err {rel})")
+    del grads, po, plse, delta, want
+    qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        qg.grad = kg.grad = vg.grad = None
+        sdpa(qg, kg, vg, is_causal=True).backward(do)
+
+    return {
+        "causal_diff_fwd": ms(lambda: flash.causal_attention_diff_fwd(q, k, v)),
+        "causal_diff_bwd": ms(lambda: flash.causal_attention_diff_bwd(
+            q, k, v, o, lse, do)),
+        "sdpa_causal_fwd": ms(lambda: sdpa(q, k, v, is_causal=True)),
+        "sdpa_causal_fwd_bwd": ms(sdpa_fwd_bwd)}
 
 
 def main() -> int:

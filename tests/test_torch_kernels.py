@@ -69,6 +69,32 @@ def test_relpos_route_by_grid():
             route(L, 144)
 
 
+def test_causal_route_by_head_width():
+    """The decoder heads of anyref_7b (128) and anyref_tiny (32) go to the
+    causal kernels as they are ("tma": rows of a multiple of 16 bytes);
+    other widths up to 128 are zero-padded to a multiple of 8 ("pad8"),
+    which leaves q . k and the kept columns of the output alone; heads
+    wider than 128 raise."""
+    from anyref_tpu_torch.config import anyref_7b, anyref_tiny
+    route = tflash._causal_route
+    for cfg in (anyref_7b(), anyref_tiny()):
+        ll = cfg.llama
+        assert route(ll.hidden_size // ll.num_heads) == "tma"
+    assert [route(hd) for hd in (8, 64, 80, 120)] == ["tma"] * 4
+    assert [route(hd) for hd in (1, 36, 127)] == ["pad8"] * 3
+    for hd in (0, 136):
+        with pytest.raises(ValueError):
+            route(hd)
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 2, 40, 36, generator=g) for _ in range(3))
+    assert tflash._causal_args("t", q, k, v, None)[4] == 40
+    qp, kp = (tflash._causal_operand(t, 40) for t in (q, k))
+    assert qp.shape == (1, 2, 40, 40) and bool((qp[..., 36:] == 0).all())
+    assert torch.equal(qp[..., :36], q)
+    np.testing.assert_allclose(torch.einsum("bnqd,bnkd->bnqk", qp, kp),
+                               torch.einsum("bnqd,bnkd->bnqk", q, k), **TOL)
+
+
 @pytest.mark.parametrize("mh", ["1", "0"])
 def test_causal_attention_matches_pallas(monkeypatch, mh):
     """kv_start 70 leaves rows 0..69 of batch row 1 with no key: they must

@@ -132,14 +132,19 @@ def _tree_pairs(got, want, path=""):
 # ---------------------------------------------------------------------------
 # (a) the kernel's plain versions against the Pallas kernels
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("L,kv_start", [(256, (0, 50)), (200, None)],
-                         ids=["L256-kvstart", "L200"])
-def test_causal_diff_matches_jax_vjp(L, kv_start):
+@pytest.mark.parametrize("L,kv_start,hd",
+                         [(256, (0, 50), 32), (200, None, 32),
+                          (256, (0, 50), 128), (200, None, 128)],
+                         ids=["L256-kvstart", "L200", "hd128-L256-kvstart",
+                              "hd128-L200"])
+def test_causal_diff_matches_jax_vjp(L, kv_start, hd):
     """Forward and dq, dk, dv through causal_attention(differentiable=True)
     on both sides: the pad to a multiple of 128, the kernel (its plain
     version here) and the slice. The cotangent of the left-pad rows is
-    zeroed, as tests/test_flash.py does (those rows have no gradient)."""
-    B, nh, hd = 2, 2, 32
+    zeroed, as tests/test_flash.py does (those rows have no gradient).
+    Heads of 32 (anyref_tiny) and of 128 (anyref_7b, the width the CUDA
+    kernels are built for)."""
+    B, nh = 2, 2
     rng = np.random.default_rng(5)
     q, k, v = ((rng.standard_normal((B, nh, L, hd)) * 0.3).astype(np.float32)
                for _ in range(3))
@@ -202,11 +207,11 @@ def test_causal_diff_wrapper_plain_only_on_cpu():
 
 
 def test_chip_check_of_the_training_attention_rejects_a_dropped_tile():
-    """chip_smoke.py's limits for the training attention's gradients, with
-    the plain versions standing in for the kernel: the plain result passes
-    them; dropping one tile (the last 32 of 256 keys from dq, the last 32
-    queries from dk and dv) fails both the element limit and the relative
-    L2 limit."""
+    """chip_smoke.py's limits for the training attention's output and
+    gradients, with the plain versions standing in for the kernel: the
+    plain result passes them; dropping one tile (the last 32 of 256 values
+    from o, the last 32 keys from dq, the last 32 queries from dk and dv)
+    fails both the element limit and the relative L2 limit."""
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", pathlib.Path(__file__).resolve().parent.parent
         / "chip_smoke.py")
@@ -226,7 +231,11 @@ def test_chip_check_of_the_training_attention_rejects_a_dropped_tile():
     k_cut, do_cut = (t.float().mul(keep).bfloat16() for t in (k, do))
     cut = (tflash.causal_attention_dq_plain(q, k_cut, v, do, lse, delta),
            *tflash.causal_attention_dkv_plain(q, k, v, do_cut, lse, delta))
-    for name, w, c, t in zip(("dq", "dk", "dv"), want, cut, terms):
+    v_cut = v.float().mul(keep).bfloat16()
+    want = (o, *want)
+    cut = (tflash.causal_attention_diff_fwd_plain(q, k, v_cut)[0], *cut)
+    for name, w, c in zip(("o", "dq", "dk", "dv"), want, cut):
+        t = terms[name]
         assert cs.diff_errors(w, w, t)[1:] == (0.0, 0), name
         _, rel_l2, bad = cs.diff_errors(c, w, t)
         assert bad > 1000 and rel_l2 > cs.DIFF_REL_L2, (name, bad, rel_l2)
@@ -455,8 +464,49 @@ def test_train_forward_text_only(tp, batch):
             (2, 4), np.float32)})
     with pytest.raises(NotImplementedError):
         tanyref.train_forward(tp, CFG.scaled(rephrase_weight=0.1), batch)
-    with pytest.raises(NotImplementedError):
-        tanyref.train_forward(tp, CFG.scaled(use_loc_tokens=True), batch)
+
+
+@pytest.mark.parametrize("with_boxes", [True, False],
+                         ids=["loc_boxes", "no_loc_boxes"])
+def test_train_forward_loc_tokens_match_jax(jp, tp, batch, with_boxes):
+    """use_loc_tokens=True: with loc_boxes in the batch each [SEG] slot's
+    prompt embedding gains loc_weight x the mean of its 4 loc embeddings
+    (JAX anyref.py:437-440), and loc_embeddings get a gradient; without
+    them the batch trains without loc tokens (no gradient reaches the
+    table). Loss terms and that gradient against the JAX train_forward."""
+    from anyref_tpu_torch.models import anyref as tanyref
+    cfg = CFG.scaled(use_loc_tokens=True)
+    rng = np.random.default_rng(12)
+    loc = (0.5 * rng.standard_normal((cfg.tokens.num_loc, cfg.out_dim))
+           ).astype(np.float32)
+    b = dict(batch)
+    if with_boxes:
+        B = np.asarray(batch["input_ids"]).shape[0]
+        b["loc_boxes"] = rng.integers(0, cfg.tokens.num_loc,
+                                      (B, cfg.max_seg_per_sample, 4)
+                                      ).astype(np.int32)
+    jb = {k: jnp.asarray(v) for k, v in b.items()}
+
+    def jloss(table):
+        out = janyref.train_forward({**jp, "loc_embeddings": table}, cfg, jb)
+        return out.loss, out
+
+    (_, jout), jgrad = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
+        jnp.asarray(loc))
+    table = torch.from_numpy(loc).requires_grad_(True)
+    out = tanyref.train_forward({**tp, "loc_embeddings": table}, cfg, b)
+    if out.loss.requires_grad:   # only the table asks for a gradient here
+        out.loss.backward()
+    for name in ("loss", "lm_loss", "bce_loss", "dice_loss"):
+        np.testing.assert_allclose(getattr(out, name).item(),
+                                   float(getattr(jout, name)), rtol=1e-3,
+                                   err_msg=name)
+    jgrad = np.asarray(jgrad, np.float32)
+    got = (np.zeros_like(jgrad) if table.grad is None
+           else table.grad.numpy())
+    np.testing.assert_allclose(got, jgrad, rtol=0,
+                               atol=2e-2 * max(np.abs(jgrad).max(), 1e-30))
+    assert (np.abs(jgrad).max() > 0) == with_boxes
 
 
 # ---------------------------------------------------------------------------
