@@ -1,16 +1,16 @@
-// Flash attention core shared by the port's bidirectional attention
-// kernels: rel-pos (SAM, bias factors given or built in the kernel) and
-// bias-free (CLIP). The causal attention of the decoder and of training has
+// Flash attention core shared by two of the port's bidirectional attention
+// kernels: the window attention of the fused SAM layers (rel-pos bias
+// factors built in the kernel) and bias-free attention (CLIP). SAM's
+// rel-pos attention of the unfused paths and of the global layers has
+// kernels of its own (window_attention.cu, relpos_global.cu). The causal attention of the decoder and of training has
 // its own wgmma kernels (causal_attention.cu, causal_attention_bwd.cu). Head (b, h) of q, k, v and out is a bf16 [L, hd]
 // matrix whose row r lies at base + b * sb + h * sh + r * sr (elements), so
-// one kernel reads split heads [B, nh, L, hd] or column slices of a fused
-// [B, L, 3C] QKV tensor ("QKV-direct"), and writes split heads or the
-// head-merged [B, L, C] stream.
+// the kernel reads column slices of a fused [B, L, 3C] QKV tensor
+// ("QKV-direct") and writes the head-merged [B, L, C] stream.
 //
-// What bounds it on the H100: the two products (Q K^T and P V) are
-// 4 * BH * L^2 * hd operations; at L = 4096 that work, not the bytes of
-// q/k/v/out, sets the least time, and at the window and CLIP shapes the
-// bytes do. The design keeps the score matrix out of device memory and
+// What bounds it on the H100: at the window and CLIP shapes the bytes of
+// q/k/v/out, not the 4 * BH * L^2 * hd operations of the two products
+// (Q K^T and P V). The design keeps the score matrix out of device memory and
 // out of shared memory:
 // - a block owns BQ = 64 query rows, four warps of 16; a warp keeps its Q
 //   fragments, its 16 x 64 scores and its 16 x hd output accumulator in
@@ -34,11 +34,10 @@
 // of P apart).
 //
 // Bias modes:
-// - RELPOS: rh [BH, L, H] and rw [BH, L, W] fp32 factors from the wrapper;
-//   bias[q, key] = rh[q, key / W] + rw[q, key % W]. The block keeps its 64
-//   rows of both in shared memory (odd row stride) and adds them per key.
-// - WINDOW: the same bias, with the factors built in the kernel from the
-//   gathered bf16 tables th, tw [ws, ws, hd] and the block's bf16 Q:
+// - WINDOW: bias[q, key] = rh[q, key / W] + rw[q, key % W], the factors
+//   built in the kernel from the gathered bf16 tables th, tw [ws, ws, hd]
+//   and the block's bf16 Q (the block keeps its 64 rows of both in shared
+//   memory, odd row stride, and adds them per key):
 //   rh[q, j] = q . th[q / ws, j], rw[q, j] = q . tw[q % ws, j] in fp32, as
 //   _window_attn_all computes them inside the TPU kernel.
 // - NONE: plain softmax attention.
@@ -49,7 +48,7 @@
 namespace anyref_attn {
 
 constexpr int BQ = 64, BK = 64, NWARPS = 4, NTHREADS = 32 * NWARPS;
-enum Mode { RELPOS = 1, NONE = 2, WINDOW = 3 };
+enum Mode { NONE = 2, WINDOW = 3 };
 
 // Row r of head h of batch entry b lies at base + b * sb + h * sh + r * sr
 // (32-bit strides, widened to 64 bits as they are multiplied).
@@ -65,8 +64,7 @@ struct Args {
   int nh, L, hd;
   float scale;
   int vec;               // 16-byte copies: hd, strides and bases multiples of 8 elements
-  int H, W;              // RELPOS / WINDOW: the key grid (WINDOW: H = W = ws)
-  const float *rh, *rw;  // RELPOS factors
+  int H, W;              // WINDOW: the key grid, H = W = ws
   const bf16 *th, *tw;   // WINDOW tables
 };
 
@@ -84,7 +82,7 @@ __host__ __device__ inline size_t align128(size_t b) { return (b + 127) & ~size_
 
 // Shared memory: Q [64][ldh], K and V [2 stages][64][ldh] (bf16, ldh = hdp
 // + 8 so the fragment loads of eight rows hit eight distinct banks), and for
-// the rel-pos modes the block's rows of the bias factors ([64][ldrh],
+// the WINDOW mode the block's rows of the bias factors ([64][ldrh],
 // [64][ldrw]) and one tile's key -> (row, column) tables.
 __host__ __device__ inline Layout make_layout(int hd, int H, int W) {
   Layout t;
@@ -129,7 +127,7 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0, 
 // NKS = padded hd / 16.
 template <int MODE, int NKS>
 __global__ void __launch_bounds__(NTHREADS) attn_kernel(const Args a) {
-  constexpr bool BIAS = MODE == RELPOS || MODE == WINDOW;
+  constexpr bool BIAS = MODE == WINDOW;
   constexpr int HDP = NKS * 16, LDH = HDP + 8, NDT = 2 * NKS;
   extern __shared__ __align__(128) unsigned char smem[];
   const int L = a.L, hd = a.hd, H = BIAS ? a.H : 0, W = BIAS ? a.W : 0;
@@ -151,17 +149,6 @@ __global__ void __launch_bounds__(NTHREADS) attn_kernel(const Args a) {
   const bf16* vb = a.v + ibase;
   bf16* ob = a.out + (size_t)b * a.outv.sb + (size_t)h * a.outv.sh;
   const int ld = a.in.sr;
-
-  if (MODE == RELPOS) {
-    for (int i = tid; i < BQ * H; i += NTHREADS) {
-      const int r = i / H, j = i % H;
-      Rh[r * t.ldrh + j] = q0 + r < L ? a.rh[((size_t)bh * L + q0 + r) * H + j] : 0.f;
-    }
-    for (int i = tid; i < BQ * W; i += NTHREADS) {
-      const int r = i / W, j = i % W;
-      Rw[r * t.ldrw + j] = q0 + r < L ? a.rw[((size_t)bh * L + q0 + r) * W + j] : 0.f;
-    }
-  }
 
   const int kt_begin = 0, kt_end = (L + BK - 1) / BK;
 
@@ -348,7 +335,7 @@ __global__ void __launch_bounds__(NTHREADS) attn_kernel(const Args a) {
 
 template <int MODE, int NKS>
 inline int launch_nks(const Args& a, int BH, void* stream) {
-  const bool bias = MODE == RELPOS || MODE == WINDOW;
+  const bool bias = MODE == WINDOW;
   const Layout t = make_layout(a.hd, bias ? a.H : 0, bias ? a.W : 0);
   cudaError_t e = cudaFuncSetAttribute(attn_kernel<MODE, NKS>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -374,24 +361,6 @@ inline int launch(const Args& a, int BH, void* stream) {
       return (int)cudaErrorInvalidValue;  // hd > 128 (or <= 0)
   }
 #undef ANYREF_NKS
-}
-
-// Args for contiguous split heads [B, nh, L, hd] in and out.
-inline Args split_heads(const void* q, const void* k, const void* v, void* out, int nh, int L,
-                        int hd, float scale, int vec) {
-  Args a = {};
-  a.q = (const bf16*)q;
-  a.k = (const bf16*)k;
-  a.v = (const bf16*)v;
-  a.out = (bf16*)out;
-  a.in = View{nh * L * hd, L * hd, hd};
-  a.outv = a.in;
-  a.nh = nh;
-  a.L = L;
-  a.hd = hd;
-  a.scale = scale;
-  a.vec = vec;
-  return a;
 }
 
 // Args for q/k/v read as column slices of a fused [B, L, 3C] tensor and the

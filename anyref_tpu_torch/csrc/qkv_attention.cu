@@ -10,12 +10,6 @@
 //   windows [NW, ws*ws, 3C] with the rel-pos factors built in the kernel
 //   from the gathered bf16 tables [ws, ws, hd]. Main path: [50, 196, 3840],
 //   16 heads of 80. Bound: device-memory bytes (qkv in, out back).
-// * anyref_relpos_attention_qkv: the attention of fused_global_tail, and of
-//   flash_relpos_attention_qkv on grids of more than 256 tokens (windows go
-//   to window_attention.cu), with the fp32 factors rh [B*nh, L, H], rw
-//   [B*nh, L, W] that the wrapper computes, as the reference's wrapper
-//   does. Main path: [2, 4096, 3840]. Bound: tensor-core operations
-//   (4 * B * nh * L^2 * hd).
 // * anyref_mha_qkv: flash_attention_qkv (_mha_qkv_kernel), CLIP's bias-free
 //   attention. Main path: [2, 257, 3072], 16 heads of 64. Bound: bytes.
 #include "attention.cuh"
@@ -29,18 +23,6 @@ ANYREF_API int anyref_window_attention_qkv(const void* qkv, const void* th, cons
   a.th = (const bf16*)th;
   a.tw = (const bf16*)tw;
   return anyref_attn::launch<anyref_attn::WINDOW>(a, B * nh, stream);
-}
-
-ANYREF_API int anyref_relpos_attention_qkv(const void* qkv, const void* rh, const void* rw,
-                                           void* out, int B, int L, int nh, int hd, int H, int W,
-                                           float scale, int vec, void* stream) {
-  if (H <= 0 || W <= 0 || H * W != L) return (int)cudaErrorInvalidValue;
-  anyref_attn::Args a = anyref_attn::qkv_direct(qkv, out, nh, L, hd, scale, vec);
-  a.H = H;
-  a.W = W;
-  a.rh = (const float*)rh;
-  a.rw = (const float*)rw;
-  return anyref_attn::launch<anyref_attn::RELPOS>(a, B * nh, stream);
 }
 
 ANYREF_API int anyref_mha_qkv(const void* qkv, void* out, int B, int L, int nh, int hd,

@@ -4,8 +4,10 @@
 // descriptors and bf16 wgmma in both forms (A from shared memory, "SS", or
 // from registers, "RS"). Written for int8_matmul.cu's prefill body and
 // extended for the causal attention kernels (causal_attention.cu,
-// causal_attention_bwd.cu); the fused SAM GEMMs of gemm.cuh can be rebuilt
-// on the same helpers.
+// causal_attention_bwd.cu) and the global rel-pos attention
+// (relpos_global.cu: 4-D tensor maps of strided heads, RS wgmma of N = 32,
+// 48 and 80); the fused SAM GEMMs of gemm.cuh can be rebuilt on the same
+// helpers.
 //
 // Conventions of the descriptors here: every operand tile is stored as TMA
 // leaves it with CU_TENSOR_MAP_SWIZZLE_128B, in rows of 64 bf16 (128
@@ -104,6 +106,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// 4-D tile of `map` at element coordinates (c0 innermost, c1, c2, c3), as
+// tma_load_2d.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
 // cuTensorMapEncodeTiled, reached through the runtime's driver entry point
 // (the library is not linked against libcuda).
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -127,16 +141,17 @@ static inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A tensor of `rank` (2 or 3) dimensions, dims[0] innermost and contiguous,
+// A tensor of `rank` (2 to 4) dimensions, dims[0] innermost and contiguous,
 // strides[i] the bytes between neighbours of dimension i + 1 (multiples of
-// 16), read in boxes of box[] elements; out-of-bounds elements read 0.
+// 16, in any order: a permuted view keeps its strides), read in boxes of
+// box[] elements; out-of-bounds elements read 0.
 static inline bool make_tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
                                    const void* p, const cuuint64_t* dims,
                                    const cuuint64_t* strides, const cuuint32_t* box,
                                    CUtensorMapSwizzle swizzle) {
   const EncodeTiledFn f = encode_tiled();
   if (!f) return false;
-  const cuuint32_t elem[3] = {1, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
   memset(map, 0, sizeof(*map));
   return f(map, type, rank, const_cast<void*>(p), dims, strides, box, elem,
            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -280,7 +295,7 @@ __device__ __forceinline__ void wgmma_m64n192k16_bf16_rs(float (&d)[96], const u
 
 // The forms of the attention kernels: d[64 x N] (fp32, N / 2 registers a
 // thread in the accumulator layout above) += A[64 x 16] * B[16 x N], bf16;
-// N = 32 or 64 (SS), 64 or 128 (RS).
+// N = 32 or 64 (SS), 32, 48, 64, 80 or 128 (RS).
 // SS: A from shared memory through descriptor da (K-major). RS: A from
 // registers as in wgmma_m64n192k16_bf16_rs. scale_d = 0 overwrites d
 // instead of adding. TRANS_B = 0 reads B K-major (sw128_desc), 1 MN-major
@@ -376,6 +391,70 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
       : "memory");
 }
 
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16], const uint32_t (&a)[4],
+                                                  uint64_t db, int scale_d = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TRANS_B)
+      : "memory");
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n48k16_rs(float (&d)[24], const uint32_t (&a)[4],
+                                                  uint64_t db, int scale_d = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1, %30;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TRANS_B)
+      : "memory");
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n80k16_rs(float (&d)[40], const uint32_t (&a)[4],
+                                                  uint64_t db, int scale_d = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, %46;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TRANS_B)
+      : "memory");
+}
+
 template <int N, int TRANS_B>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
                                          int scale_d) {
@@ -387,8 +466,12 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
 template <int N, int TRANS_B>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t db, int scale_d = 1) {
-  static_assert(N == 64 || N == 128, "wgmma_rs: N is 64 or 128");
-  if constexpr (N == 64) wgmma_m64n64k16_rs<TRANS_B>(d, a, db, scale_d);
+  static_assert(N == 32 || N == 48 || N == 64 || N == 80 || N == 128,
+                "wgmma_rs: N is 32, 48, 64, 80 or 128");
+  if constexpr (N == 32) wgmma_m64n32k16_rs<TRANS_B>(d, a, db, scale_d);
+  else if constexpr (N == 48) wgmma_m64n48k16_rs<TRANS_B>(d, a, db, scale_d);
+  else if constexpr (N == 64) wgmma_m64n64k16_rs<TRANS_B>(d, a, db, scale_d);
+  else if constexpr (N == 80) wgmma_m64n80k16_rs<TRANS_B>(d, a, db, scale_d);
   else wgmma_m64n128k16_rs<TRANS_B>(d, a, db, scale_d);
 }
 

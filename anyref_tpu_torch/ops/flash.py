@@ -9,8 +9,8 @@ and how its design answers that):
 * ``layer_norm_fused``        <- ``layer_norm_fused`` / ``_ln_kernel``
 * ``rms_norm_fused``          <- ``rms_norm_fused`` / ``_rms_kernel``
 * ``flash_relpos_attention``  <- ``flash_relpos_attention`` (window and
-  global kernels: ``csrc/window_attention.cu`` up to 256 tokens, the flash
-  core of ``csrc/attention.cuh`` above)
+  global kernels: ``csrc/window_attention.cu`` up to 256 tokens,
+  ``csrc/relpos_global.cu`` above)
 * ``flash_causal_attention``  <- ``flash_causal_attention`` (multi-head and
   per-head kernels), on the training forward's kernel without its
   log-sum-exp output
@@ -39,10 +39,11 @@ tokens; up to 256 the window kernel computes the factors itself).
 the causal kernel (``csrc/causal_attention.cu``) with a log-sum-exp
 output, its backward two kernels (``csrc/causal_attention_bwd.cu``: dq
 over query blocks, dk/dv over key blocks) after delta = rowsum(dO * O), a
-torch op here as in the reference's wrapper. The three causal kernels and
+torch op here as in the reference's wrapper. The three causal kernels,
+the global rel-pos kernel (``csrc/relpos_global.cu``) and
 ``int8_matmul``'s prefill body are ``wgmma`` kernels fed by TMA
 (``csrc/wgmma.cuh``); heads whose width is not a multiple of 8 are
-zero-padded to one by the wrapper (``_causal_route``).
+zero-padded to one by the wrapper (``_causal_route``, ``_relpos_route``).
 
 Each wrapper runs its plain version when, and only when, its input lies on
 the CPU (the tests). For a CUDA tensor it launches its kernels or raises:
@@ -75,7 +76,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("norms.cu", "relpos_attention.cu", "causal_attention.cu",
+SOURCES = ("norms.cu", "relpos_global.cu", "causal_attention.cu",
            "causal_attention_bwd.cu", "fused_layers.cu", "qkv_attention.cu",
            "int8_matmul.cu", "window_attention.cu")
 HEADERS = ("common.cuh", "attention.cuh", "gemm.cuh", "wgmma.cuh")
@@ -143,9 +144,9 @@ def _library():
             P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             sigs = {
                 "anyref_layer_norm": [P, P, P, P, I, I, F, I, P],
-                "anyref_rms_norm": [P, P, P, I, I, F, I, P],
-                "anyref_relpos_attention": [P, P, P, P, P, P, I, I, I, I, I,
-                                            I, F, I, P],
+                "anyref_rms_norm": [P, P, I, P, I, I, F, I, P],
+                "anyref_relpos_global": [P, P, P, I, I, I, P, P, P, I, I, I,
+                                         I, I, I, I, I, I, F, P],
                 "anyref_causal_attention": [P, P, P, P, P, P, I, I, I, I, F,
                                             P],
                 "anyref_causal_attention_bwd": [P] * 10 + [I, I, I, I, F, P],
@@ -154,8 +155,6 @@ def _library():
                                 I, I, I, I, I, I, P],
                 "anyref_window_attention_qkv": [P, P, P, P, I, I, I, I, I, F,
                                                 I, P],
-                "anyref_relpos_attention_qkv": [P, P, P, P, I, I, I, I, I, I,
-                                                F, I, P],
                 "anyref_mha_qkv": [P, P, I, I, I, I, F, I, P],
                 "anyref_int8_matmul": [P, P, P, P, P, I, I, I, P],
                 "anyref_window_relpos_attention": [P, P, P, I, I, I, P, P, P,
@@ -225,7 +224,10 @@ def rms_norm_plain(x, scale, eps: float):
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
-def _norm(entry: str, wrapper, x, params, eps: float):
+def layer_norm_fused(x, scale, bias, eps: float):
+    """x [..., C], scale/bias [C] -> LayerNorm(x), same dtype as x."""
+    if _on_cpu("layer_norm_fused", x):
+        return layer_norm_plain(x, scale, bias, eps)
     C = x.shape[-1]
     xc = x.contiguous()
     N = xc.numel() // max(C, 1)
@@ -233,27 +235,42 @@ def _norm(entry: str, wrapper, x, params, eps: float):
     if N == 0:
         return y
     ps = [p.to(device=x.device, dtype=torch.float32).contiguous()
-          for p in params]
+          for p in (scale, bias)]
     vec = int(C % 8 == 0 and _aligned(xc, y, *ps))
     with torch.cuda.device(x.device):
-        _launch(entry, xc.data_ptr(), *(p.data_ptr() for p in ps),
-                y.data_ptr(), N, C, float(eps), vec, _stream(x))
-    wrapper.launches += 1
+        _launch("anyref_layer_norm", xc.data_ptr(),
+                *(p.data_ptr() for p in ps), y.data_ptr(), N, C, float(eps),
+                vec, _stream(x))
+    layer_norm_fused.launches += 1
     return y
 
 
-def layer_norm_fused(x, scale, bias, eps: float):
-    """x [..., C], scale/bias [C] -> LayerNorm(x), same dtype as x."""
-    if _on_cpu("layer_norm_fused", x):
-        return layer_norm_plain(x, scale, bias, eps)
-    return _norm("anyref_layer_norm", layer_norm_fused, x, (scale, bias), eps)
-
-
 def rms_norm_fused(x, scale, eps: float):
-    """x [..., C], scale [C] -> RMSNorm(x), same dtype as x."""
+    """x [..., C], scale [C] -> RMSNorm(x), same dtype as x. One CUDA
+    kernel a call: a bf16 or fp32 scale is read as it is (another dtype is
+    first converted to fp32)."""
     if _on_cpu("rms_norm_fused", x):
         return rms_norm_plain(x, scale, eps)
-    return _norm("anyref_rms_norm", rms_norm_fused, x, (scale,), eps)
+    C = x.shape[-1]
+    if scale.numel() != C:
+        raise ValueError(f"rms_norm_fused: scale {tuple(scale.shape)} for "
+                         f"rows of {C}")
+    xc = x.contiguous()
+    N = xc.numel() // max(C, 1)
+    y = torch.empty_like(xc)
+    if N == 0:
+        return y
+    s = scale.to(device=x.device)
+    if s.dtype not in (torch.bfloat16, torch.float32):
+        s = s.float()
+    s = s.contiguous()
+    vec = int(C % 8 == 0 and _aligned(xc, y, s))
+    with torch.cuda.device(x.device):
+        _launch("anyref_rms_norm", xc.data_ptr(), s.data_ptr(),
+                int(s.dtype == torch.float32), y.data_ptr(), N, C, float(eps),
+                vec, _stream(x))
+    rms_norm_fused.launches += 1
+    return y
 
 
 layer_norm_fused.launches = 0
@@ -266,7 +283,7 @@ rms_norm_fused.launches = 0
 def relpos_factors(q, rel_h_table, rel_w_table, size_hw):
     """The q-dependent bias factors rh = q . Rh [B, nh, L, H] and
     rw = q . Rw [B, nh, L, W] in fp32 (anyref_tpu flash.py:203-207): two
-    small products the flash core takes from outside (grids of more than
+    small products the global kernel takes from outside (grids of more than
     WINDOW_MAX_L tokens), as the reference keeps them outside its kernels;
     the window kernel computes the same sums itself."""
     H, W = size_hw
@@ -306,12 +323,64 @@ def _relpos_route(L: int, hd: int) -> str:
     """The CUDA kernel that takes SAM rel-pos attention over L = H * W
     tokens with heads of hd: "window" (csrc/window_attention.cu, the whole
     grid in one block, the bias factors computed in the kernel) up to
-    WINDOW_MAX_L tokens, "flash" (the flash core of csrc/attention.cuh, the
-    factors from relpos_factors) above. Raises where neither runs."""
+    WINDOW_MAX_L tokens; above, csrc/relpos_global.cu after the factor
+    einsums of relpos_factors: "global" where a row of hd bf16 is a
+    multiple of 16 bytes (TMA's rule), "global_pad8" where the wrapper first
+    zero-pads the heads to a multiple of 8 columns. Raises where none
+    runs."""
     if L <= 0 or not 0 < hd <= 128:
         raise ValueError(f"rel-pos attention: no CUDA kernel for L {L}, "
                          f"heads of {hd} (at most 128)")
-    return "window" if L <= WINDOW_MAX_L else "flash"
+    if L <= WINDOW_MAX_L:
+        return "window"
+    return "global" if hd % 8 == 0 else "global_pad8"
+
+
+def _head_view(t):
+    """(storage offset, (sb, sh, sr)) of heads t [B, nh, L, hd] as
+    csrc/relpos_global.cu reads them in place: row r of head (b, h) at
+    element offset + b sb + h sh + r sr of t's storage, the row contiguous.
+    None where its 4-D tensor map cannot (a row that is not contiguous, a
+    width, stride or offset that is not a multiple of 8 elements, a base
+    that is not 16-byte aligned: TMA's 16-byte rule)."""
+    strides = tuple(t.stride()[:3])
+    off = t.storage_offset()
+    if (t.stride(-1) != 1 or t.shape[-1] % 8 or off % 8
+            or any(x % 8 for x in strides) or not _aligned(t)):
+        return None
+    return off, strides
+
+
+def _global_relpos(q, k, v, rel_h_table, rel_w_table, size_hw, out):
+    """The fp32 factor einsums (relpos_factors) and one launch of
+    csrc/relpos_global.cu on q, k, v [B, nh, L, hd] into out [B, nh, L, hd]
+    (split heads, or a view of the head-merged [B, L, C]). Views the kernel
+    reads in place (_head_view, the three sharing their strides: split
+    heads, heads permuted out of a fused QKV, its column slices) are not
+    copied; other operands are copied contiguous, zero-padded to a multiple
+    of 8 columns, and an output the kernel cannot write in place goes
+    through a contiguous buffer."""
+    H, W = size_hw
+    B, nh, L, hd = q.shape
+    if not 0 < hd <= 128:
+        raise ValueError(f"rel-pos attention: no CUDA kernel for heads of "
+                         f"{hd} (at most 128)")
+    rh, rw = (t.contiguous() for t in
+              relpos_factors(q, rel_h_table, rel_w_table, size_hw))
+    views = [_head_view(t) for t in (q, k, v)]
+    if None in views or len({x[1] for x in views}) != 1:
+        hd8 = -(-hd // 8) * 8
+        q, k, v = (_causal_operand(t, hd8) for t in (q, k, v))
+        views = [_head_view(t) for t in (q, k, v)]
+    o = out if _head_view(out) is not None and q.shape[-1] == hd else \
+        torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
+    _launch("anyref_relpos_global", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            *views[0][1], rh.data_ptr(), rw.data_ptr(), o.data_ptr(),
+            *o.stride()[:3], B, nh, L, q.shape[-1], H, W, hd ** -0.5,
+            _stream(q))
+    if o is not out:
+        out.copy_(o[..., :hd])
+    return out
 
 
 def _window_relpos(q, k, v, rel_h_table, rel_w_table, size_hw, out):
@@ -341,9 +410,9 @@ def _window_relpos(q, k, v, rel_h_table, rel_w_table, size_hw, out):
 
 def flash_relpos_attention(q, k, v, rel_h_table, rel_w_table, size_hw):
     """q/k/v [B, nh, L, hd]; rel_*_table [S, S, hd] -> [B, nh, L, hd]. One
-    launch: the window kernel up to WINDOW_MAX_L tokens (strided views such
-    as the heads of a fused QKV read in place), else the flash core after
-    the fp32 factor einsums."""
+    launch: the window kernel up to WINDOW_MAX_L tokens, else the global
+    kernel after the fp32 factor einsums; both read strided views such as
+    the heads of a fused QKV in place."""
     if _on_cpu("flash_relpos_attention", q, k, v):
         return relpos_attention_plain(q, k, v, rel_h_table, rel_w_table,
                                       size_hw)
@@ -360,14 +429,7 @@ def flash_relpos_attention(q, k, v, rel_h_table, rel_w_table, size_hw):
         if route == "window":
             _window_relpos(q, k, v, rel_h_table, rel_w_table, size_hw, out)
         else:
-            qc, kc, vc = (t.contiguous() for t in (q, k, v))
-            rh, rw = (t.contiguous() for t in
-                      relpos_factors(qc, rel_h_table, rel_w_table, size_hw))
-            vec = int(hd % 8 == 0 and _aligned(qc, kc, vc))
-            _launch("anyref_relpos_attention", qc.data_ptr(), kc.data_ptr(),
-                    vc.data_ptr(), rh.data_ptr(), rw.data_ptr(),
-                    out.data_ptr(), B, nh, L, hd, H, W, hd ** -0.5, vec,
-                    _stream(q))
+            _global_relpos(q, k, v, rel_h_table, rel_w_table, size_hw, out)
     flash_relpos_attention.launches += 1
     return out
 
@@ -890,20 +952,14 @@ def _qkv_dims(qkv, size_hw, num_heads: int):
 
 def _relpos_qkv_attention(qkv, tht, twt, size_hw, num_heads: int):
     """The fp32 bias factors (two einsums, as the reference's wrappers
-    compute them) and one launch of the flash core's rel-pos attention off
-    the contiguous fused QKV [B, L, 3C] -> [B, L, C] bf16."""
-    H, W = size_hw
+    compute them) and one launch of the global kernel on the heads of the
+    fused QKV [B, L, 3C], read in place -> [B, L, C] bf16, written
+    head-merged."""
     B, L, C, hd = _qkv_dims(qkv, size_hw, num_heads)
-    if hd > 128:
-        raise ValueError(f"rel-pos attention off the fused QKV: heads of "
-                         f"{hd} (at most 128)")
-    q = _split_qkv(qkv, num_heads)[0]
-    rh, rw = (t.contiguous() for t in relpos_factors(q, tht, twt, size_hw))
     out = torch.empty(B, L, C, dtype=torch.bfloat16, device=qkv.device)
     if out.numel():
-        _launch("anyref_relpos_attention_qkv", qkv.data_ptr(), rh.data_ptr(),
-                rw.data_ptr(), out.data_ptr(), B, L, num_heads, hd, H, W,
-                hd ** -0.5, int(hd % 8 == 0 and _aligned(qkv)), _stream(qkv))
+        _global_relpos(*_split_qkv(qkv, num_heads), tht, twt, size_hw,
+                       out.view(B, L, num_heads, hd).transpose(1, 2))
     return out
 
 
@@ -1007,8 +1063,8 @@ def flash_relpos_attention_qkv(qkv, rel_h_table, rel_w_table, size_hw,
     """SAM window rel-pos attention read off the fused QKV [B, L, 3C]
     (heads not split), rel_*_table [S, S, hd] -> [B, L, C] with heads
     merged. One launch: the window kernel up to WINDOW_MAX_L tokens (the
-    bias factors computed in it), else the flash core after the fp32 factor
-    einsums, as the reference's wrapper computes them."""
+    bias factors computed in it), else the global kernel after the fp32
+    factor einsums, as the reference's wrapper computes them."""
     if _on_cpu("flash_relpos_attention_qkv", qkv):
         return relpos_attention_qkv_plain(qkv, rel_h_table, rel_w_table,
                                           size_hw, num_heads)

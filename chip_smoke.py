@@ -21,7 +21,9 @@ Phases (any failure exits non-zero before the result line):
      precomputed and SDPA with the bias built inside the timed call, at
      grids on both sides of the split by length (the window kernel up to
      256 tokens, where one call must run exactly one CUDA kernel under
-     torch.profiler; the flash core above);
+     torch.profiler; the global kernel above, where a call must run the
+     factor einsums' kernels plus exactly one); rms_norm_fused must run
+     exactly one CUDA kernel a call at a bf16 scale;
   3. check the slice on the card against the same weights and inputs on the
      CPU (whose plain versions the CPU tests hold against the JAX package):
      "unfused" and "unfused_qkv" at anyref_tiny(), "fused" and "fused_block"
@@ -91,15 +93,20 @@ RANGE_GAP_S = 0.005
 RANGE_SLACK_US = 2000.0
 # rel-pos attention cases of phase 2, (B, H, W, heads, head width): SAM-H's
 # windows and global layers, the window kernel's upper edge (16 x 16), a
-# grid past it (20 x 20, the flash core), an odd head width (9 x 9, 36:
-# unvectorised loads) and a non-square grid (8 x 12; for the split-head
-# wrapper read as the unfused path reads it, heads permuted out of a fused
-# QKV in place)
+# grid past it (20 x 20, the global kernel, W not dividing 128), an odd head
+# width (9 x 9, 36: unvectorised loads; 17 x 19, 36: the global kernel on
+# heads the wrapper zero-pads to 40), non-square grids (8 x 12; 5 x 64, the
+# global kernel's W = 64 path with a ragged last key tile; for the
+# split-head wrapper every non-square grid is read as the unfused path
+# reads it, heads permuted out of a fused QKV in place) and the fused QKV
+# of SAM-H's global layers ([2, 4096, 3840])
 RELPOS_SPLIT_CASES = ((50, 14, 14, 16, 80), (2, 64, 64, 16, 80),
                       (3, 16, 16, 2, 32), (3, 20, 20, 2, 32),
-                      (3, 8, 12, 2, 32))
+                      (3, 8, 12, 2, 32), (2, 17, 19, 2, 36),
+                      (1, 5, 64, 2, 64))
 RELPOS_QKV_CASES = ((50, 14, 14, 16, 80), (3, 9, 9, 2, 36),
-                    (3, 16, 16, 2, 32), (3, 8, 12, 2, 32), (3, 20, 20, 2, 32))
+                    (3, 16, 16, 2, 32), (3, 8, 12, 2, 32), (3, 20, 20, 2, 32),
+                    (2, 64, 64, 16, 80), (2, 17, 19, 2, 36))
 
 TEXTS = (
     "the small brown dog that is sitting on the left side of the wooden "
@@ -246,7 +253,12 @@ def check_kernels(torch, F, flash, port):
                  f"{rel_l2:.4g} (limit {DIFF_REL_L2})")
         return err, rel_l2
 
-    results = {"causal_per_call": causal}
+    rms = per_call[("rms_norm_fused", "1280x4096")]
+    log(f"[kernel] rms_norm_fused 1280x4096, bf16 scale: {rms:g} CUDA "
+        "kernel(s) a call (torch.profiler)")
+    if rms != 1:
+        fail(f"rms_norm_fused: {rms:g} CUDA kernels a call, want 1")
+    results = {"causal_per_call": causal, "rms_per_call": rms}
 
     def run_case(kname, shape_desc, kernel, plain, library, nbytes, ops,
                  ops_rate, iters=10, plain_iters=5, others=None, extra=None):
@@ -307,7 +319,9 @@ def check_kernels(torch, F, flash, port):
                     lambda: flash.relpos_attention_plain(q, k, v, th, tw,
                                                          (H, W)),
                     q, k, v, th, tw, (H, W), flash._relpos_route(H * W, hd),
-                    per_call[("flash_relpos_attention", label)])
+                    per_call[("flash_relpos_attention", label)],
+                    per_call.get(("factors", "flash_relpos_attention",
+                                  label)))
     # causal prefill: LLaMA-7B, batch 2, prompt bucket 385 -> L 640, one
     # row left-padded by 200
     B, nh, L, hd = 2, 32, 640, 128
@@ -726,12 +740,12 @@ def check_fused_kernels(torch, F, flash, port, rnd, run_case):
 def relpos_split_case(rnd, B, H, W, nh, hd):
     """(label, q, k, v, th, tw) of a split-head rel-pos case."""
     L = H * W
-    if (H, W) == (8, 12):
+    if H != W:
         q, k, v = rnd(B, L, 3, nh, hd).permute(2, 0, 3, 1, 4)
     else:
         q, k, v = (rnd(B, nh, L, hd) for _ in range(3))
     th, tw = rnd(H, H, hd, scale=0.1), rnd(W, W, hd, scale=0.1)
-    label = f"{B}x{nh}x{L}x{hd}" + (" permuted" if (H, W) == (8, 12) else "")
+    label = f"{B}x{nh}x{L}x{hd}" + (" permuted" if H != W else "")
     return label, q, k, v, th, tw
 
 
@@ -746,9 +760,13 @@ def relpos_qkv_case(rnd, B, H, W, nh, hd):
 
 def kernels_per_call(torch, flash, rnd, calls: int = 3) -> dict:
     """{(wrapper, label): CUDA kernels one call runs} for every rel-pos case
-    (inputs from rnd) and for the causal kernels at the 7B shapes (inputs
-    from a generator of their own): the training forward and the prefill,
-    the training backward and, alone, its delta op. Counted in one
+    (inputs from rnd; on the global routes also ("factors", wrapper, label):
+    relpos_factors alone on the same q view, made contiguous as the wrapper
+    makes them), for rms_norm_fused at the
+    7B prefill's [1280, 4096] with a bf16 scale, and for the causal kernels
+    at the 7B shapes (inputs from a generator of their own): the training
+    forward and the prefill, the training backward and, alone, its delta
+    op. Counted in one
     torch.profiler session at the start of phase 2 (short sessions late in
     a long process were seen to drop device events): each case runs `calls`
     times inside its own record_function range, and each kernel counts for
@@ -763,11 +781,24 @@ def kernels_per_call(torch, flash, rnd, calls: int = 3) -> dict:
         cases[("flash_relpos_attention", label)] = (
             lambda q=q, k=k, v=v, th=th, tw=tw, hw=shape[1:3]:
             flash.flash_relpos_attention(q, k, v, th, tw, hw))
+        if shape[1] * shape[2] > flash.WINDOW_MAX_L:
+            cases[("factors", "flash_relpos_attention", label)] = (
+                lambda q=q, th=th, tw=tw, hw=shape[1:3]:
+                [t.contiguous() for t in flash.relpos_factors(q, th, tw,
+                                                              hw)])
     for shape in RELPOS_QKV_CASES:
         label, qkv, th, tw = relpos_qkv_case(rnd, *shape)
         cases[("flash_relpos_attention_qkv", label)] = (
             lambda qkv=qkv, th=th, tw=tw, hw=shape[1:3], nh=shape[3]:
             flash.flash_relpos_attention_qkv(qkv, th, tw, hw, nh))
+        if shape[1] * shape[2] > flash.WINDOW_MAX_L:
+            cases[("factors", "flash_relpos_attention_qkv", label)] = (
+                lambda qkv=qkv, th=th, tw=tw, hw=shape[1:3], nh=shape[3]:
+                [t.contiguous() for t in flash.relpos_factors(
+                    flash._split_qkv(qkv, nh)[0], th, tw, hw)])
+    x, s = rnd(1280, 4096), rnd(4096)
+    cases[("rms_norm_fused", "1280x4096")] = (
+        lambda: flash.rms_norm_fused(x, s, 1e-6))
     g = torch.Generator(device="cuda").manual_seed(2468)
     q, k, v, do = (torch.randn(2, 32, 768, 128, generator=g, device="cuda")
                    .to(torch.bfloat16) for _ in range(4))
@@ -814,13 +845,14 @@ def kernels_per_call(torch, flash, rnd, calls: int = 3) -> dict:
 
 
 def relpos_case(torch, F, flash, run_case, kname, shape_desc, kernel, plain,
-                q, k, v, th, tw, size_hw, route, per_call):
+                q, k, v, th, tw, size_hw, route, per_call, factors):
     """One rel-pos attention case: the kernel against its plain version,
     timed beside SDPA given the bias precomputed in bf16 (library) and SDPA
     with the bias built inside the timed call (relpos_factors, the
-    expansion to [L, L], SDPA: library_with_factors). On the window route
-    one call must run exactly one CUDA kernel (per_call, counted by
-    kernels_per_call)."""
+    expansion to [L, L], SDPA: library_with_factors). A call must run
+    exactly one CUDA kernel on the window route, and the `factors` kernels
+    of relpos_factors plus exactly one on the "global" route (per_call and
+    factors, counted by kernels_per_call; "global_pad8" adds its copies)."""
     H, W = size_hw
     B, nh, L, hd = q.shape
 
@@ -840,11 +872,13 @@ def relpos_case(torch, F, flash, run_case, kname, shape_desc, kernel, plain,
                                                     attn_mask=bias_of(q))},
              extra={"route": route})
     row["cuda_per_call"] = per_call
+    row["factor_kernels_per_call"] = factors
     log(f"[kernel] {kname} {shape_desc}: route {route}, {per_call:g} CUDA "
-        "kernel(s) a call")
-    if route == "window" and per_call != 1:
+        f"kernel(s) a call, of which the factor einsums' {factors or 0:g}")
+    want = {"window": 1, "global": (factors or 0) + 1}.get(route)
+    if want is not None and per_call != want:
         fail(f"{kname} {shape_desc}: {per_call:g} CUDA kernels a call on the "
-             "window route, want 1")
+             f"{route} route, want {want:g}")
 
 
 def check_relpos_qkv_and_int8(torch, F, flash, quant, rnd, rnd_extra,
@@ -852,8 +886,11 @@ def check_relpos_qkv_and_int8(torch, F, flash, quant, rnd, rnd_extra,
     """flash_relpos_attention_qkv at SAM-H's windows ([50, 196, 3840], 16
     heads of 80), then 3 grids of 9 x 9 with 2 heads of 36 (unvectorised
     loads), of 16 x 16 (the window kernel's upper edge), of 8 x 12 and of
-    20 x 20 (the flash core) with 2 heads of 32; int8_matmul at the 7B decoder's shapes (a decode step at batch
-    2, the lm_head, the three products of a prefill of 2 x 640 rows) and at
+    20 x 20 (the global kernel) with 2 heads of 32, SAM-H's global layers
+    ([2, 4096, 3840]) and 2 grids of 17 x 19 with 2 heads of 36 (the global
+    kernel on heads zero-padded to 40); int8_matmul at the 7B decoder's
+    shapes (a decode step at batch 2, the lm_head, the three products of a
+    prefill of 2 x 640 rows) and at
     two odd shapes, one per body: 3 rows (split-K) and 77 rows (wgmma: M
     and K not multiples of 64, N % 16 != 0, so W goes by cp.async), against
     torch.matmul by the bf16 weight it was quantised from."""
@@ -870,7 +907,9 @@ def check_relpos_qkv_and_int8(torch, F, flash, quant, rnd, rnd_extra,
                     lambda: flash.relpos_attention_qkv_plain(qkv, th, tw,
                                                              (H, W), nh),
                     q, k, v, th, tw, (H, W), flash._relpos_route(H * W, hd),
-                    per_call[("flash_relpos_attention_qkv", label)])
+                    per_call[("flash_relpos_attention_qkv", label)],
+                    per_call.get(("factors", "flash_relpos_attention_qkv",
+                                  label)))
         del qkv, q, k, v
     vocab = 32128   # anyref_7b's padded vocabulary
     for M, K, N in ((2, 4096, 4096), (2, 4096, 11008), (2, 11008, 4096),
@@ -1417,7 +1456,7 @@ def log_ptxas(src: str, text: str) -> None:
 # the sources of the warp-specialised wgmma kernels, whose ptxas report
 # must show no spill and no serialised wgmma
 WGMMA_SOURCES = ("causal_attention.cu", "causal_attention_bwd.cu",
-                 "int8_matmul.cu")
+                 "int8_matmul.cu", "relpos_global.cu")
 
 
 def check_wgmma_build(src: str, text: str) -> None:
@@ -1535,12 +1574,13 @@ def main() -> int:
         "int8_matmul": ("anyref_tpu_torch/csrc/int8_matmul.cu",
                         "anyref_tpu/ops/quant.py:73"),
     }
-    # the rel-pos wrappers' flash core, which takes grids of more than 256
-    # tokens (the 7B global layers)
+    # the rel-pos wrappers' global kernel, which takes grids of more than
+    # 256 tokens (the 7B global layers), as it takes fused_global_tail's
+    # attention
     long_source = {
-        "flash_relpos_attention": "anyref_tpu_torch/csrc/relpos_attention.cu",
+        "flash_relpos_attention": "anyref_tpu_torch/csrc/relpos_global.cu",
         "flash_relpos_attention_qkv":
-            "anyref_tpu_torch/csrc/qkv_attention.cu"}
+            "anyref_tpu_torch/csrc/relpos_global.cu"}
     # the run of the path each kernel serves ("fused", the default, for the
     # rest)
     own_path = {"flash_relpos_attention": "unfused",
@@ -1590,6 +1630,10 @@ def main() -> int:
                if name in long_source else {}),
             **({"cuda_per_call": results["causal_per_call"]["prefill"]}
                if name == "flash_causal_attention" else {}),
+            **({"cuda_per_call": results["rms_per_call"]}
+               if name == "rms_norm_fused" else {}),
+            **({"attention_source": "anyref_tpu_torch/csrc/relpos_global.cu"}
+               if name == "fused_global_tail" else {}),
             "unfused_ms": head.get("unfused_ms"),
             "split_pair_ms": head.get("split_pair_ms"),
             "other_shapes": rows[1:],

@@ -1,5 +1,5 @@
-"""Time the port's attention kernels and int8_matmul in several checkouts,
-in turns, on one CUDA card.
+"""Time the port's attention kernels, RMSNorm and int8_matmul in several
+checkouts, in turns, on one CUDA card.
 
     python3 kernel_ab.py ROOT [ROOT ...]     # e.g. parent change change parent
 
@@ -18,8 +18,20 @@ of each case, in ms:
                  bf16 (library yardstick, timed only)
   sdpa_factors_window  relpos_factors, the bias expansion and SDPA, all in
                  the timed call
-  relpos_global  flash_relpos_attention [2, 16, 4096, 80]
+  relpos_global  flash_relpos_attention [2, 16, 4096, 80] (SAM-H's global
+                 layers, batch 2), the whole wrapper, factor einsums
+                 included
+  relpos_qkv_global  flash_relpos_attention_qkv [2, 4096, 3840], 16 heads
+                 of 80, the whole wrapper (the attention of
+                 fused_global_tail); both global cases are first held
+                 against their plain versions
+  sdpa_bias_global  SDPA at the global shape given the bias precomputed in
+                 bf16 (library yardstick, timed only)
   factors_window / factors_global  relpos_factors alone at those shapes
+  rms_norm       rms_norm_fused [1280, 4096] with a bf16 scale (the LLaMA-7B
+                 prefill at batch 2), first held against its plain version
+  f_rms_norm     torch.nn.functional.rms_norm at the same inputs (library
+                 yardstick, timed only)
   attention_qkv  flash_attention_qkv [2, 257, 3072], 16 heads of 64 (CLIP-L
                  at batch 2), first held against its plain version
   causal         flash_causal_attention [2, 32, 640, 128], kv_start (0, 200)
@@ -100,25 +112,39 @@ def time_root(root: str) -> dict:
     for name, B, S in (("window", 50, 14), ("global", 2, 64)):
         q, k, v = (rnd(B, 16, S * S, 80) for _ in range(3))
         th, tw = rnd(S, S, 80, scale=0.1), rnd(S, S, 80, scale=0.1)
-        if name == "window":
-            check("relpos_window",
-                  flash.flash_relpos_attention(q, k, v, th, tw, (S, S)),
-                  flash.relpos_attention_plain(q, k, v, th, tw, (S, S)))
+        check(f"relpos_{name}",
+              flash.flash_relpos_attention(q, k, v, th, tw, (S, S)),
+              flash.relpos_attention_plain(q, k, v, th, tw, (S, S)))
         out[f"relpos_{name}"] = ms(
             lambda: flash.flash_relpos_attention(q, k, v, th, tw, (S, S)))
         out[f"factors_{name}"] = ms(
             lambda: flash.relpos_factors(q, th, tw, (S, S)))
+
+        def bias():
+            rh, rw = flash.relpos_factors(q, th, tw, (S, S))
+            return (rh[..., :, None] + rw[..., None, :]).reshape(
+                B, 16, S * S, S * S).to(torch.bfloat16)
+        b = bias()
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        out[f"sdpa_bias_{name}"] = ms(lambda: sdpa(q, k, v, attn_mask=b))
         if name == "window":
-            def bias():
-                rh, rw = flash.relpos_factors(q, th, tw, (S, S))
-                return (rh[..., :, None] + rw[..., None, :]).reshape(
-                    B, 16, S * S, S * S).to(torch.bfloat16)
-            b = bias()
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            out["sdpa_bias_window"] = ms(lambda: sdpa(q, k, v, attn_mask=b))
             out["sdpa_factors_window"] = ms(
                 lambda: sdpa(q, k, v, attn_mask=bias()))
-            del b
+        del b
+    qkv = rnd(2, 4096, 3 * 1280)
+    th, tw = rnd(64, 64, 80, scale=0.1), rnd(64, 64, 80, scale=0.1)
+    check("relpos_qkv_global",
+          flash.flash_relpos_attention_qkv(qkv, th, tw, (64, 64), 16),
+          flash.relpos_attention_qkv_plain(qkv, th, tw, (64, 64), 16))
+    out["relpos_qkv_global"] = ms(
+        lambda: flash.flash_relpos_attention_qkv(qkv, th, tw, (64, 64), 16))
+    del qkv
+    x, s = rnd(1280, 4096), rnd(4096)
+    check("rms_norm", flash.rms_norm_fused(x, s, 1e-6),
+          flash.rms_norm_plain(x, s, 1e-6))
+    out["rms_norm"] = ms(lambda: flash.rms_norm_fused(x, s, 1e-6))
+    out["f_rms_norm"] = ms(
+        lambda: torch.nn.functional.rms_norm(x, (4096,), s, 1e-6))
     qkv = rnd(50, 196, 3 * 1280)
     th, tw = rnd(14, 14, 80, scale=0.1), rnd(14, 14, 80, scale=0.1)
     check("relpos_qkv_window",

@@ -54,7 +54,9 @@ def _sam_grids(cfg):
 def test_relpos_route_by_grid():
     """The windows of anyref_7b (14 x 14) and anyref_tiny (4 x 4) and
     anyref_tiny's 16 x 16 global layer take the window kernel; anyref_7b's
-    64 x 64 global layers the flash core; heads wider than 128 neither."""
+    64 x 64 global layers the global kernel (csrc/relpos_global.cu), heads
+    whose width is not a multiple of 8 (17 x 19 of 36) after the wrapper
+    zero-pads them; heads wider than 128 neither."""
     from anyref_tpu_torch.config import anyref_7b, anyref_tiny
     big, tiny = _sam_grids(anyref_7b()), _sam_grids(anyref_tiny())
     assert big == {"window": (196, 80), "global": (4096, 80)}
@@ -62,11 +64,48 @@ def test_relpos_route_by_grid():
     route = tflash._relpos_route
     assert [route(*big["window"]), route(*tiny["window"]),
             route(*tiny["global"])] == ["window"] * 3
-    assert route(*big["global"]) == "flash"
-    assert route(tflash.WINDOW_MAX_L + 1, 80) == "flash"
+    assert route(*big["global"]) == "global"
+    assert route(tflash.WINDOW_MAX_L + 1, 80) == "global"
+    assert route(17 * 19, 36) == "global_pad8"
     for L in (196, 4096):
         with pytest.raises(ValueError):
             route(L, 144)
+
+
+def test_global_operand_views():
+    """The rank-4 views (storage offset, strides) the global kernel's
+    tensor maps read: split heads, the unfused path's heads permuted out of
+    a fused QKV (models/sam/image_encoder.py _attn_block) and each third of
+    a fused QKV (_split_qkv) are read in place, and each view rebuilt with
+    torch.as_strided from the flat storage is the tensor itself; q, k and v
+    share their strides. A width that is not a multiple of 8 is copied."""
+    g = torch.Generator().manual_seed(0)
+    B, H, W, nh, hd = 2, 4, 6, 3, 16
+    L, C = H * W, nh * hd
+
+    def rebuilt(t):
+        off, (sb, sh, sr) = tflash._head_view(t)
+        flat = t.untyped_storage()
+        base = torch.tensor([], dtype=t.dtype).set_(flat)
+        return torch.as_strided(base, t.shape, (sb, sh, sr, 1), off)
+
+    split = [torch.randn(B, nh, L, hd, generator=g) for _ in range(3)]
+    qkv = torch.randn(B, L, 3 * C, generator=g)
+    permuted = list(qkv.reshape(B, L, 3, nh, hd).permute(2, 0, 3, 1, 4))
+    thirds = tflash._split_qkv(qkv, nh)
+    for views in (split, permuted, thirds):
+        strides = {tflash._head_view(t)[1] for t in views}
+        assert len(strides) == 1
+        for t in views:
+            assert torch.equal(rebuilt(t), t)
+    assert tflash._head_view(thirds[1])[0] == C
+    assert tflash._head_view(permuted[2])[0] == 2 * C
+    assert tflash._head_view(thirds[0])[1] == (L * 3 * C, hd, 3 * C)
+    out = torch.empty(B, L, C).view(B, L, nh, hd).transpose(1, 2)
+    assert tflash._head_view(out) == (0, (L * C, hd, C))
+    odd = torch.randn(B, L, 3 * nh * 36, generator=g)
+    assert all(tflash._head_view(t) is None
+               for t in tflash._split_qkv(odd, nh))
 
 
 def test_causal_route_by_head_width():
@@ -118,21 +157,30 @@ def test_causal_attention_matches_pallas(monkeypatch, mh):
                                                (nh, 70, hd)), **TOL)
 
 
-@pytest.mark.parametrize("kind", ["layer", "rms"])
-def test_norms_match_pallas(kind):
-    """300 rows (not a multiple of the reference's 256-row block), C 128."""
+@pytest.mark.parametrize("kind,C,scale_dtype", [
+    pytest.param("layer", 128, "float32", id="layer"),
+    pytest.param("rms", 128, "float32", id="rms"),
+    pytest.param("rms", 4096, "bfloat16", id="rms-bf16-scale-4096"),
+    pytest.param("rms", 100, "float32", id="rms-odd-width")])
+def test_norms_match_pallas(kind, C, scale_dtype):
+    """300 rows (not a multiple of the reference's 256-row block), C 128;
+    RMSNorm also at the LLaMA-7B width with a bf16 scale (anyref_7b's
+    weights: the CUDA kernel reads it as bf16) and at a width that is not a
+    multiple of 8 (the kernel's element-by-element path)."""
     rng = np.random.default_rng(2)
-    x = (rng.standard_normal((3, 100, 128)) * 3 + 1).astype(np.float32)
-    s = rng.standard_normal(128).astype(np.float32)
-    b = rng.standard_normal(128).astype(np.float32)
+    x = (rng.standard_normal((3, 100, C)) * 3 + 1).astype(np.float32)
+    s = rng.standard_normal(C).astype(np.float32)
+    b = rng.standard_normal(C).astype(np.float32)
     if kind == "layer":
         want = jflash.layer_norm_fused(jnp.asarray(x), jnp.asarray(s),
                                        jnp.asarray(b), 1e-6, interpret=True)
         got = tflash.layer_norm_fused(_t(x), _t(s), _t(b), 1e-6)
     else:
-        want = jflash.rms_norm_fused(jnp.asarray(x), jnp.asarray(s), 1e-6,
+        js = jnp.asarray(s).astype(scale_dtype)
+        ts = _t(s).to(getattr(torch, scale_dtype))
+        want = jflash.rms_norm_fused(jnp.asarray(x), js, 1e-6,
                                      interpret=True)
-        got = tflash.rms_norm_fused(_t(x), _t(s), 1e-6)
+        got = tflash.rms_norm_fused(_t(x), ts, 1e-6)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
