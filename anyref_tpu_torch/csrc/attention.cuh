@@ -1,14 +1,16 @@
-// Flash attention core shared by two of the port's bidirectional attention
-// kernels: the window attention of the fused SAM layers (rel-pos bias
-// factors built in the kernel) and bias-free attention (CLIP). SAM's
-// rel-pos attention of the unfused paths and of the global layers has
-// kernels of its own (window_attention.cu, relpos_global.cu). The causal attention of the decoder and of training has
-// its own wgmma kernels (causal_attention.cu, causal_attention_bwd.cu). Head (b, h) of q, k, v and out is a bf16 [L, hd]
+// Flash attention core of the fused SAM layers' window attention
+// (fused_window_attn, fused_window_block: anyref_window_attention_qkv in
+// qkv_attention.cu), the rel-pos bias factors built in the kernel. The
+// other attention kernels of the port have sources of their own: SAM's
+// rel-pos attention of the unfused paths (window_attention.cu), of the
+// global layers and CLIP's bias-free attention (relpos_global.cu), the
+// causal attention of the decoder and of training (causal_attention.cu,
+// causal_attention_bwd.cu). Head (b, h) of q, k, v and out is a bf16 [L, hd]
 // matrix whose row r lies at base + b * sb + h * sh + r * sr (elements), so
 // the kernel reads column slices of a fused [B, L, 3C] QKV tensor
 // ("QKV-direct") and writes the head-merged [B, L, C] stream.
 //
-// What bounds it on the H100: at the window and CLIP shapes the bytes of
+// What bounds it on the H100: at the window shapes the bytes of
 // q/k/v/out, not the 4 * BH * L^2 * hd operations of the two products
 // (Q K^T and P V). The design keeps the score matrix out of device memory and
 // out of shared memory:
@@ -27,20 +29,18 @@
 //   16-wide slice), and V is read transposed by ldmatrix.trans.
 // The head width is padded with zeros in shared memory to a multiple of 16
 // (hd = 80 stays 80; any hd <= 128 runs), and keys and queries past L are
-// zero rows whose scores are excluded, so any L runs (L = 196, 257).
+// zero rows whose scores are excluded, so any L runs (L = 196).
 // Scores, softmax and the running sums are fp32; P is rounded to bf16 for
 // the P V product, and the output is divided by the row sum at the end (the
 // reference's fused kernels divide P before rounding it: one bf16 rounding
 // of P apart).
 //
-// Bias modes:
-// - WINDOW: bias[q, key] = rh[q, key / W] + rw[q, key % W], the factors
-//   built in the kernel from the gathered bf16 tables th, tw [ws, ws, hd]
-//   and the block's bf16 Q (the block keeps its 64 rows of both in shared
-//   memory, odd row stride, and adds them per key):
-//   rh[q, j] = q . th[q / ws, j], rw[q, j] = q . tw[q % ws, j] in fp32, as
-//   _window_attn_all computes them inside the TPU kernel.
-// - NONE: plain softmax attention.
+// The bias: bias[q, key] = rh[q, key / W] + rw[q, key % W], the factors
+// built in the kernel from the gathered bf16 tables th, tw [ws, ws, hd] and
+// the block's bf16 Q (the block keeps its 64 rows of both in shared memory,
+// odd row stride, and adds them per key): rh[q, j] = q . th[q / ws, j],
+// rw[q, j] = q . tw[q % ws, j] in fp32, as _window_attn_all computes them
+// inside the TPU kernel.
 #pragma once
 
 #include "common.cuh"
@@ -48,7 +48,6 @@
 namespace anyref_attn {
 
 constexpr int BQ = 64, BK = 64, NWARPS = 4, NTHREADS = 32 * NWARPS;
-enum Mode { NONE = 2, WINDOW = 3 };
 
 // Row r of head h of batch entry b lies at base + b * sb + h * sh + r * sr
 // (32-bit strides, widened to 64 bits as they are multiplied).
@@ -64,8 +63,8 @@ struct Args {
   int nh, L, hd;
   float scale;
   int vec;               // 16-byte copies: hd, strides and bases multiples of 8 elements
-  int H, W;              // WINDOW: the key grid, H = W = ws
-  const bf16 *th, *tw;   // WINDOW tables
+  int H, W;              // the key grid, H = W = ws
+  const bf16 *th, *tw;   // the bias tables
 };
 
 struct Layout {
@@ -81,8 +80,8 @@ __host__ __device__ inline int odd_stride(int n) { return n % 2 ? n : n + 1; }
 __host__ __device__ inline size_t align128(size_t b) { return (b + 127) & ~size_t(127); }
 
 // Shared memory: Q [64][ldh], K and V [2 stages][64][ldh] (bf16, ldh = hdp
-// + 8 so the fragment loads of eight rows hit eight distinct banks), and for
-// the WINDOW mode the block's rows of the bias factors ([64][ldrh],
+// + 8 so the fragment loads of eight rows hit eight distinct banks), the
+// block's rows of the bias factors ([64][ldrh],
 // [64][ldrw]) and one tile's key -> (row, column) tables.
 __host__ __device__ inline Layout make_layout(int hd, int H, int W) {
   Layout t;
@@ -125,12 +124,11 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0, 
 }
 
 // NKS = padded hd / 16.
-template <int MODE, int NKS>
+template <int NKS>
 __global__ void __launch_bounds__(NTHREADS) attn_kernel(const Args a) {
-  constexpr bool BIAS = MODE == WINDOW;
   constexpr int HDP = NKS * 16, LDH = HDP + 8, NDT = 2 * NKS;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int L = a.L, hd = a.hd, H = BIAS ? a.H : 0, W = BIAS ? a.W : 0;
+  const int L = a.L, hd = a.hd, H = a.H, W = a.W;
   const Layout t = make_layout(hd, H, W);
   bf16* Qs = reinterpret_cast<bf16*>(smem + t.q);
   bf16* Ks = reinterpret_cast<bf16*>(smem + t.k);
@@ -177,39 +175,37 @@ __global__ void __launch_bounds__(NTHREADS) attn_kernel(const Args a) {
       cp_async_wait<0>();
     }
     const int k0 = kt * BK;
-    if (BIAS && tid < BK) {
+    if (tid < BK) {
       Kh[tid] = (k0 + tid) / W;
       Kw[tid] = (k0 + tid) % W;
     }
     __syncthreads();
     if (kt == kt_begin) {
-      if (MODE == WINDOW) {
-        // the block's rows of the bias factors, from its bf16 Q (now in
-        // shared memory) and the bf16 tables, summed in fp32
-        for (int i = tid; i < BQ * (H + W); i += NTHREADS) {
-          const int r = i / (H + W), j = i % (H + W), qi = q0 + r;
-          float acc = 0.f;
-          if (qi < L) {
-            const bf16* tab = j < H ? a.th + ((size_t)(qi / W) * H + j) * hd
-                                    : a.tw + ((size_t)(qi % W) * W + (j - H)) * hd;
-            const bf16* qr = Qs + r * LDH;
-            if (a.vec) {
-              for (int d = 0; d < hd; d += 8) {
-                float x[8], y[8];
-                load8(qr + d, x);
-                load8(tab + d, y);
+      // the block's rows of the bias factors, from its bf16 Q (now in
+      // shared memory) and the bf16 tables, summed in fp32
+      for (int i = tid; i < BQ * (H + W); i += NTHREADS) {
+        const int r = i / (H + W), j = i % (H + W), qi = q0 + r;
+        float acc = 0.f;
+        if (qi < L) {
+          const bf16* tab = j < H ? a.th + ((size_t)(qi / W) * H + j) * hd
+                                  : a.tw + ((size_t)(qi % W) * W + (j - H)) * hd;
+          const bf16* qr = Qs + r * LDH;
+          if (a.vec) {
+            for (int d = 0; d < hd; d += 8) {
+              float x[8], y[8];
+              load8(qr + d, x);
+              load8(tab + d, y);
 #pragma unroll
-                for (int e = 0; e < 8; ++e) acc += x[e] * y[e];
-              }
-            } else {
-              for (int d = 0; d < hd; ++d) acc += __bfloat162float(qr[d]) * __bfloat162float(tab[d]);
+              for (int e = 0; e < 8; ++e) acc += x[e] * y[e];
             }
+          } else {
+            for (int d = 0; d < hd; ++d) acc += __bfloat162float(qr[d]) * __bfloat162float(tab[d]);
           }
-          if (j < H) Rh[r * t.ldrh + j] = acc;
-          else Rw[r * t.ldrw + (j - H)] = acc;
         }
-        __syncthreads();
+        if (j < H) Rh[r * t.ldrh + j] = acc;
+        else Rw[r * t.ldrw + (j - H)] = acc;
       }
+      __syncthreads();
 #pragma unroll
       for (int ks = 0; ks < NKS; ++ks) {
         const bf16* p0 = Qs + r0 * LDH + ks * 16 + tig * 2;
@@ -248,7 +244,7 @@ __global__ void __launch_bounds__(NTHREADS) attn_kernel(const Args a) {
         float v0 = s[nt][e] * a.scale, v1 = s[nt][2 + e] * a.scale;
         if (kj >= L) {
           v0 = v1 = -INFINITY;  // not a key at all: weight exactly 0
-        } else if (BIAS) {
+        } else {
           const int kh = Kh[c], kw = Kw[c];
           v0 += Rh[r0 * t.ldrh + kh] + Rw[r0 * t.ldrw + kw];
           v1 += Rh[r1 * t.ldrh + kh] + Rw[r1 * t.ldrw + kw];
@@ -333,27 +329,25 @@ __global__ void __launch_bounds__(NTHREADS) attn_kernel(const Args a) {
   }
 }
 
-template <int MODE, int NKS>
+template <int NKS>
 inline int launch_nks(const Args& a, int BH, void* stream) {
-  const bool bias = MODE == WINDOW;
-  const Layout t = make_layout(a.hd, bias ? a.H : 0, bias ? a.W : 0);
-  cudaError_t e = cudaFuncSetAttribute(attn_kernel<MODE, NKS>,
+  const Layout t = make_layout(a.hd, a.H, a.W);
+  cudaError_t e = cudaFuncSetAttribute(attn_kernel<NKS>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)t.total);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((a.L + BQ - 1) / BQ, BH);
-  attn_kernel<MODE, NKS><<<grid, NTHREADS, t.total, (cudaStream_t)stream>>>(a);
+  attn_kernel<NKS><<<grid, NTHREADS, t.total, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 // Launch over BH = B * nh heads; the kernel runs any hd in [1, 128].
-template <int MODE>
 inline int launch(const Args& a, int BH, void* stream) {
   if (BH <= 0 || a.L <= 0) return 0;
   if (a.nh <= 0) return (int)cudaErrorInvalidValue;
 #define ANYREF_NKS(n) \
   case n:             \
-    return launch_nks<MODE, n>(a, BH, stream);
+    return launch_nks<n>(a, BH, stream);
   switch ((a.hd + 15) / 16) {
     ANYREF_NKS(1) ANYREF_NKS(2) ANYREF_NKS(3) ANYREF_NKS(4)
     ANYREF_NKS(5) ANYREF_NKS(6) ANYREF_NKS(7) ANYREF_NKS(8)

@@ -1,6 +1,7 @@
 // SAM ViTDet attention with decomposed relative-position bias over grids of
 // more than 256 tokens (the global layers):
-// softmax(q k^T * scale + rh[q, key / W] + rw[q, key % W]) v.
+// softmax(q k^T * scale + rh[q, key / W] + rw[q, key % W]) v; and, with
+// the bias compiled out, CLIP's plain softmax attention (below).
 //
 // Replaces, above 256 tokens, anyref_tpu/ops/flash.py's query-blocked
 // global kernel _relpos_kernel (flash_relpos_attention) and the attention
@@ -59,42 +60,77 @@
 // (ptxas then fits the whole kernel in the 168 registers of 384 threads
 // and spills); rh added to the halves' maxima instead of to every score
 // (a few percent, but a spill at hd = 128).
+//
+// The bias-free kernel (BIAS = false, anyref_attention_heads) replaces
+// anyref_tpu/ops/flash.py flash_attention_qkv (_mha_qkv_kernel): CLIP-L's
+// attention off its fused QKV [2, 257, 3072], 16 heads of 64, read in
+// place through the same tensor maps and written head-merged; unnormalised
+// P rounded to bf16, the sum divided by the fp32 row sum after the product,
+// as attention_qkv_plain. Bound: 4.2 MB of bytes, 0.0013 ms, and 0.54
+// GFLOP, 0.0005 ms, so it is held by latency: one block's chain of loads,
+// products and softmaxes, and how the grid fills the 132 SMs. Hence:
+// - one consumer warpgroup of 64 queries a block (WGS = 1): 160 blocks at
+//   CLIP's shape, two fitting a SM (104 KB of shared memory, at most 255
+//   registers of 128 threads), against 96 blocks of two warpgroups, which
+//   were no faster there and slower on smaller grids;
+// - L = 257 leaves one key in a third 128-key tile: a last tile of at most
+//   32 or 64 keys takes products (m64n32 / m64n64 S, 2 or 4 P V k-steps)
+//   and a softmax of that width, with an accumulator of its own (a view
+//   of the scores' registers made ptxas serialise the wgmmas, C7511);
+// - three stages hold every tile at L <= 384: no refill on CLIP's path,
+//   and a first pass of S over the resident tiles takes each row's true
+//   maximum, so that P is rounded to bf16 at it, as the reference rounds
+//   it (the online softmax rounds each tile's P at the running maximum:
+//   equally precise against fp64, but a tiny LoRA train step through CLIP
+//   drifted from the CPU's twice as far). The pass ends on tile 0, whose
+//   scores are used as they are; it costs ~0.001 ms at CLIP's shape.
+// Not chosen: the exact single pass with every score in registers (272 a
+// row beside O and P, more than a warpgroup holds).
 #include "wgmma.cuh"
 
 namespace anyref_rpg {
 
-constexpr int BM = 128, BN = 128;  // query rows a block, keys a tile
-constexpr int NTHREADS = 256;      // two warpgroups
-constexpr int CHUNK = 128 * 128;   // bytes of one 64-column block of 128 rows
+constexpr int BN = 128;           // keys a tile
+constexpr int CHUNK = 128 * 128;  // bytes of one 64-column block of a 128-row K/V tile
 constexpr float LOG2E = 1.4426950408889634f;
 
-// NC 64-column blocks of a tile (hd <= 64: 1, else 2). Q's region holds
-// the block's rw rows [128][64] fp32 once Q is in registers.
-template <int NC>
+// NC 64-column blocks of a tile (hd <= 64: 1, else 2), WGS consumer
+// warpgroups of 64 query rows. With the bias, Q's region holds the block's
+// rw rows [BM][64] fp32 once Q is in registers.
+template <int NC, bool BIAS, int WGS>
 struct Layout {
   static constexpr int STAGES = 3;
-  static constexpr int TILE = NC * CHUNK, RW_BYTES = BM * 64 * 4;
-  static constexpr int Q = 0, RW = 0, K = TILE > RW_BYTES ? TILE : RW_BYTES;
+  static constexpr int BM = 64 * WGS, QCHUNK = BM * 128;
+  static constexpr int TILE = NC * CHUNK, QTILE = NC * QCHUNK, RW_BYTES = BIAS ? BM * 64 * 4 : 0;
+  static constexpr int Q = 0, RW = 0, K = QTILE > RW_BYTES ? QTILE : RW_BYTES;
   static constexpr int V = K + STAGES * TILE, BAR = V + STAGES * TILE;
   static constexpr int BYTES = BAR + (1 + 3 * STAGES) * 8 + 1024;  // + slack to align
 };
 
+// A key count known at compile time: the width of a tile's products.
+template <int N>
+struct Keys {
+  static constexpr int n = N;
+};
+
 struct Args {
-  const float *rh, *rw;  // [B * nh, L, H], [B * nh, L, W] fp32, contiguous
+  const float *rh, *rw;  // BIAS: [B * nh, L, H], [B * nh, L, W] fp32, contiguous
   bf16* out;             // row r of head (b, h) at b * osb + h * osh + r * osr
   int osb, osh, osr;
   int nh, L, hd, H, W;
-  float scale_log2;      // hd^-0.5 * log2(e)
+  float scale_log2;      // the scale (hd^-0.5) * log2(e)
 };
 
 // NK = hd rounded up to 16, over 16: the k-steps of Q K^T and P V's N / 16.
-template <int NK>
-__global__ void __launch_bounds__(NTHREADS, 1)
+// BIAS: add the rel-pos bias of rh and rw (else plain softmax attention).
+// WGS: consumer warpgroups, 64 query rows each (128 threads a warpgroup).
+template <int NK, bool BIAS, int WGS>
+__global__ void __launch_bounds__(128 * WGS, 1)
     global_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                   const __grid_constant__ CUtensorMap tm_v, const Args a) {
-  constexpr int HDP = 16 * NK, NC = (HDP + 63) / 64;
-  using Lo = Layout<NC>;
-  constexpr int STAGES = Lo::STAGES;
+  constexpr int HDP = 16 * NK, NC = (HDP + 63) / 64, NTHREADS = 128 * WGS;
+  using Lo = Layout<NC, BIAS, WGS>;
+  constexpr int STAGES = Lo::STAGES, BM = Lo::BM;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* qfull = reinterpret_cast<uint64_t*>(smem + Lo::BAR);
@@ -124,9 +160,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       mbar_init(&empty[s], NTHREADS / 32);
     }
     mbar_fence_init();
-    mbar_arrive_expect_tx(qfull, Lo::TILE);
+    mbar_arrive_expect_tx(qfull, Lo::QTILE);
     for (int c = 0; c < NC; ++c)
-      tma_load_4d(smem + Lo::Q + c * CHUNK, &tm_q, qfull, 64 * c, q0, h, b);
+      tma_load_4d(smem + Lo::Q + c * Lo::QCHUNK, &tm_q, qfull, 64 * c, q0, h, b);
     for (int i = 0; i < min(STAGES, n_tiles); ++i) load_kv(i);
   }
   __syncthreads();
@@ -141,7 +177,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   const float* rh1 = a.rh + ((size_t)bh * L + min(r1, L - 1)) * H;
   const float* rw0 = a.rw + ((size_t)bh * L + min(r0, L - 1)) * W;
   const float* rw1 = a.rw + ((size_t)bh * L + min(r1, L - 1)) * W;
-  const bool w64 = W == 64;
+  const bool w64 = BIAS && W == 64;
   // W = 64: the block's rows of rw in log2 units, and rh of the tile's two
   // grid rows for this thread's rows, raw, a tile ahead
   // (row r, column c) of rw at r * 64 + (c ^ 8 (r % 4)): the 8-byte loads
@@ -167,41 +203,50 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   uint32_t pa[8][4];
   uint32_t qa[NK][4];  // the warpgroup's Q as the A fragments of S = Q K^T
 
-  // S [64 x 128] = Q K^T of tile i into sc, issued and committed
-  auto issue_s = [&](int i) {
+  // The products and the softmax of a tile take its first N keys: N = BN
+  // but for a short last tile of the bias-free kernel, whose scores have an
+  // accumulator of their own (sv: float[N / 2], sc at N = BN).
+  // S [64 x N] = Q K^T of tile i into sv, issued and committed
+  auto issue_s = [&](int i, auto& sv) {
+    constexpr int N = sizeof(sv) / sizeof(float) * 2;
     const int s = i % STAGES;
     mbar_wait(&kfull[s], (i / STAGES) & 1);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < NK; ++kk) {
       const int off = (kk >> 2) * CHUNK + (kk & 3) * 32;
-      wgmma_rs<128, 0>(sc, qa[kk], desc_at(kmajor, Lo::K + s * Lo::TILE + off), kk);
+      wgmma_rs<N, 0>(sv, qa[kk], desc_at(kmajor, Lo::K + s * Lo::TILE + off), kk);
     }
     wgmma_commit();
   };
-  // O [64 x HDP] += bf16(P) V of tile i, P in pa, V [128 keys x HDP]
+  // O [64 x HDP] += bf16(P) V of tile i, P in pa, V [N keys x HDP]
   // MN-major, issued and committed
-  auto issue_pv = [&](int i) {
+  auto issue_pv = [&](int i, auto keys) {
+    constexpr int N = decltype(keys)::n;
     const int s = i % STAGES;
     mbar_wait(&vfull[s], (i / STAGES) & 1);
 #pragma unroll
     for (int j = 0; j < HDP / 2; ++j) fence_operand(o[j]);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
+    for (int kk = 0; kk < N / 16; ++kk)
       wgmma_rs<HDP, 1>(o, pa[kk], desc_at(mnmajor, Lo::V + s * Lo::TILE + kk * 2048));
     wgmma_commit();
   };
-  // tile i's scores in sc -> unnormalised P in sc (fp32); the running max
-  // and sums move on, and a0 / a1 are the factors that rescale O's rows.
-  // The thread holds rows r0 (sc[4 j + e]) and r1 (sc[4 j + 2 + e]) at keys
-  // k0 + 8 j + 2 t + e.
-  auto softmax = [&](int i, float& a0, float& a1) {
+  // tile i's scores in sv, scaled to log2 units, biased and masked; mx0 /
+  // mx1 their maxima over the tile in rows r0 and r1. The thread holds rows
+  // r0 (sv[4 j + e]) and r1 (sv[4 j + 2 + e]) at keys k0 + 8 j + 2 t + e,
+  // j < N / 8.
+  auto scores = [&](int i, auto& sv, float& mx0, float& mx1) {
+    constexpr int NJ = sizeof(sv) / sizeof(float) / 4;
 #pragma unroll
-    for (int j = 0; j < 64; ++j) fence_operand(sc[j]);
+    for (int j = 0; j < 4 * NJ; ++j) fence_operand(sv[j]);
     const int k0 = i * BN;
     const float sl2 = a.scale_log2;
-    if (w64) {
+    if constexpr (!BIAS) {
+#pragma unroll
+      for (int j = 0; j < 4 * NJ; ++j) sv[j] *= sl2;
+    } else if (w64) {
       // keys 8 j + 2 t + e of the tile lie in grid row 2 i (j < 8) or
       // 2 i + 1, at grid column 8 (j % 8) + 2 t + e
       const float h00 = LOG2E * rhn[0], h01 = LOG2E * rhn[1];
@@ -215,14 +260,14 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         if (j % 2 == 0) asm volatile("" ::: "memory");
         const float2 wa = *reinterpret_cast<const float2*>(rwa + 8 * (j ^ (g & 3)));
         const float2 wb = *reinterpret_cast<const float2*>(rwb + 8 * (j ^ (g & 3)));
-        sc[4 * j] = fmaf(sc[4 * j], sl2, h00 + wa.x);
-        sc[4 * j + 1] = fmaf(sc[4 * j + 1], sl2, h00 + wa.y);
-        sc[4 * j + 2] = fmaf(sc[4 * j + 2], sl2, h10 + wb.x);
-        sc[4 * j + 3] = fmaf(sc[4 * j + 3], sl2, h10 + wb.y);
-        sc[4 * j + 32] = fmaf(sc[4 * j + 32], sl2, h01 + wa.x);
-        sc[4 * j + 33] = fmaf(sc[4 * j + 33], sl2, h01 + wa.y);
-        sc[4 * j + 34] = fmaf(sc[4 * j + 34], sl2, h11 + wb.x);
-        sc[4 * j + 35] = fmaf(sc[4 * j + 35], sl2, h11 + wb.y);
+        sv[4 * j] = fmaf(sv[4 * j], sl2, h00 + wa.x);
+        sv[4 * j + 1] = fmaf(sv[4 * j + 1], sl2, h00 + wa.y);
+        sv[4 * j + 2] = fmaf(sv[4 * j + 2], sl2, h10 + wb.x);
+        sv[4 * j + 3] = fmaf(sv[4 * j + 3], sl2, h10 + wb.y);
+        sv[4 * j + 32] = fmaf(sv[4 * j + 32], sl2, h01 + wa.x);
+        sv[4 * j + 33] = fmaf(sv[4 * j + 33], sl2, h01 + wa.y);
+        sv[4 * j + 34] = fmaf(sv[4 * j + 34], sl2, h11 + wb.x);
+        sv[4 * j + 35] = fmaf(sv[4 * j + 35], sl2, h11 + wb.y);
       }
     } else {
       // key k0 + 8 j + 2 t + e at grid (kh, kw), stepped from key to key
@@ -234,30 +279,30 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int hh = min(kh, H - 1);
-          sc[4 * j + e] = fmaf(sc[4 * j + e], sl2, LOG2E * (rh0[hh] + rw0[kw]));
-          sc[4 * j + 2 + e] = fmaf(sc[4 * j + 2 + e], sl2, LOG2E * (rh1[hh] + rw1[kw]));
+          sv[4 * j + e] = fmaf(sv[4 * j + e], sl2, LOG2E * (rh0[hh] + rw0[kw]));
+          sv[4 * j + 2 + e] = fmaf(sv[4 * j + 2 + e], sl2, LOG2E * (rh1[hh] + rw1[kw]));
           asm volatile("" ::: "memory");  // one key's loads at a time
           for (kw += e ? 7 : 1; kw >= W; kw -= W) ++kh;
         }
       }
     }
-    if (k0 + BN > L) {
+    if (k0 + 8 * NJ > L) {
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < NJ; ++j) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           if (k0 + 8 * j + 2 * t + e >= L)  // not a key at all: weight exactly 0
-            sc[4 * j + e] = sc[4 * j + 2 + e] = -INFINITY;
+            sv[4 * j + e] = sv[4 * j + 2 + e] = -INFINITY;
         }
       }
     }
-    float mx0 = -INFINITY, mx1 = -INFINITY;
+    mx0 = mx1 = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < NJ; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        mx0 = fmaxf(mx0, sc[4 * j + e]);
-        mx1 = fmaxf(mx1, sc[4 * j + 2 + e]);
+        mx0 = fmaxf(mx0, sv[4 * j + e]);
+        mx1 = fmaxf(mx1, sv[4 * j + 2 + e]);
       }
     }
 #pragma unroll
@@ -265,6 +310,12 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
     }
+  };
+  // scores in sv with tile maxima mx0 / mx1 -> unnormalised P in sv (fp32);
+  // the running max and sums move on, and a0 / a1 are the factors that
+  // rescale O's rows
+  auto exp_sums = [&](float& a0, float& a1, auto& sv, float mx0, float mx1) {
+    constexpr int NJ = sizeof(sv) / sizeof(float) / 4;
     const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);  // finite: key k0 < L
     a0 = ex2(m0 - mn0);  // 0 on the first tile
     a1 = ex2(m1 - mn1);
@@ -272,17 +323,23 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     m1 = mn1;
     float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < NJ; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        sc[4 * j + e] = ex2(sc[4 * j + e] - mn0);
-        sc[4 * j + 2 + e] = ex2(sc[4 * j + 2 + e] - mn1);
-        ps0 += sc[4 * j + e];
-        ps1 += sc[4 * j + 2 + e];
+        sv[4 * j + e] = ex2(sv[4 * j + e] - mn0);
+        sv[4 * j + 2 + e] = ex2(sv[4 * j + 2 + e] - mn1);
+        ps0 += sv[4 * j + e];
+        ps1 += sv[4 * j + 2 + e];
       }
     }
     l0 = l0 * a0 + ps0;  // this lane's share of the row sums
     l1 = l1 * a1 + ps1;
+  };
+  // tile i's scores in sv -> unnormalised P in sv, as above
+  auto softmax = [&](int i, float& a0, float& a1, auto& sv) {
+    float mx0, mx1;
+    scores(i, sv, mx0, mx1);
+    exp_sums(a0, a1, sv, mx0, mx1);
   };
   auto rescale_o = [&](float a0, float a1) {
 #pragma unroll
@@ -293,13 +350,13 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       o[4 * j + 3] *= a1;
     }
   };
-  // tile i - 1's stage is done with in this warp; thread 128 (warpgroup 1,
-  // which issues its products after warpgroup 0's) refills it with tile
-  // i - 1 + STAGES once every warp is
+  // tile i - 1's stage is done with in this warp; the first thread of the
+  // last warpgroup (which issues its products after the other's) refills it
+  // with tile i - 1 + STAGES once every warp is
   auto release = [&](int i) {
     const int s = (i - 1) % STAGES;
     if (lane == 0) mbar_arrive(&empty[s]);
-    if (threadIdx.x == 128 && i - 1 + STAGES < n_tiles) {
+    if (threadIdx.x == NTHREADS - 128 && i - 1 + STAGES < n_tiles) {
       mbar_wait(&empty[s], ((i - 1) / STAGES) & 1);
       load_kv(i - 1 + STAGES);
     }
@@ -307,12 +364,19 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 
   // Software pipeline (the causal forward's): while P_{i-1} V_{i-1} runs on
   // the tensor cores, S_i is waited for and turned into P_i; O is rescaled
-  // only once the product into it has completed. The two warpgroups take
-  // turns to issue (named barriers 1 and 2, warpgroup 0 first).
+  // only once the product into it has completed. Two warpgroups take turns
+  // to issue (named barriers 1 and 2, warpgroup 0 first).
+  auto my_turn = [&]() {
+    if constexpr (WGS == 2) named_bar_sync(1 + w, NTHREADS);
+  };
+  auto your_turn = [&]() {
+    if constexpr (WGS == 2) named_bar_arrive(2 - w, NTHREADS);
+  };
   float a0, a1;
   mbar_wait(qfull, 0);
 #pragma unroll
-  for (int kk = 0; kk < NK; ++kk) sw128_frag(qa[kk], smem + Lo::Q + w * 64 * 128, CHUNK, kk);
+  for (int kk = 0; kk < NK; ++kk)
+    sw128_frag(qa[kk], smem + Lo::Q + w * 64 * 128, Lo::QCHUNK, kk);
   if (w64) {
     __syncthreads();  // Q is in registers: its space takes the rw rows
     for (int i = threadIdx.x; i < BM * 16; i += NTHREADS) {
@@ -325,21 +389,60 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     load_rh(0);
     __syncthreads();
   }
-  if (w == 1) named_bar_arrive(1, NTHREADS);
-  named_bar_sync(1 + w, NTHREADS);
-  issue_s(0);
-  named_bar_arrive(2 - w, NTHREADS);  // the other's turn
-  wgmma_wait<0>();
-  softmax(0, a0, a1);
+  // A last tile of at most 32 or 64 keys (CLIP's L = 257: one) takes
+  // products and a softmax of that width in the bias-free kernel: a third
+  // or less of a whole tile's work
+  using Whole = Keys<BN>;
+  const int rem = L - (n_tiles - 1) * BN;
+  const int last_n = BIAS || n_tiles == 1 ? BN : rem <= 32 ? 32 : rem <= 64 ? 64 : BN;
+  const int n_whole = last_n < BN ? n_tiles - 1 : n_tiles;
+  // Without the bias, where every tile stays in shared memory (L <= 384,
+  // CLIP's 257), a first pass of S takes each row's maximum over all keys:
+  // P is then rounded to bf16 at the row's true maximum, as the reference
+  // rounds it, and never rescaled (a0 = a1 = 1). The pass ends on tile 0,
+  // whose scores the second pass takes as they are. Longer rows run the
+  // online softmax alone.
+  bool exact = false;
+  if constexpr (!BIAS) {
+    if (n_tiles <= STAGES) {
+      exact = true;
+      auto row_max = [&](int i, auto& sv) {
+        issue_s(i, sv);
+        wgmma_wait<0>();
+        float mx0, mx1;
+        scores(i, sv, mx0, mx1);
+        m0 = fmaxf(m0, mx0);
+        m1 = fmaxf(m1, mx1);
+      };
+      if (last_n == 32) {
+        float sn[16];
+        row_max(n_tiles - 1, sn);
+      } else if (last_n == 64) {
+        float sn[32];
+        row_max(n_tiles - 1, sn);
+      }
+      for (int i = n_whole - 1; i >= 0; --i) row_max(i, sc);
+    }
+  }
+  if (WGS == 2 && w == 1) named_bar_arrive(1, NTHREADS);
+  if (exact) {
+    exp_sums(a0, a1, sc, m0, m1);
+  } else {
+    my_turn();
+    issue_s(0, sc);
+    your_turn();
+    wgmma_wait<0>();
+    softmax(0, a0, a1, sc);
+  }
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk) acc_to_frag(sc, kk, pa[kk]);
-  for (int i = 1; i < n_tiles; ++i) {
-    named_bar_sync(1 + w, NTHREADS);
-    issue_s(i);
-    issue_pv(i - 1);
-    named_bar_arrive(2 - w, NTHREADS);
+  for (int i = 1; i < n_whole; ++i) {
+    my_turn();
+    issue_s(i, sc);
+    issue_pv(i - 1, Whole{});
+    your_turn();
     wgmma_wait<1>();  // S_i; P_{i-1} V_{i-1} may still run
-    softmax(i, a0, a1);
+    softmax(i, a0, a1, sc);
     wgmma_wait<0>();
 #pragma unroll
     for (int j = 0; j < HDP / 2; ++j) fence_operand(o[j]);
@@ -348,12 +451,41 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) acc_to_frag(sc, kk, pa[kk]);
   }
-  named_bar_sync(1 + w, NTHREADS);
-  issue_pv(n_tiles - 1);
-  if (w == 0) named_bar_arrive(2, NTHREADS);  // warpgroup 1 issues last
-  wgmma_wait<0>();
+  // the short last tile, as one more step of the loop (no stage left to
+  // refill), then the last tile's P V; every product's wait lies in the
+  // branch that issued it
+  auto last_steps = [&](auto keys) {
+    constexpr int N = decltype(keys)::n;
+    const int i = n_tiles - 1;
+    if constexpr (N < BN) {
+      float sn[N / 2];
+      my_turn();
+      issue_s(i, sn);
+      issue_pv(i - 1, Whole{});
+      your_turn();
+      wgmma_wait<1>();
+      softmax(i, a0, a1, sn);
+      wgmma_wait<0>();
 #pragma unroll
-  for (int j = 0; j < HDP / 2; ++j) fence_operand(o[j]);
+      for (int j = 0; j < HDP / 2; ++j) fence_operand(o[j]);
+      rescale_o(a0, a1);
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk) acc_to_frag(sn, kk, pa[kk]);
+    }
+    my_turn();
+    issue_pv(i, keys);
+    if (WGS == 2 && w == 0) named_bar_arrive(2, NTHREADS);  // warpgroup 1 issues last
+    wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < HDP / 2; ++j) fence_operand(o[j]);
+  };
+  if constexpr (BIAS) {
+    last_steps(Whole{});
+  } else {
+    if (last_n == 32) last_steps(Keys<32>{});
+    else if (last_n == 64) last_steps(Keys<64>{});
+    else last_steps(Whole{});
+  }
 
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
@@ -379,32 +511,50 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 
 // The bf16 heads [B, nh, L, hd] of a view whose row r of head (b, h) lies
 // at p + b * sb + h * sh + r * sr (elements), as a 4-D tensor map (hd, L,
-// nh, B) read in 128-byte-swizzled boxes of 128 rows x 64 columns of one
+// nh, B) read in 128-byte-swizzled boxes of `rows` rows x 64 columns of one
 // head: rows past L and columns past hd read 0.
 static bool head_map(CUtensorMap* map, const void* p, int B, int nh, int L, int hd, int sb,
-                     int sh, int sr) {
+                     int sh, int sr, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)L, (cuuint64_t)nh, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)sr * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)BM, 1, 1};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
   return make_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, p, dims, strides, box,
                          CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-template <int NK>
+template <int NK, bool BIAS, int WGS>
 int launch(const void* q, const void* k, const void* v, int B, int sb, int sh, int sr,
            const Args& a, cudaStream_t st) {
+  using Lo = Layout<(16 * NK + 63) / 64, BIAS, WGS>;
   CUtensorMap tq, tk, tv;
-  if (!head_map(&tq, q, B, a.nh, a.L, a.hd, sb, sh, sr) ||
-      !head_map(&tk, k, B, a.nh, a.L, a.hd, sb, sh, sr) ||
-      !head_map(&tv, v, B, a.nh, a.L, a.hd, sb, sh, sr))
+  if (!head_map(&tq, q, B, a.nh, a.L, a.hd, sb, sh, sr, Lo::BM) ||
+      !head_map(&tk, k, B, a.nh, a.L, a.hd, sb, sh, sr, BN) ||
+      !head_map(&tv, v, B, a.nh, a.L, a.hd, sb, sh, sr, BN))
     return (int)cudaErrorInvalidValue;
-  constexpr int BYTES = Layout<(16 * NK + 63) / 64>::BYTES;
-  const void* kern = (const void*)global_kernel<NK>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
+  const void* kern = (const void*)global_kernel<NK, BIAS, WGS>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Lo::BYTES);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((a.L + BM - 1) / BM, B * a.nh);
-  global_kernel<NK><<<grid, NTHREADS, BYTES, st>>>(tq, tk, tv, a);
+  const dim3 grid((a.L + Lo::BM - 1) / Lo::BM, B * a.nh);
+  global_kernel<NK, BIAS, WGS><<<grid, 128 * WGS, Lo::BYTES, st>>>(tq, tk, tv, a);
   return (int)cudaGetLastError();
+}
+
+// Checks common to both entries, then the instance for hd rounded up to 16.
+template <bool BIAS, int WGS>
+int dispatch(const void* q, const void* k, const void* v, int sb, int sh, int sr, int B,
+             const Args& a, void* stream) {
+  if (B <= 0 || a.L <= 0) return 0;
+  if (a.nh <= 0 || a.hd <= 0 || a.hd > 128 || a.hd % 8) return (int)cudaErrorInvalidValue;
+  if ((sb | sh | sr | a.osb | a.osh | a.osr) % 8 ||
+      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)a.out) % 16)
+    return (int)cudaErrorMisalignedAddress;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (a.hd <= 32) return launch<2, BIAS, WGS>(q, k, v, B, sb, sh, sr, a, st);
+  if (a.hd <= 48) return launch<3, BIAS, WGS>(q, k, v, B, sb, sh, sr, a, st);
+  if (a.hd <= 64) return launch<4, BIAS, WGS>(q, k, v, B, sb, sh, sr, a, st);
+  if (a.hd <= 80) return launch<5, BIAS, WGS>(q, k, v, B, sb, sh, sr, a, st);
+  return launch<8, BIAS, WGS>(q, k, v, B, sb, sh, sr, a, st);
 }
 
 }  // namespace anyref_rpg
@@ -420,17 +570,18 @@ ANYREF_API int anyref_relpos_global(const void* q, const void* k, const void* v,
                                     int osh, int osr, int B, int nh, int L, int hd, int H, int W,
                                     float scale, void* stream) {
   if (B <= 0 || L <= 0) return 0;
-  if (nh <= 0 || hd <= 0 || hd > 128 || hd % 8 || H <= 0 || W <= 0 || H * W != L)
-    return (int)cudaErrorInvalidValue;
-  if ((sb | sh | sr | osb | osh | osr) % 8 ||
-      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16)
-    return (int)cudaErrorMisalignedAddress;
+  if (H <= 0 || W <= 0 || (long long)H * W != L) return (int)cudaErrorInvalidValue;
   const anyref_rpg::Args a = {(const float*)rh, (const float*)rw, (bf16*)out, osb, osh, osr,
                               nh, L, hd, H, W, scale * anyref_rpg::LOG2E};
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (hd <= 32) return anyref_rpg::launch<2>(q, k, v, B, sb, sh, sr, a, st);
-  if (hd <= 48) return anyref_rpg::launch<3>(q, k, v, B, sb, sh, sr, a, st);
-  if (hd <= 64) return anyref_rpg::launch<4>(q, k, v, B, sb, sh, sr, a, st);
-  if (hd <= 80) return anyref_rpg::launch<5>(q, k, v, B, sb, sh, sr, a, st);
-  return anyref_rpg::launch<8>(q, k, v, B, sb, sh, sr, a, st);
+  return anyref_rpg::dispatch<true, 2>(q, k, v, sb, sh, sr, B, a, stream);
+}
+
+// softmax(q k^T * scale) v, no bias: q, k, v and out as in
+// anyref_relpos_global. 64 query rows a block (one warpgroup).
+ANYREF_API int anyref_attention_heads(const void* q, const void* k, const void* v, int sb, int sh,
+                                      int sr, void* out, int osb, int osh, int osr, int B, int nh,
+                                      int L, int hd, float scale, void* stream) {
+  const anyref_rpg::Args a = {nullptr, nullptr, (bf16*)out, osb, osh, osr,
+                              nh,      L,       hd,         0,   0,   scale * anyref_rpg::LOG2E};
+  return anyref_rpg::dispatch<false, 1>(q, k, v, sb, sh, sr, B, a, stream);
 }

@@ -40,10 +40,12 @@ the causal kernel (``csrc/causal_attention.cu``) with a log-sum-exp
 output, its backward two kernels (``csrc/causal_attention_bwd.cu``: dq
 over query blocks, dk/dv over key blocks) after delta = rowsum(dO * O), a
 torch op here as in the reference's wrapper. The three causal kernels,
-the global rel-pos kernel (``csrc/relpos_global.cu``) and
-``int8_matmul``'s prefill body are ``wgmma`` kernels fed by TMA
-(``csrc/wgmma.cuh``); heads whose width is not a multiple of 8 are
-zero-padded to one by the wrapper (``_causal_route``, ``_relpos_route``).
+the global rel-pos kernel (``csrc/relpos_global.cu``, which with its bias compiled out also runs
+``flash_attention_qkv``) and ``int8_matmul``'s prefill body are ``wgmma``
+kernels fed by TMA (``csrc/wgmma.cuh``); heads whose width is not a
+multiple of 8 are zero-padded to one by the wrapper (``_causal_route``,
+``_relpos_route``, ``_tma_heads``). The two norms are one kernel template
+(``csrc/norms.cu``) that reads bf16 or fp32 weights as they are.
 
 Each wrapper runs its plain version when, and only when, its input lies on
 the CPU (the tests). For a CUDA tensor it launches its kernels or raises:
@@ -143,10 +145,12 @@ def _library():
             lib = ctypes.CDLL(str(build()))
             P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             sigs = {
-                "anyref_layer_norm": [P, P, P, P, I, I, F, I, P],
+                "anyref_layer_norm": [P, P, P, I, P, I, I, F, I, P],
                 "anyref_rms_norm": [P, P, I, P, I, I, F, I, P],
                 "anyref_relpos_global": [P, P, P, I, I, I, P, P, P, I, I, I,
                                          I, I, I, I, I, I, F, P],
+                "anyref_attention_heads": [P, P, P, I, I, I, P, I, I, I, I,
+                                           I, I, I, F, P],
                 "anyref_causal_attention": [P, P, P, P, P, P, I, I, I, I, F,
                                             P],
                 "anyref_causal_attention_bwd": [P] * 10 + [I, I, I, I, F, P],
@@ -155,7 +159,6 @@ def _library():
                                 I, I, I, I, I, I, P],
                 "anyref_window_attention_qkv": [P, P, P, P, I, I, I, I, I, F,
                                                 I, P],
-                "anyref_mha_qkv": [P, P, I, I, I, I, F, I, P],
                 "anyref_int8_matmul": [P, P, P, P, P, I, I, I, P],
                 "anyref_window_relpos_attention": [P, P, P, I, I, I, P, P, P,
                                                    I, I, I, I, I, I, I, I, I,
@@ -224,23 +227,37 @@ def rms_norm_plain(x, scale, eps: float):
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
+def _norm_weights(name: str, C: int, device, *ws):
+    """The norm's scale (and bias) as csrc/norms.cu reads them: on x's
+    device, contiguous, [C], all bf16 or all fp32 as they come (other dtypes,
+    or a mix, converted to fp32)."""
+    ws = [w.to(device=device) for w in ws]
+    if any(w.numel() != C for w in ws):
+        raise ValueError(f"{name}: weights {[tuple(w.shape) for w in ws]} "
+                         f"for rows of {C}")
+    if ws[0].dtype not in (torch.bfloat16, torch.float32) or \
+            any(w.dtype != ws[0].dtype for w in ws):
+        ws = [w.float() for w in ws]
+    return [w.contiguous() for w in ws]
+
+
 def layer_norm_fused(x, scale, bias, eps: float):
-    """x [..., C], scale/bias [C] -> LayerNorm(x), same dtype as x."""
+    """x [..., C], scale/bias [C] -> LayerNorm(x), same dtype as x. One CUDA
+    kernel a call: bf16 or fp32 weights are read as they are."""
     if _on_cpu("layer_norm_fused", x):
         return layer_norm_plain(x, scale, bias, eps)
     C = x.shape[-1]
+    s, b = _norm_weights("layer_norm_fused", C, x.device, scale, bias)
     xc = x.contiguous()
     N = xc.numel() // max(C, 1)
     y = torch.empty_like(xc)
     if N == 0:
         return y
-    ps = [p.to(device=x.device, dtype=torch.float32).contiguous()
-          for p in (scale, bias)]
-    vec = int(C % 8 == 0 and _aligned(xc, y, *ps))
+    vec = int(C % 8 == 0 and _aligned(xc, y, s, b))
     with torch.cuda.device(x.device):
-        _launch("anyref_layer_norm", xc.data_ptr(),
-                *(p.data_ptr() for p in ps), y.data_ptr(), N, C, float(eps),
-                vec, _stream(x))
+        _launch("anyref_layer_norm", xc.data_ptr(), s.data_ptr(),
+                b.data_ptr(), int(s.dtype == torch.float32), y.data_ptr(), N,
+                C, float(eps), vec, _stream(x))
     layer_norm_fused.launches += 1
     return y
 
@@ -252,18 +269,12 @@ def rms_norm_fused(x, scale, eps: float):
     if _on_cpu("rms_norm_fused", x):
         return rms_norm_plain(x, scale, eps)
     C = x.shape[-1]
-    if scale.numel() != C:
-        raise ValueError(f"rms_norm_fused: scale {tuple(scale.shape)} for "
-                         f"rows of {C}")
+    (s,) = _norm_weights("rms_norm_fused", C, x.device, scale)
     xc = x.contiguous()
     N = xc.numel() // max(C, 1)
     y = torch.empty_like(xc)
     if N == 0:
         return y
-    s = scale.to(device=x.device)
-    if s.dtype not in (torch.bfloat16, torch.float32):
-        s = s.float()
-    s = s.contiguous()
     vec = int(C % 8 == 0 and _aligned(xc, y, s))
     with torch.cuda.device(x.device):
         _launch("anyref_rms_norm", xc.data_ptr(), s.data_ptr(),
@@ -351,15 +362,34 @@ def _head_view(t):
     return off, strides
 
 
+def _tma_heads(q, k, v, out):
+    """q, k, v [B, nh, L, hd] and out [B, nh, L, hd] as csrc/relpos_global.cu
+    takes them -> (q, k, v, their strides (sb, sh, sr), o). Views its tensor
+    maps read in place (_head_view, the three sharing their strides: split
+    heads, heads permuted out of a fused QKV, its column slices) are
+    returned as they are; other operands are copied into one contiguous
+    [3, B, nh, L, hd rounded up to 8] buffer (two torch kernels, the
+    columns past hd zero). o is out where the kernel can
+    write it in place, else a contiguous buffer of the padded width, to be
+    copied into out."""
+    hd = q.shape[-1]
+    views = [_head_view(t) for t in (q, k, v)]
+    if None in views or len({x[1] for x in views}) != 1:
+        qkv = torch.stack((q, k, v))
+        if hd % 8:
+            qkv = torch.nn.functional.pad(qkv, (0, -hd % 8))
+        q, k, v = qkv.unbind(0)
+        views = [_head_view(t) for t in (q, k, v)]
+    o = out if _head_view(out) is not None and q.shape[-1] == hd else \
+        torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
+    return q, k, v, views[0][1], o
+
+
 def _global_relpos(q, k, v, rel_h_table, rel_w_table, size_hw, out):
     """The fp32 factor einsums (relpos_factors) and one launch of
     csrc/relpos_global.cu on q, k, v [B, nh, L, hd] into out [B, nh, L, hd]
-    (split heads, or a view of the head-merged [B, L, C]). Views the kernel
-    reads in place (_head_view, the three sharing their strides: split
-    heads, heads permuted out of a fused QKV, its column slices) are not
-    copied; other operands are copied contiguous, zero-padded to a multiple
-    of 8 columns, and an output the kernel cannot write in place goes
-    through a contiguous buffer."""
+    (split heads, or a view of the head-merged [B, L, C]), the operands
+    read in place or copied as _tma_heads says."""
     H, W = size_hw
     B, nh, L, hd = q.shape
     if not 0 < hd <= 128:
@@ -367,15 +397,9 @@ def _global_relpos(q, k, v, rel_h_table, rel_w_table, size_hw, out):
                          f"{hd} (at most 128)")
     rh, rw = (t.contiguous() for t in
               relpos_factors(q, rel_h_table, rel_w_table, size_hw))
-    views = [_head_view(t) for t in (q, k, v)]
-    if None in views or len({x[1] for x in views}) != 1:
-        hd8 = -(-hd // 8) * 8
-        q, k, v = (_causal_operand(t, hd8) for t in (q, k, v))
-        views = [_head_view(t) for t in (q, k, v)]
-    o = out if _head_view(out) is not None and q.shape[-1] == hd else \
-        torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
+    q, k, v, strides, o = _tma_heads(q, k, v, out)
     _launch("anyref_relpos_global", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            *views[0][1], rh.data_ptr(), rw.data_ptr(), o.data_ptr(),
+            *strides, rh.data_ptr(), rw.data_ptr(), o.data_ptr(),
             *o.stride()[:3], B, nh, L, q.shape[-1], H, W, hd ** -0.5,
             _stream(q))
     if o is not out:
@@ -1087,23 +1111,30 @@ def flash_relpos_attention_qkv(qkv, rel_h_table, rel_w_table, size_hw,
 
 def flash_attention_qkv(qkv, num_heads: int, scale=None):
     """Self-attention off the fused QKV [B, L, 3C] (heads not split) ->
-    [B, L, C] with heads merged; scale defaults to head_dim ** -0.5."""
+    [B, L, C] with heads merged; scale defaults to head_dim ** -0.5. One
+    launch of csrc/relpos_global.cu without the bias, the thirds of qkv
+    read in place and the output written head-merged (heads whose width is
+    not a multiple of 8 copied and zero-padded first, _tma_heads)."""
     if _on_cpu("flash_attention_qkv", qkv):
         return attention_qkv_plain(qkv, num_heads, scale)
     B, L, C3 = qkv.shape
     C = C3 // 3
     hd = C // num_heads
-    if C3 != 3 * C or hd * num_heads != C or hd > 128:
+    if C3 != 3 * C or hd * num_heads != C or not 0 < hd <= 128:
         raise ValueError(f"flash_attention_qkv: qkv {tuple(qkv.shape)}, "
-                         f"{num_heads} heads")
-    qc = qkv.contiguous()
+                         f"{num_heads} heads (heads of at most 128)")
     out = torch.empty(B, L, C, dtype=qkv.dtype, device=qkv.device)
     if out.numel() == 0:
         return out
+    heads = out.view(B, L, num_heads, hd).transpose(1, 2)
+    q, k, v, strides, o = _tma_heads(*_split_qkv(qkv, num_heads), heads)
     with torch.cuda.device(qkv.device):
-        _launch("anyref_mha_qkv", qc.data_ptr(), out.data_ptr(), B, L,
-                num_heads, hd, hd ** -0.5 if scale is None else float(scale),
-                int(hd % 8 == 0 and _aligned(qc)), _stream(qkv))
+        _launch("anyref_attention_heads", q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), *strides, o.data_ptr(), *o.stride()[:3], B,
+                num_heads, L, q.shape[-1],
+                hd ** -0.5 if scale is None else float(scale), _stream(qkv))
+    if o is not heads:
+        heads.copy_(o[..., :hd])
     flash_attention_qkv.launches += 1
     return out
 

@@ -22,8 +22,9 @@ Phases (any failure exits non-zero before the result line):
      grids on both sides of the split by length (the window kernel up to
      256 tokens, where one call must run exactly one CUDA kernel under
      torch.profiler; the global kernel above, where a call must run the
-     factor einsums' kernels plus exactly one); rms_norm_fused must run
-     exactly one CUDA kernel a call at a bf16 scale;
+     factor einsums' kernels plus exactly one); rms_norm_fused (bf16
+     scale), layer_norm_fused (bf16 scale and bias) and flash_attention_qkv
+     (CLIP-L's fused QKV) must each run exactly one CUDA kernel a call;
   3. check the slice on the card against the same weights and inputs on the
      CPU (whose plain versions the CPU tests hold against the JAX package):
      "unfused" and "unfused_qkv" at anyref_tiny(), "fused" and "fused_block"
@@ -253,12 +254,17 @@ def check_kernels(torch, F, flash, port):
                  f"{rel_l2:.4g} (limit {DIFF_REL_L2})")
         return err, rel_l2
 
-    rms = per_call[("rms_norm_fused", "1280x4096")]
-    log(f"[kernel] rms_norm_fused 1280x4096, bf16 scale: {rms:g} CUDA "
-        "kernel(s) a call (torch.profiler)")
-    if rms != 1:
-        fail(f"rms_norm_fused: {rms:g} CUDA kernels a call, want 1")
-    results = {"causal_per_call": causal, "rms_per_call": rms}
+    one_kernel = {}
+    for key, what in ((("rms_norm_fused", "1280x4096"), "bf16 scale"),
+                      (("layer_norm_fused", "9800x1280"),
+                       "bf16 scale and bias"),
+                      (("flash_attention_qkv", "2x257x3072"), "CLIP-L")):
+        n = one_kernel[key[0]] = per_call[key]
+        log(f"[kernel] {key[0]} {key[1]}, {what}: {n:g} CUDA kernel(s) a "
+            "call (torch.profiler)")
+        if n != 1:
+            fail(f"{key[0]} {key[1]}: {n:g} CUDA kernels a call, want 1")
+    results = {"causal_per_call": causal, "one_kernel_per_call": one_kernel}
 
     def run_case(kname, shape_desc, kernel, plain, library, nbytes, ops,
                  ops_rate, iters=10, plain_iters=5, others=None, extra=None):
@@ -290,10 +296,14 @@ def check_kernels(torch, F, flash, port):
         return row
 
     # LayerNorm: SAM LN1/LN2 rows at batch 2 (window run with pad rows,
-    # then global layers)
-    for N in (9800, 8192):
-        C = 1280
-        x, s, b = rnd(N, C, scale=2.0), rnd(C), rnd(C)
+    # then global layers), bf16 weights as anyref_7b's; then a width that
+    # is not a multiple of 8 (the element-by-element path), drawn from a
+    # generator of its own so that the other cases keep their inputs
+    g_odd = torch.Generator(device="cuda").manual_seed(8642)
+    for N, C in ((9800, 1280), (8192, 1280), (777, 1283)):
+        r = rnd if C == 1280 else (lambda *sh, scale=1.0: rnd(
+            *sh, scale=scale, gen=g_odd))
+        x, s, b = r(N, C, scale=2.0), r(C), r(C)
         run_case("layer_norm_fused", f"{N}x{C}",
                  lambda: flash.layer_norm_fused(x, s, b, 1e-6),
                  lambda: flash.layer_norm_plain(x, s, b, 1e-6),
@@ -723,7 +733,7 @@ def check_fused_kernels(torch, F, flash, port, rnd, run_case):
         del x, qkv, args, p
 
     # flash_attention_qkv: CLIP-L at batch 2, then L 77 with 4 heads of 36
-    # (a head width that takes the kernel's unvectorised loads)
+    # (a head width the wrapper zero-pads to 40 for the kernel's TMA loads)
     for B, L, nh, hd in ((2, 257, 16, 64), (2, 77, 4, 36)):
         C = nh * hd
         qkv = rnd(B, L, 3 * C)
@@ -763,10 +773,12 @@ def kernels_per_call(torch, flash, rnd, calls: int = 3) -> dict:
     (inputs from rnd; on the global routes also ("factors", wrapper, label):
     relpos_factors alone on the same q view, made contiguous as the wrapper
     makes them), for rms_norm_fused at the
-    7B prefill's [1280, 4096] with a bf16 scale, and for the causal kernels
+    7B prefill's [1280, 4096] with a bf16 scale, for the causal kernels
     at the 7B shapes (inputs from a generator of their own): the training
     forward and the prefill, the training backward and, alone, its delta
-    op. Counted in one
+    op, and (from the same generator) for layer_norm_fused at SAM-H's
+    [9800, 1280] with bf16 scale and bias and flash_attention_qkv at
+    CLIP-L's [2, 257, 3072]. Counted in one
     torch.profiler session at the start of phase 2 (short sessions late in
     a long process were seen to drop device events): each case runs `calls`
     times inside its own record_function range, and each kernel counts for
@@ -813,6 +825,15 @@ def kernels_per_call(torch, flash, rnd, calls: int = 3) -> dict:
     cases[("causal", "backward")] = lambda: flash.causal_attention_diff_bwd(
         q, k, v, o, lse, do)
     cases[("causal", "delta")] = lambda: flash.causal_delta(do, o)
+    xl, sl, bl = (torch.randn(shape, generator=g, device="cuda")
+                  .to(torch.bfloat16) for shape in ((9800, 1280), (1280,),
+                                                    (1280,)))
+    cases[("layer_norm_fused", "9800x1280")] = (
+        lambda: flash.layer_norm_fused(xl, sl, bl, 1e-6))
+    qkv = torch.randn(2, 257, 3072, generator=g, device="cuda").to(
+        torch.bfloat16)
+    cases[("flash_attention_qkv", "2x257x3072")] = (
+        lambda: flash.flash_attention_qkv(qkv, 16))
     for fn in cases.values():
         fn()
     torch.cuda.synchronize()
@@ -1564,7 +1585,7 @@ def main() -> int:
                              "anyref_tpu/ops/flash.py:1109"),
         "fused_global_tail": ("anyref_tpu_torch/csrc/fused_layers.cu",
                               "anyref_tpu/ops/flash.py:1226"),
-        "flash_attention_qkv": ("anyref_tpu_torch/csrc/qkv_attention.cu",
+        "flash_attention_qkv": ("anyref_tpu_torch/csrc/relpos_global.cu",
                                 "anyref_tpu/ops/flash.py:1395"),
         "fused_window_block": ("anyref_tpu_torch/csrc/fused_layers.cu",
                                "anyref_tpu/ops/flash.py:855"),
@@ -1630,8 +1651,8 @@ def main() -> int:
                if name in long_source else {}),
             **({"cuda_per_call": results["causal_per_call"]["prefill"]}
                if name == "flash_causal_attention" else {}),
-            **({"cuda_per_call": results["rms_per_call"]}
-               if name == "rms_norm_fused" else {}),
+            **({"cuda_per_call": results["one_kernel_per_call"][name]}
+               if name in results["one_kernel_per_call"] else {}),
             **({"attention_source": "anyref_tpu_torch/csrc/relpos_global.cu"}
                if name == "fused_global_tail" else {}),
             "unfused_ms": head.get("unfused_ms"),

@@ -1,4 +1,4 @@
-"""Time the port's attention kernels, RMSNorm and int8_matmul in several
+"""Time the port's attention kernels, the norms and int8_matmul in several
 checkouts, in turns, on one CUDA card.
 
     python3 kernel_ab.py ROOT [ROOT ...]     # e.g. parent change change parent
@@ -32,8 +32,16 @@ of each case, in ms:
                  prefill at batch 2), first held against its plain version
   f_rms_norm     torch.nn.functional.rms_norm at the same inputs (library
                  yardstick, timed only)
-  attention_qkv  flash_attention_qkv [2, 257, 3072], 16 heads of 64 (CLIP-L
+  layer_norm_NxC  layer_norm_fused at SAM-H's [9800, 1280] (the window rows
+                 at batch 2, pad rows included) and [8192, 1280] (the global
+                 layers) with bf16 scale and bias, each first held against
+                 its plain version
+  f_layer_norm_NxC  torch.nn.functional.layer_norm at the same inputs
+                 (library yardstick, timed only)
+  mha_qkv        flash_attention_qkv [2, 257, 3072], 16 heads of 64 (CLIP-L
                  at batch 2), first held against its plain version
+  sdpa_clip      SDPA on the same q, k, v (views of the fused QKV; library
+                 yardstick, timed only)
   causal         flash_causal_attention [2, 32, 640, 128], kv_start (0, 200)
                  (the serving prefill)
   causal_diff_fwd  causal_attention_diff_fwd [2, 32, 768, 128] (the training
@@ -145,6 +153,14 @@ def time_root(root: str) -> dict:
     out["rms_norm"] = ms(lambda: flash.rms_norm_fused(x, s, 1e-6))
     out["f_rms_norm"] = ms(
         lambda: torch.nn.functional.rms_norm(x, (4096,), s, 1e-6))
+    for N in (9800, 8192):
+        x, s, b = rnd(N, 1280, scale=2.0), rnd(1280), rnd(1280)
+        check(f"layer_norm {N}x1280", flash.layer_norm_fused(x, s, b, 1e-6),
+              flash.layer_norm_plain(x, s, b, 1e-6))
+        out[f"layer_norm_{N}x1280"] = ms(
+            lambda: flash.layer_norm_fused(x, s, b, 1e-6))
+        out[f"f_layer_norm_{N}x1280"] = ms(
+            lambda: torch.nn.functional.layer_norm(x, (1280,), s, b, 1e-6))
     qkv = rnd(50, 196, 3 * 1280)
     th, tw = rnd(14, 14, 80, scale=0.1), rnd(14, 14, 80, scale=0.1)
     check("relpos_qkv_window",
@@ -154,10 +170,14 @@ def time_root(root: str) -> dict:
         lambda: flash.flash_relpos_attention_qkv(qkv, th, tw, (14, 14), 16))
     del qkv
     qkv = rnd(2, 257, 3 * 1024)
-    check("attention_qkv", flash.flash_attention_qkv(qkv, 16),
+    check("mha_qkv", flash.flash_attention_qkv(qkv, 16),
           flash.attention_qkv_plain(qkv, 16))
-    out["attention_qkv"] = ms(lambda: flash.flash_attention_qkv(qkv, 16))
-    del qkv
+    out["mha_qkv"] = ms(lambda: flash.flash_attention_qkv(qkv, 16))
+    q, k, v = (qkv[..., i * 1024:(i + 1) * 1024].view(2, 257, 16, 64)
+               .transpose(1, 2) for i in range(3))
+    out["sdpa_clip"] = ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
+    del qkv, q, k, v
     q, k, v = (rnd(2, 32, 640, 128) for _ in range(3))
     ks = torch.tensor([0, 200], dtype=torch.int32, device="cuda")
     check("causal", flash.flash_causal_attention(q, k, v, ks),

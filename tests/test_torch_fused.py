@@ -173,10 +173,12 @@ def test_fused_global_tail_matches_pallas(dtype, H, W):
     _close(got, want, DTYPES[dtype])
 
 
-@pytest.mark.parametrize("dtype", list(DTYPES))
-def test_flash_attention_qkv_matches_pallas(dtype):
-    """CLIP's L = 257 (odd, no tile multiple), 4 heads of 64."""
-    B, L, nh, hd = 2, 257, 4, 64
+@pytest.mark.parametrize("dtype,B,L,nh,hd", [
+    *(pytest.param(d, 2, 257, 4, 64, id=d) for d in DTYPES),
+    *(pytest.param(d, 2, 77, 4, 36, id=f"odd-hd36-{d}") for d in DTYPES)])
+def test_flash_attention_qkv_matches_pallas(dtype, B, L, nh, hd):
+    """CLIP's L = 257 (odd, no tile multiple), 4 heads of 64; L = 77 with
+    heads of 36 (the CUDA kernel's zero-padded route)."""
     rng = np.random.default_rng(21)
     qkv = (rng.standard_normal((B, L, 3 * nh * hd)) * 0.3).astype(
         jnp.dtype(dtype))

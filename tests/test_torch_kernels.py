@@ -108,6 +108,36 @@ def test_global_operand_views():
                for t in tflash._split_qkv(odd, nh))
 
 
+def test_attention_qkv_operands():
+    """flash_attention_qkv's operands as csrc/relpos_global.cu takes them
+    (_tma_heads): CLIP-L's fused QKV [2, 257, 3072], 16 heads of 64, is
+    read in place, its thirds at offsets 0, C and 2C with one set of
+    strides, and the head-merged output written in place; heads of 36
+    (not a multiple of 8) are copied, zero-padded to 40 columns, and
+    written through a buffer of that width."""
+    B, L, nh = 2, 257, 16
+    for hd in (64, 36):
+        C = nh * hd
+        qkv = torch.zeros(B, L, 3 * C, dtype=torch.bfloat16)
+        thirds = tflash._split_qkv(qkv, nh)
+        heads = torch.empty(B, L, C, dtype=torch.bfloat16).view(
+            B, L, nh, hd).transpose(1, 2)
+        q, k, v, strides, o = tflash._tma_heads(*thirds, heads)
+        if hd == 64:
+            assert all(a is b for a, b in zip((q, k, v), thirds))
+            assert [tflash._head_view(t)[0] for t in thirds] == [0, C, 2 * C]
+            assert strides == (L * 3 * C, hd, 3 * C)
+            assert o is heads
+        else:
+            assert all(tflash._head_view(t) is None for t in thirds)
+            assert all(t.shape == (B, nh, L, 40) and t.is_contiguous()
+                       for t in (q, k, v))
+            assert torch.equal(q[..., :hd], thirds[0])
+            assert not q[..., hd:].any()
+            assert strides == (nh * L * 40, L * 40, 40)
+            assert o is not heads and o.shape == (B, nh, L, 40)
+
+
 def test_causal_route_by_head_width():
     """The decoder heads of anyref_7b (128) and anyref_tiny (32) go to the
     causal kernels as they are ("tma": rows of a multiple of 16 bytes);
@@ -159,29 +189,53 @@ def test_causal_attention_matches_pallas(monkeypatch, mh):
 
 @pytest.mark.parametrize("kind,C,scale_dtype", [
     pytest.param("layer", 128, "float32", id="layer"),
+    pytest.param("layer", 1280, "bfloat16", id="layer-bf16-weights-1280"),
+    pytest.param("layer", 100, "float32", id="layer-odd-width"),
     pytest.param("rms", 128, "float32", id="rms"),
     pytest.param("rms", 4096, "bfloat16", id="rms-bf16-scale-4096"),
     pytest.param("rms", 100, "float32", id="rms-odd-width")])
 def test_norms_match_pallas(kind, C, scale_dtype):
     """300 rows (not a multiple of the reference's 256-row block), C 128;
-    RMSNorm also at the LLaMA-7B width with a bf16 scale (anyref_7b's
-    weights: the CUDA kernel reads it as bf16) and at a width that is not a
-    multiple of 8 (the kernel's element-by-element path)."""
+    LayerNorm also at SAM-H's width with bf16 scale and bias (anyref_7b's
+    weights: the CUDA kernel reads them as bf16), RMSNorm at the LLaMA-7B
+    width with a bf16 scale, and both at a width that is not a multiple of
+    8 (the kernel's element-by-element path)."""
     rng = np.random.default_rng(2)
     x = (rng.standard_normal((3, 100, C)) * 3 + 1).astype(np.float32)
     s = rng.standard_normal(C).astype(np.float32)
     b = rng.standard_normal(C).astype(np.float32)
+    js, jb = (jnp.asarray(a).astype(scale_dtype) for a in (s, b))
+    ts, tb = (_t(a).to(getattr(torch, scale_dtype)) for a in (s, b))
     if kind == "layer":
-        want = jflash.layer_norm_fused(jnp.asarray(x), jnp.asarray(s),
-                                       jnp.asarray(b), 1e-6, interpret=True)
-        got = tflash.layer_norm_fused(_t(x), _t(s), _t(b), 1e-6)
+        want = jflash.layer_norm_fused(jnp.asarray(x), js, jb, 1e-6,
+                                       interpret=True)
+        got = tflash.layer_norm_fused(_t(x), ts, tb, 1e-6)
     else:
-        js = jnp.asarray(s).astype(scale_dtype)
-        ts = _t(s).to(getattr(torch, scale_dtype))
         want = jflash.rms_norm_fused(jnp.asarray(x), js, 1e-6,
                                      interpret=True)
         got = tflash.rms_norm_fused(_t(x), ts, 1e-6)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_norm_weights_read_as_they_come():
+    """The norm kernels read bf16 or fp32 weights as they are, so a call
+    launches one CUDA kernel: only another dtype, or a scale and bias of
+    different dtypes, is converted (to fp32); weights of the wrong size
+    raise."""
+    C = 24
+    bf, f32 = torch.ones(C, dtype=torch.bfloat16), torch.zeros(C)
+    s, b = tflash._norm_weights("ln", C, "cpu", bf, bf)
+    assert s is bf and b is bf
+    (s,) = tflash._norm_weights("rms", C, "cpu", f32)
+    assert s is f32
+    for ws in ((bf, f32), (bf.half(), bf.half())):
+        got = tflash._norm_weights("ln", C, "cpu", *ws)
+        assert all(w.dtype == torch.float32 for w in got)
+        assert all(torch.equal(w, v.float()) for w, v in zip(got, ws))
+    assert tflash._norm_weights("ln", C, "cpu", f32[::2].repeat(2),
+                                f32)[0].is_contiguous()
+    with pytest.raises(ValueError):
+        tflash._norm_weights("ln", C + 8, "cpu", bf, bf)
 
 
 def test_plain_runs_only_for_cpu_tensors():
