@@ -58,7 +58,7 @@ __device__ __forceinline__ void load8f(const float* p, float* out) {
 }
 
 // ---------------------------------------------------------------------------
-// PTX helpers of the tensor-core kernels (attention.cuh, gemm.cuh)
+// PTX helpers of the tensor-core kernels (window_attention.cu, wgmma.cuh)
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);

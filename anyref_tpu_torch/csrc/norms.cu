@@ -23,17 +23,43 @@
 // threads or more, or 128 / team rows of narrower teams. Scale and bias are
 // read in their own dtype (bf16 or fp32, both the same) and converted in
 // registers: the wrappers launch this one kernel and nothing else.
+//
+// One more instance is the LayerNorm row pass of the fused SAM layers
+// (anyref_layer_norm_rows, before the GEMMs of gemm.cuh): x bf16 or fp32
+// (the fp32 residual x1 of fused_window_block and fused_global_tail),
+// always 16-byte chunks, and the window pad mask of the row, so that it
+// writes h = bf16(((x - mean) * rstd * scale + bias) * keep) as the TPU
+// kernels compute h (anyref_tpu/ops/flash.py:964-972, :1088-1094,
+// :1196-1200). Bound: bytes, [9800, 1280] bf16 in and out 50 MB, 0.015 ms.
 #include "common.cuh"
 
-// Rows [rows, C], each held by a team of `team` threads (a multiple of 32;
-// blockDim.x / team rows a block), NV groups a thread: 16-byte chunks of 8
-// columns (VEC) or single columns. Group k of team thread u covers columns
-// (u + k * team) * G .. + G - 1. bias is read only by LAYER.
-template <bool LAYER, bool VEC, int NV>
-__global__ void row_norm(const bf16* __restrict__ x, const void* __restrict__ scale,
+// The window pad mask of row m (ws > 0; ws = 0: no mask): row m is token
+// m % L of window m / L, windows scan row-major over the padded grid, nwc a
+// row, nw an image, and the token is kept where it lies inside the H x W
+// grid (ops/flash.py window_pad_mask).
+struct RowMask {
+  int L, nw, nwc, ws, H, W;
+};
+
+__device__ __forceinline__ float keep_row(const RowMask& k, int m) {
+  if (k.ws <= 0) return 1.f;
+  const int w = (m / k.L) % k.nw, li = m % k.L;
+  const int row = (w / k.nwc) * k.ws + li / k.ws;
+  const int col = (w % k.nwc) * k.ws + li % k.ws;
+  return (row < k.H && col < k.W) ? 1.f : 0.f;
+}
+
+// Rows [rows, C] of x (T: bf16, or fp32 with VEC), each held by a team of
+// `team` threads (a multiple of 32; blockDim.x / team rows a block), NV
+// groups a thread: chunks of 8 columns (VEC: one 16-byte load of bf16, two
+// of fp32) or single columns. Group k of team thread u covers columns
+// (u + k * team) * G .. + G - 1. bias is read only by LAYER; the output
+// row is multiplied by its pad mask (1 where mask.ws = 0).
+template <bool LAYER, bool VEC, int NV, typename T>
+__global__ void row_norm(const T* __restrict__ x, const void* __restrict__ scale,
                          const void* __restrict__ bias, int w_f32, bf16* __restrict__ y,
-                         int rows, int C, int team, float eps) {
-  constexpr int G = VEC ? 8 : 1;
+                         int rows, int C, int team, float eps, RowMask mask) {
+  constexpr int G = VEC ? 8 : 1, Q = sizeof(T) / 2;  // Q: 16-byte loads a chunk
   __shared__ float red[2][32];  // one array a reduction: no barrier between them
   const int tid = threadIdx.x, u = tid % team;
   const int row = blockIdx.x * (blockDim.x / team) + tid / team;
@@ -53,23 +79,31 @@ __global__ void row_norm(const bf16* __restrict__ x, const void* __restrict__ sc
     return v;
   };
 
-  // every load of the row issued before any is used; the values stay bf16
-  // in registers (0 past C) and are converted where they are used
-  uint4 raw[VEC ? NV : 1];
-  bf16 one[VEC ? 1 : NV];
+  // every load of the row issued before any is used; the values stay in
+  // x's dtype in registers (0 past C) and are converted where they are used
+  uint4 raw[VEC ? NV * Q : 1];
+  T one[VEC ? 1 : NV];
 #pragma unroll
   for (int k = 0; k < NV; ++k) {
     const int c = (u + k * team) * G;
     if constexpr (VEC) {
-      raw[k] = c < C ? *reinterpret_cast<const uint4*>(x + off + c) : make_uint4(0, 0, 0, 0);
+#pragma unroll
+      for (int e = 0; e < Q; ++e)
+        raw[k * Q + e] = c < C ? *reinterpret_cast<const uint4*>(x + off + c + e * 8 / Q)
+                               : make_uint4(0, 0, 0, 0);
     } else {
-      one[k] = c < C ? x[off + c] : __float2bfloat16(0.f);
+      one[k] = c < C ? x[off + c] : T(0.f);
     }
   }
   // column j of group k, fp32
   auto val = [&](int k, int j) {
-    if constexpr (VEC) return __bfloat162float(reinterpret_cast<const bf16*>(&raw[k])[j]);
-    else return __bfloat162float(one[k]);
+    if constexpr (Q == 2) {
+      if constexpr (VEC) return reinterpret_cast<const float*>(&raw[k * Q])[j];
+      else return (float)one[k];
+    } else {
+      if constexpr (VEC) return __bfloat162float(reinterpret_cast<const bf16*>(&raw[k])[j]);
+      else return __bfloat162float(one[k]);
+    }
   };
   float mean = 0.f;
   if constexpr (LAYER) {
@@ -94,6 +128,7 @@ __global__ void row_norm(const bf16* __restrict__ x, const void* __restrict__ sc
   }
   const float r = rsqrtf(team_sum(q, red[1]) / (float)C + eps);
   if (!live) return;
+  const float keep = keep_row(mask, row);
   const float* sf = static_cast<const float*>(scale);
   const bf16* sb = static_cast<const bf16*>(scale);
   const float* bf = static_cast<const float*>(bias);
@@ -116,21 +151,22 @@ __global__ void row_norm(const bf16* __restrict__ x, const void* __restrict__ sc
     }
 #pragma unroll
     for (int j = 0; j < G; ++j) {
-      if constexpr (LAYER) o8[j] = (val(k, j) - mean) * r * s8[j] + b8[j];
-      else o8[j] = val(k, j) * r * s8[j];
+      if constexpr (LAYER) o8[j] = ((val(k, j) - mean) * r * s8[j] + b8[j]) * keep;
+      else o8[j] = val(k, j) * r * s8[j] * keep;
     }
     if constexpr (VEC) store8(y + off + c, o8);
     else y[off + c] = __float2bfloat16(o8[0]);
   }
 }
 
-template <bool LAYER, bool VEC, int NV>
+template <bool LAYER, bool VEC, int NV, typename T>
 static int launch_row_norm(const void* x, const void* scale, const void* bias, int w_f32, void* y,
-                           int rows, int C, int team, float eps, cudaStream_t st) {
+                           int rows, int C, int team, float eps, const RowMask& mask,
+                           cudaStream_t st) {
   const int rows_a_block = team < 128 ? 128 / team : 1;
   const int blocks = (rows + rows_a_block - 1) / rows_a_block;
-  row_norm<LAYER, VEC, NV><<<blocks, team * rows_a_block, 0, st>>>(
-      (const bf16*)x, scale, bias, w_f32, (bf16*)y, rows, C, team, eps);
+  row_norm<LAYER, VEC, NV, T><<<blocks, team * rows_a_block, 0, st>>>(
+      (const T*)x, scale, bias, w_f32, (bf16*)y, rows, C, team, eps, mask);
   return (int)cudaGetLastError();
 }
 
@@ -139,11 +175,16 @@ static int launch_row_norm(const void* x, const void* scale, const void* bias, i
 // SAM-H's [9800, 1280], five 16-byte chunks a lane, faster on the H100 than
 // two warps of four), else teams of whole warps with about 4 groups a thread
 // (at the LLaMA-7B prefill's [1280, 4096] faster than one warp of 16 chunks
-// a row, or 512 threads of 1); NV = 1 .. 8 or 16 groups a thread.
-template <bool LAYER>
+// a row, or 512 threads of 1); NV = 1 .. 8 or 16 groups a thread. fp32 x
+// is read in chunks only (vec).
+template <bool LAYER, typename T = bf16>
 static int row_norm_entry(const void* x, const void* scale, const void* bias, int w_f32, void* y,
-                          int rows, int cols, float eps, int vec, void* stream) {
+                          int rows, int cols, float eps, int vec, void* stream,
+                          const RowMask& mask = RowMask{0, 0, 0, 0, 0, 0}) {
   if (rows <= 0 || cols <= 0) return 0;
+  if (sizeof(T) == 4 && !vec) return (int)cudaErrorInvalidValue;
+  if (mask.ws > 0 && (mask.L <= 0 || mask.nw <= 0 || mask.nwc <= 0))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const int groups = vec ? cols / 8 : cols;
   if (groups > 1024 * 16) return (int)cudaErrorInvalidValue;
@@ -152,14 +193,18 @@ static int row_norm_entry(const void* x, const void* scale, const void* bias, in
   if (nv > 8) nv = 16;
 #define ANYREF_NORM(V, N) \
   case N:                 \
-    return launch_row_norm<LAYER, V, N>(x, scale, bias, w_f32, y, rows, cols, team, eps, st);
+    return launch_row_norm<LAYER, V, N, T>(x, scale, bias, w_f32, y, rows, cols, team, eps, \
+                                           mask, st);
 #define ANYREF_NORMS(V)                                                                     \
   switch (nv) {                                                                             \
     ANYREF_NORM(V, 1) ANYREF_NORM(V, 2) ANYREF_NORM(V, 3) ANYREF_NORM(V, 4) ANYREF_NORM(V, 5) \
     ANYREF_NORM(V, 6) ANYREF_NORM(V, 7) ANYREF_NORM(V, 8) ANYREF_NORM(V, 16)                 \
   }
-  if (vec) ANYREF_NORMS(true)
-  else ANYREF_NORMS(false)
+  if (vec) {
+    ANYREF_NORMS(true)
+  } else if constexpr (sizeof(T) == 2) {
+    ANYREF_NORMS(false)
+  }
 #undef ANYREF_NORMS
 #undef ANYREF_NORM
   return (int)cudaErrorInvalidValue;
@@ -178,6 +223,23 @@ ANYREF_API int anyref_layer_norm(const void* x, const void* scale, const void* b
 ANYREF_API int anyref_rms_norm(const void* x, const void* scale, int scale_f32, void* y,
                                int rows, int cols, float eps, int vec, void* stream) {
   return row_norm_entry<false>(x, scale, nullptr, scale_f32, y, rows, cols, eps, vec, stream);
+}
+
+// The LayerNorm row pass of the fused SAM layers: y = bf16(LayerNorm(x) *
+// keep) over x [rows, cols] bf16 or (x_f32) fp32, scale and bias [cols]
+// both bf16 or both fp32 (w_f32), keep the window pad mask of each row
+// (ws > 0: win_L tokens a window, win_nw windows an image, win_nwc a row
+// of the padded grid, the grid_h x grid_w grid inside it; ws = 0: no
+// mask). cols % 8 == 0 and every pointer 16-byte aligned.
+ANYREF_API int anyref_layer_norm_rows(const void* x, int x_f32, const void* scale,
+                                      const void* bias, int w_f32, void* y, int rows, int cols,
+                                      float eps, int win_L, int win_nw, int win_nwc, int ws,
+                                      int grid_h, int grid_w, void* stream) {
+  if (cols % 8) return (int)cudaErrorInvalidValue;
+  const RowMask mask{win_L, win_nw, win_nwc, ws, grid_h, grid_w};
+  if (x_f32)
+    return row_norm_entry<true, float>(x, scale, bias, w_f32, y, rows, cols, eps, 1, stream, mask);
+  return row_norm_entry<true, bf16>(x, scale, bias, w_f32, y, rows, cols, eps, 1, stream, mask);
 }
 
 ANYREF_API const char* anyref_error_string(int code) {

@@ -6,13 +6,18 @@
 // wrappers' einsums give them up to summation order).
 //
 // Replaces, for L <= 256, anyref_tpu/ops/flash.py flash_relpos_attention's
-// window kernel (_relpos_multihead_kernel, L < 1024) and
-// flash_relpos_attention_qkv (_relpos_qkv_kernel); longer grids stay on the
-// flash core of attention.cuh. One launch a call, the factors included.
-// One C entry takes the q/k/v and output views as strides, so it reads
-// split heads [B, nh, L, hd] (or their permuted views of a fused QKV) and
-// writes split heads, or reads the fused [B, L, 3C] QKV directly and writes
-// [B, L, C] head-merged.
+// window kernel (_relpos_multihead_kernel, L < 1024),
+// flash_relpos_attention_qkv (_relpos_qkv_kernel) and the window attention
+// inside fused_window_attn and fused_window_block (_window_attn_all);
+// longer grids go to relpos_global.cu. One launch a call, the factors
+// included. One C entry takes the q/k/v and output views as strides, so it
+// reads split heads [B, nh, L, hd] (or their permuted views of a fused
+// QKV) and writes split heads, or reads the fused [B, L, 3C] QKV directly
+// and writes [B, L, C] head-merged (the fused layers' windows: B = 50
+// windows at batch 2, their gathered tables [ws * ws, hd] viewed as
+// [ws, ws, hd]). P is not normalised before its bf16 rounding: the sum is
+// divided by the row sum after P V (the fused layers' plain version
+// normalises first; ROADMAP C1).
 //
 // What bounds it on the H100: device-memory bytes, in principle. At SAM-H's
 // windows ([50, 196, 3840], 16 heads of 80) a call reads q, k, v once and

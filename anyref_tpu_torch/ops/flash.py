@@ -29,22 +29,26 @@ and how its design answers that):
 The norms, the attention kernels and ``int8_matmul`` are one CUDA kernel
 each (``int8_matmul`` two launches at most 16 rows: split-K partial sums,
 then their reduction). The four fused layers are each a short chain of the
-port's own kernels (row moments, the GEMM of ``csrc/gemm.cuh`` with a
-LayerNorm prologue and a bias / GELU / residual epilogue, QKV-direct
-attention), with no other torch op between them than allocation, views and,
-in the global tail, the fp32 bias-factor einsums the reference's wrapper
-also computes outside its kernel (as both rel-pos wrappers do above 256
-tokens; up to 256 the window kernel computes the factors itself).
+port's own kernels (the LayerNorm row pass of ``csrc/norms.cu`` writing
+bf16 h with the window pad mask, the ``wgmma`` GEMM of ``csrc/gemm.cuh``
+with a bias / GELU / residual epilogue, and the rel-pos attention kernels
+on the heads of the fused QKV: ``csrc/window_attention.cu`` for the
+windows, ``csrc/relpos_global.cu`` for the global layers), with no other
+torch op between them than allocation, views and, in the global tail, the
+fp32 bias-factor einsums the reference's wrapper also computes outside its
+kernel (as both rel-pos wrappers do above 256 tokens; up to 256 the window
+kernel computes the factors itself).
 ``flash_causal_attention_diff`` is the training attention: its forward is
 the causal kernel (``csrc/causal_attention.cu``) with a log-sum-exp
 output, its backward two kernels (``csrc/causal_attention_bwd.cu``: dq
 over query blocks, dk/dv over key blocks) after delta = rowsum(dO * O), a
 torch op here as in the reference's wrapper. The three causal kernels,
-the global rel-pos kernel (``csrc/relpos_global.cu``, which with its bias compiled out also runs
-``flash_attention_qkv``) and ``int8_matmul``'s prefill body are ``wgmma``
-kernels fed by TMA (``csrc/wgmma.cuh``); heads whose width is not a
-multiple of 8 are zero-padded to one by the wrapper (``_causal_route``,
-``_relpos_route``, ``_tma_heads``). The two norms are one kernel template
+the global rel-pos kernel (``csrc/relpos_global.cu``, which with its bias
+compiled out also runs ``flash_attention_qkv``), the fused layers' GEMM
+and ``int8_matmul``'s prefill body are ``wgmma`` kernels fed by TMA
+(``csrc/wgmma.cuh``); heads whose width is not a multiple of 8 are
+zero-padded to one by the wrapper (``_causal_route``, ``_relpos_route``,
+``_tma_heads``). The two norms are one kernel template
 (``csrc/norms.cu``) that reads bf16 or fp32 weights as they are.
 
 Each wrapper runs its plain version when, and only when, its input lies on
@@ -79,9 +83,9 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = ("norms.cu", "relpos_global.cu", "causal_attention.cu",
-           "causal_attention_bwd.cu", "fused_layers.cu", "qkv_attention.cu",
-           "int8_matmul.cu", "window_attention.cu")
-HEADERS = ("common.cuh", "attention.cuh", "gemm.cuh", "wgmma.cuh")
+           "causal_attention_bwd.cu", "fused_layers.cu", "int8_matmul.cu",
+           "window_attention.cu")
+HEADERS = ("common.cuh", "gemm.cuh", "wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -154,11 +158,9 @@ def _library():
                 "anyref_causal_attention": [P, P, P, P, P, P, I, I, I, I, F,
                                             P],
                 "anyref_causal_attention_bwd": [P] * 10 + [I, I, I, I, F, P],
-                "anyref_row_stats": [P, P, I, I, F, I, P],
-                "anyref_gemm": [P, P, P, P, P, I, I, I, P, P, P, I, I, I, I,
-                                I, I, I, I, I, I, P],
-                "anyref_window_attention_qkv": [P, P, P, P, I, I, I, I, I, F,
-                                                I, P],
+                "anyref_layer_norm_rows": [P, I, P, P, I, P, I, I, F, I, I,
+                                           I, I, I, I, P],
+                "anyref_gemm": [P, P, P, I, P, P, I, I, I, I, I, I, P],
                 "anyref_int8_matmul": [P, P, P, P, P, I, I, I, P],
                 "anyref_window_relpos_attention": [P, P, P, I, I, I, P, P, P,
                                                    I, I, I, I, I, I, I, I, I,
@@ -860,20 +862,28 @@ def supported_relpos_qkv(H: int, W: int) -> bool:
     return 64 <= H * W < 1024
 
 
+def layer_norm_rows_plain(x, scale, bias, eps: float, keep=None):
+    """The fused layers' LayerNorm row pass: h = bf16(LayerNorm(x) * keep)
+    over rows x [N, C] (bf16 or fp32), fp32 moments and arithmetic, keep
+    [N, 1] the window pad mask or None, rounded once at the end, where the
+    reference's fused kernels round h (anyref_tpu flash.py
+    _fused_window_attn_kernel, _mlp_stream_kernel)."""
+    h = layer_norm_plain(x.float(), scale, bias, eps)
+    if keep is not None:
+        h = h * keep
+    return h.to(torch.bfloat16)
+
+
 # ---------------------------------------------------------------------------
-# fused SAM layers and QKV-direct attention: kernels
+# fused SAM layers: kernels
 # ---------------------------------------------------------------------------
-_A_BF16, _A_LN_BF16, _A_LN_F32 = 0, 1, 2
 _E_BIAS, _E_GELU, _E_RES = 0, 1, 2
-
-
-def _f32(t, device):
-    return t.to(device=device, dtype=torch.float32).contiguous()
 
 
 def _gemm_operands(name: str, a, *weights):
     """a [M, K] and weights [K, N], contiguous and 16-byte aligned, with K
-    and N multiples of 8 (the GEMM's 16-byte copies); else raise."""
+    and N multiples of 8 (the GEMM's TMA loads take 16-byte row strides);
+    else raise."""
     for w in weights:
         if w.dtype != torch.bfloat16 or not w.is_contiguous():
             raise TypeError(f"{name}: weights must be contiguous bfloat16")
@@ -884,31 +894,43 @@ def _gemm_operands(name: str, a, *weights):
                          f" x {[tuple(w.shape) for w in weights]}")
 
 
-def _row_stats(x2, eps: float):
-    M, K = x2.shape
-    stats = torch.empty(M, 2, dtype=torch.float32, device=x2.device)
-    _launch("anyref_row_stats", x2.data_ptr(), stats.data_ptr(), M, K,
-            float(eps), int(x2.dtype == torch.float32), _stream(x2))
-    return stats
+def _ln_rows(x2, ln, eps: float, win=None):
+    """One launch of csrc/norms.cu's LayerNorm row pass on rows x2 [M, C]
+    (bf16 or fp32, contiguous, 16-byte aligned) -> h [M, C] bf16, the
+    GEMM's A; ``win`` (L, nw, nwc, ws, H, W) asks for the window pad mask.
+    The weights are read as they come (bf16 or fp32), copied only where
+    they are not 16-byte aligned."""
+    M, C = x2.shape
+    s, b = _norm_weights("LayerNorm row pass", C, x2.device, ln["scale"],
+                         ln["bias"])
+    if not _aligned(s, b):
+        s, b = s.clone(), b.clone()
+    h = torch.empty(M, C, dtype=torch.bfloat16, device=x2.device)
+    _launch("anyref_layer_norm_rows", x2.data_ptr(),
+            int(x2.dtype == torch.float32), s.data_ptr(), b.data_ptr(),
+            int(s.dtype == torch.float32), h.data_ptr(), M, C, float(eps),
+            *(win or (0,) * 6), _stream(x2))
+    return h
 
 
-def _gemm(a, w, bias, epi: int, ln=None, stats=None, res=None, win=None,
-          out_dtype=torch.bfloat16):
-    """epi(prologue(a) @ w + bias) on the GEMM of csrc/gemm.cuh. ``ln``
-    (fp32 scale, bias) with ``stats`` asks for the LayerNorm prologue, ``win``
-    (L, nw, nwc, ws, H, W) for its window pad mask."""
+def _gemm(a, w, bias, epi: int, res=None, out_dtype=torch.bfloat16):
+    """epi(a @ w + bias) on the wgmma GEMM of csrc/gemm.cuh: a [M, K] and w
+    [K, N] bf16 as _gemm_operands checks them, bias [N] read as it comes
+    (bf16 or fp32), res [M, N] (bf16 or fp32) for the residual epilogue."""
     M, K = a.shape
     N = w.shape[1]
+    b = bias.to(device=a.device)
+    if b.dtype not in (torch.bfloat16, torch.float32):
+        b = b.float()
+    b = b.contiguous()
+    if b.numel() != N:
+        raise ValueError(f"fused SAM GEMM: bias {tuple(bias.shape)} for "
+                         f"{N} columns")
     out = torch.empty(M, N, dtype=out_dtype, device=a.device)
-    amode = _A_BF16 if ln is None else (
-        _A_LN_F32 if a.dtype == torch.float32 else _A_LN_BF16)
-    _launch("anyref_gemm", a.data_ptr(), w.data_ptr(), bias.data_ptr(),
+    _launch("anyref_gemm", a.data_ptr(), w.data_ptr(), b.data_ptr(),
+            int(b.dtype == torch.float32),
             None if res is None else res.data_ptr(), out.data_ptr(), M, N, K,
-            None if stats is None else stats.data_ptr(),
-            None if ln is None else ln[0].data_ptr(),
-            None if ln is None else ln[1].data_ptr(),
-            *(win or (0,) * 6), amode, epi,
-            int(res is not None and res.dtype == torch.float32),
+            epi, int(res is not None and res.dtype == torch.float32),
             int(out_dtype == torch.float32), _stream(a))
     return out
 
@@ -928,36 +950,35 @@ def _window_args(name: str, xw, size_hw, num_heads: int):
 def _window_attention(x2, ln1, qkv_p, tht, twt, NW: int, L: int,
                       num_heads: int, ws: int, grid_hw, nwc: int,
                       eps: float):
-    """Three launches on the window rows x2 [NW * L, C]: row moments, the
-    QKV GEMM with the LayerNorm prologue and the pad mask, window attention
-    off the fused QKV -> attn [NW * L, C] bf16."""
-    dev = x2.device
+    """Three launches on the window rows x2 [NW * L, C]: the LayerNorm row
+    pass with the pad mask, the QKV GEMM, and the rel-pos attention of
+    _window_relpos on the heads of the fused QKV, read in place, with the
+    gathered tables tht / twt [ws * ws, hd] viewed as [ws, ws, hd] -> attn
+    [NW * L, C] bf16, written head-merged (grids of more than WINDOW_MAX_L
+    tokens take _global_relpos after its factor einsums)."""
     C = x2.shape[1]
     hd = C // num_heads
     H, W = grid_hw
-    ln = (_f32(ln1["scale"], dev), _f32(ln1["bias"], dev))
-    th, tw = (t.to(torch.bfloat16).contiguous() for t in (tht, twt))
-    attn = torch.empty(NW * L, C, dtype=torch.bfloat16, device=dev)
-    win = (L, -(-H // ws) * nwc, nwc, ws, H, W)
-    stats = _row_stats(x2, eps)
-    qkv = _gemm(x2, qkv_p["w"], _f32(qkv_p["b"], dev), _E_BIAS, ln=ln,
-                stats=stats, win=win)
-    _launch("anyref_window_attention_qkv", qkv.data_ptr(), th.data_ptr(),
-            tw.data_ptr(), attn.data_ptr(), NW, L, num_heads, hd, ws,
-            hd ** -0.5, int(hd % 8 == 0 and _aligned(th, tw)), _stream(x2))
+    h = _ln_rows(x2, ln1, eps, win=(L, -(-H // ws) * nwc, nwc, ws, H, W))
+    qkv = _gemm(h, qkv_p["w"], qkv_p["b"], _E_BIAS)
+    attn = torch.empty(NW * L, C, dtype=torch.bfloat16, device=x2.device)
+    heads = attn.view(NW, L, num_heads, hd).transpose(1, 2)
+    q, k, v = _split_qkv(qkv.view(NW, L, 3 * C), num_heads)
+    th, tw = (t.reshape(ws, ws, hd) for t in (tht, twt))
+    if _relpos_route(L, hd) == "window":
+        _window_relpos(q, k, v, th, tw, (ws, ws), heads)
+    else:
+        _global_relpos(q, k, v, th, tw, (ws, ws), heads)
     return attn
 
 
 def _mlp_residual(x, ln2, mlp1_p, mlp2_p, eps: float):
-    """Three launches: row moments of x [N, C] (bf16 or fp32), fc1 GEMM with
-    the LayerNorm prologue and GELU epilogue (bf16 hidden), fc2 GEMM with
-    the residual x -> [N, C] bf16."""
-    dev = x.device
-    ln = (_f32(ln2["scale"], dev), _f32(ln2["bias"], dev))
-    stats = _row_stats(x, eps)
-    hid = _gemm(x, mlp1_p["w"], _f32(mlp1_p["b"], dev), _E_GELU, ln=ln,
-                stats=stats)
-    return _gemm(hid, mlp2_p["w"], _f32(mlp2_p["b"], dev), _E_RES, res=x)
+    """Three launches: the LayerNorm row pass of x [N, C] (bf16 or fp32)
+    -> bf16 h, the fc1 GEMM with the GELU epilogue (bf16 hidden), the fc2
+    GEMM with the residual x -> [N, C] bf16."""
+    h = _ln_rows(x, ln2, eps)
+    hid = _gemm(h, mlp1_p["w"], mlp1_p["b"], _E_GELU)
+    return _gemm(hid, mlp2_p["w"], mlp2_p["b"], _E_RES, res=x)
 
 
 def _qkv_dims(qkv, size_hw, num_heads: int):
@@ -992,8 +1013,8 @@ def fused_window_attn(xw, ln1, qkv_p, tht, twt, proj_p, size_hw,
     """xw [NW, ws*ws, C] window-resident stream -> x + proj(window attention
     (qkv(LN1(x) * pad mask))), [NW, ws*ws, C]. tht/twt [ws*ws, hd]: the
     gathered rel-pos tables, rows (j, s); grid_hw the token grid before
-    padding; nwc windows per row. Four launches: row moments, QKV GEMM,
-    window attention, proj GEMM."""
+    padding; nwc windows per row. Four launches: the LayerNorm row pass, QKV
+    GEMM, window attention, proj GEMM."""
     if _on_cpu("fused_window_attn", xw, qkv_p["w"], proj_p["w"]):
         return fused_window_attn_plain(xw, ln1, qkv_p, tht, twt, proj_p,
                                        size_hw, num_heads, grid_hw, nwc, eps)
@@ -1003,8 +1024,7 @@ def fused_window_attn(xw, ln1, qkv_p, tht, twt, proj_p, size_hw,
     with torch.cuda.device(xw.device):
         attn = _window_attention(x2, ln1, qkv_p, tht, twt, NW, L, num_heads,
                                  ws, grid_hw, nwc, eps)
-        out = _gemm(attn, proj_p["w"], _f32(proj_p["b"], xw.device), _E_RES,
-                    res=x2)
+        out = _gemm(attn, proj_p["w"], proj_p["b"], _E_RES, res=x2)
     fused_window_attn.launches += 1
     return out.view(NW, L, C)
 
@@ -1015,9 +1035,9 @@ def fused_window_block(xw, ln1, qkv_p, tht, twt, proj_p, ln2, mlp1_p, mlp2_p,
     """The whole window layer on the window-resident stream xw [NW, ws*ws,
     C] -> [NW, ws*ws, C]; arguments as fused_window_attn plus LN2 and the
     MLP. Seven launches: the four of fused_window_attn with the proj GEMM
-    writing the residual x1 in fp32, then row moments of x1, the fc1 GEMM
-    (LayerNorm prologue on fp32 x1, GELU) and the fc2 GEMM (fp32 residual
-    x1, bf16 out)."""
+    writing the residual x1 in fp32, then the LayerNorm row pass of fp32
+    x1, the fc1 GEMM (GELU) and the fc2 GEMM (fp32 residual x1, bf16
+    out)."""
     if _on_cpu("fused_window_block", xw, qkv_p["w"], proj_p["w"],
                mlp1_p["w"], mlp2_p["w"]):
         return fused_window_block_plain(xw, ln1, qkv_p, tht, twt, proj_p,
@@ -1031,17 +1051,17 @@ def fused_window_block(xw, ln1, qkv_p, tht, twt, proj_p, ln2, mlp1_p, mlp2_p,
     with torch.cuda.device(xw.device):
         attn = _window_attention(x2, ln1, qkv_p, tht, twt, NW, L, num_heads,
                                  ws, grid_hw, nwc, eps)
-        x1 = _gemm(attn, proj_p["w"], _f32(proj_p["b"], xw.device), _E_RES,
-                   res=x2, out_dtype=torch.float32)
+        x1 = _gemm(attn, proj_p["w"], proj_p["b"], _E_RES, res=x2,
+                   out_dtype=torch.float32)
         out = _mlp_residual(x1, ln2, mlp1_p, mlp2_p, eps)
     fused_window_block.launches += 1
     return out.view(NW, L, C)
 
 
 def fused_mlp_stream(x, ln2, mlp1_p, mlp2_p, eps: float):
-    """x [N, C] -> x + fc2(GELU(fc1(LN2(x)))). Three launches: row moments,
-    fc1 GEMM with the LayerNorm prologue and GELU epilogue (bf16 hidden),
-    fc2 GEMM with the residual epilogue."""
+    """x [N, C] -> x + fc2(GELU(fc1(LN2(x)))). Three launches: the
+    LayerNorm row pass (bf16 h), fc1 GEMM with the GELU epilogue (bf16
+    hidden), fc2 GEMM with the residual epilogue."""
     if _on_cpu("fused_mlp_stream", x, mlp1_p["w"], mlp2_p["w"]):
         return fused_mlp_stream_plain(x, ln2, mlp1_p, mlp2_p, eps)
     xc = x.contiguous()
@@ -1058,8 +1078,8 @@ def fused_global_tail(x, qkv, tht, twt, proj_p, ln2, mlp1_p, mlp2_p,
     input, qkv [B, L, 3C], tht/twt [S, S, hd] gathered tables -> [B, L, C].
     The fp32 bias factors are two einsums here, as in the reference's
     wrapper; then five launches: attention off the fused QKV, proj GEMM
-    into fp32 x1, row moments of x1, fc1 GEMM (LayerNorm prologue on fp32,
-    GELU), fc2 GEMM (fp32 residual)."""
+    into fp32 x1, the LayerNorm row pass of x1, fc1 GEMM (GELU), fc2 GEMM
+    (fp32 residual)."""
     if _on_cpu("fused_global_tail", x, qkv, proj_p["w"], mlp1_p["w"],
                mlp2_p["w"]):
         return fused_global_tail_plain(x, qkv, tht, twt, proj_p, ln2, mlp1_p,
@@ -1074,9 +1094,8 @@ def fused_global_tail(x, qkv, tht, twt, proj_p, ln2, mlp1_p, mlp2_p,
     with torch.cuda.device(x.device):
         attn = _relpos_qkv_attention(qkv.contiguous(), tht, twt, size_hw,
                                      num_heads)
-        x1 = _gemm(attn.view(B * L, C), proj_p["w"],
-                   _f32(proj_p["b"], x.device), _E_RES, res=x2,
-                   out_dtype=torch.float32)
+        x1 = _gemm(attn.view(B * L, C), proj_p["w"], proj_p["b"], _E_RES,
+                   res=x2, out_dtype=torch.float32)
         out = _mlp_residual(x1, ln2, mlp1_p, mlp2_p, eps)
     fused_global_tail.launches += 1
     return out.view(B, L, C)

@@ -24,7 +24,15 @@ Phases (any failure exits non-zero before the result line):
      torch.profiler; the global kernel above, where a call must run the
      factor einsums' kernels plus exactly one); rms_norm_fused (bf16
      scale), layer_norm_fused (bf16 scale and bias) and flash_attention_qkv
-     (CLIP-L's fused QKV) must each run exactly one CUDA kernel a call;
+     (CLIP-L's fused QKV) must each run exactly one CUDA kernel a call, and
+     the fused SAM layers at SAM-H's shapes with bf16 weights their own
+     chains only (fused_window_attn 4, fused_mlp_stream 3,
+     fused_window_block 7, fused_global_tail 5 plus the factor einsums');
+     the fused layers' GEMM (csrc/gemm.cuh) at each SAM-H shape, QKV, proj,
+     fc1 (GELU) and fc2 at M = 9800 and the fp32-residual forms at M =
+     8192, held against an fp32 product and timed beside torch.matmul
+     (timed only), with both rates in TFLOP/s, and the LayerNorm row pass
+     (csrc/norms.cu) on bf16 and fp32 rows, with and without the pad mask;
   3. check the slice on the card against the same weights and inputs on the
      CPU (whose plain versions the CPU tests hold against the JAX package):
      "unfused" and "unfused_qkv" at anyref_tiny(), "fused" and "fused_block"
@@ -264,7 +272,8 @@ def check_kernels(torch, F, flash, port):
             "call (torch.profiler)")
         if n != 1:
             fail(f"{key[0]} {key[1]}: {n:g} CUDA kernels a call, want 1")
-    results = {"causal_per_call": causal, "one_kernel_per_call": one_kernel}
+    results = {"causal_per_call": causal, "one_kernel_per_call": one_kernel,
+               "fused_per_call": check_fused_per_call(per_call)}
 
     def run_case(kname, shape_desc, kernel, plain, library, nbytes, ops,
                  ops_rate, iters=10, plain_iters=5, others=None, extra=None):
@@ -350,6 +359,7 @@ def check_kernels(torch, F, flash, port):
     check_causal_diff(torch, F, flash, timer, rnd, compare_scaled, results)
     check_causal_diff_wrapper(torch, F, flash, port["attention"], rnd,
                               compare_scaled)
+    check_gemm_and_row_pass(torch, F, flash, run_case)
     check_fused_kernels(torch, F, flash, port, rnd, run_case)
     check_relpos_qkv_and_int8(torch, F, flash, port["quant"], rnd, rnd_extra,
                               run_case, per_call)
@@ -599,6 +609,86 @@ def check_causal_diff_wrapper(torch, F, flash, attention, rnd, compare):
             terms
 
 
+# The fused layers' GEMM at SAM-H's shapes, (name, M, K, N, epilogue,
+# residual dtype, output dtype): the four products of a window layer at M =
+# 9800 (50 windows of 196 at batch 2) as fused_window_attn and
+# fused_mlp_stream launch them, then the fp32 residual x1 of
+# fused_window_block and fused_global_tail at M = 8192 (the global layers):
+# written by proj, read by fc2.
+GEMM_SHAPES = (("qkv", 9800, 1280, 3840, "bias", None, "bf16"),
+               ("proj", 9800, 1280, 1280, "residual", "bf16", "bf16"),
+               ("fc1", 9800, 1280, 5120, "gelu", None, "bf16"),
+               ("fc2", 9800, 5120, 1280, "residual", "bf16", "bf16"),
+               ("proj_x1", 8192, 1280, 1280, "residual", "bf16", "fp32"),
+               ("fc2_x1", 8192, 5120, 1280, "residual", "fp32", "bf16"))
+
+
+def check_gemm_and_row_pass(torch, F, flash, run_case):
+    """Each GEMM_SHAPES product through flash._gemm against the same
+    product in fp32 (bias, GELU and residual added in fp32, rounded once),
+    timed beside torch.matmul of the same bf16 operands (timed only), both
+    rates printed in TFLOP/s; then the LayerNorm row pass against
+    layer_norm_rows_plain at SAM-H's window rows (bf16, with the pad mask
+    of 50 windows of 14 over the 64 x 64 grid padded to 70), the fp32 x1
+    of the global layers (no mask) and of the windows (with it), and C 128
+    with windows of 8 over a 20 x 20 grid. Inputs from a generator of
+    their own, so that every other case keeps its inputs."""
+    g = torch.Generator(device="cuda").manual_seed(9753)
+    dt = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    size = {"bf16": 2, "fp32": 4}
+    epis = {"bias": flash._E_BIAS, "gelu": flash._E_GELU,
+            "residual": flash._E_RES}
+
+    def r(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device="cuda") * scale).to(
+            dtype)
+
+    for name, M, K, N, epi, rdt, odt in GEMM_SHAPES:
+        a, w, b = r(M, K), r(K, N, scale=K ** -0.5), r(N, scale=0.02)
+        res = None if rdt is None else r(M, N, dtype=dt[rdt])
+
+        def plain():
+            y = a.float() @ w.float() + b.float()
+            if epi == "gelu":
+                y = flash.gelu_exact_plain(y)
+            if res is not None:
+                y = y + res.float()
+            return y.to(dt[odt])
+
+        ops = 2 * M * N * K
+        row = run_case(
+            "gemm", f"{name} {M}x{K}x{N}",
+            lambda: flash._gemm(a, w, b, epis[epi], res=res,
+                                out_dtype=dt[odt]),
+            plain, lambda: torch.matmul(a, w),
+            a.numel() * 2 + w.numel() * 2 + N * 2 + M * N * (
+                size[odt] + (0 if rdt is None else size[rdt])),
+            ops, H100_BF16_OPS_PER_S, iters=20, plain_iters=2,
+            extra={"epilogue": epi, "residual": rdt, "out": odt})
+        row["tflop_s"] = ops / row["ms"] / 1e9
+        row["library_tflop_s"] = ops / row["library_ms"] / 1e9
+        log(f"[kernel] gemm {name} {M}x{K}x{N}: {row['tflop_s']:.1f} TFLOP/s, "
+            f"torch.matmul {row['library_tflop_s']:.1f} TFLOP/s")
+        del a, w, b, res
+    for M, C, xdt, win in ((9800, 1280, "bf16", (196, 25, 5, 14, 64, 64)),
+                           (8192, 1280, "fp32", None),
+                           (9800, 1280, "fp32", (196, 25, 5, 14, 64, 64)),
+                           (1152, 128, "bf16", (64, 9, 3, 8, 20, 20))):
+        x = r(M, C, scale=2.0, dtype=dt[xdt])
+        ln = {"scale": 1 + r(C, scale=0.1), "bias": r(C, scale=0.05)}
+        keep = None if win is None else flash.window_pad_mask(
+            M // win[0], win[0], win[3], win[2], win[1], win[4:],
+            "cuda").reshape(M, 1)
+        run_case("layer_norm_rows", f"{M}x{C} {xdt}"
+                 + (" masked" if win else ""),
+                 lambda: flash._ln_rows(x, ln, 1e-6, win),
+                 lambda: flash.layer_norm_rows_plain(x, ln["scale"],
+                                                     ln["bias"], 1e-6, keep),
+                 None, x.numel() * x.element_size() + M * C * 2 + 4 * C,
+                 9 * M * C, H100_FP32_OPS_PER_S)
+        del x
+
+
 def check_fused_kernels(torch, F, flash, port, rnd, run_case):
     """The four kernels of the fused encoder path, at the main path's shapes
     (SAM-H at batch 2: C 1280, 16 heads of 80, MLP 5120, windows of 14 on
@@ -777,8 +867,9 @@ def kernels_per_call(torch, flash, rnd, calls: int = 3) -> dict:
     at the 7B shapes (inputs from a generator of their own): the training
     forward and the prefill, the training backward and, alone, its delta
     op, and (from the same generator) for layer_norm_fused at SAM-H's
-    [9800, 1280] with bf16 scale and bias and flash_attention_qkv at
-    CLIP-L's [2, 257, 3072]. Counted in one
+    [9800, 1280] with bf16 scale and bias, flash_attention_qkv at
+    CLIP-L's [2, 257, 3072] and the four fused SAM layers at SAM-H's shapes
+    with bf16 weights, as anyref_7b's (fused_layer_cases). Counted in one
     torch.profiler session at the start of phase 2 (short sessions late in
     a long process were seen to drop device events): each case runs `calls`
     times inside its own record_function range, and each kernel counts for
@@ -834,6 +925,7 @@ def kernels_per_call(torch, flash, rnd, calls: int = 3) -> dict:
         torch.bfloat16)
     cases[("flash_attention_qkv", "2x257x3072")] = (
         lambda: flash.flash_attention_qkv(qkv, 16))
+    cases.update(fused_layer_cases(torch, flash, g))
     for fn in cases.values():
         fn()
     torch.cuda.synchronize()
@@ -863,6 +955,72 @@ def kernels_per_call(torch, flash, rnd, calls: int = 3) -> dict:
                         span.end + RANGE_SLACK_US:
                     counts[key] += 1
     return {key: n / calls for key, n in counts.items()}
+
+
+# The CUDA kernels one call of each fused SAM layer runs at SAM-H's shapes
+# with bf16 weights: its own chain and nothing else (the LayerNorm row pass,
+# the GEMMs, the attention; the global tail's attention also runs the
+# factor einsums of its grid, counted apart).
+FUSED_KERNELS_PER_CALL = {"fused_window_attn": 4, "fused_mlp_stream": 3,
+                          "fused_window_block": 7, "fused_global_tail": 5}
+
+
+def fused_layer_cases(torch, flash, g) -> dict:
+    """{(wrapper, label): call} of the four fused SAM layers at SAM-H's
+    batch-2 shapes (50 windows of 14 x 14 on the 64 x 64 grid, 16 heads of
+    80, MLP 5120; the global layers' [2, 4096, 1280]), every weight bf16 as
+    in anyref_7b, inputs from the generator g."""
+    def r(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale).to(
+            torch.bfloat16)
+
+    C, nh, hd, ws = 1280, 16, 80, 14
+
+    def lin(i, o):
+        return {"w": r(i, o, scale=i ** -0.5), "b": r(o, scale=0.02)}
+
+    def ln():
+        return {"scale": 1 + r(C, scale=0.1), "bias": r(C, scale=0.05)}
+
+    ln1, ln2, qkv_p, proj = ln(), ln(), lin(C, 3 * C), lin(C, C)
+    fc1, fc2 = lin(C, 4 * C), lin(4 * C, C)
+    xw = r(50, ws * ws, C)
+    tht, twt = r(ws * ws, hd, scale=0.1), r(ws * ws, hd, scale=0.1)
+    x, qkv = r(2, 4096, C), r(2, 4096, 3 * C)
+    th, tw = r(64, 64, hd, scale=0.1), r(64, 64, hd, scale=0.1)
+    win = ((ws, ws), nh, (64, 64), 5, 1e-6)
+    return {
+        ("fused_window_attn", "50x196x1280"): lambda: flash.fused_window_attn(
+            xw, ln1, qkv_p, tht, twt, proj, *win),
+        ("fused_mlp_stream", "9800x1280"): lambda: flash.fused_mlp_stream(
+            xw.view(-1, C), ln2, fc1, fc2, 1e-6),
+        ("fused_window_block", "50x196x1280"):
+            lambda: flash.fused_window_block(xw, ln1, qkv_p, tht, twt, proj,
+                                             ln2, fc1, fc2, *win),
+        ("fused_global_tail", "2x4096x1280"): lambda: flash.fused_global_tail(
+            x, qkv, th, tw, proj, ln2, fc1, fc2, (64, 64), nh, 1e-6),
+    }
+
+
+def check_fused_per_call(per_call) -> dict:
+    """Fail unless each fused layer ran its own chain only (the global tail
+    also the factor einsums counted for [2, 4096, 3840] off a fused QKV);
+    -> {wrapper: CUDA kernels a call}."""
+    factors = per_call[("factors", "flash_relpos_attention_qkv",
+                        "2x4096x3840")]
+    got = {}
+    for key, n in per_call.items():
+        name, label = key[0], key[-1]
+        if len(key) == 2 and name in FUSED_KERNELS_PER_CALL:
+            want = FUSED_KERNELS_PER_CALL[name] + (
+                factors if name == "fused_global_tail" else 0)
+            got[name] = n
+            log(f"[kernel] {name} {label}, bf16 weights: {n:g} CUDA kernels "
+                f"a call (torch.profiler), want {want:g}")
+            if n != want:
+                fail(f"{name} {label}: {n:g} CUDA kernels a call, want "
+                     f"{want:g}")
+    return got
 
 
 def relpos_case(torch, F, flash, run_case, kname, shape_desc, kernel, plain,
@@ -1477,7 +1635,7 @@ def log_ptxas(src: str, text: str) -> None:
 # the sources of the warp-specialised wgmma kernels, whose ptxas report
 # must show no spill and no serialised wgmma
 WGMMA_SOURCES = ("causal_attention.cu", "causal_attention_bwd.cu",
-                 "int8_matmul.cu", "relpos_global.cu")
+                 "fused_layers.cu", "int8_matmul.cu", "relpos_global.cu")
 
 
 def check_wgmma_build(src: str, text: str) -> None:
@@ -1655,6 +1813,15 @@ def main() -> int:
                if name in results["one_kernel_per_call"] else {}),
             **({"attention_source": "anyref_tpu_torch/csrc/relpos_global.cu"}
                if name == "fused_global_tail" else {}),
+            **({"attention_source":
+                "anyref_tpu_torch/csrc/window_attention.cu"}
+               if name in ("fused_window_attn", "fused_window_block") else {}),
+            **({"gemm_source": "anyref_tpu_torch/csrc/gemm.cuh",
+                "row_pass_source": "anyref_tpu_torch/csrc/norms.cu",
+                "cuda_per_call": results["fused_per_call"][name],
+                "gemm": results["gemm"],
+                "row_pass": results["layer_norm_rows"]}
+               if name in results["fused_per_call"] else {}),
             "unfused_ms": head.get("unfused_ms"),
             "split_pair_ms": head.get("split_pair_ms"),
             "other_shapes": rows[1:],

@@ -1,5 +1,6 @@
-"""Time the port's attention kernels, the norms and int8_matmul in several
-checkouts, in turns, on one CUDA card.
+"""Time the port's attention kernels, the norms, the fused SAM layers and
+their GEMM, and int8_matmul in several checkouts, in turns, on one CUDA
+card.
 
     python3 kernel_ab.py ROOT [ROOT ...]     # e.g. parent change change parent
 
@@ -62,6 +63,19 @@ of each case, in ms:
                  int8_matmul_plain (|a - b| <= 2e-2 + 2e-2 |b|, relative L2
                  <= 1e-2; the run fails if a checked case disagrees)
   cublas_MxKxN   torch.matmul by the bf16 weight, the same prefill shapes
+  gemm_qkv / gemm_proj / gemm_fc1 / gemm_fc2  the fused SAM layers' GEMM
+                 (flash._gemm) at M = 9800 (SAM-H's windows at batch 2):
+                 QKV 1280 x 3840 (+ bias), proj 1280 x 1280 (+ bias + bf16
+                 residual), fc1 1280 x 5120 (+ bias, GELU), fc2 5120 x 1280
+                 (+ bias + bf16 residual), each first held against the
+                 same product in fp32; a tree whose GEMM applies GELU only
+                 behind its LayerNorm prologue (the mma.sync GEMM) runs fc1
+                 with that prologue, unit weights, the row moments computed
+                 outside the timed call; cublas_9800xKxN is torch.matmul at
+                 each shape (library yardstick, timed only)
+  fused_mlp_stream  [9800, 1280], MLP 5120, and fused_window_attn [50, 196,
+                 1280], 16 heads of 80, windows of 14 on the 64 x 64 grid,
+                 bf16 weights, each first held against its plain version
 Exits non-zero where there is no CUDA device.
 """
 
@@ -75,6 +89,8 @@ import sys
 import numpy as np
 
 ITERS = 20
+SAM_GEMMS = (("qkv", 1280, 3840, "bias"), ("proj", 1280, 1280, "residual"),
+             ("fc1", 1280, 5120, "gelu"), ("fc2", 5120, 1280, "residual"))
 INT8_SHAPES = ((1280, 4096, 4096), (1280, 4096, 11008), (1280, 11008, 4096),
                (2, 4096, 11008))
 
@@ -185,6 +201,7 @@ def time_root(root: str) -> dict:
     out["causal"] = ms(lambda: flash.flash_causal_attention(q, k, v, ks))
     del q, k, v
     out.update(time_causal_diff(torch, flash, rnd, ms, root))
+    out.update(time_sam_layers(torch, flash, rnd, ms, check))
     from anyref_tpu_torch.ops import quant
     for M, K, N in INT8_SHAPES:
         x = rnd(M, K)
@@ -198,6 +215,56 @@ def time_root(root: str) -> dict:
         if M > 16:
             out[f"cublas_{M}x{K}x{N}"] = ms(lambda: torch.matmul(x, w))
         del x, w, wq
+    return out
+
+
+def time_sam_layers(torch, flash, rnd, ms, check) -> dict:
+    """The fused SAM layers' GEMM at SAM_GEMMS (M = 9800) beside
+    torch.matmul, then fused_mlp_stream and fused_window_attn at SAM-H's
+    window shapes, each first held against its plain version."""
+    out, M, eps = {}, 9800, 1e-6
+    epis = {"bias": flash._E_BIAS, "gelu": flash._E_GELU,
+            "residual": flash._E_RES}
+    for name, K, N, epi in SAM_GEMMS:
+        a, w = rnd(M, K), rnd(K, N, scale=K ** -0.5)
+        b = rnd(N, scale=0.02).float()
+        res = rnd(M, N) if epi == "residual" else None
+        kw = {} if res is None else {"res": res}
+        h = a
+        if epi == "gelu" and hasattr(flash, "_row_stats"):
+            one, zero = (torch.full((K,), v, device="cuda") for v in (1., 0.))
+            kw.update(ln=(one, zero), stats=flash._row_stats(a, eps))
+            h = flash.layer_norm_plain(a.float(), one, zero, eps).to(a.dtype)
+        want = h.float() @ w.float() + b
+        if epi == "gelu":
+            want = flash.gelu_exact_plain(want)
+        if res is not None:
+            want = want + res.float()
+        check(f"gemm_{name}", flash._gemm(a, w, b, epis[epi], **kw),
+              want.to(torch.bfloat16))
+        del want
+        out[f"gemm_{name}"] = ms(lambda: flash._gemm(a, w, b, epis[epi], **kw))
+        out[f"cublas_{M}x{K}x{N}"] = ms(lambda: torch.matmul(a, w))
+        del a, w, b, res, kw, h
+    C, nh, ws = 1280, 16, 14
+
+    def lin(i, o):
+        return {"w": rnd(i, o, scale=i ** -0.5), "b": rnd(o, scale=0.02)}
+
+    def ln():
+        return {"scale": 1 + rnd(C, scale=0.1), "bias": rnd(C, scale=0.05)}
+
+    xw = rnd(50, ws * ws, C)
+    mlp = (xw.view(-1, C), ln(), lin(C, 4 * C), lin(4 * C, C), eps)
+    check("fused_mlp_stream", flash.fused_mlp_stream(*mlp),
+          flash.fused_mlp_stream_plain(*mlp))
+    out["fused_mlp_stream"] = ms(lambda: flash.fused_mlp_stream(*mlp))
+    attn = (xw, ln(), lin(C, 3 * C), rnd(ws * ws, C // nh, scale=0.1),
+            rnd(ws * ws, C // nh, scale=0.1), lin(C, C), (ws, ws), nh,
+            (64, 64), 5, eps)
+    check("fused_window_attn", flash.fused_window_attn(*attn),
+          flash.fused_window_attn_plain(*attn))
+    out["fused_window_attn"] = ms(lambda: flash.fused_window_attn(*attn))
     return out
 
 

@@ -173,6 +173,64 @@ def test_fused_global_tail_matches_pallas(dtype, H, W):
     _close(got, want, DTYPES[dtype])
 
 
+@pytest.mark.parametrize("x_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("masked", [True, False], ids=["mask", "no-mask"])
+def test_layer_norm_rows_plain_matches_reference_h(x_dtype, masked):
+    """The plain version of the fused layers' LayerNorm row pass (the CUDA
+    GEMMs' A) against the reference's h (anyref_tpu flash.py
+    _fused_window_attn_kernel: fp32 moments, LN, times the pad mask,
+    rounded to bf16), computed in jnp from the same numpy rows: windows of
+    8 over a 20 x 20 grid (padded to 24: the right and bottom windows
+    overhang), C 128, bf16 rows (LN1, LN2 of the split pair) or fp32 rows
+    (the residual x1 of fused_window_block and fused_global_tail), with
+    and without the mask. Tolerance: one bf16 ulp, 2^-8 relative, on
+    either side (atol = rtol = 2^-7): both round the same fp32 values,
+    whose moments differ only in summation order."""
+    ws, C, H, W, B, eps = 8, 128, 20, 20, 2, 1e-6
+    rng = np.random.default_rng(31)
+    img = (rng.standard_normal((B, H, W, C)) * 1.5 + 0.3).astype(np.float32)
+    xw, pad_hw = jenc._window_partition(
+        jnp.asarray(img, jnp.dtype(x_dtype)), ws)
+    x = np.asarray(jnp.asarray(xw, jnp.float32)).reshape(-1, C).astype(
+        jnp.dtype(x_dtype))
+    mask = np.asarray(jenc._window_partition(
+        jnp.ones((B, H, W, 1), jnp.float32), ws)[0]).reshape(-1, 1)
+    scale = (1 + 0.1 * rng.standard_normal(C)).astype(np.float32)
+    bias = (0.05 * rng.standard_normal(C)).astype(np.float32)
+    x3 = jnp.asarray(x, jnp.float32)
+    mean = jnp.mean(x3, axis=-1, keepdims=True)
+    var = jnp.mean(jnp.square(x3 - mean), axis=-1, keepdims=True)
+    h = (x3 - mean) * jax.lax.rsqrt(var + eps) * scale + bias
+    if masked:
+        h = h * mask
+    want = h.astype(jnp.bfloat16)
+    t = tparams.from_numpy
+    nwc = pad_hw[1] // ws
+    keep = tflash.window_pad_mask(x.shape[0] // (ws * ws), ws * ws, ws, nwc,
+                                  -(-H // ws) * nwc, (H, W), "cpu")
+    assert np.array_equal(_np(keep).reshape(-1, 1), mask)
+    got = tflash.layer_norm_rows_plain(
+        t(x, "cpu"), torch.from_numpy(scale), torch.from_numpy(bias), eps,
+        keep.reshape(-1, 1) if masked else None)
+    assert got.dtype == torch.bfloat16
+    if masked:
+        assert not _np(got)[mask[:, 0] == 0].any()
+    _close(got, want, 2.0 ** -7)
+
+
+def test_kernel_sources_are_listed():
+    """The build compiles SOURCES and hashes HEADERS: every listed file
+    exists, every csrc file is listed, and the deleted mma.sync attention
+    core (attention.cuh, qkv_attention.cu) is named by neither."""
+    listed = set(tflash.SOURCES) | set(tflash.HEADERS)
+    assert not listed & {"attention.cuh", "qkv_attention.cu"}
+    assert all((tflash.CSRC / name).is_file() for name in listed)
+    on_disk = {p.name for p in tflash.CSRC.iterdir()
+               if p.suffix in (".cu", ".cuh")}
+    assert on_disk == listed
+    assert set(tflash.SOURCES) == {n for n in on_disk if n.endswith(".cu")}
+
+
 @pytest.mark.parametrize("dtype,B,L,nh,hd", [
     *(pytest.param(d, 2, 257, 4, 64, id=d) for d in DTYPES),
     *(pytest.param(d, 2, 77, 4, 36, id=f"odd-hd36-{d}") for d in DTYPES)])
