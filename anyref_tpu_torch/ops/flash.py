@@ -27,8 +27,9 @@ and how its design answers that):
   builds the int8 decoder on it)
 
 The norms, the attention kernels and ``int8_matmul`` are one CUDA kernel
-each (``int8_matmul`` two launches at most 16 rows: split-K partial sums,
-then their reduction). The four fused layers are each a short chain of the
+each (``int8_matmul`` at most 16 rows: split-K blocks in clusters that sum
+their partials through distributed shared memory, on the launch plan of
+``_int8_decode_plan``). The four fused layers are each a short chain of the
 port's own kernels (the LayerNorm row pass of ``csrc/norms.cu`` writing
 bf16 h with the window pad mask, the ``wgmma`` GEMM of ``csrc/gemm.cuh``
 with a bias / GELU / residual epilogue, and the rel-pos attention kernels
@@ -70,12 +71,14 @@ sources; the library is loaded with ``ctypes`` and each C entry returns
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -161,7 +164,7 @@ def _library():
                 "anyref_layer_norm_rows": [P, I, P, P, I, P, I, I, F, I, I,
                                            I, I, I, I, P],
                 "anyref_gemm": [P, P, P, I, P, P, I, I, I, I, I, I, P],
-                "anyref_int8_matmul": [P, P, P, P, P, I, I, I, P],
+                "anyref_int8_matmul": [P, P, P, P, I, I, I, I, I, I, P],
                 "anyref_window_relpos_attention": [P, P, P, I, I, I, P, P, P,
                                                    I, I, I, I, I, I, I, I, I,
                                                    F, I, P],
@@ -170,8 +173,6 @@ def _library():
                 fn = getattr(lib, name)
                 fn.argtypes = args
                 fn.restype = ctypes.c_int
-            lib.anyref_int8_matmul_workspace.argtypes = [I, I, I]
-            lib.anyref_int8_matmul_workspace.restype = ctypes.c_longlong
             lib.anyref_error_string.argtypes = [I]
             lib.anyref_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -1168,12 +1169,55 @@ def int8_matmul_plain(x, w_q, scale):
     return (y * scale.float()).to(x.dtype)
 
 
+# csrc/int8_matmul.cu's M <= 16 body: rows of x it takes (DT_MAX_M),
+# columns of W a block (DT_TN), K rows a stage (DT_BK), ring stages
+# (DT_STAGES), largest K split, the cluster size (DT_MAX_SPLITS)
+_I8_DECODE_ROWS, _I8_TN, _I8_BK, _I8_STAGES, _I8_MAX_SPLITS = 16, 128, 64, 4, 8
+
+
+class Int8DecodePlan(NamedTuple):
+    """Launch plan of int8_matmul's M <= 16 body: a grid of ``splits`` x
+    ceil(N / tn) blocks, clusters of ``splits`` along K; block (r, i) sums
+    the columns [tn i, tn (i + 1)) over its stages of ``bk`` rows [r KT /
+    S, (r + 1) KT / S), KT = ceil(K / bk), S = splits. ``smem``: its
+    dynamic shared memory in bytes (the ring of W and x boxes, which then
+    holds the partial sums, its barriers and the tile's column scales)."""
+    tn: int
+    splits: int
+    bk: int
+    blocks: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def _int8_decode_plan(M: int, N: int, K: int, num_sms: int) -> Int8DecodePlan:
+    """The fewest K splits (at most 8, and at most one a stage) that give
+    every SM a block: on 132 SMs the column tiles alone fill the card at
+    lm_head's width (251 tiles), 4096-wide outputs take 5 splits (160
+    blocks) and 11008-wide ones 2 (172). On the H100 this measured within
+    a few percent of the best split at each 7B shape (PERF.md §6); at
+    least two blocks fit an SM, so the grid is one wave."""
+    tiles = -(-N // _I8_TN)
+    kt = -(-K // _I8_BK)
+    splits = min(_I8_MAX_SPLITS, kt, -(-num_sms // tiles))
+    x_box = 8 * (1 if M <= 8 else 2) * _I8_BK * 2
+    smem = (_I8_STAGES * (_I8_BK * _I8_TN + x_box) + 2 * _I8_STAGES * 8
+            + _I8_TN * 4 + 1024)
+    return Int8DecodePlan(_I8_TN, splits, _I8_BK, tiles * splits, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def int8_matmul(x, w_q, scale):
     """x [..., K] bf16, w_q [K, N] int8, scale [N] fp32 -> [..., N] in x's
     dtype: the fp32 sum of x times the exact bf16 weights, scaled per
-    column once, then rounded. Two launches for at most 16 rows of x
-    (split-K partial sums, then their sum, scale and rounding), one for
-    more (a warp-specialised wgmma GEMM fed by TMA)."""
+    column once, then rounded. One launch at every M: up to 16 rows of x,
+    a split-K streaming kernel whose blocks sum their partials through
+    distributed shared memory (``_int8_decode_plan``); more rows, a
+    warp-specialised wgmma GEMM fed by TMA."""
     dev = x.device
     if w_q.device != dev or scale.device != dev:
         raise ValueError("int8_matmul: inputs on different devices")
@@ -1198,14 +1242,12 @@ def int8_matmul(x, w_q, scale):
     M = x2.shape[0]
     out = torch.empty(M, N, dtype=torch.bfloat16, device=dev)
     if M:
-        nbytes = _library().anyref_int8_matmul_workspace(M, N, K)
-        ws = (torch.empty(nbytes // 4, dtype=torch.float32, device=dev)
-              if nbytes else None)
+        plan = (_int8_decode_plan(M, N, K, _num_sms(dev.index))
+                if M <= _I8_DECODE_ROWS else Int8DecodePlan(0, 0, 0, 0, 0))
         with torch.cuda.device(dev):
             _launch("anyref_int8_matmul", x2.data_ptr(), w_q.data_ptr(),
-                    sc.data_ptr(), out.data_ptr(),
-                    None if ws is None else ws.data_ptr(), M, N, K,
-                    _stream(x))
+                    sc.data_ptr(), out.data_ptr(), M, N, K, plan.tn,
+                    plan.splits, plan.bk, _stream(x))
         int8_matmul.launches += 1
     return out.reshape(*x.shape[:-1], N)
 

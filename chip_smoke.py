@@ -15,10 +15,12 @@ Phases (any failure exits non-zero before the result line):
      layer (the rel-pos / LayerNorm kernels plus cuBLAS matmuls), and for
      fused_window_block also the split pair fused_window_attn +
      fused_mlp_stream; for int8_matmul, torch.matmul by the bf16 weight it
-     was quantised from; for the training attention, its forward (O and
-     LSE) and its backward (dq, dk, dv), against SDPA's forward and forward
-     plus backward; for the two rel-pos wrappers, SDPA given the bias
-     precomputed and SDPA with the bias built inside the timed call, at
+     was quantised from (and its decode body, M <= 16, run twice on the
+     same inputs must give the same bits); for the training attention, its
+     forward (O and LSE) and its backward (dq, dk, dv), against SDPA's
+     forward and forward plus backward; for the two rel-pos wrappers, SDPA
+     given the bias precomputed and SDPA with the bias built inside the
+     timed call, at
      grids on both sides of the split by length (the window kernel up to
      256 tokens, where one call must run exactly one CUDA kernel under
      torch.profiler; the global kernel above, where a call must run the
@@ -49,7 +51,10 @@ Phases (any failure exits non-zero before the result line):
      on the bf16 decoder, quantize_llama the same weights on the card, free
      the bf16 decoder, time the step again, and serve the 4 requests greedy
      (Server(speculative=False)) on the default path, answers, launch
-     counts (int8_matmul per decoder pass) and peak memory checked;
+     counts (int8_matmul per decoder pass) and peak memory checked; the
+     int8 step's profile must show one CUDA kernel of int8_matmul.cu a
+     product (the decode body, no second launch), its kernel time a step
+     printed beside the bytes bound of the int8 weights;
   5. train LoRA at anyref_7b (random bf16 weights from a seed) with the
      Trainer: 8 synthetic samples, batch 2, 2 micro-steps per step, 3
      steps, per-layer checkpointing, the fused encoder path; check the
@@ -1070,9 +1075,14 @@ def check_relpos_qkv_and_int8(torch, F, flash, quant, rnd, rnd_extra,
     kernel on heads zero-padded to 40); int8_matmul at the 7B decoder's
     shapes (a decode step at batch 2, the lm_head, the three products of a
     prefill of 2 x 640 rows) and at
-    two odd shapes, one per body: 3 rows (split-K) and 77 rows (wgmma: M
-    and K not multiples of 64, N % 16 != 0, so W goes by cp.async), against
-    torch.matmul by the bf16 weight it was quantised from."""
+    two odd shapes, one per body: 3 rows (the decode body) and 77 rows
+    (wgmma: M and K not multiples of 64, N % 16 != 0, so W goes by
+    cp.async), then the decode body at 1 row (4096 x 4096), at 16 rows
+    (4096 x 11008: two 8-row blocks of x) and at 16 rows of the odd shape
+    (W by cp.async, a K tail of 8 rows), against torch.matmul by the bf16
+    weight it was quantised from. Each decode-body case (M <= 16) runs
+    twice and the two outputs must be equal bit for bit (the split sum's
+    fixed order); its share of the bytes bound is printed."""
     for B, H, W, nh, hd in RELPOS_QKV_CASES:
         r = rnd if (B, H, W) in ((50, 14, 14), (3, 9, 9)) else rnd_extra
         label, qkv, th, tw = relpos_qkv_case(r, B, H, W, nh, hd)
@@ -1094,16 +1104,35 @@ def check_relpos_qkv_and_int8(torch, F, flash, quant, rnd, rnd_extra,
     for M, K, N in ((2, 4096, 4096), (2, 4096, 11008), (2, 11008, 4096),
                     (2, 4096, vocab), (1280, 4096, 4096),
                     (1280, 4096, 11008), (1280, 11008, 4096), (3, 264, 200),
-                    (77, 264, 200)):
+                    (77, 264, 200), (1, 4096, 4096), (16, 4096, 11008),
+                    (16, 264, 200)):
         x = rnd(M, K)
         w = rnd(K, N, scale=K ** -0.5)
         wq = quant.quantize_int8(w)
-        run_case("int8_matmul", f"{M}x{K}x{N}",
-                 lambda: flash.int8_matmul(x, wq["w_q"], wq["scale"]),
-                 lambda: flash.int8_matmul_plain(x, wq["w_q"], wq["scale"]),
-                 lambda: torch.matmul(x, w),
-                 M * K * 2 + K * N + N * 4 + M * N * 2, 2 * M * N * K,
-                 H100_BF16_OPS_PER_S, iters=20, plain_iters=3)
+        extra = None
+        if M <= 16:
+            a = flash.int8_matmul(x, wq["w_q"], wq["scale"])
+            b = flash.int8_matmul(x, wq["w_q"], wq["scale"])
+            torch.cuda.synchronize()
+            if not torch.equal(a, b):
+                fail(f"int8_matmul {M}x{K}x{N}: two calls on the same "
+                     f"inputs differ (max {float((a - b).abs().max())})")
+            plan = flash._int8_decode_plan(M, N, K, flash._num_sms(0))
+            extra = {"repeat_bit_identical": True,
+                     "plan": plan._asdict()}
+            del a, b
+        row = run_case(
+            "int8_matmul", f"{M}x{K}x{N}",
+            lambda: flash.int8_matmul(x, wq["w_q"], wq["scale"]),
+            lambda: flash.int8_matmul_plain(x, wq["w_q"], wq["scale"]),
+            lambda: torch.matmul(x, w),
+            M * K * 2 + K * N + N * 4 + M * N * 2, 2 * M * N * K,
+            H100_BF16_OPS_PER_S, iters=20, plain_iters=3, extra=extra)
+        if M <= 16:
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            log(f"[kernel] int8_matmul {M}x{K}x{N}: decode body, "
+                f"{row['bound_share']:.1%} of the bytes bound, repeat bit "
+                f"for bit identical, plan {json.dumps(extra['plan'])}")
         del x, w, wq
 
 
@@ -1377,7 +1406,8 @@ PATHS = ("fused", "fused_block", "unfused_qkv", "unfused")
 def serve_7b(torch, flash, mods):
     """The four encoder paths at anyref_7b on one set of weights, then the
     int8 decoder quantised from the same weights; returns the launch counts
-    of each counted run ("int8" for the last)."""
+    of each counted run ("int8" for the last) and serve_int8's step
+    numbers."""
     cfg = mods["anyref_7b"]()
     t0 = time.time()
     params = mods["tparams"].init(
@@ -1400,8 +1430,8 @@ def serve_7b(torch, flash, mods):
         fail(f"prompt lengths {lens} miss the 385 bucket")
 
     # before any profiler session: the wall of a bf16 decode step
-    wall, busy, n, _ = decode_step_ms(torch, mods["llama"], params["llama"],
-                                      cfg)
+    wall, busy, n, _, _ = decode_step_ms(torch, mods["llama"],
+                                         params["llama"], cfg)
     log(f"[slice] greedy decode step (batch 2, 656-slot cache, lm_head, "
         f"argmax), bf16 decoder, before any other profiler session: "
         f"{wall:.4f} ms wall back to back, {busy:.4f} ms of kernels, {n:.0f} "
@@ -1439,19 +1469,20 @@ def serve_7b(torch, flash, mods):
                                 max_new_tokens=8, encoder_path=path)
         launches[path] = serve_path(torch, flash, mods, server, path, images,
                                     per_batch[path])
-    launches["int8"] = serve_int8(torch, flash, mods, params, cfg, images,
-                                  dict(per_batch["fused"]))
-    return launches
+    launches["int8"], int8_step = serve_int8(torch, flash, mods, params,
+                                             cfg, images,
+                                             dict(per_batch["fused"]))
+    return launches, int8_step
 
 
 def decode_step_ms(torch, llama, lp, cfg, iters: int = 10):
     """One greedy decode step (decoder at batch 2 over a 656-slot cache,
     lm_head, argmax) on decoder tree ``lp`` -> (wall ms, device-busy ms,
     kernels per step, the 5 kernels that take most of it as (name, ms per
-    step)). Wall: CUDA events around ``iters`` steps back to back, over
-    ``iters``. Busy: the summed kernel time of 3 steps under
-    torch.profiler, over 3 (the step's device time whatever the host
-    does)."""
+    step), {kernel name: (launches per step, ms per step)}). Wall: CUDA
+    events around ``iters`` steps back to back, over ``iters``. Busy: the
+    summed kernel time of 3 steps under torch.profiler, over 3 (the step's
+    device time whatever the host does)."""
     from torch.profiler import ProfilerActivity, profile
     B, L = 2, 640
     cache = llama.init_cache(cfg.llama, B, L + 16)
@@ -1481,12 +1512,14 @@ def decode_step_ms(torch, llama, lp, cfg, iters: int = 10):
             torch.cuda.synchronize()
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_name = {}
+    by_name, count = {}, {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+        count[e.name] = count.get(e.name, 0) + 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     return (a.elapsed_time(b) / iters, sum(by_name.values()) / 1e3 / 3,
-            len(kernels) / 3, [(n[:80], us / 1e3 / 3) for n, us in top])
+            len(kernels) / 3, [(n[:80], us / 1e3 / 3) for n, us in top],
+            {n: (count[n] / 3, us / 1e3 / 3) for n, us in by_name.items()})
 
 
 def serve_int8(torch, flash, mods, params, cfg, images, per_batch):
@@ -1496,7 +1529,11 @@ def serve_int8(torch, flash, mods, params, cfg, images, per_batch):
     step timed again, and the 4 requests served greedy (Server(speculative=
     False)) on the default encoder path, every answer and launch count
     checked: int8_matmul 224 products per decoder pass (7 per layer) plus
-    one lm_head call per pass."""
+    one lm_head call per pass. The profile of the int8 step must show
+    exactly one CUDA kernel of csrc/int8_matmul.cu per product, all of the
+    decode body; its kernel time a step is printed against the bytes bound
+    of the decoder's int8 weights and scales. Returns (launch counts, that
+    step's int8 numbers)."""
     llama, quant = mods["llama"], mods["quant"]
     steps = {"bf16": decode_step_ms(torch, llama, params["llama"], cfg)}
     t0 = time.time()
@@ -1508,24 +1545,50 @@ def serve_int8(torch, flash, mods, params, cfg, images, per_batch):
     log(f"[slice int8] quantize_llama(anyref_7b decoder) on the card "
         f"{q_s:.2f} s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
         f"allocated after freeing the bf16 decoder")
-    for name, (wall, busy, n, top) in steps.items():
+    for name, (wall, busy, n, top, _) in steps.items():
         log(f"[slice int8] greedy decode step (batch 2, 656-slot cache, "
             f"lm_head, argmax), {name} decoder: {wall:.4f} ms wall back to "
             f"back, {busy:.4f} ms of kernels, {n:.0f} kernels a step")
         for kname, ms in top:
             log(f"[slice int8]   {name} step {ms:8.4f} ms  {kname}")
-    torch.cuda.reset_peak_memory_stats()
-    server = mods["Server"](params, cfg, max_batch=2, speculative=False,
-                            max_new_tokens=8)
     layer = params["llama"]["layers"][0]
     per_layer = sum("w_q" in p for part in ("attn", "mlp")
                     for p in layer[part].values())
+    per_pass = per_layer * cfg.llama.num_layers + 1
+    i8 = {k: v for k, v in steps["int8"][4].items() if "anyref_i8" in k}
+    n_i8 = sum(c for c, _ in i8.values())
+    step = {"int8_kernels_a_step": n_i8,
+            "int8_ms_a_step": sum(t for _, t in i8.values()),
+            "int8_bytes_bound_ms": int8_bytes(params["llama"]) /
+            H100_BYTES_PER_S * 1e3, "kernels": sorted(i8)}
+    log(f"[slice int8] int8 decode step under torch.profiler: {n_i8:g} "
+        f"CUDA kernels of int8_matmul.cu a step for {per_pass} products "
+        f"({', '.join(sorted(i8))}), {step['int8_ms_a_step']:.4f} ms a step "
+        f"against the bytes bound of the int8 weights and scales "
+        f"{step['int8_bytes_bound_ms']:.4f} ms")
+    if n_i8 != per_pass or any("decode_kernel" not in k for k in i8):
+        fail(f"int8 decode step: {n_i8:g} CUDA kernels of int8_matmul.cu a "
+             f"step ({sorted(i8)}), want {per_pass}, one decode_kernel a "
+             "product")
+    torch.cuda.reset_peak_memory_stats()
+    server = mods["Server"](params, cfg, max_batch=2, speculative=False,
+                            max_new_tokens=8)
     launches = serve_path(torch, flash, mods, server, "int8", images,
-                          per_batch, int8_per_pass=per_layer *
-                          cfg.llama.num_layers + 1)
+                          per_batch, int8_per_pass=per_pass)
     log(f"[slice int8] peak memory allocated while serving "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches
+    return launches, step
+
+
+def int8_bytes(tree) -> int:
+    """Bytes of the int8 weights and their fp32 scales in a tree."""
+    if isinstance(tree, dict):
+        if "w_q" in tree:
+            return tree["w_q"].numel() + 4 * tree["scale"].numel()
+        return sum(int8_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(int8_bytes(v) for v in tree)
+    return 0
 
 
 def serve_path(torch, flash, mods, server, path, images, per_batch,
@@ -1722,7 +1785,7 @@ def main() -> int:
                      flash=flash)
     check_tiny_train(torch, tiny, mods)
     # phase 4
-    launches = serve_7b(torch, flash, mods)
+    launches, int8_step = serve_7b(torch, flash, mods)
     torch.cuda.empty_cache()
     # phase 5
     trained = train_7b(torch, flash, mods)
@@ -1822,6 +1885,7 @@ def main() -> int:
                 "gemm": results["gemm"],
                 "row_pass": results["layer_norm_rows"]}
                if name in results["fused_per_call"] else {}),
+            **({"decode_step": int8_step} if name == "int8_matmul" else {}),
             "unfused_ms": head.get("unfused_ms"),
             "split_pair_ms": head.get("split_pair_ms"),
             "other_shapes": rows[1:],

@@ -3,6 +3,7 @@ their GEMM, and int8_matmul in several checkouts, in turns, on one CUDA
 card.
 
     python3 kernel_ab.py ROOT [ROOT ...]     # e.g. parent change change parent
+    python3 kernel_ab.py --int8 ROOT [ROOT ...]   # the int8 cases alone
 
 Each ROOT is a checkout holding anyref_tpu_torch/. Each runs in a process of
 its own (and builds its own kernels), in the order given, so that two trees
@@ -58,11 +59,16 @@ of each case, in ms:
                  yardsticks, timed only)
   int8_MxKxN     int8_matmul of bf16 x [M, K] by int8 w_q [K, N]: the 7B
                  decoder's prefill products at batch 2 (M = 1280: q/k/v/o
-                 4096 x 4096, gate/up 4096 x 11008, down 11008 x 4096) and
-                 one decode product (M = 2); each is first held against
-                 int8_matmul_plain (|a - b| <= 2e-2 + 2e-2 |b|, relative L2
-                 <= 1e-2; the run fails if a checked case disagrees)
-  cublas_MxKxN   torch.matmul by the bf16 weight, the same prefill shapes
+                 4096 x 4096, gate/up 4096 x 11008, down 11008 x 4096), its
+                 decode products at batch 2 (M = 2: the same three and
+                 lm_head 4096 x 32128) and gate/up at M = 16; each is first
+                 held against int8_matmul_plain (|a - b| <= 2e-2 + 2e-2 |b|,
+                 relative L2 <= 1e-2; the run fails if a checked case
+                 disagrees)
+  cublas_MxKxN   torch.matmul by the bf16 weight at the same shapes
+                 (library yardstick, timed only)
+  min_launch     one minimal CUDA kernel (a one-element fill), timed the
+                 same way: what the timing adds to any kernel's own time
   gemm_qkv / gemm_proj / gemm_fc1 / gemm_fc2  the fused SAM layers' GEMM
                  (flash._gemm) at M = 9800 (SAM-H's windows at batch 2):
                  QKV 1280 x 3840 (+ bias), proj 1280 x 1280 (+ bias + bf16
@@ -92,10 +98,11 @@ ITERS = 20
 SAM_GEMMS = (("qkv", 1280, 3840, "bias"), ("proj", 1280, 1280, "residual"),
              ("fc1", 1280, 5120, "gelu"), ("fc2", 5120, 1280, "residual"))
 INT8_SHAPES = ((1280, 4096, 4096), (1280, 4096, 11008), (1280, 11008, 4096),
-               (2, 4096, 11008))
+               (2, 4096, 11008), (2, 4096, 4096), (2, 11008, 4096),
+               (2, 4096, 32128), (16, 4096, 11008))
 
 
-def time_root(root: str) -> dict:
+def time_root(root: str, int8_only: bool = False) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import torch
     from anyref_tpu_torch.ops import flash
@@ -132,6 +139,8 @@ def time_root(root: str) -> dict:
             raise SystemExit(f"{root}: {name} disagrees with its plain "
                              f"version (max abs err {err.max().item()})")
 
+    if int8_only:
+        return time_int8(torch, flash, rnd, ms, check)
     out = {}
     for name, B, S in (("window", 50, 14), ("global", 2, 64)):
         q, k, v = (rnd(B, 16, S * S, 80) for _ in range(3))
@@ -202,7 +211,16 @@ def time_root(root: str) -> dict:
     del q, k, v
     out.update(time_causal_diff(torch, flash, rnd, ms, root))
     out.update(time_sam_layers(torch, flash, rnd, ms, check))
+    out.update(time_int8(torch, flash, rnd, ms, check))
+    return out
+
+
+def time_int8(torch, flash, rnd, ms, check) -> dict:
+    """int8_matmul at INT8_SHAPES, each first held against its plain
+    version, torch.matmul by the bf16 weight, and one minimal kernel."""
     from anyref_tpu_torch.ops import quant
+    one = torch.empty(1, device="cuda")
+    out = {"min_launch": ms(one.zero_)}
     for M, K, N in INT8_SHAPES:
         x = rnd(M, K)
         w = rnd(K, N, scale=K ** -0.5)
@@ -212,8 +230,7 @@ def time_root(root: str) -> dict:
               flash.int8_matmul_plain(x, wq["w_q"], wq["scale"]))
         out[f"int8_{M}x{K}x{N}"] = ms(
             lambda: flash.int8_matmul(x, wq["w_q"], wq["scale"]))
-        if M > 16:
-            out[f"cublas_{M}x{K}x{N}"] = ms(lambda: torch.matmul(x, w))
+        out[f"cublas_{M}x{K}x{N}"] = ms(lambda: torch.matmul(x, w))
         del x, w, wq
     return out
 
@@ -304,12 +321,16 @@ def time_causal_diff(torch, flash, rnd, ms, root) -> dict:
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--one":
-        print(json.dumps({"root": sys.argv[2], "ms": time_root(sys.argv[2])}),
-              flush=True)
+    args = sys.argv[1:]
+    int8_only = args[:1] == ["--int8"]
+    if int8_only:
+        args = args[1:]
+    if len(args) == 2 and args[0] == "--one":
+        print(json.dumps({"root": args[1],
+                          "ms": time_root(args[1], int8_only)}), flush=True)
         return 0
     import torch
-    if not torch.cuda.is_available() or len(sys.argv) < 2:
+    if not torch.cuda.is_available() or not args:
         print(__doc__, file=sys.stderr)
         return 2
     smi = subprocess.run(["nvidia-smi", "-i", "0",
@@ -317,9 +338,10 @@ def main() -> int:
                           "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
     print(smi.stdout.strip(), flush=True)
-    for root in sys.argv[1:]:
+    for root in args:
         r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--one", root])
+                            *(["--int8"] if int8_only else []), "--one",
+                            root])
         if r.returncode:
             return r.returncode
     return 0

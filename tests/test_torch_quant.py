@@ -86,12 +86,17 @@ def test_quantize_int8_matches_jax():
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("rows,K,N", [(1, 256, 640), (16, 256, 640),
-                                      (300, 256, 640), (77, 264, 200)])
+                                      (300, 256, 640), (77, 264, 200),
+                                      (2, 256, 640), (5, 264, 200),
+                                      (16, 264, 640)])
 def test_int8_matmul_plain_matches_pallas(rows, K, N, dtype):
     """The reference's own shapes (tests/test_quant.py): x [rows, 256]
-    against w_q [256, 640], the Pallas kernel in interpret mode; and the
+    against w_q [256, 640], the Pallas kernel in interpret mode; the
     ragged shape on which chip_smoke.py holds the kernel's tensor-core body
-    (rows > 16) at M, K not multiples of 64 and N % 16 != 0."""
+    (rows > 16) at M, K not multiples of 64 and N % 16 != 0; and shapes of
+    the decode body (rows <= 16): a decode step's 2 rows, 5 and 16 rows
+    (one and two 8-row blocks of x) with a K tail of 8 rows, N % 16 != 0
+    among them."""
     rng = np.random.default_rng(rows)
     w = jnp.asarray(rng.standard_normal((K, N)) * 0.05, jnp.float32)
     q = jquant.quantize_int8(w)
@@ -107,6 +112,50 @@ def test_int8_matmul_plain_matches_pallas(rows, K, N, dtype):
     torch.testing.assert_close(tquant.int8_matmul(tx, tw, ts), got,
                                rtol=0, atol=0)
     assert tquant.int8_matmul.launches == n0
+
+
+# the 7B decoder's products at a decode step (q/k/v/o, gate/up, down,
+# lm_head), x [M, K] by w_q [K, N]
+DECODE_7B = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32128))
+H100_SMS = 132
+SMEM_PER_SM, SMEM_PER_BLOCK, SMEM_RESERVED = 233472, 232448, 1024
+
+
+@pytest.mark.parametrize("M,K,N", [(m, k, n) for k, n in DECODE_7B
+                                   for m in (1, 2, 16)] + [(16, 264, 200)])
+def test_int8_decode_plan_covers_every_weight_once(M, K, N):
+    """The launch plan of int8_matmul's M <= 16 body (csrc/int8_matmul.cu
+    decode_kernel: block (r, i) of a [S, ceil(N / tn)] grid takes columns
+    [tn i, tn (i + 1)) and the K stages [r KT / S, (r + 1) KT / S)): every
+    weight (k, n) falls in exactly one block, the K split is a cluster of
+    at most 8 blocks each with at least one stage, two blocks fit an SM's
+    shared memory (x's boxes ride the ring beside W's), and on the H100's
+    132 SMs the 7B shapes give every SM a block in one wave."""
+    plan = tflash._int8_decode_plan(M, N, K, H100_SMS)
+    S, tn, bk = plan.splits, plan.tn, plan.bk
+    tiles, kt = -(-N // tn), -(-K // bk)
+    assert 1 <= S <= 8 and S <= kt
+    assert plan.blocks == tiles * S
+    k_hits = np.zeros(kt * bk, np.int64)
+    for r in range(S):
+        a, b = r * kt // S, (r + 1) * kt // S
+        assert b > a
+        k_hits[a * bk:b * bk] += 1
+    n_hits = np.zeros(tiles * tn, np.int64)
+    for i in range(tiles):
+        n_hits[i * tn:(i + 1) * tn] += 1
+    np.testing.assert_array_equal(k_hits[:K], 1)
+    np.testing.assert_array_equal(n_hits[:N], 1)
+    assert (tiles - 1) * tn < N and (kt - 1) * bk < K
+    rows = 8 if M <= 8 else 16
+    x_box = rows * bk * 2
+    assert plan.smem >= tflash._I8_STAGES * (bk * tn + x_box)
+    assert plan.smem <= SMEM_PER_BLOCK
+    assert 2 * (plan.smem + SMEM_RESERVED) <= SMEM_PER_SM
+    # the four consumer warps' fp32 partials [rows, tn + 8] reuse the ring
+    assert 4 * rows * (tn + 8) * 4 <= tflash._I8_STAGES * (bk * tn + x_box)
+    if (K, N) in DECODE_7B:
+        assert H100_SMS <= plan.blocks <= 2 * H100_SMS
 
 
 def test_int8_matmul_wrapper_raises_off_cpu():
