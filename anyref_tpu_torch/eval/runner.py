@@ -83,6 +83,10 @@ class Predictor:
         self.fetch_segs = fetch_segs
         self.decode_passes_total = 0
         self.completed_batches = 0
+        # bytes staged host -> device by predict_async and fetched device ->
+        # host by complete (the serving benchmark's wire cost per query)
+        self.h2d_bytes_total = 0
+        self.d2h_bytes_total = 0
 
     def _bucket(self, n: int) -> int:
         for b in self.buckets:
@@ -121,6 +125,7 @@ class Predictor:
         if batch["sam_images"].dtype == np.uint8:
             host["sam_resized_sizes"] = pad_rows(
                 np.asarray(batch["sam_resized_sizes"], np.int32))
+        self.h2d_bytes_total += sum(int(v.nbytes) for v in host.values())
         dev = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                for k, v in host.items()}
         if dev["sam_images"].dtype == torch.uint8:
@@ -146,6 +151,8 @@ class Predictor:
     def complete(self, handle):
         """Fetch + host postprocess for a predict_async handle."""
         (meta, low_res), batch, B = handle
+        self.d2h_bytes_total += sum(t.numel() * t.element_size()
+                                    for t in (meta, low_res))
         meta_np = meta.cpu().numpy()
         low = low_res.float().cpu().numpy()[:B]
         output_ids = meta_np[:B, :self.mnt]

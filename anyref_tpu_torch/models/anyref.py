@@ -8,8 +8,11 @@ with early exit (greedy) or as batched prompt-lookup speculative decoding
 whose output equals the greedy stream. ``train_forward`` is the training
 forward: LM loss plus mask BCE and DICE on the SAM canvas, with the frozen
 towers under ``torch.no_grad``, and with ``cfg.use_loc_tokens`` the loc
-tokens of a batch that carries ``loc_boxes``. Reference-image, RoI and
-audio prompts and rephrase pooling are not part of the port yet and raise.
+tokens of a batch that carries ``loc_boxes``. With ``cfg.rephrase_weight``
+> 0 both add the reference's rephrase pooling to each [SEG] state: the
+answer's states before the first [SEG], weighted by the final decoder
+layer's head-mean attention row of the state that emitted it. Reference-image,
+RoI and audio prompts raise.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import torch
 
 from ..config import (IGNORE_INDEX, NUM_IMAGE_TOKENS, AnyRefConfig,
                       check_encoder_path)
-from ..ops.common import linear
+from ..ops.common import linear, rms_norm
 from ..ops.losses import dice_loss, lm_cross_entropy, sigmoid_ce_loss
 from ..params import resolve_device
 from ..tokenizer import EOS_ID, PAD_ID
@@ -120,13 +123,15 @@ def _prompt_lookup_draft(seq, cur_len: int, ngram: int, draft_len: int):
 def _speculative_decode(params, cfg, exp_ids, pad_len, cache, first_tok,
                         Lp: int, mnt: int, G: int, ngram: int, dtype,
                         max_accept: Optional[int] = None,
-                        force_accept: bool = False):
+                        force_accept: bool = False, lastin: bool = False):
     """Batched prompt-lookup speculative decode, lockstep-min acceptance:
     each pass verifies the pending token plus G per-row drafts in one chunk;
     all rows advance by the minimum accepted length over unfinished rows.
     ``max_accept`` caps tokens accepted per pass; ``force_accept``
     (benchmark only) accepts exactly max_accept drafts regardless of
-    verification. Returns (ids [B, mnt], hidden [B, mnt, D], passes)."""
+    verification. Returns (ids [B, mnt], hidden [B, mnt, D], the final
+    layer's input of each position [B, mnt, D] or None without ``lastin``,
+    passes)."""
     eos = EOS_ID
     B = exp_ids.shape[0]
     dev = exp_ids.device
@@ -134,6 +139,8 @@ def _speculative_decode(params, cfg, exp_ids, pad_len, cache, first_tok,
     ext = mnt + G + 1
     toks = torch.full((B, ext), eos, dtype=torch.long, device=dev)
     hids = torch.zeros((B, ext, D), dtype=dtype, device=dev)
+    lins = torch.zeros((B, ext, D), dtype=dtype, device=dev) if lastin \
+        else None
     all_ids = torch.cat([exp_ids, torch.full((B, ext), eos, dtype=torch.long,
                                              device=dev)], 1)
     arange_g = torch.arange(G + 1, device=dev)
@@ -147,8 +154,9 @@ def _speculative_decode(params, cfg, exp_ids, pad_len, cache, first_tok,
         feed = torch.cat([tok[:, None], draft], 1)
         feed = torch.where(done[:, None], eos, feed)
         emb = llama.embed(params["llama"], feed, dtype=dtype)
-        h, cache = llama.decode_chunk(params["llama"], cfg.llama, emb, Lp + i,
-                                      cache, pad_len=pad_len)
+        h, cache, *lin = llama.decode_chunk(params["llama"], cfg.llama, emb,
+                                            Lp + i, cache, pad_len=pad_len,
+                                            return_last_input=lastin)
         nxt = llama.logits(params["llama"], h).argmax(-1)       # [B, G+1]
 
         match = torch.cumprod((feed[:, 1:] == nxt[:, :G]).long(), 1)
@@ -170,6 +178,8 @@ def _speculative_decode(params, cfg, exp_ids, pad_len, cache, first_tok,
 
         toks[:, i:i + G + 1] = feed
         hids[:, i:i + G + 1] = h
+        if lastin:
+            lins[:, i:i + G + 1] = lin[0]
         all_ids[:, Lp + i:Lp + i + G + 1] = feed
         next_tok = nxt[:, min(max(n_emit - 1, 0), G)]
         tok = torch.where(done_next, eos, next_tok)
@@ -179,34 +189,41 @@ def _speculative_decode(params, cfg, exp_ids, pad_len, cache, first_tok,
     live = torch.arange(ext, device=dev)[None, :] < i
     toks = torch.where(live, toks, eos)
     hids = torch.where(live[:, :, None], hids, 0)
-    return toks[:, :mnt], hids[:, :mnt], n_pass
+    return (toks[:, :mnt], hids[:, :mnt],
+            lins[:, :mnt] if lastin else None, n_pass)
 
 
 def _greedy_decode(params, cfg, pad_len, cache, first_tok, Lp: int, mnt: int,
-                   dtype):
+                   dtype, lastin: bool = False):
     """Greedy decode with early exit once every row has emitted EOS.
-    Returns (ids [B, mnt], hidden [B, mnt, D], steps)."""
+    Returns (ids [B, mnt], hidden [B, mnt, D], final-layer inputs
+    [B, mnt, D] or None, steps)."""
     eos = EOS_ID
     B = first_tok.shape[0]
     dev = first_tok.device
     D = params["llama"]["final_norm"]["scale"].shape[0]
     toks = torch.full((B, mnt), eos, dtype=torch.long, device=dev)
     hids = torch.zeros((B, mnt, D), dtype=dtype, device=dev)
+    lins = torch.zeros((B, mnt, D), dtype=dtype, device=dev) if lastin \
+        else None
     tok = first_tok
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     i = 0
     while i < mnt and not bool(done.all()):
         emb = llama.embed(params["llama"], tok[:, None], dtype=dtype)
-        h, cache = llama.decode_step(params["llama"], cfg.llama, emb, Lp + i,
-                                     cache, pad_len=pad_len)
+        h, cache, *lin = llama.decode_step(params["llama"], cfg.llama, emb,
+                                           Lp + i, cache, pad_len=pad_len,
+                                           return_last_input=lastin)
         nxt = llama.logits(params["llama"], h[:, 0]).argmax(-1)
         done_next = done | (tok == eos)
         toks[:, i] = torch.where(done, eos, tok)
         hids[:, i] = h[:, 0]
+        if lastin:
+            lins[:, i] = lin[0][:, 0]
         tok = torch.where(done_next, eos, nxt)
         done = done_next
         i += 1
-    return toks, hids, i
+    return toks, hids, lins, i
 
 
 class TrainOutput(NamedTuple):
@@ -218,14 +235,78 @@ class TrainOutput(NamedTuple):
     seg_valid: torch.Tensor       # [B, S]
 
 
-def _check_text_only(cfg: AnyRefConfig, batch: dict) -> None:
+def _check_text_only(batch: dict) -> None:
     for key in ("ref_images", "roi_boxes", "audio_mels"):
         if key in batch:
-            raise NotImplementedError(f"{key}: only text references are "
-                                      "part of the port yet")
-    if cfg.rephrase_weight > 0:
-        raise NotImplementedError("rephrase pooling is not part of the port "
-                                  "yet")
+            raise NotImplementedError(
+                f"{key}: the port takes text references only; image-crop, "
+                "RoI and audio references are not ported")
+
+
+def _last_layer_attn_row(params: dict, cfg: AnyRefConfig, q_in, k_roped,
+                         q_pos, q_slot, kv_start=None):
+    """The final decoder layer's attention probabilities for one query row
+    per sample, softmax per head over the full causal row in fp32, then the
+    mean over heads (reference anyref.py:376-381, :745-748). Recomputed from
+    that layer's residual input instead of carried out of the attention.
+
+    q_in [B, D]: the residual entering the final layer at the query;
+    k_roped [B, kv_heads, T, hd]: that layer's roped keys (the KV cache, read
+    in place, or recomputed); q_pos [B]: the query's rope position; q_slot
+    [B]: its key slot (causal bound); kv_start [B]: the first unmasked key
+    (left pad). Returns [B, T] fp32."""
+    lcfg = cfg.llama
+    nh, kvh, hd = lcfg.num_heads, lcfg.num_kv_heads, lcfg.head_dim
+    p = params["llama"]["layers"][-1]
+    h = rms_norm(p["input_norm"], q_in[:, None, :], eps=lcfg.rms_norm_eps)
+    q = linear(p["attn"]["q"], h)                            # [B, 1, nh*hd]
+    B = q.shape[0]
+    q = q.reshape(B, 1, nh, hd).transpose(1, 2)
+    q = llama._rope(q, llama._rope_tables(q_pos[:, None], hd,
+                                          lcfg.rope_theta))[:, :, 0]
+    k = k_roped.repeat_interleave(nh // kvh, 1) if nh != kvh else k_roped
+    logits = torch.einsum("bhd,bhtd->bht", q.float(),
+                          k.float()) * hd ** -0.5
+    t = torch.arange(k.shape[2], device=k.device)[None, None, :]
+    mask = t <= q_slot[:, None, None]
+    if kv_start is not None:
+        mask = mask & (t >= kv_start[:, None, None])
+    logits = torch.where(mask, logits, torch.finfo(torch.float32).min)
+    return torch.softmax(logits, -1).mean(1)
+
+
+def _span_pool(row, hidden, span):
+    """``row`` renormalised over ``span``, pooling ``hidden`` [B, L, D] in
+    fp32 (reference anyref.py:380-384); an empty span contributes 0."""
+    w = row * span.float()
+    denom = w.sum(1, keepdim=True)
+    w = torch.where(denom > 0, w / denom.clamp_min(1e-20), 0.0)
+    return torch.einsum("bl,bld->bd", w, hidden.float())
+
+
+def _rephrase_pool(params: dict, cfg: AnyRefConfig, hidden, last_in,
+                   exp_labels, seg_pos):
+    """Training-path rephrase pooling (reference anyref.py:372-392): query =
+    the state emitting the first [SEG] (seg_pos - 1), span = [first label
+    - 1, seg_pos - 1), weights = the final layer's head-mean softmax row,
+    renormalised over the span; the keys recomputed from ``last_in``.
+    Returns [B, 1, D] in hidden's dtype."""
+    B, L, _ = hidden.shape
+    lcfg = cfg.llama
+    p = params["llama"]["layers"][-1]
+    hn = rms_norm(p["input_norm"], last_in, eps=lcfg.rms_norm_eps)
+    k = linear(p["attn"]["k"], hn).reshape(
+        B, L, lcfg.num_kv_heads, lcfg.head_dim).transpose(1, 2)
+    k = llama._rope(k, llama._rope_tables(
+        torch.arange(L, device=hidden.device), lcfg.head_dim,
+        lcfg.rope_theta))
+    ans_start = (exp_labels > 0).to(torch.uint8).argmax(1) - 1
+    q_pos = (seg_pos[:, 0] - 1).clamp_min(0)
+    q_in = last_in[torch.arange(B, device=hidden.device), q_pos]
+    row = _last_layer_attn_row(params, cfg, q_in, k, q_pos, q_pos)
+    j = torch.arange(L, device=hidden.device)[None, :]
+    span = (j >= ans_start[:, None]) & (j < q_pos[:, None])
+    return _span_pool(row, hidden, span)[:, None, :].to(hidden.dtype)
 
 
 def train_forward(params: dict, cfg: AnyRefConfig, batch: dict,
@@ -242,7 +323,7 @@ def train_forward(params: dict, cfg: AnyRefConfig, batch: dict,
     (frozen towers; the reference's stop_gradient). ``remat`` checkpoints
     each decoder layer."""
     check_encoder_path(encoder_path)
-    _check_text_only(cfg, batch)
+    _check_text_only(batch)
     tk = cfg.tokens
     dev = params["llama"]["embed_tokens"].device
 
@@ -259,7 +340,8 @@ def train_forward(params: dict, cfg: AnyRefConfig, batch: dict,
                                                 encoder_path)
     embeds, exp_ids, exp_labels = assemble_embeds(params, cfg, input_ids,
                                                   clip_feats, labels)
-    hidden = llama.forward(params["llama"], cfg.llama, embeds, remat=remat)
+    hidden, last_in = llama.forward(params["llama"], cfg.llama, embeds,
+                                    return_last_input=True, remat=remat)
     lm_loss = lm_cross_entropy(llama.logits(params["llama"], hidden),
                                exp_labels, IGNORE_INDEX)
 
@@ -268,6 +350,9 @@ def train_forward(params: dict, cfg: AnyRefConfig, batch: dict,
     D = hidden.shape[-1]
     hid_idx = (seg_pos - 1).clamp(0, hidden.shape[1] - 1)
     seg_hidden = torch.gather(hidden, 1, hid_idx[:, :, None].expand(-1, -1, D))
+    if cfg.rephrase_weight > 0:
+        seg_hidden = seg_hidden + cfg.rephrase_weight * _rephrase_pool(
+            params, cfg, hidden, last_in, exp_labels, seg_pos)
     pred_emb = project_seg_hidden(params, seg_hidden)           # [B, S, out]
     if cfg.use_loc_tokens and "loc_boxes" in batch:
         # the mean of each [SEG] slot's 4 loc embeddings (reference
@@ -331,7 +416,7 @@ def generate(params: dict, cfg: AnyRefConfig, batch: dict,
     if p_dev.type != dev.type:
         raise ValueError(f"params live on {p_dev}, generate was asked to run "
                          f"on {dev}")
-    _check_text_only(cfg, batch)
+    _check_text_only(batch)
     mnt = max_new_tokens or cfg.max_new_tokens
     tk = cfg.tokens
     input_ids = torch.as_tensor(batch["input_ids"], device=dev).long()
@@ -351,20 +436,25 @@ def generate(params: dict, cfg: AnyRefConfig, batch: dict,
     cache_len = -(-cache_len // 16) * 16
     cache = llama.init_cache(cfg.llama, B, cache_len, dtype=embeds.dtype,
                              device=dev)
-    hidden, cache = llama.prefill(params["llama"], cfg.llama, embeds, cache,
-                                  pad_len=pad_len)
+    # the final layer's input is carried only for rephrase pooling
+    lastin = cfg.rephrase_weight > 0
+    hidden, cache, *pf_lastin = llama.prefill(
+        params["llama"], cfg.llama, embeds, cache, pad_len=pad_len,
+        return_last_input=lastin)
     sam_embeddings = sam_mod.encode_image(params["sam"], sam_images, cfg.sam,
                                           encoder_path)
     first_tok = llama.logits(params["llama"], hidden[:, -1]).argmax(-1)
 
     if speculative:
-        output_ids, gen_hidden, decode_passes = _speculative_decode(
-            params, cfg, exp_ids, pad_len, cache, first_tok, Lp, mnt,
-            draft_len, lookup_ngram, embeds.dtype, max_accept=max_accept,
-            force_accept=force_accept)
+        output_ids, gen_hidden, gen_lastin, decode_passes = \
+            _speculative_decode(params, cfg, exp_ids, pad_len, cache,
+                                first_tok, Lp, mnt, draft_len, lookup_ngram,
+                                embeds.dtype, max_accept=max_accept,
+                                force_accept=force_accept, lastin=lastin)
     else:
-        output_ids, gen_hidden, decode_passes = _greedy_decode(
-            params, cfg, pad_len, cache, first_tok, Lp, mnt, embeds.dtype)
+        output_ids, gen_hidden, gen_lastin, decode_passes = _greedy_decode(
+            params, cfg, pad_len, cache, first_tok, Lp, mnt, embeds.dtype,
+            lastin=lastin)
     num_generated = (output_ids != EOS_ID).sum(1)
 
     # the hidden state that EMITS [SEG] at output k is gen_hidden[k-1], or
@@ -373,6 +463,20 @@ def generate(params: dict, cfg: AnyRefConfig, batch: dict,
     pos, seg_valid = _seg_slots(output_ids, tk.seg, S)
     all_hidden = torch.cat([hidden[:, -1:], gen_hidden], 1)
     seg_hidden = torch.gather(all_hidden, 1, pos[:, :, None].expand(-1, -1, D))
+    if lastin:
+        # the state emitting the first [SEG] at output k sits at cache slot
+        # Lp + k - 1; all_hidden[j] at slot Lp - 1 + j, so the span is
+        # all_hidden[0:k] (reference anyref.py:710-733)
+        k_pos = pos[:, 0]
+        q_slot = Lp + k_pos - 1
+        all_lastin = torch.cat([pf_lastin[0][:, -1:], gen_lastin], 1)
+        q_in = all_lastin[torch.arange(B, device=dev), k_pos]
+        row = _last_layer_attn_row(params, cfg, q_in, cache.k[-1],
+                                   q_slot - pad_len, q_slot, kv_start=pad_len)
+        span = torch.arange(mnt + 1, device=dev)[None, :] < k_pos[:, None]
+        pooled = _span_pool(row[:, Lp - 1:Lp + mnt], all_hidden, span)
+        seg_hidden = seg_hidden + (cfg.rephrase_weight
+                                   * pooled[:, None]).to(seg_hidden.dtype)
     pred_emb = project_seg_hidden(params, seg_hidden)            # [B, S, out]
     img_index = torch.arange(B, device=dev)[:, None].expand(B, S).reshape(-1)
     low_res, _ = sam_mod.decode_text_prompts(

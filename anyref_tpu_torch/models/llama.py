@@ -139,45 +139,54 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
 
 
 def _run(params, cfg, x, positions, mode, cache, write_pos, pad_len,
-         fused_norms):
+         fused_norms, return_last_input):
     rt = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    last = len(params["layers"]) - 1
+    last_in = None
     for i, p in enumerate(params["layers"]):
+        if i == last:
+            last_in = x
         x = _layer(p, cfg, x, mode, cache, write_pos, i, rt,
                    kv_start=pad_len, fused_norms=fused_norms)
-    return rms_norm(params["final_norm"], x, eps=cfg.rms_norm_eps), cache
+    out = (rms_norm(params["final_norm"], x, eps=cfg.rms_norm_eps), cache)
+    return out + (last_in,) if return_last_input else out
 
 
 def prefill(params: dict, cfg: LlamaConfig, embeds, cache: KVCache,
-            pad_len=None):
+            pad_len=None, return_last_input: bool = False):
     """Run the prompt, filling cache slots [0, L). Returns (post-norm hidden
-    [B, L, D], cache). ``pad_len`` [B] is each row's
-    left pad: rope positions shift so the first real token sits at 0, and
-    pad keys are masked."""
+    [B, L, D], cache)[, the residual stream entering the final layer
+    [B, L, D]]. ``pad_len`` [B] is each row's left pad: rope positions
+    shift so the first real token sits at 0, and pad keys are masked."""
     B, L, _ = embeds.shape
     positions = torch.arange(L, device=embeds.device)
     if pad_len is not None:
         positions = (positions[None, :] - pad_len[:, None]).clamp_min(0)
     return _run(params, cfg, embeds, positions, "prefill", cache, 0, pad_len,
-                True)
+                True, return_last_input)
 
 
 def decode_chunk(params: dict, cfg: LlamaConfig, embeds, pos: int,
-                 cache: KVCache, pad_len=None):
+                 cache: KVCache, pad_len=None,
+                 return_last_input: bool = False):
     """G consecutive tokens [B, G, D] at cache slots pos .. pos+G-1 (a
-    speculative verify chunk; G = 1 is a decode step). Rejected draft
-    entries left in the cache are rewritten before any query attends them."""
+    speculative verify chunk; G = 1 is a decode step); outputs as
+    ``prefill``'s. Rejected draft entries left in the cache are rewritten
+    before any query attends them."""
     B, G, _ = embeds.shape
     positions = pos + torch.arange(G, device=embeds.device)[None, :]
     if pad_len is not None:
         positions = positions - pad_len[:, None]
     return _run(params, cfg, embeds, positions, "decode", cache, pos, pad_len,
-                False)
+                False, return_last_input)
 
 
 def decode_step(params: dict, cfg: LlamaConfig, embeds, pos: int,
-                cache: KVCache, pad_len=None):
+                cache: KVCache, pad_len=None,
+                return_last_input: bool = False):
     """One decode step, embeds [B, 1, D] at cache slot ``pos``."""
-    return decode_chunk(params, cfg, embeds, pos, cache, pad_len)
+    return decode_chunk(params, cfg, embeds, pos, cache, pad_len,
+                        return_last_input)
 
 
 def logits(params: dict, hidden):

@@ -227,29 +227,42 @@ def _audio(m: _Maker, c, dt):
     }
 
 
-def init(cfg: AnyRefConfig, generator: torch.Generator,
-         dtype=torch.bfloat16, device="cuda") -> dict:
-    """Random weights with the reference init's tree, shapes, dtypes and
-    scales (not its numbers: a torch generator is not a JAX key), made
-    directly on ``device`` from ``generator`` (which must live there)."""
-    dev = resolve_device(device)
-    m = _Maker(generator, dev)
+def _makers(cfg: AnyRefConfig, m: _Maker, dtype) -> dict:
+    """{top-level key: its maker}, in the tree's order."""
     d = cfg.llama.hidden_size
     f32 = torch.float32
-    params = {
-        "llama": _llama(m, cfg.llama, dtype),
-        "clip": _clip(m, cfg.clip, dtype),
-        "sam": _sam(m, cfg.sam, dtype),
-        "mm_projector": m.lin(cfg.clip.hidden_size, d, dtype, std=0.02),
-        "text_hidden_fcs": {"lin1": m.lin(d, d, f32),
-                            "lin2": m.lin(d, cfg.out_dim, f32)},
+    makers = {
+        "llama": lambda: _llama(m, cfg.llama, dtype),
+        "clip": lambda: _clip(m, cfg.clip, dtype),
+        "sam": lambda: _sam(m, cfg.sam, dtype),
+        "mm_projector": lambda: m.lin(cfg.clip.hidden_size, d, dtype,
+                                      std=0.02),
+        "text_hidden_fcs": lambda: {"lin1": m.lin(d, d, f32),
+                                    "lin2": m.lin(d, cfg.out_dim, f32)},
     }
     if cfg.audio is not None:
-        params["audio_encoder"] = _audio(m, cfg.audio, dtype)
-        params["audio_projector"] = m.lin(cfg.audio.out_embed_dim, d, dtype,
-                                          std=0.02)
+        makers["audio_encoder"] = lambda: _audio(m, cfg.audio, dtype)
+        makers["audio_projector"] = lambda: m.lin(
+            cfg.audio.out_embed_dim, d, dtype, std=0.02)
     if cfg.use_loc_tokens:
-        params["loc_embeddings"] = m.normal(
+        makers["loc_embeddings"] = lambda: m.normal(
             (cfg.tokens.num_loc, cfg.out_dim), 0.02, f32)
-    params["roi_embed"] = m.normal((IMG_REF_NUM, 101, d), 0.02, dtype)
-    return params
+    makers["roi_embed"] = lambda: m.normal((IMG_REF_NUM, 101, d), 0.02, dtype)
+    return makers
+
+
+def part_names(cfg: AnyRefConfig) -> list:
+    """The tree's top-level keys, in params.init's order."""
+    return list(_makers(cfg, None, None))
+
+
+def init(cfg: AnyRefConfig, generator: torch.Generator,
+         dtype=torch.bfloat16, device="cuda", parts=None) -> dict:
+    """Random weights with the reference init's tree, shapes, dtypes and
+    scales (not its numbers: a torch generator is not a JAX key), made
+    directly on ``device`` from ``generator`` (which must live there).
+    ``parts`` (top-level keys) makes only those, drawn in the tree's order
+    (checkpoint.assemble_pretrained fills what no artifact holds)."""
+    m = _Maker(generator, resolve_device(device))
+    return {k: make() for k, make in _makers(cfg, m, dtype).items()
+            if parts is None or k in parts}

@@ -12,11 +12,12 @@ binarize) runs on the completion thread, off the device loop.
 
 from __future__ import annotations
 
+import logging
 import queue
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 
@@ -31,6 +32,8 @@ from .tokenizer import EOS_ID, AnyRefTokenizer, seg_question
 class Request:
     image: np.ndarray                       # [H, W, 3] uint8 RGB
     text: str
+    # called once with the result dict, after result() can return it
+    callback: Optional[Callable] = None
     _result: dict = field(default_factory=dict)
     _done: threading.Event = field(default_factory=threading.Event)
 
@@ -81,6 +84,9 @@ class Server:
         self.stats = {"batches": 0, "rows": 0, "wait_ms": 0.0,
                       "group_ms": 0.0, "collate_ms": 0.0, "dispatch_ms": 0.0,
                       "fetch_ms": 0.0, "post_ms": 0.0}
+        # reset_stats() epoch: the device loop may be mid-idle-wait when the
+        # counters are zeroed, so wait spans clamp to max(t0, epoch)
+        self._stats_epoch = 0.0
         self._helper = SegDataset(cfg, uint8_images=True)
         self._pre_q: "queue.Queue" = queue.Queue()
         self._run_q: "queue.Queue" = queue.Queue()
@@ -110,6 +116,16 @@ class Server:
 
     def segment(self, image, text: str) -> dict:
         return self.submit(Request(image=image, text=text)).result()
+
+    def reset_stats(self) -> None:
+        """Zero the per-stage counters and the Predictor's pass and byte
+        counters (e.g. after a warm-up batch)."""
+        for k in self.stats:
+            self.stats[k] = 0 if k in ("batches", "rows") else 0.0
+        self._stats_epoch = time.time()
+        p = self.predictor
+        p.decode_passes_total = p.completed_batches = 0
+        p.h2d_bytes_total = p.d2h_bytes_total = 0
 
     def shutdown(self, timeout: float = 30.0):
         """Stop the loops and fail any request still pending, so no caller
@@ -160,6 +176,12 @@ class Server:
             return
         req._result = result
         req._done.set()
+        if req.callback is not None:
+            try:
+                req.callback(result)
+            except Exception:
+                logging.getLogger(__name__).exception(
+                    "request callback raised")
 
     def _preprocess_loop(self):
         while not self._stop.is_set():
@@ -208,7 +230,7 @@ class Server:
             reqs, samples = zip(*group)
             self.stats["batches"] += 1
             self.stats["rows"] += len(group)
-            self.stats["wait_ms"] += (t1 - t0) * 1e3
+            self.stats["wait_ms"] += (t1 - max(t0, self._stats_epoch)) * 1e3
             self.stats["group_ms"] += (t2 - t1) * 1e3
             try:
                 batch = self.collator(list(samples))

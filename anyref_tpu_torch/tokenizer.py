@@ -1,16 +1,19 @@
 """Tokenizer + llava_v1 conversation layer: the port's own copy of
 anyref_tpu/tokenizer.py.
 
-``AnyRefTokenizer`` is special-token-aware. It wraps an optional base
-tokenizer (any object with ``encode``/``decode``) or, by default, a
-deterministic byte-level fallback with the same special-token geometry as
-the reference layout. Conversation building follows the llava_v1 / vicuna v1
-template. Loading a real LLaMA tokenizer from disk is not part of the port
-yet.
+``AnyRefTokenizer`` is special-token-aware. It wraps a base tokenizer
+(any object with ``encode``/``decode``) or, by default, a deterministic
+byte-level fallback with the same special-token geometry as the reference
+layout. ``AnyRefTokenizer.from_pretrained`` loads the real LLaMA tokenizer
+of a checkpoint directory: ``tokenizer.json`` through the ``tokenizers``
+package, else the SentencePiece ``tokenizer.model`` through the port's own
+reader (``sp.py``). Conversation building follows the llava_v1 / vicuna v1
+template.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
@@ -46,13 +49,53 @@ SPECIAL_STRINGS = {
 }
 
 
+class _HFBase:
+    """A ``tokenizers.Tokenizer`` behind the base interface."""
+
+    def __init__(self, tk):
+        self.tk = tk
+
+    def encode(self, text, add_special_tokens=False):
+        return self.tk.encode(text, add_special_tokens=False).ids
+
+    def decode(self, ids):
+        return self.tk.decode(ids)
+
+
 class AnyRefTokenizer:
     """Special-token-aware tokenizer.
 
-    ``base`` is an optional HF tokenizer (LlamaTokenizerFast) for real
-    checkpoints; otherwise a byte-level fallback encodes UTF-8 bytes as
-    ids 3..258 (deterministic, reversible).
+    ``base`` is the checkpoint's tokenizer (``from_pretrained``);
+    otherwise a byte-level fallback encodes UTF-8 bytes as ids 3..258
+    (deterministic, reversible).
     """
+
+    @classmethod
+    def from_pretrained(cls, path: str,
+                        tokens: SpecialTokens = SpecialTokens()):
+        """The real LLaMA tokenizer of an HF directory, in the reference's
+        order: ``tokenizer.json`` through ``tokenizers`` (an ImportError
+        that names it where the package is missing: the other file is not
+        taken instead), else ``tokenizer.model`` (the LLaVA-Lightning
+        layout, reference train.py:58-62) through the port's SentencePiece
+        reader. Base-vocab piece ids are kept; the added specials take this
+        layout's fixed ids."""
+        fast = os.path.join(path, "tokenizer.json")
+        if os.path.exists(fast):
+            try:
+                from tokenizers import Tokenizer
+            except ImportError as e:
+                raise ImportError(
+                    f"{fast} needs the 'tokenizers' package, which is not "
+                    "installed; install it, or load a directory that has "
+                    "only tokenizer.model") from e
+            return cls(_HFBase(Tokenizer.from_file(fast)), tokens)
+        sp_path = os.path.join(path, "tokenizer.model")
+        if os.path.exists(sp_path):
+            from .sp import SentencePieceModel
+            return cls(SentencePieceModel.from_file(sp_path), tokens)
+        raise FileNotFoundError(
+            f"no tokenizer.json or tokenizer.model under {path}")
 
     def __init__(self, base=None, tokens: SpecialTokens = SpecialTokens()):
         self.base = base

@@ -39,17 +39,26 @@ Phases (any failure exits non-zero before the result line):
      CPU (whose plain versions the CPU tests hold against the JAX package):
      "unfused" and "unfused_qkv" at anyref_tiny(), "fused" and "fused_block"
      at anyref_tiny() with a 512-pixel SAM image and windows of 8, where
-     both fused SAM gates open, the int8 decoder at anyref_tiny(); and one
-     train step's losses and gradients at anyref_tiny();
+     both fused SAM gates open, the int8 decoder at anyref_tiny(); "fused"
+     at rephrase_weight=0.1, greedy and speculative, with lm_head's [SEG]
+     column scaled so that a row's first [SEG] comes at k >= 1 (ids equal
+     to the CPU's); and one train step's losses and gradients at
+     anyref_tiny();
   4. for each encoder path, "fused" (the default), "fused_block",
      "unfused_qkv" and "unfused": serve 4 text requests at anyref_7b width
      and depth (random weights from a seed) through Server -> Predictor ->
      generate with speculative decode, max_batch 2, and check every answer
      and each kernel's launch count on that path; then serve them again,
      warm, under torch.profiler for the wall time, the device's busy share
-     and the top kernels. Then the int8 decoder: time a greedy decode step
-     on the bf16 decoder, quantize_llama the same weights on the card, free
-     the bf16 decoder, time the step again, and serve the 4 requests greedy
+     and the top kernels. Then rephrase pooling on "fused": the [SEG] column
+     rescaled so that answers emit tokens before [SEG], the 4 requests
+     served at rephrase 0 and 0.1 (each request with a callback that must
+     fire once, a counted round, Server.reset_stats, a profiled round), and
+     generate's pooled term held against an fp32 recomputation from
+     llama.forward (relative L2 <= 1e-2). Then the int8 decoder: time a
+     greedy decode step on the bf16 decoder, quantize_llama the same
+     weights on the card, free the bf16 decoder, time the step again, and
+     serve the 4 requests greedy
      (Server(speculative=False)) on the default path, answers, launch
      counts (int8_matmul per decoder pass) and peak memory checked; the
      int8 step's profile must show one CUDA kernel of int8_matmul.cu a
@@ -60,7 +69,14 @@ Phases (any failure exits non-zero before the result line):
      steps, per-layer checkpointing, the fused encoder path; check the
      losses, the moved LoRA weights, the untouched frozen weights and each
      kernel's launch count; then one more step under torch.profiler;
-  6. print {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+  6. write the reference's artifacts at anyref_7b width (LLaMA cut to 2
+     layers) to a temporary directory: a merged LLaVA .safetensors shard, a
+     PEFT adapter, a SAM .pth; assemble_pretrained on the card and on the
+     CPU (bit-equal), the conversion CLI with the adapter (its file
+     bit-equal to the CPU build), and the 4 requests served on the
+     assembled tree with the SentencePiece fixture tokenizer at rephrase
+     0.1; print the cuts, the times and the peak memory;
+  7. print {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -97,14 +113,42 @@ TERM_TOL = 2.0 ** -7
 # The tiny slice on the card against the CPU: bf16 through two layers of
 # each tower, relative to the largest magnitude of the reference.
 SLICE_REL_TOL = 5e-2
+# lm_head's [SEG] column scalings under which random weights answer a few
+# tokens before their first [SEG], so that rephrase pooling has a span. On
+# the H100's machine (torch 2.11; another torch's CPU generator draws other
+# weights): anyref_tiny with a 512-pixel SAM, seed 0, gives the same ids on
+# the CPU from -2.6 to -5, row 0's first [SEG] at 3 and none in row 1;
+# anyref_7b, seed 0, gives the same first [SEG]s from 6 to 6.5: at 0, 3,
+# none and 0 served two to a batch (serve_rephrase), at 0, 3, 2 and 0 all
+# four in one batch (check_pooled_term).
+TINY_SEG_SCALE = -4.0
+SEG_SCALE_7B = 6.0
+# generate's rephrase pooling at anyref_7b against its fp32 recomputation
+# from generate's own inputs to the pooling (check_pooled_term), relative
+# L2 over the answers with a span, for the attention row, the pooled
+# vector and the term as it reaches seg_embeddings. An index fault (a
+# wrong slot, span or pad) is O(1).
+POOLED_REL_L2 = 1e-2
+# The same pooling recomputed from llama.forward's states instead, a second
+# reading: llama.forward's bf16 states differ from prefill's and decode's
+# by 1.8% after 32 layers (a span of one state, where pooling is the
+# identity), and the term with its sum in fp32 differs from generate's,
+# which rounds the sum to the bf16 [SEG] state as the reference does (2%
+# of the term at anyref_tiny); so SLICE_REL_TOL, the phase's bf16 limit.
+FORWARD_REL_L2 = SLICE_REL_TOL
 H100_BYTES_PER_S = 3.35e12    # HBM3, NVIDIA data sheet (SXM)
 H100_BF16_OPS_PER_S = 989e12  # dense bf16 tensor cores
 H100_FP32_OPS_PER_S = 67e12   # fp32 outside the tensor cores
 SPIN_CYCLES = 1_000_000       # ~0.5 ms at the H100's ~1.98 GHz
-# kernels_per_call: host pause between two profiled ranges, and how far
-# outside its range (microseconds) a kernel's start may still count for it
-RANGE_GAP_S = 0.005
-RANGE_SLACK_US = 2000.0
+# decode_step_ms: steps timed back to back, and steps profiled
+DECODE_ITERS = 10
+PROFILED_STEPS = 3
+# kernels_per_call: profiler sessions to try before giving up on one that
+# kept every case's device records; the marker kernel between two cases
+# (torch.cuda._sleep's), by a part of its name, and its length
+COUNT_SESSIONS = 3
+MARKER = "spin_kernel"
+MARKER_CYCLES = 1000
 # rel-pos attention cases of phase 2, (B, H, W, heads, head width): SAM-H's
 # windows and global layers, the window kernel's upper edge (16 x 16), a
 # grid past it (20 x 20, the global kernel, W not dividing 128), an odd head
@@ -864,25 +908,44 @@ def relpos_qkv_case(rnd, B, H, W, nh, hd):
 
 
 def kernels_per_call(torch, flash, rnd, calls: int = 3) -> dict:
-    """{(wrapper, label): CUDA kernels one call runs} for every rel-pos case
-    (inputs from rnd; on the global routes also ("factors", wrapper, label):
-    relpos_factors alone on the same q view, made contiguous as the wrapper
-    makes them), for rms_norm_fused at the
-    7B prefill's [1280, 4096] with a bf16 scale, for the causal kernels
-    at the 7B shapes (inputs from a generator of their own): the training
-    forward and the prefill, the training backward and, alone, its delta
-    op, and (from the same generator) for layer_norm_fused at SAM-H's
-    [9800, 1280] with bf16 scale and bias, flash_attention_qkv at
-    CLIP-L's [2, 257, 3072] and the four fused SAM layers at SAM-H's shapes
-    with bf16 weights, as anyref_7b's (fused_layer_cases). Counted in one
-    torch.profiler session at the start of phase 2 (short sessions late in
-    a long process were seen to drop device events): each case runs `calls`
-    times inside its own record_function range, and each kernel counts for
-    the range its start falls in, give or take RANGE_SLACK_US: the ranges
-    lie RANGE_GAP_S apart, so that the device clock's offset against the
-    host's (the kernels' times are the device's) cannot carry a short
-    kernel at a range's edge into the next one."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    """{(wrapper, label): CUDA kernels one call runs} for every case of
+    count_cases, counted in a torch.profiler session at the start of phase
+    2 (profiled_counts). A session that lost device records (a case with
+    none, or with a count that `calls` does not divide: every call runs
+    the same work) is made again, at most COUNT_SESSIONS in all."""
+    cases = count_cases(torch, flash, rnd)
+    for fn in cases.values():
+        fn()
+    torch.cuda.synchronize()
+    for session in range(1, COUNT_SESSIONS + 1):
+        counts = profiled_counts(torch, cases, calls)
+        if counts is None:
+            what = "a marker"
+        else:
+            lost = {"/".join(key): n for key, n in counts.items()
+                    if n == 0 or n % calls}
+            if not lost:
+                return {key: n / calls for key, n in counts.items()}
+            what = (f"records of {len(lost)} of {len(cases)} cases (device "
+                    f"records over {calls} calls: {lost})")
+        log(f"[kernel] kernels_per_call: profiler session {session} of "
+            f"{COUNT_SESSIONS} lost {what}")
+    fail(f"kernels_per_call: {COUNT_SESSIONS} profiler sessions each lost "
+         "device records")
+
+
+def count_cases(torch, flash, rnd) -> dict:
+    """{(wrapper, label): call} for every rel-pos case (inputs from rnd; on
+    the global routes also ("factors", wrapper, label): relpos_factors
+    alone on the same q view, made contiguous as the wrapper makes them),
+    for rms_norm_fused at the 7B prefill's [1280, 4096] with a bf16 scale,
+    for the causal kernels at the 7B shapes (inputs from a generator of
+    their own): the training forward and the prefill, the training
+    backward and, alone, its delta op, and (from the same generator) for
+    layer_norm_fused at SAM-H's [9800, 1280] with bf16 scale and bias,
+    flash_attention_qkv at CLIP-L's [2, 257, 3072] and the four fused SAM
+    layers at SAM-H's shapes with bf16 weights, as anyref_7b's
+    (fused_layer_cases)."""
     cases = {}
     for shape in RELPOS_SPLIT_CASES:
         label, q, k, v, th, tw = relpos_split_case(rnd, *shape)
@@ -931,35 +994,36 @@ def kernels_per_call(torch, flash, rnd, calls: int = 3) -> dict:
     cases[("flash_attention_qkv", "2x257x3072")] = (
         lambda: flash.flash_attention_qkv(qkv, 16))
     cases.update(fused_layer_cases(torch, flash, g))
-    for fn in cases.values():
-        fn()
-    torch.cuda.synchronize()
-    names = {f"count {i}": key for i, key in enumerate(cases)}
+    return cases
+
+
+def profiled_counts(torch, cases: dict, calls: int):
+    """{case: device records over `calls` calls} from one torch.profiler
+    session, or None where it lost a marker. Each case's calls follow a
+    marker kernel (torch.cuda._sleep) on the one stream they all run on,
+    and a last marker closes the session: a case's records (kernels,
+    memsets, copies) are those between its marker and the next in the
+    device's own order. No device timestamp is compared with a host one
+    (matched to host ranges by time, one run counted no kernel for calls
+    that each ran one) and no launch needs the profiler's link to a host
+    op (the port's kernels, launched from its C library, have none)."""
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for name, key in names.items():
-            time.sleep(RANGE_GAP_S)
-            with record_function(name):
-                for _ in range(calls):
-                    cases[key]()
-                torch.cuda.synchronize()
-    events = prof.events()
+        for fn in cases.values():
+            torch.cuda._sleep(MARKER_CYCLES)
+            for _ in range(calls):
+                fn()
+        torch.cuda._sleep(MARKER_CYCLES)
+        torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    # the ranges as the host saw them; on the device side the profiler also
-    # shows them as annotations of the same names, which are no kernels
-    spans = {names[e.name]: e.time_range for e in events
-             if e.name in names and e.device_type != cuda}
-    if len(spans) != len(cases):
-        fail(f"kernels_per_call: {len(spans)} of {len(cases)} ranges "
-             "in the profile")
-    counts = dict.fromkeys(cases, 0)
-    for e in events:
-        if e.device_type == cuda and e.name not in names:
-            for key, span in spans.items():
-                if span.start - RANGE_SLACK_US <= e.time_range.start <= \
-                        span.end + RANGE_SLACK_US:
-                    counts[key] += 1
-    return {key: n / calls for key, n in counts.items()}
+    records = sorted((e for e in prof.events() if e.device_type == cuda),
+                     key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(records) if MARKER in e.name]
+    if len(marks) != len(cases) + 1:
+        return None
+    return {key: marks[n + 1] - marks[n] - 1
+            for n, key in enumerate(cases)}
 
 
 # The CUDA kernels one call of each fused SAM layer runs at SAM-H's shapes
@@ -1151,17 +1215,7 @@ def check_tiny_slice(torch, cfg, encoder_path, tparams, anyref_mod,
         p_cpu["llama"] = quant.quantize_llama(p_cpu["llama"])
         n0 = flash.int8_matmul.launches
     p_gpu = _to_device(p_cpu, "cuda")
-    rng = np.random.default_rng(0)
-    ids = np.zeros((2, 257), np.int64)
-    for b, n in enumerate((200, 150)):
-        ids[b, 257 - n:] = rng.integers(3, 259, n)
-        ids[b, 257 - n + 5] = cfg.tokens.image
-    batch = {"input_ids": ids,
-             "clip_images": rng.standard_normal(
-                 (2, 3, 224, 224)).astype(np.float32),
-             "sam_images": rng.standard_normal(
-                 (2, 3, cfg.sam.image_size, cfg.sam.image_size)
-             ).astype(np.float32)}
+    batch = tiny_batch(cfg)
     want = anyref_mod.generate(p_cpu, cfg, batch, max_new_tokens=4,
                                device="cpu", encoder_path=encoder_path)
     got = anyref_mod.generate(p_gpu, cfg, batch, max_new_tokens=4,
@@ -1183,6 +1237,76 @@ def check_tiny_slice(torch, cfg, encoder_path, tparams, anyref_mod,
     if rel > SLICE_REL_TOL:
         fail(f"tiny slice ({encoder_path}) on the card disagrees with the "
              f"CPU: {rel}")
+
+
+def tiny_batch(cfg) -> dict:
+    """Two left-padded prompts of random byte tokens (200 and 150 of a
+    257-token bucket), one <image> each, and random normalised images."""
+    rng = np.random.default_rng(0)
+    ids = np.zeros((2, 257), np.int64)
+    for b, n in enumerate((200, 150)):
+        ids[b, 257 - n:] = rng.integers(3, 259, n)
+        ids[b, 257 - n + 5] = cfg.tokens.image
+    return {"input_ids": ids,
+            "clip_images": rng.standard_normal(
+                (2, 3, 224, 224)).astype(np.float32),
+            "sam_images": rng.standard_normal(
+                (2, 3, cfg.sam.image_size, cfg.sam.image_size)
+            ).astype(np.float32)}
+
+
+def first_seg(ids, seg: int) -> list:
+    """Each row's output index of its first [SEG] (None where it has
+    none)."""
+    out = []
+    for row in np.asarray(ids).tolist():
+        out.append(row.index(seg) if seg in row else None)
+    return out
+
+
+def check_tiny_rephrase(torch, cfg, tparams, anyref_mod):
+    """generate at rephrase_weight=0.1 on the "fused" path, greedy and
+    speculative, on the card and on the CPU from the same weights, with
+    lm_head's [SEG] column scaled by TINY_SEG_SCALE: ids equal, masks and
+    seg_embeddings within SLICE_REL_TOL of the CPU's largest magnitude, and
+    a row whose first [SEG] comes at output index k >= 1 (a pooled span)."""
+    cfg = cfg.scaled(rephrase_weight=0.1)
+    p_cpu = tparams.init(cfg, torch.Generator().manual_seed(0),
+                         torch.bfloat16, device="cpu")
+    p_cpu["llama"]["lm_head"][:, cfg.tokens.seg] *= TINY_SEG_SCALE
+    p_gpu = _to_device(p_cpu, "cuda")
+    batch = tiny_batch(cfg)
+    for spec in (False, True):
+        kw = dict(max_new_tokens=4, encoder_path="fused", speculative=spec)
+        want = anyref_mod.generate(p_cpu, cfg, batch, device="cpu", **kw)
+        got = anyref_mod.generate(p_gpu, cfg, batch, device="cuda", **kw)
+        torch.cuda.synchronize()
+        name = "speculative" if spec else "greedy"
+        ids = got.output_ids.cpu()
+        ks = first_seg(ids, cfg.tokens.seg)
+        rels = {}
+        for field in ("low_res_masks", "seg_embeddings"):
+            a = getattr(got, field).float().cpu()
+            b = getattr(want, field).float()
+            if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+                fail(f"tiny rephrase ({name}): {field} of the wrong shape "
+                     "or not finite")
+            rels[field] = float((a - b).abs().max() / b.abs().max())
+        log(f"[slice-tiny] fused path, SAM {cfg.sam.image_size} px, "
+            f"rephrase 0.1, {name}, lm_head[:, tokens.seg] x "
+            f"{TINY_SEG_SCALE}, card vs CPU: ids {ids.tolist()} (first [SEG]"
+            f" at {ks}), mask max rel err {rels['low_res_masks']:.4g}, "
+            f"seg_embeddings max rel err {rels['seg_embeddings']:.4g} "
+            f"(limit {SLICE_REL_TOL})")
+        if not torch.equal(ids, want.output_ids):
+            fail(f"tiny rephrase ({name}): ids {ids.tolist()} on the card, "
+                 f"{want.output_ids.tolist()} on the CPU")
+        if max(rels.values()) > SLICE_REL_TOL:
+            fail(f"tiny rephrase ({name}) on the card disagrees with the "
+                 f"CPU: {rels}")
+        if not any(k is not None and k >= 1 for k in ks):
+            fail(f"tiny rephrase ({name}): no row's first [SEG] at k >= 1, "
+                 f"so no span was pooled: {ids.tolist()}")
 
 
 def train_samples(cfg, mods, texts, images, seed: int):
@@ -1419,6 +1543,7 @@ def serve_7b(torch, flash, mods):
     # Random weights almost never emit [SEG]; scale the [SEG] column of the
     # fp32 lm_head by 1000 so [SEG] wins wherever its logit is positive and
     # the mask path runs.
+    seg_col = params["llama"]["lm_head"][:, cfg.tokens.seg].clone()
     params["llama"]["lm_head"][:, cfg.tokens.seg] *= 1000.0
     log("[slice] lm_head[:, tokens.seg] scaled by 1000 so [SEG] is emitted "
         "(random weights)")
@@ -1437,9 +1562,24 @@ def serve_7b(torch, flash, mods):
         f"{wall:.4f} ms wall back to back, {busy:.4f} ms of kernels, {n:.0f} "
         f"kernels a step")
 
-    rng = np.random.default_rng(0)
-    images = [rng.integers(0, 256, (h, w, 3), np.uint8)
-              for h, w in IMAGE_SIZES]
+    images = request_images()
+    per_batch = launches_per_batch(flash, cfg)
+    launches = {}
+    for path in PATHS:
+        server = mods["Server"](params, cfg, max_batch=2, speculative=True,
+                                max_new_tokens=8, encoder_path=path)
+        launches[path] = serve_path(torch, flash, mods, server, path, images,
+                                    per_batch[path])
+    serve_rephrase(torch, flash, mods, params, cfg, images,
+                   per_batch["fused"], seg_col)
+    launches["int8"], int8_step = serve_int8(torch, flash, mods, params,
+                                             cfg, images,
+                                             dict(per_batch["fused"]))
+    return launches, int8_step
+
+
+def launches_per_batch(flash, cfg) -> dict:
+    """{encoder path: {kernel: launches a served batch}} at ``cfg``."""
     s, l, c = cfg.sam, cfg.llama, cfg.clip
     n_global = len(s.encoder_global_attn_indexes)
     n_window = s.encoder_depth - n_global
@@ -1449,7 +1589,7 @@ def serve_7b(torch, flash, mods):
                    flash_causal_attention=l.num_layers)
     fused_global = dict(fused_global_tail=n_global, layer_norm_fused=n_global,
                         flash_attention_qkv=n_clip)
-    per_batch = {
+    return {
         "fused": dict(zero, **decoder, **fused_global,
                       fused_window_attn=n_window, fused_mlp_stream=n_window),
         "fused_block": dict(zero, **decoder, **fused_global,
@@ -1463,26 +1603,327 @@ def serve_7b(torch, flash, mods):
                         layer_norm_fused=2 * s.encoder_depth,
                         flash_relpos_attention=s.encoder_depth),
     }
-    launches = {}
-    for path in PATHS:
-        server = mods["Server"](params, cfg, max_batch=2, speculative=True,
-                                max_new_tokens=8, encoder_path=path)
-        launches[path] = serve_path(torch, flash, mods, server, path, images,
-                                    per_batch[path])
-    launches["int8"], int8_step = serve_int8(torch, flash, mods, params,
-                                             cfg, images,
-                                             dict(per_batch["fused"]))
-    return launches, int8_step
 
 
-def decode_step_ms(torch, llama, lp, cfg, iters: int = 10):
+def request_images() -> list:
+    """The 4 requests' images (IMAGE_SIZES, uint8 RGB from seed 0)."""
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, 256, (h, w, 3), np.uint8) for h, w in IMAGE_SIZES]
+
+
+def serve_rephrase(torch, flash, mods, params, cfg, images, per_batch,
+                   seg_col, scale=None):
+    """Rephrase pooling at anyref_7b on "fused", speculative: lm_head's
+    [SEG] column set to ``scale`` (SEG_SCALE_7B) times its drawn values, so
+    that answers emit tokens before their first [SEG]; the 4 requests
+    served at rephrase 0 and at 0.1 (serve_rephrase_run), the same ids
+    from both, at least one first [SEG] at k >= 1; then generate's pooled
+    term held against its fp32 recomputation (check_pooled_term). The
+    column is put back to 1000 times its values for the runs after."""
+    scale = SEG_SCALE_7B if scale is None else scale
+    lm = params["llama"]["lm_head"]
+    lm[:, cfg.tokens.seg] = seg_col * scale
+    runs = {w: serve_rephrase_run(torch, flash, mods, params,
+                                  cfg.scaled(rephrase_weight=w), images,
+                                  per_batch) for w in (0.0, 0.1)}
+    if runs[0.0]["ids"] != runs[0.1]["ids"]:
+        fail(f"rephrase changed the answers: {runs[0.0]['ids']} at 0, "
+             f"{runs[0.1]['ids']} at 0.1")
+    ks = first_seg(runs[0.1]["ids"], cfg.tokens.seg)
+    if not any(k is not None and k >= 1 for k in ks):
+        fail(f"rephrase at anyref_7b: no answer's first [SEG] at k >= 1 "
+             f"(lm_head[:, tokens.seg] x {scale}), ids {runs[0.1]['ids']}")
+    r0, r1 = runs[0.0], runs[0.1]
+    log(f"[slice rephrase] anyref_7b, fused, speculative, lm_head[:, "
+        f"tokens.seg] x {scale}: first [SEG] of each answer at {ks}; warm "
+        f"round under torch.profiler after Server.reset_stats: rephrase 0.1 "
+        f"kernels busy {r1['busy_ms']:.3f} ms ({r1['wall_s']:.3f} s wall, "
+        f"{r1['passes']} decode passes), rephrase 0 {r0['busy_ms']:.3f} ms "
+        f"({r0['wall_s']:.3f} s wall, {r0['passes']} passes): "
+        f"rephrase adds {r1['busy_ms'] - r0['busy_ms']:.3f} ms of kernels; "
+        f"{mods['card']}")
+    delta = {k: r1["by_name"].get(k, 0.0) - r0["by_name"].get(k, 0.0)
+             for k in set(r0["by_name"]) | set(r1["by_name"])}
+    for k, ms in sorted(delta.items(), key=lambda kv: -abs(kv[1]))[:6]:
+        log(f"[slice rephrase]   {ms:+9.3f} ms at 0.1  {k[:90]}")
+    check_pooled_term(torch, mods, params, cfg, images)
+    lm[:, cfg.tokens.seg] = seg_col * 1000.0
+
+
+def serve_rephrase_run(torch, flash, mods, params, cfg, images, per_batch):
+    """The 4 requests through Server, each with a callback: a counted
+    warm-up round (answers and launch counts checked), Server.reset_stats,
+    then the same round under torch.profiler, whose stats must count only
+    it; every callback fires exactly once."""
+    from torch.profiler import ProfilerActivity, profile
+    Request = mods["Request"]
+    # one preprocess worker: requests 0 + 1 and 2 + 3 share the batches in
+    # both runs, so that the runs' decode work is the same
+    server = mods["Server"](params, cfg, max_batch=2, speculative=True,
+                            max_new_tokens=8, encoder_path="fused",
+                            preprocess_workers=1)
+    fired = {}
+
+    def round_(tag):
+        reqs = []
+        for i, (im, t) in enumerate(zip(images, TEXTS)):
+            fired[tag, i] = 0
+
+            def cb(result, key=(tag, i)):
+                fired[key] += 1
+            reqs.append(server.submit(Request(image=im, text=t,
+                                              callback=cb)))
+        return [r.result(timeout=600) for r in reqs]
+
+    try:
+        for kernel in flash.KERNELS:
+            kernel.launches = 0
+        results = round_("warm-up")
+        torch.cuda.synchronize()
+        launches = {k.__name__: k.launches for k in flash.KERNELS}
+        n_batches = server.stats["batches"]
+        server.reset_stats()
+        p = server.predictor
+        if any(server.stats.values()) or p.completed_batches or \
+                p.h2d_bytes_total or p.d2h_bytes_total:
+            fail(f"Server.reset_stats left {server.stats}")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            again = round_("profiled")
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        stats = dict(server.stats)
+    finally:
+        server.shutdown()
+    if stats["rows"] != len(TEXTS) or \
+            p.completed_batches != stats["batches"]:
+        fail(f"stats after reset_stats count more than the profiled round: "
+             f"{stats}, {p.completed_batches} batches completed")
+    if sorted(fired.values()) != [1] * 2 * len(TEXTS):
+        fail(f"request callbacks fired {fired}, want each exactly once")
+    ids = []
+    for i, (r, (h, w)) in enumerate(zip(results + again, IMAGE_SIZES * 2)):
+        if not r or "error" in r:
+            fail(f"rephrase {cfg.rephrase_weight}, request {i}: {r}")
+        ml = r["mask_logits"]
+        has_seg = cfg.tokens.seg in r["output_ids"].tolist()
+        if (ml is None) == has_seg or r["mask"].shape != (h, w) or (
+                ml is not None and (ml.shape[-2:] != (h, w)
+                                    or not np.isfinite(ml).all())):
+            fail(f"rephrase {cfg.rephrase_weight}, request {i}: ids "
+                 f"{r['output_ids'].tolist()}, mask logits "
+                 f"{None if ml is None else ml.shape}")
+        ids.append(r["output_ids"].tolist())
+    if ids[:len(TEXTS)] != ids[len(TEXTS):]:
+        fail(f"rephrase {cfg.rephrase_weight}: the warm round answered "
+             f"{ids[len(TEXTS):]}, the first {ids[:len(TEXTS)]}")
+    want = {name: n * n_batches for name, n in per_batch.items()}
+    if launches != want:
+        fail(f"rephrase {cfg.rephrase_weight}: kernel launches {launches}, "
+             f"want {want}")
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.device_time_total / 1e3
+    busy = sum(by_name.values())
+    log(f"[slice rephrase {cfg.rephrase_weight}] ids {ids[:len(TEXTS)]}; "
+        f"launches as \"fused\" ({n_batches} batches); callbacks once "
+        f"each; stats after reset_stats {json.dumps(stats)}")
+    return {"ids": ids[:len(TEXTS)], "busy_ms": busy, "wall_s": wall,
+            "by_name": by_name, "passes": p.decode_passes_total}
+
+
+def check_pooled_term(torch, mods, params, cfg, images):
+    """generate's rephrase pooling at anyref_7b (the same 4 prompts in one
+    batch, speculative, "fused"), for each answer whose first [SEG] is at
+    k >= 1, against a plain fp32 recomputation from generate's own inputs
+    to it, observed by wrapping _last_layer_attn_row, _span_pool and
+    project_seg_hidden: the final layer's residual input at the query and
+    its roped keys (cache.k[-1]) give the row (RMSNorm, q, rope, a
+    per-head softmax over the causal row from the left pad, the head
+    mean); renormalised over the k states before the query (the last
+    prompt state and k - 1 answer states, at cache slots q_slot - k ..
+    q_slot - 1), it pools the states generate pooled. Held, relative L2
+    over those answers <= POOLED_REL_L2: (1) the row; (2) the pooled
+    vector; (3) the term as it reaches the output, seg_embeddings at 0.1
+    less at 0 (slot 0), against project(h + 0.1 pooled) - project(h) in
+    fp32, h generate's [SEG]-emitting state at rephrase 0 and the sum
+    rounded to h's dtype (bf16) as generate and the reference form it.
+    Printed beside them: the term with the sum left in fp32, and a second
+    reading from llama.forward(return_last_input=True) over the prompt's
+    real tokens and the k answer tokens before [SEG], the whole pooling
+    recomputed in fp32 from its states, held <= FORWARD_REL_L2, with its
+    floor (llama.forward's [SEG]-emitting state against generate's).
+    Answers without a span must keep their embedding exactly."""
+    anyref_mod, llama = mods["anyref"], mods["llama"]
+    ds = mods["SegDataset"](cfg)
+    samples = [ds.make_sample(im, mods["seg_question"](t), None, None)
+               for im, t in zip(images, TEXTS)]
+    fb = mods["Collator"](mods["AnyRefTokenizer"](), cfg)(samples)
+    B, bucket = len(TEXTS), 385
+    ids = np.zeros((B, bucket), np.int64)
+    for b in range(B):
+        n = int(fb["prompt_lens"][b])
+        ids[b, bucket - n:] = fb["input_ids"][b, :n]
+    batch = {"input_ids": torch.from_numpy(ids).cuda(),
+             "clip_images": torch.from_numpy(fb["clip_images"]).cuda(),
+             "sam_images": torch.from_numpy(fb["sam_images"]).cuda()}
+    seen = {"row": [], "pool": [], "state": []}
+    attn_row, span_pool = anyref_mod._last_layer_attn_row, anyref_mod._span_pool
+    project = anyref_mod.project_seg_hidden
+
+    def observed_row(p, c, q_in, k_roped, q_pos, q_slot, kv_start=None):
+        row = attn_row(p, c, q_in, k_roped, q_pos, q_slot, kv_start)
+        seen["row"].append((q_in.clone(), k_roped.clone(), q_pos, q_slot,
+                            kv_start, row))
+        return row
+
+    def observed_pool(row, hidden, span):
+        seen["pool"].append((row, hidden, span_pool(row, hidden, span)))
+        return seen["pool"][-1][-1]
+
+    def observed_project(p, hidden):
+        seen["state"].append(hidden)
+        return project(p, hidden)
+    out = {}
+    for w in (0.0, 0.1):
+        anyref_mod._last_layer_attn_row = observed_row
+        anyref_mod._span_pool = observed_pool
+        anyref_mod.project_seg_hidden = observed_project
+        try:
+            out[w] = anyref_mod.generate(
+                params, cfg.scaled(rephrase_weight=w), batch,
+                max_new_tokens=8, speculative=True, encoder_path="fused")
+        finally:
+            anyref_mod._last_layer_attn_row = attn_row
+            anyref_mod._span_pool = span_pool
+            anyref_mod.project_seg_hidden = project
+    if not torch.equal(out[0.0].output_ids, out[0.1].output_ids) or \
+            len(seen["row"]) != 1 or len(seen["pool"]) != 1:
+        fail("rephrase changed generate's ids, or pooled other than once")
+    seg_state = seen["state"][0][:, 0]        # rephrase 0, slot 0
+    term = (out[0.1].seg_embeddings[:, 0] - out[0.0].seg_embeddings[:, 0])
+    ks = first_seg(out[0.1].output_ids.cpu(), cfg.tokens.seg)
+    c = cfg.llama
+    nh, hd = c.num_heads, c.head_dim
+    lp = params["llama"]
+    layer = lp["layers"][-1]
+    inv = 1.0 / c.rope_theta ** (torch.arange(
+        0, hd, 2, device="cuda").float() / hd)
+
+    def rope(t, a):
+        t1, t2 = t[..., :hd // 2], t[..., hd // 2:]
+        return torch.cat([t1 * a.cos() - t2 * a.sin(),
+                          t2 * a.cos() + t1 * a.sin()], -1)
+
+    def rms_norm(x):
+        return (x * torch.rsqrt(x.square().mean(-1, keepdim=True)
+                                + c.rms_norm_eps)
+                * layer["input_norm"]["scale"].float())
+
+    def softmax_row(q, k, valid):
+        """Head-mean softmax row; q [nh, hd], k [nh, T, hd] fp32."""
+        s = torch.einsum("hd,htd->ht", q, k) * hd ** -0.5
+        return torch.softmax(s.masked_fill(~valid, float("-inf")),
+                             -1).mean(0)
+
+    def fp32_term(h, pooled, rounded):
+        s = h + (0.1 * pooled).to(h.dtype) if rounded else \
+            h.float() + 0.1 * pooled
+        return (anyref_mod.project_seg_hidden(params, s)
+                - anyref_mod.project_seg_hidden(params, h))
+
+    q_in, keys, q_pos, q_slot, kv_start, row = seen["row"][0]
+    _, hidden, pooled = seen["pool"][0]
+    wq, wk = layer["attn"]["q"]["w"].float(), layer["attn"]["k"]["w"].float()
+    names = ("row", "pooled", "term", "term_fp32_sum", "forward_pooled",
+             "forward_term", "floor")
+    err = {name: [0.0, 0.0] for name in names}
+
+    def add(name, got, want):
+        err[name][0] += float((got.float() - want).square().sum())
+        err[name][1] += float(want.square().sum())
+    rows = []
+    with torch.inference_mode():
+        clip = anyref_mod.encode_clip_images(params, cfg,
+                                             batch["clip_images"], "fused")
+        embeds, _, _ = anyref_mod.assemble_embeds(params, cfg,
+                                                  batch["input_ids"], clip)
+        pad = (batch["input_ids"] != 0).to(torch.uint8).argmax(1)
+        for b, k in enumerate(ks):
+            if k is None or k == 0:
+                if float(term[b].abs().max()) != 0.0 or \
+                        float(pooled[b].abs().max()) != 0.0:
+                    fail(f"rephrase: answer {b} has no span (first [SEG] "
+                         f"at {k}) but its embedding moved")
+                continue
+            # (1)-(3): from generate's own inputs to the pooling
+            q = (rms_norm(q_in[b].float()) @ wq).reshape(nh, hd)
+            q = rope(q, q_pos[b].float() * inv)
+            kb = keys[b].float().repeat_interleave(nh // c.num_kv_heads, 0)
+            t = torch.arange(kb.shape[1], device="cuda")
+            want_row = softmax_row(q, kb, (t <= q_slot[b])
+                                   & (t >= kv_start[b]))
+            # the states pooled sit at cache slots q_slot - k .. q_slot - 1
+            first = int(q_slot[b]) - k
+            w = want_row[first:first + k]
+            want_pool = (w / w.sum()) @ hidden[b, :k].float()
+            add("row", row[b], want_row)
+            add("pooled", pooled[b], want_pool)
+            add("term", term[b], fp32_term(seg_state[b], want_pool, True))
+            add("term_fp32_sum", term[b],
+                fp32_term(seg_state[b], want_pool, False))
+            # the second reading: llama.forward over prompt and answer
+            gen = llama.embed(lp, out[0.1].output_ids[b:b + 1, :k])
+            seq = torch.cat([embeds[b:b + 1, int(pad[b]):], gen], 1)
+            fwd_hidden, last_in = llama.forward(lp, c, seq,
+                                                return_last_input=True)
+            n = seq.shape[1]
+            hn = rms_norm(last_in[0].float())
+            q = rope((hn[n - 1] @ wq).reshape(nh, hd), (n - 1) * inv)
+            kk = (hn @ wk).reshape(n, c.num_kv_heads, hd).transpose(0, 1)
+            ang = torch.arange(n, device="cuda").float()[:, None] * inv
+            kk = rope(kk, ang).repeat_interleave(nh // c.num_kv_heads, 0)
+            w = softmax_row(q, kk, torch.arange(n, device="cuda") < n)
+            w = w[n - 1 - k:n - 1]
+            fwd_pool = (w / w.sum()) @ fwd_hidden[0, n - 1 - k:n - 1].float()
+            h = fwd_hidden[0, n - 1].float()
+            add("forward_pooled", pooled[b], fwd_pool)
+            add("forward_term", term[b], fp32_term(h, fwd_pool, False))
+            add("floor", h, seg_state[b].float())
+            rows.append(b)
+    if not rows:
+        fail(f"rephrase: no answer's first [SEG] at k >= 1 in generate: {ks}")
+    rel = {name: (num / den) ** 0.5 for name, (num, den) in err.items()}
+    log(f"[slice rephrase] generate's rephrase pooling against its fp32 "
+        f"recomputation from its own inputs, answers {rows} (first [SEG] "
+        f"at {ks}), relative L2: the row {rel['row']:.4g}, the pooled "
+        f"vector {rel['pooled']:.4g}, the term in seg_embeddings (at 0.1 "
+        f"less at 0) {rel['term']:.4g}, its norm {err['term'][1] ** 0.5:.4g} "
+        f"(limit {POOLED_REL_L2} each); the term against the sum left in "
+        f"fp32 {rel['term_fp32_sum']:.4g}")
+    log(f"[slice rephrase] the same against the fp32 recomputation from "
+        f"llama.forward: pooled vector {rel['forward_pooled']:.4g}, the "
+        f"term {rel['forward_term']:.4g} (limit {FORWARD_REL_L2} each); "
+        f"floor: the [SEG]-emitting state of llama.forward against "
+        f"generate's {rel['floor']:.4g}")
+    if max(rel["row"], rel["pooled"], rel["term"]) > POOLED_REL_L2 or \
+            max(rel["forward_pooled"], rel["forward_term"]) > FORWARD_REL_L2:
+        fail(f"rephrase: generate's pooling is off its fp32 recomputation: "
+             f"{rel}")
+
+
+def decode_step_ms(torch, llama, lp, cfg):
     """One greedy decode step (decoder at batch 2 over a 656-slot cache,
     lm_head, argmax) on decoder tree ``lp`` -> (wall ms, device-busy ms,
     kernels per step, the 5 kernels that take most of it as (name, ms per
-    step), {kernel name: (launches per step, ms per step)}). Wall: CUDA
-    events around ``iters`` steps back to back, over ``iters``. Busy: the
-    summed kernel time of 3 steps under torch.profiler, over 3 (the step's
-    device time whatever the host does)."""
+    step), {kernel name: (launches per step, ms per step)}). One step to
+    warm up, then wall: CUDA events around DECODE_ITERS steps back to back,
+    over DECODE_ITERS; busy: the summed kernel time of PROFILED_STEPS
+    steps under torch.profiler, over PROFILED_STEPS (the step's device
+    time whatever the host does)."""
     from torch.profiler import ProfilerActivity, profile
     B, L = 2, 640
     cache = llama.init_cache(cfg.llama, B, L + 16)
@@ -1501,13 +1942,13 @@ def decode_step_ms(torch, llama, lp, cfg, iters: int = 10):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        for _ in range(iters):
+        for _ in range(DECODE_ITERS):
             step()
         b.record()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
+            for _ in range(PROFILED_STEPS):
                 step()
             torch.cuda.synchronize()
     kernels = [e for e in prof.events()
@@ -1517,9 +1958,10 @@ def decode_step_ms(torch, llama, lp, cfg, iters: int = 10):
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
         count[e.name] = count.get(e.name, 0) + 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    return (a.elapsed_time(b) / iters, sum(by_name.values()) / 1e3 / 3,
-            len(kernels) / 3, [(n[:80], us / 1e3 / 3) for n, us in top],
-            {n: (count[n] / 3, us / 1e3 / 3) for n, us in by_name.items()})
+    n = PROFILED_STEPS
+    return (a.elapsed_time(b) / DECODE_ITERS, sum(by_name.values()) / 1e3 / n,
+            len(kernels) / n, [(k[:80], us / 1e3 / n) for k, us in top],
+            {k: (count[k] / n, us / 1e3 / n) for k, us in by_name.items()})
 
 
 def serve_int8(torch, flash, mods, params, cfg, images, per_batch):
@@ -1529,11 +1971,14 @@ def serve_int8(torch, flash, mods, params, cfg, images, per_batch):
     step timed again, and the 4 requests served greedy (Server(speculative=
     False)) on the default encoder path, every answer and launch count
     checked: int8_matmul 224 products per decoder pass (7 per layer) plus
-    one lm_head call per pass. The profile of the int8 step must show
-    exactly one CUDA kernel of csrc/int8_matmul.cu per product, all of the
-    decode body; its kernel time a step is printed against the bytes bound
-    of the decoder's int8 weights and scales. Returns (launch counts, that
-    step's int8 numbers)."""
+    one lm_head call per pass. The int8 steps must launch int8_matmul once
+    a product (its wrapper's count), and their profile must show at most
+    one CUDA kernel of csrc/int8_matmul.cu a product, all of the decode
+    body: torch.profiler drops device records late in a long process (the
+    same int8 step was seen with 2392 and with 2381 kernels), so a profile
+    can undercount but never overcount. The step's kernel time is printed
+    against the bytes bound of the decoder's int8 weights and scales.
+    Returns (launch counts, that step's int8 numbers)."""
     llama, quant = mods["llama"], mods["quant"]
     steps = {"bf16": decode_step_ms(torch, llama, params["llama"], cfg)}
     t0 = time.time()
@@ -1541,7 +1986,9 @@ def serve_int8(torch, flash, mods, params, cfg, images, per_batch):
     torch.cuda.synchronize()
     q_s = time.time() - t0
     torch.cuda.empty_cache()
+    flash.int8_matmul.launches = 0
     steps["int8"] = decode_step_ms(torch, llama, params["llama"], cfg)
+    launched = flash.int8_matmul.launches
     log(f"[slice int8] quantize_llama(anyref_7b decoder) on the card "
         f"{q_s:.2f} s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
         f"allocated after freeing the bf16 decoder")
@@ -1561,15 +2008,19 @@ def serve_int8(torch, flash, mods, params, cfg, images, per_batch):
             "int8_ms_a_step": sum(t for _, t in i8.values()),
             "int8_bytes_bound_ms": int8_bytes(params["llama"]) /
             H100_BYTES_PER_S * 1e3, "kernels": sorted(i8)}
-    log(f"[slice int8] int8 decode step under torch.profiler: {n_i8:g} "
-        f"CUDA kernels of int8_matmul.cu a step for {per_pass} products "
-        f"({', '.join(sorted(i8))}), {step['int8_ms_a_step']:.4f} ms a step "
-        f"against the bytes bound of the int8 weights and scales "
-        f"{step['int8_bytes_bound_ms']:.4f} ms")
-    if n_i8 != per_pass or any("decode_kernel" not in k for k in i8):
-        fail(f"int8 decode step: {n_i8:g} CUDA kernels of int8_matmul.cu a "
-             f"step ({sorted(i8)}), want {per_pass}, one decode_kernel a "
-             "product")
+    n_steps = 1 + DECODE_ITERS + PROFILED_STEPS
+    log(f"[slice int8] int8 decode step: int8_matmul launched "
+        f"{launched / n_steps:g} times a step over {n_steps} steps; under "
+        f"torch.profiler {n_i8:g} CUDA kernels of int8_matmul.cu a step for "
+        f"{per_pass} products ({', '.join(sorted(i8))}), "
+        f"{step['int8_ms_a_step']:.4f} ms a step against the bytes bound of "
+        f"the int8 weights and scales {step['int8_bytes_bound_ms']:.4f} ms")
+    if launched != n_steps * per_pass or n_i8 > per_pass or not i8 or \
+            any("decode_kernel" not in k for k in i8):
+        fail(f"int8 decode step: {launched} int8_matmul launches in "
+             f"{n_steps} steps, want {n_steps * per_pass}; {n_i8:g} CUDA "
+             f"kernels of int8_matmul.cu a step ({sorted(i8)}), want at most "
+             f"{per_pass}, one decode_kernel a product")
     torch.cuda.reset_peak_memory_stats()
     server = mods["Server"](params, cfg, max_batch=2, speculative=False,
                             max_new_tokens=8)
@@ -1680,6 +2131,376 @@ def profile_warm_round(torch, server, Request, images):
             "top": [(n[:90], us / 1e3) for n, us in top]}
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the reference's checkpoint layouts, assembled and served
+# ---------------------------------------------------------------------------
+def reference_state_dicts(cfg, rand, llama_layers=None) -> dict:
+    """Synthetic state dicts in the reference's layouts, every leaf drawn by
+    ``rand(*shape)``: "sam" (sam_vit_h_4b8939.pth), "clip" (HF
+    CLIPVisionModel, "vision_model."), "llama" (HF LlamaForCausalLM, the
+    first ``llama_layers`` layers), "mm_projector" and "heads" (LLaVA's and
+    AnyRef's, "model." prefix), "audio" (imagebind_huge.pth, audio branch)
+    and "adapter" (a PEFT LoRA adapter, r = 8 on q_proj and v_proj)."""
+    def lin(sd, name, i, o, bias=True):
+        sd[name + ".weight"] = rand(o, i)
+        if bias:
+            sd[name + ".bias"] = rand(o)
+
+    def ln(sd, name, d):
+        sd[name + ".weight"] = rand(d)
+        sd[name + ".bias"] = rand(d)
+
+    s, c, l, a = cfg.sam, cfg.clip, cfg.llama, cfg.audio
+    out = {}
+    sam = {}
+    d, P, g = s.encoder_embed_dim, s.prompt_embed_dim, s.embedding_size
+    hd = d // s.encoder_num_heads
+    ie = "image_encoder."
+    sam[ie + "patch_embed.proj.weight"] = rand(d, 3, s.patch_size,
+                                               s.patch_size)
+    sam[ie + "patch_embed.proj.bias"] = rand(d)
+    sam[ie + "pos_embed"] = rand(1, g, g, d)
+    for i in range(s.encoder_depth):
+        b = f"{ie}blocks.{i}."
+        size = g if i in s.encoder_global_attn_indexes else s.window_size
+        ln(sam, b + "norm1", d)
+        lin(sam, b + "attn.qkv", d, 3 * d)
+        lin(sam, b + "attn.proj", d, d)
+        sam[b + "attn.rel_pos_h"] = rand(2 * size - 1, hd)
+        sam[b + "attn.rel_pos_w"] = rand(2 * size - 1, hd)
+        ln(sam, b + "norm2", d)
+        lin(sam, b + "mlp.lin1", d, int(d * s.mlp_ratio))
+        lin(sam, b + "mlp.lin2", int(d * s.mlp_ratio), d)
+    sam[ie + "neck.0.weight"] = rand(P, d, 1, 1)
+    ln(sam, ie + "neck.1", P)
+    sam[ie + "neck.2.weight"] = rand(P, P, 3, 3)
+    ln(sam, ie + "neck.3", P)
+    pe = "prompt_encoder."
+    sam[pe + "pe_layer.positional_encoding_gaussian_matrix"] = rand(2, P // 2)
+    for i in range(4):
+        sam[f"{pe}point_embeddings.{i}.weight"] = rand(1, P)
+    sam[pe + "not_a_point_embed.weight"] = rand(1, P)
+    sam[pe + "no_mask_embed.weight"] = rand(1, P)
+    for idx, (o, i, k) in {0: (4, 1, 2), 3: (16, 4, 2), 6: (P, 16, 1)}.items():
+        sam[f"{pe}mask_downscaling.{idx}.weight"] = rand(o, i, k, k)
+        sam[f"{pe}mask_downscaling.{idx}.bias"] = rand(o)
+    ln(sam, pe + "mask_downscaling.1", 4)
+    ln(sam, pe + "mask_downscaling.4", 16)
+    md = "mask_decoder."
+    nm = s.num_multimask_outputs + 1
+
+    def attn(prefix, di):
+        for k in ("q", "k", "v"):
+            lin(sam, f"{prefix}.{k}_proj", P, di)
+        lin(sam, prefix + ".out_proj", di, P)
+
+    for i in range(s.mask_decoder_depth):
+        t = f"{md}transformer.layers.{i}."
+        attn(t + "self_attn", P)
+        attn(t + "cross_attn_token_to_image", P // 2)
+        attn(t + "cross_attn_image_to_token", P // 2)
+        lin(sam, t + "mlp.lin1", P, s.mask_decoder_mlp_dim)
+        lin(sam, t + "mlp.lin2", s.mask_decoder_mlp_dim, P)
+        for n in range(1, 5):
+            ln(sam, f"{t}norm{n}", P)
+    attn(md + "transformer.final_attn_token_to_image", P // 2)
+    ln(sam, md + "transformer.norm_final_attn", P)
+    sam[md + "iou_token.weight"] = rand(1, P)
+    sam[md + "mask_tokens.weight"] = rand(nm, P)
+    sam[md + "output_upscaling.0.weight"] = rand(P, P // 4, 2, 2)
+    sam[md + "output_upscaling.0.bias"] = rand(P // 4)
+    ln(sam, md + "output_upscaling.1", P // 4)
+    sam[md + "output_upscaling.3.weight"] = rand(P // 4, P // 8, 2, 2)
+    sam[md + "output_upscaling.3.bias"] = rand(P // 8)
+    for m in range(nm):
+        for li, (i, o) in enumerate(((P, P), (P, P), (P, P // 8))):
+            lin(sam, f"{md}output_hypernetworks_mlps.{m}.layers.{li}", i, o)
+    h = s.iou_head_hidden_dim
+    for li, (i, o) in enumerate(((P, h), (h, h), (h, nm))):
+        lin(sam, f"{md}iou_prediction_head.layers.{li}", i, o)
+    out["sam"] = sam
+
+    clip = {}
+    e = "vision_model.embeddings."
+    clip[e + "class_embedding"] = rand(c.hidden_size)
+    clip[e + "patch_embedding.weight"] = rand(c.hidden_size, 3, c.patch_size,
+                                              c.patch_size)
+    clip[e + "position_embedding.weight"] = rand(c.num_patches + 1,
+                                                 c.hidden_size)
+    ln(clip, "vision_model.pre_layrnorm", c.hidden_size)
+    for i in range(c.num_layers):
+        b = f"vision_model.encoder.layers.{i}."
+        ln(clip, b + "layer_norm1", c.hidden_size)
+        for k in ("q", "k", "v", "out"):
+            lin(clip, f"{b}self_attn.{k}_proj", c.hidden_size, c.hidden_size)
+        ln(clip, b + "layer_norm2", c.hidden_size)
+        lin(clip, b + "mlp.fc1", c.hidden_size, c.intermediate_size)
+        lin(clip, b + "mlp.fc2", c.intermediate_size, c.hidden_size)
+    out["clip"] = clip
+
+    n_layers = l.num_layers if llama_layers is None else llama_layers
+    D, qd = l.hidden_size, l.num_heads * l.head_dim
+    kvd = l.num_kv_heads * l.head_dim
+    llama = {"model.embed_tokens.weight": rand(l.vocab_size, D),
+             "model.norm.weight": rand(D),
+             "lm_head.weight": rand(l.vocab_size, D)}
+    adapter = {}
+    for i in range(n_layers):
+        b = f"model.layers.{i}."
+        llama[b + "input_layernorm.weight"] = rand(D)
+        llama[b + "post_attention_layernorm.weight"] = rand(D)
+        for k, (fi, fo) in {"q": (D, qd), "k": (D, kvd), "v": (D, kvd),
+                            "o": (qd, D)}.items():
+            lin(llama, f"{b}self_attn.{k}_proj", fi, fo, bias=False)
+        for k, (fi, fo) in {"gate": (D, l.intermediate_size),
+                            "up": (D, l.intermediate_size),
+                            "down": (l.intermediate_size, D)}.items():
+            lin(llama, f"{b}mlp.{k}_proj", fi, fo, bias=False)
+        for k, fo in (("q", qd), ("v", kvd)):
+            base = f"base_model.model.{b}self_attn.{k}_proj"
+            adapter[base + ".lora_A.weight"] = rand(8, D)
+            adapter[base + ".lora_B.weight"] = rand(fo, 8)
+    out["llama"] = llama
+    out["adapter"] = adapter
+    out["mm_projector"] = {"model.mm_projector.weight": rand(D, c.hidden_size),
+                           "model.mm_projector.bias": rand(D)}
+    heads = {}
+    lin(heads, "model.text_hidden_fcs.0.0", D, D)
+    lin(heads, "model.text_hidden_fcs.0.2", D, cfg.out_dim)
+    heads["model.loc_embeddings.weight"] = rand(cfg.tokens.num_loc,
+                                                cfg.out_dim)
+    if a is not None:
+        lin(heads, "model.audio_projector", a.out_embed_dim, D)
+    out["heads"] = heads
+
+    if a is not None:
+        audio = {}
+        pre, tr = "modality_preprocessors.audio.", "modality_trunks.audio."
+        ad = a.embed_dim
+        gh = (a.mel_bins - a.kernel_size) // a.stride + 1
+        gw = (a.target_len - a.kernel_size) // a.stride + 1
+        audio[pre + "rgbt_stem.proj.weight"] = rand(ad, 1, a.kernel_size,
+                                                    a.kernel_size)
+        ln(audio, pre + "rgbt_stem.norm_layer", ad)
+        audio[pre + "cls_token"] = rand(1, 1, ad)
+        audio[pre + "pos_embedding_helper.pos_embed"] = rand(1, gh * gw + 1,
+                                                             ad)
+        for i in range(a.num_blocks):
+            b = f"{tr}blocks.{i}."
+            ln(audio, b + "norm_1", ad)
+            audio[b + "attn.in_proj_weight"] = rand(3 * ad, ad)
+            audio[b + "attn.in_proj_bias"] = rand(3 * ad)
+            audio[b + "attn.bias_k"] = rand(1, 1, ad)
+            audio[b + "attn.bias_v"] = rand(1, 1, ad)
+            lin(audio, b + "attn.out_proj", ad, ad)
+            ln(audio, b + "norm_2", ad)
+            lin(audio, b + "mlp.fc1", ad, 4 * ad)
+            lin(audio, b + "mlp.fc2", 4 * ad, ad)
+        ln(audio, "modality_heads.audio.0", ad)
+        audio["modality_heads.audio.2.weight"] = rand(a.out_embed_dim, ad)
+        out["audio"] = audio
+    return out
+
+
+def merged_llava(sds: dict) -> dict:
+    """One merged reference checkpoint (merge_lora.py's output): LLaMA,
+    mm_projector, the CLIP tower under "model.vision_tower.", SAM under
+    "model.visual_model." and the AnyRef heads."""
+    return {**sds["llama"], **sds["mm_projector"], **sds["heads"],
+            **{"model.vision_tower." + k: v for k, v in sds["clip"].items()},
+            **{"model.visual_model." + k: v for k, v in sds["sam"].items()}}
+
+
+def write_safetensors(torch, path: str, sd: dict) -> None:
+    """A .safetensors file: 8-byte little-endian header length, the JSON
+    header (padded to 8 bytes), the raw little-endian buffers."""
+    names = {torch.float32: "F32", torch.float16: "F16",
+             torch.bfloat16: "BF16", torch.int8: "I8", torch.int32: "I32",
+             torch.int64: "I64"}
+    header, bufs, off = {}, [], 0
+    for k, t in sd.items():
+        raw = t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+        header[k] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                     "data_offsets": [off, off + raw.numel()]}
+        off += raw.numel()
+        bufs.append(raw)
+    h = json.dumps(header).encode()
+    h += b" " * (-len(h) % 8)
+    with open(path, "wb") as f:
+        f.write(len(h).to_bytes(8, "little"))
+        f.write(h)
+        for raw in bufs:
+            f.write(raw.numpy().data)
+
+
+# The checkpoint phase's depth cut: a 32-layer bf16 LLaMA is 13.5 GB of disk
+# a run; CLIP-L and SAM-H keep their full depth.
+CKPT_LLAMA_LAYERS = 2
+
+
+def checkpoint_phase(torch, flash, mods) -> dict:
+    """The reference's artifacts at anyref_7b width, LLaMA cut to
+    CKPT_LLAMA_LAYERS layers, drawn from a seeded generator into a temporary
+    directory: a merged LLaVA directory as one .safetensors shard (bf16:
+    LLaMA, mm_projector, the CLIP-L tower, SAM-H, the AnyRef heads), a PEFT
+    adapter (r = 8 on q and v) and a sam_vit_h .pth (fp32). Then
+    assemble_pretrained on the card and on the CPU (every leaf bit-equal),
+    the conversion CLI on the card with the adapter (the preset anyref_7b,
+    its decoder as deep as the state dict; load_params of its file
+    bit-equal to the CLI's tree built on the CPU, the LoRA-merged leaves
+    changed and everything else equal to the assembly), and the 4 requests
+    served on the assembled tree with the SentencePiece fixture tokenizer at
+    rephrase 0.1 (finite answers, "fused" launch counts at this depth)."""
+    import dataclasses
+    import tempfile
+
+    from anyref_tpu_torch import checkpoint
+    from anyref_tpu_torch.tools import convert_checkpoint as cli
+    base = mods["anyref_7b"]()
+    cfg = base.scaled(llama=dataclasses.replace(
+        base.llama, num_layers=CKPT_LLAMA_LAYERS))
+    log(f"[ckpt] cuts: LLaMA {CKPT_LLAMA_LAYERS} of {base.llama.num_layers} "
+        f"layers (widths, vocab, CLIP-L {cfg.clip.num_layers} layers and "
+        f"SAM-H {cfg.sam.encoder_depth} layers kept); no ImageBind file "
+        "(its tree is drawn from the seed)")
+    g = torch.Generator(device="cuda").manual_seed(7)
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device="cuda") * 0.02).to(
+            dtype).cpu()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        sds = reference_state_dicts(cfg, rand, CKPT_LLAMA_LAYERS)
+        llava, lora = os.path.join(tmp, "llava"), os.path.join(tmp, "lora")
+        os.makedirs(llava)
+        os.makedirs(lora)
+        write_safetensors(torch, os.path.join(llava, "model.safetensors"),
+                          merged_llava(sds))
+        with open(os.path.join(lora, "adapter_config.json"), "w") as f:
+            json.dump({"lora_alpha": 16, "r": 8}, f)
+        torch.save(sds["adapter"], os.path.join(lora, "adapter_model.bin"))
+        sam_pth = os.path.join(tmp, "sam_vit_h_4b8939.pth")
+        torch.save({k: rand(*v.shape, dtype=torch.float32)
+                    for k, v in sds["sam"].items()}, sam_pth)
+        del sds
+        size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in
+                   os.walk(tmp) for f in fs)
+        log(f"[ckpt] wrote {size / 2**30:.2f} GiB of reference artifacts in "
+            f"{time.time() - t0:.1f} s")
+
+        kw = dict(llava_dir=llava, sam_ckpt=sam_pth, dtype=torch.bfloat16)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        t0 = time.time()
+        tree = checkpoint.assemble_pretrained(cfg, device="cuda", **kw)
+        torch.cuda.synchronize()
+        t_gpu = time.time() - t0
+        peak = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+        t0 = time.time()
+        on_cpu = checkpoint.assemble_pretrained(cfg, device="cpu", **kw)
+        t_cpu = time.time() - t0
+        n = check_same_tree(torch, tree, on_cpu, "assemble_pretrained "
+                            "card vs CPU")
+        del on_cpu
+
+        out = os.path.join(tmp, "anyref_7b_cut.pt")
+        cmd = [sys.executable, "-m", "anyref_tpu_torch.tools."
+               "convert_checkpoint", "--out", out, "--llava_dir", llava,
+               "--sam_ckpt", sam_pth, "--lora_dir", lora, "--device", "cuda"]
+        t0 = time.time()
+        r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                           env=dict(os.environ, PYTHONPATH=ROOT))
+        t_cli = time.time() - t0
+        if r.returncode:
+            fail(f"conversion CLI: {r.stdout[-2000:]} {r.stderr[-2000:]}")
+        t0 = time.time()
+        loaded = checkpoint.load_params(out, device="cuda")
+        torch.cuda.synchronize()
+        t_load = time.time() - t0
+        merged_cpu = cli.build_params(cfg, lora_dir=lora, device="cpu", **kw)
+        check_same_tree(torch, loaded, merged_cpu, "the CLI's file (card) "
+                        "vs its tree built on the CPU")
+        del merged_cpu
+        adapted = 0
+        for path, a, b in tree_pairs(loaded, tree):
+            lora_leaf = path.startswith("/llama/layers/") and (
+                "/attn/q/" in path or "/attn/v/" in path)
+            adapted += lora_leaf
+            if lora_leaf == torch.equal(a, b):
+                fail(f"the CLI's {path} is "
+                     f"{'un' if lora_leaf else ''}changed by the adapter")
+        del loaded
+        log(f"[ckpt] assemble_pretrained(anyref_7b cut) on the card "
+            f"{t_gpu:.2f} s (peak {peak:.2f} GiB allocated above the "
+            f"{base_mem / 2**30:.2f} GiB held before), on the CPU "
+            f"{t_cpu:.2f} s: {n} leaves bit-equal; conversion CLI with the "
+            f"adapter on the card {t_cli:.2f} s (process included), "
+            f"load_params {t_load:.2f} s, bit-equal to the CPU build, "
+            f"{adapted} LoRA-merged leaves; {mods['card']}")
+
+    tok = mods["AnyRefTokenizer"].from_pretrained(
+        os.path.join(ROOT, "tests", "fixtures", "sp_tokenizer"))
+    rcfg = cfg.scaled(rephrase_weight=0.1)
+    server = mods["Server"](tree, rcfg, tokenizer=tok, max_batch=2,
+                            speculative=True, max_new_tokens=8,
+                            encoder_path="fused")
+    for kernel in flash.KERNELS:
+        kernel.launches = 0
+    try:
+        reqs = [server.submit(mods["Request"](image=im, text=t))
+                for im, t in zip(request_images(), TEXTS)]
+        results = [r.result(timeout=600) for r in reqs]
+        torch.cuda.synchronize()
+        n_batches = server.stats["batches"]
+    finally:
+        server.shutdown()
+    for i, (r, (h, w)) in enumerate(zip(results, IMAGE_SIZES)):
+        if not r or "error" in r:
+            fail(f"checkpoint phase, request {i}: {r}")
+        ml = r["mask_logits"]
+        if r["mask"].shape != (h, w) or (ml is not None and (
+                ml.shape[-2:] != (h, w) or not np.isfinite(ml).all())):
+            fail(f"checkpoint phase, request {i}: mask {r['mask'].shape}, "
+                 f"logits {None if ml is None else ml.shape}")
+        log(f"[ckpt] request {i}: {r['text']!r} ids "
+            f"{r['output_ids'].tolist()}")
+    launches = {k.__name__: k.launches for k in flash.KERNELS}
+    want = {k: v * n_batches
+            for k, v in launches_per_batch(flash, cfg)["fused"].items()}
+    if launches != want:
+        fail(f"checkpoint phase: launches {launches}, want {want}")
+    log(f"[ckpt] served the 4 requests on the assembled tree, SentencePiece "
+        f"fixture tokenizer, rephrase 0.1, {n_batches} batches: launches "
+        f"those of \"fused\" at {CKPT_LLAMA_LAYERS} decoder layers")
+    return {"assemble_s": t_gpu, "load_s": t_load, "peak_gib": peak}
+
+
+def tree_pairs(a, b, path=""):
+    """(path, leaf of a, leaf of b) of two trees of one structure."""
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            fail(f"trees differ at {path}: {sorted(a)} vs {sorted(b)}")
+        return [p for k in a for p in tree_pairs(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, list):
+        if len(a) != len(b):
+            fail(f"trees differ at {path}: {len(a)} vs {len(b)} entries")
+        return [p for i, (x, y) in enumerate(zip(a, b))
+                for p in tree_pairs(x, y, f"{path}/{i}")]
+    return [(path, a, b)]
+
+
+def check_same_tree(torch, a, b, what: str) -> int:
+    """Every leaf of ``a`` bit-equal to ``b``'s (dtype and shape too)."""
+    pairs = tree_pairs(a, b)
+    for path, x, y in pairs:
+        if x.dtype != y.dtype or x.shape != y.shape or \
+                not torch.equal(x.cpu(), y.cpu()):
+            fail(f"{what}: {path} differs")
+    return len(pairs)
+
+
 def log_ptxas(src: str, text: str) -> None:
     """One line per compiled kernel of a ptxas -v report: its (mangled)
     name, registers and spill bytes."""
@@ -1770,7 +2591,8 @@ def main() -> int:
             "tokenize_conversation": tokenize_conversation,
             "SegDataset": SegDataset, "Collator": Collator, "lora": lora,
             "step": step, "TrainConfig": TrainConfig, "Trainer": Trainer,
-            "llama": llama, "quant": quant}
+            "llama": llama, "quant": quant, "anyref": anyref_mod,
+            "card": card}
     # phase 3: "unfused" and "unfused_qkv" at anyref_tiny, "fused" and
     # "fused_block" where both fused SAM gates open (64 <= ws^2 and a 32 x
     # 32 global grid), the int8 decoder at anyref_tiny, and one train step
@@ -1783,14 +2605,18 @@ def main() -> int:
     check_tiny_slice(torch, tiny512, "fused_block", tparams, anyref_mod)
     check_tiny_slice(torch, tiny, "fused", tparams, anyref_mod, quant=quant,
                      flash=flash)
+    check_tiny_rephrase(torch, tiny512, tparams, anyref_mod)
     check_tiny_train(torch, tiny, mods)
     # phase 4
     launches, int8_step = serve_7b(torch, flash, mods)
     torch.cuda.empty_cache()
     # phase 5
     trained = train_7b(torch, flash, mods)
-
+    torch.cuda.empty_cache()
     # phase 6
+    checkpoint_phase(torch, flash, mods)
+
+    # phase 7
     meta = {
         "layer_norm_fused": ("anyref_tpu_torch/csrc/norms.cu",
                              "anyref_tpu/ops/flash.py:615"),

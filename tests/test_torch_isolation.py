@@ -131,3 +131,77 @@ def test_train_step_loads_no_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+WEIGHT_FAMILY = JAX_FAMILY[:-1] + ", 'safetensors', 'sentencepiece', " \
+    "'tokenizers')"
+
+
+def test_checkpoint_path_loads_no_jax_or_weight_packages(tmp_path):
+    """In a fresh interpreter: importing sp, tokenizer, convert, checkpoint
+    and the conversion CLI, loading the SentencePiece fixture and reading a
+    .safetensors file load none of JAX, the JAX package, safetensors,
+    sentencepiece or tokenizers."""
+    code = (
+        "import sys, torch\n"
+        "import chip_smoke\n"
+        "from anyref_tpu_torch import checkpoint, convert, sp, tokenizer\n"
+        "from anyref_tpu_torch.tools import convert_checkpoint\n"
+        "tok = tokenizer.AnyRefTokenizer.from_pretrained(\n"
+        "    'tests/fixtures/sp_tokenizer')\n"
+        "assert isinstance(tok.base, sp.SentencePieceModel)\n"
+        f"path = {str(tmp_path / 'x.safetensors')!r}\n"
+        "sd = {'w': torch.arange(6.).reshape(2, 3).bfloat16()}\n"
+        "chip_smoke.write_safetensors(torch, path, sd)\n"
+        "assert torch.equal(checkpoint._load_torch_state_dict(path)['w'],\n"
+        "                   sd['w'])\n"
+        f"bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
+        f"             {WEIGHT_FAMILY})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_sources_import_no_weight_packages():
+    """The port reads .safetensors and SentencePiece models itself; only
+    the tokenizer.json branch of from_pretrained imports ``tokenizers``."""
+    weights = re.compile(r"^\s*(?:import|from)\s+(?:safetensors|"
+                         r"sentencepiece)(?![\w])", re.M)
+    tok = re.compile(r"^\s*(?:import|from)\s+tokenizers(?![\w])", re.M)
+    pkg = ROOT / "anyref_tpu_torch"
+    files = sorted(f for f in pkg.rglob("*.py")
+                   if "build" not in f.relative_to(pkg).parts)
+    files.append(ROOT / "chip_smoke.py")
+    assert not [str(f) for f in files if weights.search(f.read_text())]
+    assert [f.name for f in files if tok.search(f.read_text())] == \
+        ["tokenizer.py"]
+
+
+def test_checkpoint_entry_points_refuse_cpu_without_gpu(monkeypatch,
+                                                        tmp_path):
+    """No device named and no GPU: assemble_pretrained, load_params, the
+    conversions and the CLI raise instead of running on the CPU."""
+    from anyref_tpu_torch import checkpoint, convert
+    from anyref_tpu_torch.config import anyref_tiny
+    from anyref_tpu_torch.tools import convert_checkpoint
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = anyref_tiny()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        checkpoint.assemble_pretrained(cfg)
+    path = str(tmp_path / "p.pt")
+    checkpoint.save_params(path, {"w": torch.zeros(2)})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        checkpoint.load_params(path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.convert_mm_projector(
+            {"mm_projector.weight": np.zeros((4, 2), np.float32)},
+            device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert_checkpoint.main(["--out", str(tmp_path / "o.pt"),
+                                 "--preset", "tiny"])
+    assert checkpoint.load_params(path, device="cpu")["w"].device.type == \
+        "cpu"
