@@ -1,5 +1,5 @@
 """Host image preprocessing in numpy (port of anyref_tpu/data/preprocess.py,
-image half and the ground-truth mask canvas).
+image half, the ground-truth mask canvas and the reference crop).
 
 Per image: a CLIP image [3, 224, 224] (CLIP-normalized, force-resized), a
 SAM image [3, S, S] (longest side S, bottom/right zero pad, SAM-normalized)
@@ -100,3 +100,21 @@ def mask_to_canvas_np(mask: np.ndarray, resized_hw: tuple[int, int],
     out = np.zeros((image_size, image_size), np.float32)
     out[:nh, :nw] = mask[ys][:, xs].astype(np.float32)
     return out
+
+
+def crop_box_np(image_rgb_u8: np.ndarray, xyxy: np.ndarray,
+                mask: np.ndarray | None = None) -> np.ndarray:
+    """The reference crop of the image-reference pathway: the box's pixels,
+    optionally multiplied by a mask. Corners round to whole pixels; the
+    top-left is clamped inside the image, so a 1-pixel box inset at the
+    right or bottom edge still crops one pixel (not zero, which would break
+    CLIP's shortest-edge resize)."""
+    x1, y1, x2, y2 = [int(round(float(v))) for v in xyxy]
+    h, w = image_rgb_u8.shape[:2]
+    x1, y1 = min(max(x1, 0), w - 1), min(max(y1, 0), h - 1)
+    x2 = min(max(x2, x1 + 1), w)
+    y2 = min(max(y2, y1 + 1), h)
+    crop = image_rgb_u8[y1:y2, x1:x2]
+    if mask is not None:
+        crop = crop * mask[y1:y2, x1:x2, None].astype(crop.dtype)
+    return crop

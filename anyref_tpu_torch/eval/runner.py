@@ -3,10 +3,11 @@
 
 Prompts are left-padded into length buckets and batches into batch buckets
 (padding rows copy row 0 and are dropped), so the shapes the device sees come
-from a small fixed set. uint8 images are normalized on the device. The
-fetch packs ids, [SEG] validity and the decode pass count into one int32
-array; the variable-shape tail (crop the padded canvas, resize to each
-image's size) runs on the host.
+from a small fixed set. The reference keys (crops, boxes, audio clips and
+their validity) ride along, padded the same way. uint8 images are
+normalized on the device. The fetch packs ids, [SEG] validity and the
+decode pass count into one int32 array; the variable-shape tail (crop the
+padded canvas, resize to each image's size) runs on the host.
 """
 
 from __future__ import annotations
@@ -122,6 +123,10 @@ class Predictor:
         host = {"input_ids": left,
                 "clip_images": pad_rows(batch["clip_images"]),
                 "sam_images": pad_rows(batch["sam_images"])}
+        for k in ("ref_images", "ref_valid", "audio_mels", "audio_valid",
+                  "roi_boxes"):
+            if k in batch:
+                host[k] = pad_rows(np.asarray(batch[k]))
         if batch["sam_images"].dtype == np.uint8:
             host["sam_resized_sizes"] = pad_rows(
                 np.asarray(batch["sam_resized_sizes"], np.int32))
@@ -131,9 +136,9 @@ class Predictor:
         if dev["sam_images"].dtype == torch.uint8:
             dev["sam_images"] = _sam_normalize_device(
                 dev["sam_images"], dev.pop("sam_resized_sizes"))
-        if dev["clip_images"].dtype == torch.uint8:
-            dev["clip_images"] = clip_vit.normalize_pixels(
-                dev["clip_images"].float())
+        for k in ("clip_images", "ref_images"):
+            if k in dev and dev[k].dtype == torch.uint8:
+                dev[k] = clip_vit.normalize_pixels(dev[k].float())
         out = anyref.generate(self.params, self.cfg, dev,
                               max_new_tokens=self.mnt,
                               speculative=self.speculative,

@@ -1,5 +1,5 @@
-"""AnyRef model core, text references (port of anyref_tpu/models/anyref.py
-generate, train_forward and what they call).
+"""AnyRef model core (port of anyref_tpu/models/anyref.py generate,
+train_forward and what they call).
 
 A LLaVA-style LLaMA emits [SEG] tokens; their post-norm hidden states project
 (text_hidden_fcs) into SAM's prompt space and SAM's mask decoder turns them
@@ -11,8 +11,14 @@ towers under ``torch.no_grad``, and with ``cfg.use_loc_tokens`` the loc
 tokens of a batch that carries ``loc_boxes``. With ``cfg.rephrase_weight``
 > 0 both add the reference's rephrase pooling to each [SEG] state: the
 answer's states before the first [SEG], weighted by the final decoder
-layer's head-mean attention row of the state that emitted it. Reference-image,
-RoI and audio prompts raise.
+layer's head-mean attention row of the state that emitted it.
+
+A referring expression may also be an image crop (CLIP's patches pooled to
+4 tokens), an RoI box (one learned embedding per quantized coordinate) or
+audio (ImageBind's audio tower, 3 clips, projected): their features fill
+the prompt's 4 <img_ref> or 3 <audio_ref> placeholders. A batch carries a
+crop or a box, never both, plus optional audio; rows without one keep the
+placeholders' token embeddings.
 """
 
 from __future__ import annotations
@@ -21,14 +27,15 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..config import (IGNORE_INDEX, NUM_IMAGE_TOKENS, AnyRefConfig,
-                      check_encoder_path)
+from ..config import (IGNORE_INDEX, IMG_REF_NUM, NUM_IMAGE_TOKENS,
+                      AnyRefConfig, check_encoder_path)
 from ..ops.common import linear, rms_norm
 from ..ops.losses import dice_loss, lm_cross_entropy, sigmoid_ce_loss
 from ..params import resolve_device
 from ..tokenizer import EOS_ID, PAD_ID
 from . import clip_vit, llama
 from . import sam as sam_mod
+from .imagebind import audio as imagebind_audio
 
 
 def encode_clip_images(params: dict, cfg: AnyRefConfig, clip_pixels,
@@ -52,13 +59,85 @@ def _expand_image(ids, img_pos, fill_value: int, out_len: int):
                        gathered)
 
 
+def _scatter_placeholder(embeds, token_ids, placeholder_id: int, feats,
+                         valid):
+    """Replace embeds [B, L, D] where token_ids == placeholder_id by feats
+    [B, K, D]: the k-th occurrence takes row k (clamped to the last); rows
+    whose ``valid`` [B] is false keep their embeddings."""
+    mask = (token_ids == placeholder_id) & valid[:, None]
+    occ = (torch.cumsum(mask.long(), 1) - 1).clamp(0, feats.shape[1] - 1)
+    gathered = torch.gather(
+        feats, 1, occ[:, :, None].expand(-1, -1, feats.shape[-1]))
+    return torch.where(mask[:, :, None], gathered.to(embeds.dtype), embeds)
+
+
+def encode_ref_images(params: dict, cfg: AnyRefConfig, ref_pixels,
+                      encoder_path: str = "fused"):
+    """The reference crop: CLIP's 256 patch features pooled 256 -> 16 -> 4
+    tokens [B, 4, D], in two means as the reference pools them (the
+    rounding between them is part of the result). CLIP and mm_projector
+    are frozen: no gradient."""
+    with torch.no_grad():
+        feats = encode_clip_images(params, cfg, ref_pixels, encoder_path)
+        B, L, D = feats.shape
+        feats = feats.reshape(B, L // 16, 16, D).mean(2)         # [B, 16, D]
+        return feats.reshape(B, IMG_REF_NUM, -1, D).mean(2)      # [B, 4, D]
+
+
+def encode_roi(params: dict, roi_boxes):
+    """Normalized xyxy boxes [B, 4] -> [B, 4, D]: coordinate k quantized to
+    round(100 x) (half to even, as jnp.round), clamped to 0-100, picks row
+    of params["roi_embed"][k]."""
+    q = torch.round(roi_boxes.float() * 100.0).clamp(0, 100).long()
+    slot = torch.arange(q.shape[1], device=q.device)[None, :]
+    return params["roi_embed"][slot, q]
+
+
+def encode_audio(params: dict, cfg: AnyRefConfig, mels):
+    """Audio clips [B, 3, 1, mel_bins, target_len] -> reference tokens
+    [B, 3, D] through the frozen ImageBind tower and the audio_projector."""
+    with torch.no_grad():
+        _, emb = imagebind_audio.get_audio_feature(params["audio_encoder"],
+                                                   cfg.audio, mels)
+    proj = params["audio_projector"]
+    return linear(proj, emb.to(proj["w"].dtype))
+
+
+def _encode_reference_feats(params: dict, cfg: AnyRefConfig, batch: dict,
+                            dev, encoder_path: str = "fused"):
+    """The reference signal of a batch: an image crop or an RoI box (the
+    crop when both keys are present, as the reference), plus optional
+    audio. Returns (ref_feats, ref_valid, audio_feats, audio_valid), each
+    None where the batch has no such key."""
+    def t(key):
+        return (None if batch.get(key) is None
+                else torch.as_tensor(batch[key], device=dev))
+
+    ref_feats = audio_feats = ref_valid = audio_valid = None
+    if "ref_images" in batch:
+        ref_feats = encode_ref_images(params, cfg, t("ref_images"),
+                                      encoder_path)
+        ref_valid = t("ref_valid")
+    elif "roi_boxes" in batch:
+        ref_feats = encode_roi(params, t("roi_boxes"))
+        ref_valid = t("ref_valid")
+    if "audio_mels" in batch and cfg.audio is not None:
+        audio_feats = encode_audio(params, cfg, t("audio_mels"))
+        audio_valid = t("audio_valid")
+    return ref_feats, ref_valid, audio_feats, audio_valid
+
+
 def assemble_embeds(params: dict, cfg: AnyRefConfig, input_ids, clip_feats,
-                    labels=None):
+                    ref_feats=None, ref_valid=None, audio_feats=None,
+                    audio_valid=None, labels=None):
     """input_ids [B, T] with one <image> token per row -> (embeds
     [B, T+255, D] with the CLIP features spliced in, expanded ids, expanded
-    labels (IGNORE_INDEX over the image) or None)."""
+    labels (IGNORE_INDEX over the image) or None). ``ref_feats`` [B, 4, D]
+    fill the <img_ref> placeholders and ``audio_feats`` [B, 3, D] the
+    <audio_ref> ones, in rows whose ``*_valid`` [B] is true (every row
+    where it is None)."""
     tk = cfg.tokens
-    T = input_ids.shape[1]
+    B, T = input_ids.shape
     L = T + NUM_IMAGE_TOKENS - 1
     img_pos = (input_ids == tk.image).to(torch.uint8).argmax(1)
     exp_ids = _expand_image(input_ids, img_pos, tk.image, L)
@@ -70,6 +149,13 @@ def assemble_embeds(params: dict, cfg: AnyRefConfig, input_ids, clip_feats,
     D = clip_feats.shape[-1]
     img = torch.gather(clip_feats, 1, img_idx[:, :, None].expand(-1, -1, D))
     embeds = torch.where(in_img[:, :, None], img.to(embeds.dtype), embeds)
+    for slot, feats, valid in ((tk.img_ref, ref_feats, ref_valid),
+                               (tk.audio_ref, audio_feats, audio_valid)):
+        if feats is not None:
+            if valid is None:
+                valid = torch.ones((B,), device=input_ids.device)
+            embeds = _scatter_placeholder(embeds, exp_ids, slot, feats,
+                                          valid.to(torch.bool))
     exp_labels = None
     if labels is not None:
         exp_labels = _expand_image(labels, img_pos, IGNORE_INDEX, L)
@@ -235,14 +321,6 @@ class TrainOutput(NamedTuple):
     seg_valid: torch.Tensor       # [B, S]
 
 
-def _check_text_only(batch: dict) -> None:
-    for key in ("ref_images", "roi_boxes", "audio_mels"):
-        if key in batch:
-            raise NotImplementedError(
-                f"{key}: the port takes text references only; image-crop, "
-                "RoI and audio references are not ported")
-
-
 def _last_layer_attn_row(params: dict, cfg: AnyRefConfig, q_in, k_roped,
                          q_pos, q_slot, kv_start=None):
     """The final decoder layer's attention probabilities for one query row
@@ -318,12 +396,13 @@ def train_forward(params: dict, cfg: AnyRefConfig, batch: dict,
     clip_images [B, 3, 224, 224], sam_images [B, 3, S, S], gt_masks
     [B, S_seg, S, S] on the SAM canvas, mask_valid [B, S_seg],
     sam_resized_sizes [B, 2]; optional loc_boxes [B, S_seg, 4] indices of
-    ``params["loc_embeddings"]``, used with ``cfg.use_loc_tokens``. CLIP,
-    mm_projector and the SAM image encoder run under ``torch.no_grad``
-    (frozen towers; the reference's stop_gradient). ``remat`` checkpoints
-    each decoder layer."""
+    ``params["loc_embeddings"]``, used with ``cfg.use_loc_tokens``;
+    optional references: ref_images [B, 3, 224, 224] or roi_boxes [B, 4]
+    with ref_valid [B], audio_mels [B, 3, 1, 128, 204] with audio_valid
+    [B]. CLIP, mm_projector, the audio tower and the SAM image encoder run
+    under ``torch.no_grad`` (frozen towers; the reference's
+    stop_gradient). ``remat`` checkpoints each decoder layer."""
     check_encoder_path(encoder_path)
-    _check_text_only(batch)
     tk = cfg.tokens
     dev = params["llama"]["embed_tokens"].device
 
@@ -338,8 +417,10 @@ def train_forward(params: dict, cfg: AnyRefConfig, batch: dict,
         image_embeddings = sam_mod.encode_image(params["sam"],
                                                 t("sam_images"), cfg.sam,
                                                 encoder_path)
-    embeds, exp_ids, exp_labels = assemble_embeds(params, cfg, input_ids,
-                                                  clip_feats, labels)
+    embeds, exp_ids, exp_labels = assemble_embeds(
+        params, cfg, input_ids, clip_feats,
+        *_encode_reference_feats(params, cfg, batch, dev, encoder_path),
+        labels=labels)
     hidden, last_in = llama.forward(params["llama"], cfg.llama, embeds,
                                     return_last_input=True, remat=remat)
     lm_loss = lm_cross_entropy(llama.logits(params["llama"], hidden),
@@ -405,7 +486,8 @@ def generate(params: dict, cfg: AnyRefConfig, batch: dict,
 
     batch: input_ids [B, T] (prompt only, LEFT-padded, one <image> per
     row), clip_images [B, 3, 224, 224] and sam_images [B, 3, S, S]
-    normalized; arrays or tensors, moved to ``device``. The params must
+    normalized, optional references as train_forward takes them; arrays or
+    tensors, moved to ``device``. The params must
     already live on ``device``. ``encoder_path`` selects the towers' path
     (config.ENCODER_PATHS). An int8 decoder tree (ops.quant.quantize_llama)
     runs greedy and speculative decode alike."""
@@ -416,7 +498,6 @@ def generate(params: dict, cfg: AnyRefConfig, batch: dict,
     if p_dev.type != dev.type:
         raise ValueError(f"params live on {p_dev}, generate was asked to run "
                          f"on {dev}")
-    _check_text_only(batch)
     mnt = max_new_tokens or cfg.max_new_tokens
     tk = cfg.tokens
     input_ids = torch.as_tensor(batch["input_ids"], device=dev).long()
@@ -424,7 +505,9 @@ def generate(params: dict, cfg: AnyRefConfig, batch: dict,
     sam_images = torch.as_tensor(batch["sam_images"], device=dev)
 
     clip_feats = encode_clip_images(params, cfg, clip_images, encoder_path)
-    embeds, exp_ids, _ = assemble_embeds(params, cfg, input_ids, clip_feats)
+    embeds, exp_ids, _ = assemble_embeds(
+        params, cfg, input_ids, clip_feats,
+        *_encode_reference_feats(params, cfg, batch, dev, encoder_path))
     # left pad: pad keys are masked and rope positions shift so each row's
     # first real token is position 0
     pad_len = (input_ids != PAD_ID).to(torch.uint8).argmax(1)

@@ -1,6 +1,14 @@
-"""Serving runtime for text requests: request queue -> preprocess workers ->
-micro-batcher -> device loop -> completion loop (port of
-anyref_tpu/serve.py).
+"""Serving runtime: request queue -> preprocess workers -> micro-batcher ->
+device loop -> completion loop (port of anyref_tpu/serve.py).
+
+A request refers to its object by text, an image crop, an RoI box (pixel
+xyxy) or audio (a 16 kHz waveform, turned into mel clips on the server's
+device). A batch carries crops or boxes, never both (the model encodes one
+kind a batch): the micro-batcher closes a group before the first request
+whose kind conflicts with the group's, and that request opens the next
+group, so arrival order is kept. Text and audio requests join either kind.
+A batch with a box is collated in RoI mode, so the box reaches the model
+(the reference's Server collates every batch without it and drops the box).
 
 Requests accumulate and flush as a batch when ``max_batch`` are waiting or
 ``max_wait_ms`` elapses (``fill_wait_ms`` when more requests are already
@@ -25,13 +33,21 @@ from .config import AnyRefConfig
 from .data.base import SegDataset
 from .data.collator import Collator
 from .eval.runner import Predictor, binary_mask
-from .tokenizer import EOS_ID, AnyRefTokenizer, seg_question
+from .ops.mel import audio_to_mel_clips
+from .tokenizer import (EOS_ID, AnyRefTokenizer, audio_ref_question,
+                        img_ref_question, seg_question)
 
 
 @dataclass
 class Request:
+    """One of text, ref_image ([h, w, 3] uint8 crop), roi_xyxy (pixel
+    coordinates in ``image``) or audio_waveform (16 kHz mono); where
+    several are set the first in this order is used."""
     image: np.ndarray                       # [H, W, 3] uint8 RGB
-    text: str
+    text: Optional[str] = None
+    ref_image: Optional[np.ndarray] = None
+    roi_xyxy: Optional[np.ndarray] = None   # pixel coords
+    audio_waveform: Optional[np.ndarray] = None
     # called once with the result dict, after result() can return it
     callback: Optional[Callable] = None
     _result: dict = field(default_factory=dict)
@@ -70,6 +86,7 @@ class Server:
                                    fetch_segs=fetch_segs, device=device,
                                    encoder_path=encoder_path)
         self.collator = Collator(self.tok, cfg)
+        self._roi_collator = Collator(self.tok, cfg, roi=True)
         self.max_batch = max_batch
         self.max_wait = max_wait_ms / 1000.0
         self.fill_wait = fill_wait_ms / 1000.0
@@ -183,6 +200,40 @@ class Server:
                 logging.getLogger(__name__).exception(
                     "request callback raised")
 
+    def _build_sample(self, req: Request) -> dict:
+        kw = {}
+        if req.text is not None:
+            q = seg_question(req.text)
+        elif req.ref_image is not None:
+            q = img_ref_question()
+            kw["ref_image"] = req.ref_image
+        elif req.roi_xyxy is not None:
+            q = img_ref_question()
+            h, w = req.image.shape[:2]
+            kw["ref_bbox"] = (np.asarray(req.roi_xyxy, np.float32)
+                              / np.asarray([w, h, w, h], np.float32))
+        elif req.audio_waveform is not None:
+            a = self.cfg.audio
+            if a is None:
+                raise ValueError("an audio request needs a configuration "
+                                 "with an audio tower")
+            q = audio_ref_question()
+            kw["audio_mels"] = audio_to_mel_clips(
+                req.audio_waveform, a.sample_rate, a.mel_bins, a.target_len,
+                a.clip_duration, a.clips_per_audio, a.mel_mean, a.mel_std,
+                device=self.predictor.device).cpu().numpy()
+        else:
+            raise ValueError("request needs text/ref_image/roi/audio")
+        return self._helper.make_sample(req.image, q, None, None, **kw)
+
+    @staticmethod
+    def _ref_kind(sample: dict) -> Optional[str]:
+        """"crop", "roi" or None (text, audio): the reference kind a batch
+        may hold only one of."""
+        if "ref_image" in sample:
+            return "crop"
+        return "roi" if "ref_bbox" in sample else None
+
     def _preprocess_loop(self):
         while not self._stop.is_set():
             try:
@@ -190,26 +241,28 @@ class Server:
             except queue.Empty:
                 continue
             try:
-                sample = self._helper.make_sample(
-                    req.image, seg_question(req.text), None, None)
+                sample = self._build_sample(req)
                 self._run_q.put((req, sample))
             except Exception as e:
                 self._ungroup(1)
                 self._finish(req, {"error": repr(e)})
 
     def _device_loop(self):
+        carry = None     # a request whose reference kind closed the group
         while not self._stop.is_set():
             t0 = time.time()
-            first = None
+            first, carry = carry, None
             while first is None and not self._stop.is_set():
                 try:
                     first = self._run_q.get(timeout=0.1)
                 except queue.Empty:
                     pass
-            if first is None:
+            if first is None or self._stop.is_set():
+                carry = first
                 break
             t1 = time.time()
             group = [first]
+            kind = self._ref_kind(first[1])
             # max_wait when no partner is coming, fill_wait when more
             # requests are known to be upstream
             hard_deadline = t1 + self.fill_wait
@@ -221,10 +274,15 @@ class Server:
                 if remaining <= 0:
                     break
                 try:
-                    group.append(self._run_q.get(
-                        timeout=min(remaining, 0.05)))
+                    item = self._run_q.get(timeout=min(remaining, 0.05))
                 except queue.Empty:
                     continue
+                k = self._ref_kind(item[1])
+                if k is not None and kind is not None and k != kind:
+                    carry = item   # opens the next group
+                    break
+                kind = kind or k
+                group.append(item)
             t2 = time.time()
             self._ungroup(len(group))
             reqs, samples = zip(*group)
@@ -232,8 +290,10 @@ class Server:
             self.stats["rows"] += len(group)
             self.stats["wait_ms"] += (t1 - max(t0, self._stats_epoch)) * 1e3
             self.stats["group_ms"] += (t2 - t1) * 1e3
+            collator = self._roi_collator if kind == "roi" else \
+                self.collator
             try:
-                batch = self.collator(list(samples))
+                batch = collator(list(samples))
                 t3 = time.time()
                 self.stats["collate_ms"] += (t3 - t2) * 1e3
                 handle = self.predictor.predict_async(batch)
@@ -252,6 +312,9 @@ class Server:
             else:
                 for req in reqs:
                     self._finish(req, {"error": "server shut down"})
+        if carry is not None:   # taken from the queue, never grouped
+            self._ungroup(1)
+            self._finish(carry[0], {"error": "server shut down"})
 
     def _complete_loop(self):
         while not self._stop.is_set():

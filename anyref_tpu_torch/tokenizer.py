@@ -233,6 +233,10 @@ def tokenize_prompt(tokenizer: AnyRefTokenizer, question: str,
 # ---------------------------------------------------------------------------
 # Prompt templates (reference dataset prompt strings)
 # ---------------------------------------------------------------------------
+IMG_REF_PROMPT = "<img_ref_start>" + "<img_ref>" * 4 + "<img_ref_end>"
+AUDIO_REF_PROMPT = "<audio_ref_start>" + "<audio_ref>" * 3 + "<audio_ref_end>"
+
+
 def seg_question(class_text: str) -> str:
     """reference utils/refer_seg.py:403"""
     return f"<image>\nCan you segment {class_text} in this image?"
@@ -243,3 +247,21 @@ def seg_answer(class_text: str, itisseg: bool = False) -> str:
     if itisseg:
         return "it is [SEG]."
     return f"{class_text}[SEG]."
+
+
+def img_ref_question() -> str:
+    """reference utils/coco_instance.py:836-845"""
+    return ("<image>\nCan you segment object with the following reference "
+            f"{IMG_REF_PROMPT} in this image?")
+
+
+def audio_ref_question() -> str:
+    """reference utils/avsbench.py:255-266"""
+    return ("<image>\nCan you segment object with the following audio "
+            f"{AUDIO_REF_PROMPT} in this image?")
+
+
+def region_caption_question() -> str:
+    """reference utils/refer_seg_invert.py:403"""
+    return ("<image>\nCan you provide a description of the region "
+            f"{IMG_REF_PROMPT} in this image?")

@@ -42,15 +42,24 @@ Phases (any failure exits non-zero before the result line):
      both fused SAM gates open, the int8 decoder at anyref_tiny(); "fused"
      at rephrase_weight=0.1, greedy and speculative, with lm_head's [SEG]
      column scaled so that a row's first [SEG] comes at k >= 1 (ids equal
-     to the CPU's); and one train step's losses and gradients at
-     anyref_tiny();
+     to the CPU's); a crop, a box and a text + audio batch, greedy and
+     speculative, on "unfused" and "fused" (ids equal to the CPU's); and
+     one train step's losses and gradients at anyref_tiny();
   4. for each encoder path, "fused" (the default), "fused_block",
      "unfused_qkv" and "unfused": serve 4 text requests at anyref_7b width
      and depth (random weights from a seed) through Server -> Predictor ->
      generate with speculative decode, max_batch 2, and check every answer
      and each kernel's launch count on that path; then serve them again,
      warm, under torch.profiler for the wall time, the device's busy share
-     and the top kernels. Then rephrase pooling on "fused": the [SEG] column
+     and the top kernels. Then the references on "fused": a crop, an audio,
+     a box and a text request (batches [crop, audio] and [box, text]),
+     answers, callbacks, launch counts (flash_attention_qkv 46 in the
+     crop's batch, 23 in the other), encode_roi bit-equal to the CPU,
+     encode_ref_images, encode_audio and the mel clips against the CPU
+     plain path, assemble_embeds' placeholder and text rows bit for bit; a
+     warm profiled round (the audio tower's and the crop CLIP pass's
+     kernels between marker kernels) and each part timed alone. Then
+     rephrase pooling on "fused": the [SEG] column
      rescaled so that answers emit tokens before [SEG], the 4 requests
      served at rephrase 0 and 0.1 (each request with a callback that must
      fire once, a counted round, Server.reset_stats, a profiled round), and
@@ -177,6 +186,23 @@ TEXTS = (
     "with the painted flowers around its rim",
 )
 IMAGE_SIZES = ((224, 224), (224, 320), (288, 224), (224, 480))
+# the reference requests of phases 3 and 4, all on the 224 x 480 image: a
+# 224 x 224 crop of it (so neither CLIP preprocess resizes), a fixed RoI box
+# (pixel xyxy) and 5 s of audio at 16 kHz from the seed
+REF_CROP_XYXY = (128, 0, 352, 224)
+REF_ROI_XYXY = (60.0, 30.0, 300.0, 200.0)
+AUDIO_SECONDS = 5.0
+# encode_ref_images and encode_audio on the card against the CPU plain path
+# on the same bf16 weights, relative L2, at most REF_FLOOR_FACTOR times the
+# bf16 floor: the CPU's bf16 result against its fp32 result from the same
+# weights. Two bf16 computations that round at other points (the card's
+# kernels and cuBLAS, the CPU's plain ops) each stray from fp32 by about the
+# floor, so from each other by at most twice it; a wrong weight, row or
+# pooling is O(1)
+REF_FLOOR_FACTOR = 2.0
+# the mel clips, card (cuFFT) against CPU, after (x - mean) / std: the CPU
+# tests' limit against the reference (tests/test_torch_references.py)
+MEL_ATOL = 2e-3 / 9.138
 
 
 def fail(msg: str) -> None:
@@ -1309,6 +1335,91 @@ def check_tiny_rephrase(torch, cfg, tparams, anyref_mod):
                  f"so no span was pooled: {ids.tolist()}")
 
 
+def reference_waveform():
+    """AUDIO_SECONDS of a 440 Hz tone and noise at 16 kHz, from seed 0."""
+    rng = np.random.default_rng(0)
+    t = np.arange(int(AUDIO_SECONDS * 16000)) / 16000
+    return (0.1 * rng.standard_normal(t.shape)
+            + 0.3 * np.sin(2 * np.pi * 440 * t)).astype(np.float32)
+
+
+def reference_batches(cfg, mods, bucket: int = 257) -> dict:
+    """{kind: a left-padded generate batch of two rows} for "crop" (a crop
+    and a text row), "box" (a box and a text row, RoI mode) and
+    "text_audio" (a text and an audio row), all on request_images()[3],
+    made by the port's make_sample and Collator."""
+    image = request_images()[3]
+    h, w = image.shape[:2]
+    ds, tok = mods["SegDataset"](cfg), mods["AnyRefTokenizer"]()
+    q_img, q_txt = mods["img_ref_question"](), mods["seg_question"]("the dog")
+    crop = mods["crop_box_np"](image, np.asarray(REF_CROP_XYXY))
+    box = (np.asarray(REF_ROI_XYXY, np.float32)
+           / np.asarray([w, h, w, h], np.float32))
+    mels = mods["mel"].audio_to_mel_clips(reference_waveform(),
+                                          device="cpu").numpy()
+    samples = {
+        "crop": [ds.make_sample(image, q_img, None, None, ref_image=crop),
+                 ds.make_sample(image, q_txt, None, None)],
+        "box": [ds.make_sample(image, q_img, None, None, ref_bbox=box),
+                ds.make_sample(image, q_txt, None, None)],
+        "text_audio": [ds.make_sample(image, q_txt, None, None),
+                       ds.make_sample(image, mods["audio_ref_question"](),
+                                      None, None, audio_mels=mels)]}
+    out = {}
+    for kind, rows in samples.items():
+        b = mods["Collator"](tok, cfg, roi=kind == "box")(rows)
+        ids = np.zeros((2, bucket), np.int64)
+        for r in range(2):
+            n = int(b["prompt_lens"][r])
+            ids[r, bucket - n:] = b["input_ids"][r, :n]
+        out[kind] = {"input_ids": ids, **{
+            k: b[k] for k in ("clip_images", "sam_images", "ref_images",
+                              "ref_valid", "roi_boxes", "audio_mels",
+                              "audio_valid") if k in b}}
+    return out
+
+
+def check_tiny_references(torch, cfg, encoder_path, mods):
+    """generate on a crop, a box and a text + audio batch (reference_batches),
+    greedy and speculative, on the card and on the CPU from the same bf16
+    weights: ids equal to the CPU plain path's, masks within SLICE_REL_TOL
+    of its largest magnitude. Every disagreement is listed before the
+    phase fails."""
+    anyref = mods["anyref"]
+    p_cpu = mods["tparams"].init(cfg, torch.Generator().manual_seed(0),
+                                 torch.bfloat16, device="cpu")
+    p_gpu = _to_device(p_cpu, "cuda")
+    bad = []
+    for kind, batch in reference_batches(cfg, mods).items():
+        for spec in (False, True):
+            kw = dict(max_new_tokens=4, encoder_path=encoder_path,
+                      speculative=spec)
+            want = anyref.generate(p_cpu, cfg, batch, device="cpu", **kw)
+            got = anyref.generate(p_gpu, cfg, batch, device="cuda", **kw)
+            torch.cuda.synchronize()
+            ids = got.output_ids.cpu()
+            m_got = got.low_res_masks.float().cpu()
+            m_want = want.low_res_masks.float()
+            name = f"{kind}, {'speculative' if spec else 'greedy'}"
+            if m_got.shape != m_want.shape or \
+                    not bool(torch.isfinite(m_got).all()):
+                fail(f"tiny references ({encoder_path}, {name}): masks of "
+                     "the wrong shape or not finite")
+            rel = float((m_got - m_want).abs().max() / m_want.abs().max())
+            log(f"[slice-tiny refs] {encoder_path} path, SAM "
+                f"{cfg.sam.image_size} px, {name}, card vs CPU: ids "
+                f"{ids.tolist()} (CPU {want.output_ids.tolist()}), mask max "
+                f"rel err {rel:.4g} (limit {SLICE_REL_TOL})")
+            if not torch.equal(ids, want.output_ids):
+                bad.append(f"{name}: ids {ids.tolist()} on the card, "
+                           f"{want.output_ids.tolist()} on the CPU")
+            if rel > SLICE_REL_TOL:
+                bad.append(f"{name}: mask max rel err {rel}")
+    if bad:
+        fail(f"tiny references ({encoder_path}) on the card disagree with "
+             f"the CPU: {bad}")
+
+
 def train_samples(cfg, mods, texts, images, seed: int):
     """Collator-ready training samples: the given images (shortest edge 224,
     so CLIP needs no resize), the answer seg_answer(text), one rectangle
@@ -1379,14 +1490,16 @@ def check_tiny_train(torch, cfg, mods):
         fail("tiny train step on the card disagrees with the CPU")
 
 
-def _to_device(tree, device):
+def _to_device(tree, *to):
+    """Every tensor of ``tree`` through .to(*to): a device, a dtype or
+    both."""
     if tree is None:
         return None
     if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
+        return {k: _to_device(v, *to) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_to_device(v, device) for v in tree]
-    return tree.to(device)
+        return [_to_device(v, *to) for v in tree]
+    return tree.to(*to)
 
 
 # ---------------------------------------------------------------------------
@@ -1570,6 +1683,7 @@ def serve_7b(torch, flash, mods):
                                 max_new_tokens=8, encoder_path=path)
         launches[path] = serve_path(torch, flash, mods, server, path, images,
                                     per_batch[path])
+    serve_references(torch, flash, mods, params, cfg, per_batch["fused"])
     serve_rephrase(torch, flash, mods, params, cfg, images,
                    per_batch["fused"], seg_col)
     launches["int8"], int8_step = serve_int8(torch, flash, mods, params,
@@ -1609,6 +1723,301 @@ def request_images() -> list:
     """The 4 requests' images (IMAGE_SIZES, uint8 RGB from seed 0)."""
     rng = np.random.default_rng(0)
     return [rng.integers(0, 256, (h, w, 3), np.uint8) for h, w in IMAGE_SIZES]
+
+
+def serve_references(torch, flash, mods, params, cfg, per_batch):
+    """The reference round at anyref_7b on "fused", speculative: a crop, an
+    audio, a box and a text request, in that order, through Server with
+    max_batch 2 and one preprocess worker, so the batches are [crop, audio]
+    and [box, text], all on request_images()[3]. Checks every answer, each
+    callback once, the launches (flash_attention_qkv n_clip more in the
+    crop's batch, the rest as for text), then the encoders on the card
+    against the CPU plain path (check_reference_encoders); then the same
+    round warm under torch.profiler, the audio tower's and the crop's CLIP
+    pass's kernels each between two marker kernels (as profiled_counts
+    finds a call's: the Server's device thread runs no host range the
+    profiler records), and each part timed alone
+    (reference_parts_alone)."""
+    from torch.profiler import ProfilerActivity, profile
+    Request, anyref = mods["Request"], mods["anyref"]
+    image = request_images()[3]
+    crop = mods["crop_box_np"](image, np.asarray(REF_CROP_XYXY))
+    wave = reference_waveform()
+    server = mods["Server"](params, cfg, max_batch=2, speculative=True,
+                            max_new_tokens=8, encoder_path="fused",
+                            preprocess_workers=1, fill_wait_ms=5000.0)
+    qkv = flash.flash_attention_qkv
+    per_call = []
+    run = server.predictor.predict_async
+
+    def counted(batch):
+        n0 = qkv.launches
+        out = run(batch)
+        per_call.append(("ref_images" in batch, "roi_boxes" in batch,
+                         "audio_mels" in batch, qkv.launches - n0))
+        return out
+    server.predictor.predict_async = counted
+    fired = {}
+    kinds = ("crop", "audio", "box", "text")
+    fields = {"crop": {"ref_image": crop}, "audio": {"audio_waveform": wave},
+              "box": {"roi_xyxy": np.asarray(REF_ROI_XYXY)},
+              "text": {"text": TEXTS[3]}}
+
+    def round_(tag):
+        reqs = []
+        for i, kind in enumerate(kinds):
+            fired[tag, i] = 0
+
+            def cb(result, key=(tag, i)):
+                fired[key] += 1
+            reqs.append(server.submit(Request(image=image, callback=cb,
+                                              **fields[kind])))
+        return [r.result(timeout=600) for r in reqs]
+
+    encoders = {"encode_audio": anyref.encode_audio,
+                "encode_ref_images": anyref.encode_ref_images}
+    try:
+        for kernel in flash.KERNELS:
+            kernel.launches = 0
+        t0 = time.time()
+        results = round_("counted")
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = {k.__name__: k.launches for k in flash.KERNELS}
+        stats = dict(server.stats)
+        counted_calls = list(per_call)
+        server.reset_stats()
+        bracketed_calls = []
+        for name, fn in encoders.items():
+            def bracketed(*a, _fn=fn, _name=name, **k):
+                bracketed_calls.append(_name)
+                torch.cuda._sleep(MARKER_CYCLES)
+                out = _fn(*a, **k)
+                torch.cuda._sleep(MARKER_CYCLES)
+                return out
+            setattr(anyref, name, bracketed)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.time()
+            again = round_("profiled")
+            torch.cuda.synchronize()
+            warm_wall = time.time() - t1
+    finally:
+        for name, fn in encoders.items():
+            setattr(anyref, name, fn)
+        server.shutdown()
+    deadline = time.time() + 30
+    while sorted(fired.values()) != [1] * 2 * len(kinds) and \
+            time.time() < deadline:
+        time.sleep(0.01)
+    if sorted(fired.values()) != [1] * 2 * len(kinds):
+        fail(f"references: callbacks fired {fired}, want each exactly once")
+    h, w = image.shape[:2]
+    for i, r in enumerate(results + again):
+        kind = kinds[i % len(kinds)]
+        if not r or "error" in r:
+            fail(f"references, {kind} request: {r}")
+        ml = r["mask_logits"]
+        if ml is None or ml.shape[-2:] != (h, w) or \
+                not np.isfinite(ml).all() or r["mask"].shape != (h, w):
+            fail(f"references, {kind} request: ids "
+                 f"{r['output_ids'].tolist()}, mask logits "
+                 f"{None if ml is None else ml.shape}")
+    for i, kind in enumerate(kinds):
+        log(f"[slice refs] {kind} request: ids "
+            f"{results[i]['output_ids'].tolist()}, on-pixels "
+            f"{int(results[i]['mask'].sum())}")
+    c = cfg.clip
+    n_clip = c.num_layers + c.select_layer + 1
+    want_calls = [(True, False, True, 2 * n_clip),
+                  (False, True, False, n_clip)]
+    if counted_calls != want_calls:
+        fail(f"references: batches (crop, box, audio, flash_attention_qkv "
+             f"launches) {counted_calls}, want {want_calls}")
+    want = {name: 2 * n for name, n in per_batch.items()}
+    want["flash_attention_qkv"] += n_clip
+    if launches != want:
+        fail(f"references: kernel launches {launches}, want {want}")
+    log(f"[slice refs] anyref_7b, fused, speculative: 4 requests (crop, "
+        f"audio, box, text) in {stats['batches']} batches, {wall:.2f} s "
+        f"wall (first run); flash_attention_qkv {counted_calls[0][3]} in the "
+        f"crop's batch, {counted_calls[1][3]} in the box's; launches "
+        f"{json.dumps(launches)}; callbacks once each")
+
+    check_reference_encoders(torch, mods, params, cfg, image, crop, wave)
+
+    cuda = torch.autograd.DeviceType.CUDA
+    records = sorted((e for e in prof.events() if e.device_type == cuda),
+                     key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(records) if MARKER in e.name]
+    ranges = {}
+    if len(marks) == 2 * len(bracketed_calls):
+        for n, name in enumerate(bracketed_calls):
+            inside = records[marks[2 * n] + 1:marks[2 * n + 1]]
+            ms, k = ranges.get(name, (0.0, 0))
+            ranges[name] = (ms + sum(e.device_time_total
+                                     for e in inside) / 1e3,
+                            k + len(inside))
+    else:
+        log(f"[slice-warm refs] {len(marks)} marker kernels for the calls "
+            f"{bracketed_calls}: the ranges are not read")
+    by_name = {}
+    for e in records:
+        if MARKER not in e.name:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.device_time_total / 1e3
+    busy = sum(by_name.values())
+    log(f"[slice-warm refs] the 4 reference requests again under "
+        f"torch.profiler: {warm_wall:.3f} s wall, kernels busy {busy:.3f} "
+        f"ms -> device idle {100 * (1 - busy / 1e3 / warm_wall):.1f}% of the "
+        f"wall; {mods['card']}")
+    for name, (ms, n) in sorted(ranges.items()):
+        log(f"[slice-warm refs]   {name}: {ms:.3f} ms of kernels in {n} "
+            f"kernels (inside the served round)")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"[slice-warm refs]   {ms:9.3f} ms  {name[:90]}")
+    reference_parts_alone(torch, mods, params, cfg, crop, wave)
+
+
+def profiled_kernels(torch, fn):
+    """(kernel ms, kernel count) of one warm call of fn under
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.device_time_total for e in ev) / 1e3, len(ev)
+
+
+def reference_parts_alone(torch, mods, params, cfg, crop, wave):
+    """The served batches' reference work, each part alone, warm: the audio
+    tower + projector on the audio batch's 2 rows (6 clips), the crop's
+    CLIP pass + pooling at batch 2, and the mel front end of one
+    AUDIO_SECONDS waveform (kernel time under the profiler; wall time
+    synchronised, median of 10)."""
+    anyref, mel = mods["anyref"], mods["mel"]
+    mels = mel.audio_to_mel_clips(wave, device="cuda")
+    mels = torch.stack([torch.zeros_like(mels), mels])
+    px = torch.from_numpy(mods["preprocess_clip_np"](crop, 224)).cuda()
+    px = torch.stack([px, px])
+    parts = {
+        "audio tower + projector, 2 rows x 3 clips": lambda: (
+            anyref.encode_audio(params, cfg, mels)),
+        "crop CLIP pass + pooling, batch 2": lambda: (
+            anyref.encode_ref_images(params, cfg, px, "fused")),
+        f"mel front end, {AUDIO_SECONDS:g} s": lambda: (
+            mel.audio_to_mel_clips(wave, device="cuda"))}
+    with torch.inference_mode():
+        for name, fn in parts.items():
+            ms, n = profiled_kernels(torch, fn)
+            walls = []
+            for _ in range(10):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            log(f"[refs-alone] {name}: {ms:.4f} ms of kernels in {n} "
+                f"kernels, {float(np.median(walls)):.3f} ms wall "
+                f"(synchronised, median of 10); {mods['card']}")
+
+
+def check_reference_encoders(torch, mods, params, cfg, image, crop, wave):
+    """The encoders on the card against the CPU plain path on the same
+    weights, moved to the CPU: encode_roi bit-equal, encode_ref_images and
+    encode_audio within REF_FLOOR_FACTOR times their bf16 floor (relative
+    L2), the mel clips within MEL_ATOL; and assemble_embeds on the card:
+    the placeholder rows equal to the encoded features bit for bit, every
+    other row equal to the text path's."""
+    anyref, mel = mods["anyref"], mods["mel"]
+    keys = ("clip", "mm_projector", "audio_encoder", "audio_projector",
+            "roi_embed")
+    p_cpu = {k: _to_device(params[k], "cpu") for k in keys}
+    p_f32 = {k: _to_device(v, torch.float32) for k, v in p_cpu.items()}
+    h, w = image.shape[:2]
+    boxes = torch.tensor(np.stack([
+        np.asarray(REF_ROI_XYXY) / np.asarray([w, h, w, h]),
+        [0.125, 0.375, 0.625, 0.875], [-0.1, 0.005, 0.995, 1.2]]),
+        dtype=torch.float32)
+    px = torch.from_numpy(np.stack([
+        mods["preprocess_clip_np"](crop, 224),
+        mods["preprocess_clip_np"](image, 224)]))
+    tok = mods["AnyRefTokenizer"]()
+    with torch.inference_mode():
+        mels_cpu = mel.audio_to_mel_clips(wave, device="cpu")
+        mels_gpu = mel.audio_to_mel_clips(wave, device="cuda")
+        mel_err = float((mels_gpu.cpu() - mels_cpu).abs().max())
+        mels = mels_cpu[None]
+        roi_gpu = anyref.encode_roi(params, boxes.cuda()).cpu()
+        roi_cpu = anyref.encode_roi(p_cpu, boxes)
+        ref_gpu = anyref.encode_ref_images(params, cfg, px.cuda(), "fused")
+        ref_cpu = anyref.encode_ref_images(p_cpu, cfg, px, "fused")
+        aud_gpu = anyref.encode_audio(params, cfg, mels.cuda())
+        aud_cpu = anyref.encode_audio(p_cpu, cfg, mels)
+        ref_f32 = anyref.encode_ref_images(p_f32, cfg, px, "fused")
+        aud_f32 = anyref.encode_audio(p_f32, cfg, mels)
+
+        def rel_l2(a, b):
+            a, b = a.float().cpu(), b.float()
+            return float((a - b).norm() / b.norm())
+        errs = {"encode_ref_images": rel_l2(ref_gpu, ref_cpu),
+                "encode_audio": rel_l2(aud_gpu, aud_cpu)}
+        floors = {"encode_ref_images": rel_l2(ref_cpu, ref_f32),
+                  "encode_audio": rel_l2(aud_cpu, aud_f32)}
+        card_f32 = {"encode_ref_images": rel_l2(ref_gpu, ref_f32),
+                    "encode_audio": rel_l2(aud_gpu, aud_f32)}
+        # assemble_embeds on the card: row 0 carries the reference, row 1
+        # (not valid) keeps its placeholders' token embeddings
+        clip = anyref.encode_clip_images(params, cfg, px.cuda(), "fused")
+        valid = torch.tensor([True, False], device="cuda")
+        splice = {}
+        for kind, q, feats, slot in (
+                ("crop", mods["img_ref_question"](), ref_gpu,
+                 cfg.tokens.img_ref),
+                ("audio", mods["audio_ref_question"](),
+                 aud_gpu.expand(2, -1, -1), cfg.tokens.audio_ref)):
+            ids = torch.from_numpy(np.stack(
+                [mods["tokenize_prompt"](tok, q)] * 2)).long().cuda()
+            args = (feats, valid, None, None) if kind == "crop" else \
+                (None, None, feats, valid)
+            emb, exp_ids, _ = anyref.assemble_embeds(params, cfg, ids, clip,
+                                                     *args)
+            text, _, _ = anyref.assemble_embeds(params, cfg, ids, clip)
+            at = exp_ids == slot
+            at[1] = False
+            n_slots = int(at[0].sum())
+            rows_ok = torch.equal(emb[0][at[0]],
+                                  feats[0, :n_slots].to(emb.dtype))
+            rest_ok = torch.equal(emb[~at], text[~at])
+            splice[kind] = (n_slots, rows_ok, rest_ok)
+    torch.cuda.synchronize()
+    enc = "; ".join(
+        f"{k} rel L2 {errs[k]:.4g} (limit {REF_FLOOR_FACTOR:g} x the bf16 "
+        f"floor {floors[k]:.4g}; the card against the CPU's fp32 "
+        f"{card_f32[k]:.4g})" for k in errs)
+    log(f"[refs card-vs-cpu] encode_roi bit-equal "
+        f"{torch.equal(roi_gpu, roi_cpu)} ({tuple(roi_cpu.shape)}); {enc}; "
+        f"mel clips max abs err {mel_err:.3g} (limit {MEL_ATOL:.3g}); "
+        f"assemble_embeds (slots, placeholder rows bit-equal, other rows "
+        f"bit-equal to text) {splice}")
+    if not torch.equal(roi_gpu, roi_cpu):
+        fail("encode_roi on the card differs from the CPU gather")
+    if any(errs[k] > REF_FLOOR_FACTOR * floors[k] for k in errs):
+        fail(f"reference encoders on the card disagree with the CPU: {errs}, "
+             f"bf16 floors {floors}")
+    if mel_err > MEL_ATOL:
+        fail(f"mel clips on the card disagree with the CPU: {mel_err}")
+    want_slots = {"crop": 4, "audio": 3}
+    for kind, (n, rows_ok, rest_ok) in splice.items():
+        if n != want_slots[kind] or not rows_ok or not rest_ok:
+            fail(f"assemble_embeds on the card, {kind}: {n} slots, "
+                 f"placeholder rows equal {rows_ok}, other rows equal "
+                 f"{rest_ok}")
 
 
 def serve_rephrase(torch, flash, mods, params, cfg, images, per_batch,
@@ -2545,12 +2954,16 @@ def main() -> int:
         from anyref_tpu_torch.config import anyref_7b, anyref_tiny
         from anyref_tpu_torch.data.base import SegDataset
         from anyref_tpu_torch.data.collator import Collator
+        from anyref_tpu_torch.data.preprocess import (crop_box_np,
+                                                      preprocess_clip_np)
         from anyref_tpu_torch.models import anyref as anyref_mod
         from anyref_tpu_torch.models import llama
         from anyref_tpu_torch.models.sam import image_encoder
-        from anyref_tpu_torch.ops import attention, common, flash, quant
+        from anyref_tpu_torch.ops import attention, common, flash, mel, quant
         from anyref_tpu_torch.serve import Request, Server
-        from anyref_tpu_torch.tokenizer import (AnyRefTokenizer, seg_answer,
+        from anyref_tpu_torch.tokenizer import (AnyRefTokenizer,
+                                                audio_ref_question,
+                                                img_ref_question, seg_answer,
                                                 seg_question,
                                                 tokenize_conversation,
                                                 tokenize_prompt)
@@ -2592,7 +3005,10 @@ def main() -> int:
             "SegDataset": SegDataset, "Collator": Collator, "lora": lora,
             "step": step, "TrainConfig": TrainConfig, "Trainer": Trainer,
             "llama": llama, "quant": quant, "anyref": anyref_mod,
-            "card": card}
+            "mel": mel, "img_ref_question": img_ref_question,
+            "audio_ref_question": audio_ref_question,
+            "crop_box_np": crop_box_np,
+            "preprocess_clip_np": preprocess_clip_np, "card": card}
     # phase 3: "unfused" and "unfused_qkv" at anyref_tiny, "fused" and
     # "fused_block" where both fused SAM gates open (64 <= ws^2 and a 32 x
     # 32 global grid), the int8 decoder at anyref_tiny, and one train step
@@ -2606,6 +3022,8 @@ def main() -> int:
     check_tiny_slice(torch, tiny, "fused", tparams, anyref_mod, quant=quant,
                      flash=flash)
     check_tiny_rephrase(torch, tiny512, tparams, anyref_mod)
+    check_tiny_references(torch, tiny, "unfused", mods)
+    check_tiny_references(torch, tiny512, "fused", mods)
     check_tiny_train(torch, tiny, mods)
     # phase 4
     launches, int8_step = serve_7b(torch, flash, mods)

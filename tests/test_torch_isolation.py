@@ -29,7 +29,8 @@ def test_import_loads_no_jax():
         "import anyref_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    anyref_tpu_torch.__path__, 'anyref_tpu_torch.')]\n"
-        "assert 'anyref_tpu_torch.ops.quant' in names, names\n"
+        "for want in ('ops.quant', 'ops.mel', 'models.imagebind.audio'):\n"
+        "    assert 'anyref_tpu_torch.' + want in names, names\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         f"bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
@@ -66,6 +67,7 @@ def test_entry_points_refuse_cpu_without_gpu(monkeypatch):
     from anyref_tpu_torch.config import anyref_tiny
     from anyref_tpu_torch.eval.runner import Predictor
     from anyref_tpu_torch.models import anyref
+    from anyref_tpu_torch.ops.mel import audio_to_mel_clips
     from anyref_tpu_torch.ops.quant import quantize_llama
     from anyref_tpu_torch.serve import Server
     from anyref_tpu_torch.train.trainer import TrainConfig, Trainer
@@ -89,6 +91,8 @@ def test_entry_points_refuse_cpu_without_gpu(monkeypatch):
         tparams.from_numpy({"w": np.zeros(2, np.float32)})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(cfg, TrainConfig(), p, dataset=[])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        audio_to_mel_clips(np.zeros(16000, np.float32))
     # an int8 decoder tree, served greedy, is refused the same way
     q = dict(p, llama=quantize_llama(p["llama"]))
     with pytest.raises(RuntimeError, match="no CUDA device"):

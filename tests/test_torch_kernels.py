@@ -4,7 +4,12 @@ the JAX package's Pallas kernels run in interpret mode, fp32, same inputs.
 On the CPU every port wrapper runs its plain version; the CUDA kernels are
 held against these same plain versions on the card by chip_smoke.py.
 Tolerance: atol = rtol = 1e-5 in fp32 unless a test says otherwise (the two
-sides sum in different orders; a wrong mask, bias or index is O(1))."""
+sides sum in different orders; a wrong mask, bias or index is O(1)).
+
+Every test here runs torch's CPU products in IEEE fp32 (``ieee_fp32``): a
+reduced-precision fp32 product (torch's "high" matmul precision selects
+oneDNN's TF32 math, which CPUs with AMX-FP16 execute) errs by about 2^-15,
+which these limits rightly refuse but which says nothing about the port."""
 
 import numpy as np
 import pytest
@@ -20,6 +25,34 @@ TOL = {"atol": 1e-5, "rtol": 1e-5}
 
 def _t(a):
     return torch.from_numpy(np.asarray(a))
+
+
+@pytest.fixture(autouse=True)
+def ieee_fp32():
+    """torch's CPU fp32 products in IEEE fp32, whatever an earlier test of
+    the same process set: the "highest" matmul precision and no oneDNN."""
+    prec = torch.get_float32_matmul_precision()
+    onednn = torch.backends.mkldnn.enabled
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.mkldnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.mkldnn.enabled = onednn
+        torch.set_float32_matmul_precision(prec)
+
+
+def _relpos_fp64(q, k, v, th, tw, ws):
+    """The rel-pos attention in fp64, to name the side that strays."""
+    q, k, v, th, tw = (a.astype(np.float64) for a in (q, k, v, th, tw))
+    B, nh, L, hd = q.shape
+    qg = q.reshape(B, nh, ws, ws, hd)
+    rh = np.einsum("bnhwc,hkc->bnhwk", qg, th).reshape(B, nh, L, ws)
+    rw = np.einsum("bnhwc,wkc->bnhwk", qg, tw).reshape(B, nh, L, ws)
+    s = np.einsum("bnqd,bnkd->bnqk", q, k) * hd ** -0.5
+    s = s + np.repeat(rh, ws, axis=-1) + np.tile(rw, (1, 1, 1, ws))
+    p = np.exp(s - s.max(-1, keepdims=True))
+    return (p @ v) / p.sum(-1, keepdims=True)
 
 
 @pytest.mark.parametrize("ws,nh,hd", [(14, 2, 80), (32, 1, 16), (4, 2, 32)],
@@ -38,8 +71,13 @@ def test_relpos_attention_matches_pallas(ws, nh, hd):
         *(jnp.asarray(a) for a in (q, k, v, th, tw)), (ws, ws),
         interpret=True))
     got = tflash.flash_relpos_attention(*(_t(a) for a in (q, k, v, th, tw)),
-                                        (ws, ws))
-    np.testing.assert_allclose(got.numpy(), want, **TOL)
+                                        (ws, ws)).numpy()
+    exact = _relpos_fp64(q, k, v, th, tw, ws)
+    np.testing.assert_allclose(got, want, **TOL, err_msg=(
+        f"largest error against fp64: port {np.abs(got - exact).max():.3g}, "
+        f"reference {np.abs(want - exact).max():.3g}; torch "
+        f"{torch.get_float32_matmul_precision()} matmuls, "
+        f"{torch.get_num_threads()} threads"))
 
 
 def _sam_grids(cfg):

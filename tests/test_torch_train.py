@@ -458,12 +458,23 @@ def test_train_forward_grads_match_jax(tp, jlora_params, batch,
 
 
 def test_train_forward_text_only(tp, batch):
-    """Image-crop, RoI and audio references are refused (rephrase pooling
-    runs: test_train_forward_rephrase_grads_match_jax)."""
+    """A text batch trains the same, bit for bit, when it also carries RoI
+    and audio keys: its prompts have no <img_ref> or <audio_ref>
+    placeholder, so nothing is spliced (the reference paths are held
+    against JAX in tests/test_torch_references.py)."""
     from anyref_tpu_torch.models import anyref as tanyref
-    with pytest.raises(NotImplementedError):
-        tanyref.train_forward(tp, CFG, {**batch, "roi_boxes": np.zeros(
-            (2, 4), np.float32)})
+    B = batch["input_ids"].shape[0]
+    a = CFG.audio
+    refs = {"roi_boxes": np.full((B, 4), 0.5, np.float32),
+            "ref_valid": np.ones((B,), bool),
+            "audio_mels": np.ones((B, a.clips_per_audio, 1, a.mel_bins,
+                                   a.target_len), np.float32),
+            "audio_valid": np.ones((B,), bool)}
+    with torch.no_grad():
+        want = tanyref.train_forward(tp, CFG, batch)
+        got = tanyref.train_forward(tp, CFG, {**batch, **refs})
+    for name in ("loss", "lm_loss", "bce_loss", "dice_loss"):
+        assert getattr(got, name).item() == getattr(want, name).item(), name
 
 
 def test_train_forward_rephrase_grads_match_jax(jp, tp, jlora_params):
