@@ -1,8 +1,10 @@
-"""Sample construction (port of anyref_tpu/data/base.py make_sample and
-the reference-box helpers)."""
+"""Dataset base (port of anyref_tpu/data/base.py): image IO (PIL, imported
+where an image is read), the bad-sample retry and the sample template every
+dataset shares."""
 
 from __future__ import annotations
 
+import random
 from typing import Optional
 
 import numpy as np
@@ -13,16 +15,41 @@ from .preprocess import (crop_box_np, preprocess_clip_np,
                          preprocess_sam_u8_np)
 
 
+def load_image_rgb(path: str) -> np.ndarray:
+    from PIL import Image
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"), np.uint8)
+
+
 class SegDataset:
-    """Builds collator-ready samples. ``uint8_images`` emits clip/sam images
-    as uint8 pixels and leaves normalization to the device (the serving
-    path's upload is 4x smaller); a reference crop is always the float CLIP
-    image, as in the reference."""
+    """Base: a reader implements ``__len__`` and ``_get(index)``, which
+    returns a sample from ``make_sample`` or None for a bad one.
+    ``uint8_images`` emits clip/sam images as uint8 pixels and leaves
+    normalization to the device (the serving path's upload is 4x smaller);
+    a reference crop is always the float CLIP image, as in the
+    reference."""
 
     def __init__(self, cfg: Optional[AnyRefConfig] = None,
-                 uint8_images: bool = False):
+                 retry_bad: bool = True, uint8_images: bool = False):
         self.cfg = cfg
+        self.retry_bad = retry_bad
         self.uint8_images = uint8_images
+        self._rng = random.Random(0)
+
+    def __getitem__(self, index: int) -> dict:
+        """The sample at ``index``; a missing file or a bad sample moves to
+        a random index, up to 32 tries (the reference's recursion to a
+        random index, utils/coco_instance.py:399-400); one try without
+        ``retry_bad``."""
+        for _ in range(32 if self.retry_bad else 1):
+            try:
+                out = self._get(index)
+            except FileNotFoundError:
+                out = None
+            if out is not None:
+                return out
+            index = self._rng.randrange(len(self))
+        raise RuntimeError(f"{type(self).__name__}: no valid sample found")
 
     def make_sample(self, image: np.ndarray, question: str,
                     answer: Optional[str], gt_masks: Optional[np.ndarray],

@@ -103,7 +103,8 @@ class Collator:
                 audio_valid[b] = True
             meta.append({k: inst.get(k) for k in
                          ("file_name", "height", "width", "image_id",
-                          "sentence")})
+                          "gt_classes", "sentence", "video_name",
+                          "orig_ref_img")})
         batch = {
             "input_ids": input_ids,
             "prompt_lens": prompt_lens,

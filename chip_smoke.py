@@ -85,7 +85,23 @@ Phases (any failure exits non-zero before the result line):
      bit-equal to the CPU build), and the 4 requests served on the
      assembled tree with the SentencePiece fixture tokenizer at rephrase
      0.1; print the cuts, the times and the peak memory;
-  7. print {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+  7. the segmentation eval (write_eval_root writes the data roots in a
+     temporary directory): (a) evaluate_referseg, evaluate_reason,
+     evaluate_coco20i (split 0) and evaluate_avs (S4, one 5-frame video) at
+     anyref_tiny on "unfused" and at its 512-pixel SAM variant on "fused",
+     on the card and on the CPU plain path from the same seeded weights
+     ([SEG] column x EVAL_TINY_SEG_SCALE): ids equal, each mask different only
+     where the CPU's logit is near 0, metrics within EVAL_METRIC_TOL, a
+     non-empty mask in every harness, launch counts per predict call; the
+     eval CLI in a subprocess on those weights saved with save_params must
+     print the in-process result; (b), run in phase 4 on its anyref_7b
+     weights before the int8 decoder replaces the bf16 one ([SEG] column x
+     EVAL_SEG_SCALE_7B, rephrase 0.1): evaluate_referseg on "fused" over 16
+     refs on 8 640 x 480 JPEGs, refs/s, the wall split between loader wait,
+     predict and host scoring, launch counts, n, cIoU and gIoU, a non-empty
+     mask, result.txt, then the pass warm under torch.profiler (busy,
+     idle, kernels per ref between marker kernels), and rle.native();
+  8. print {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1686,6 +1702,9 @@ def serve_7b(torch, flash, mods):
     serve_references(torch, flash, mods, params, cfg, per_batch["fused"])
     serve_rephrase(torch, flash, mods, params, cfg, images,
                    per_batch["fused"], seg_col)
+    # phase 7(b) on these weights, before the int8 decoder replaces the bf16
+    launches["eval"] = eval_7b(torch, flash, mods, params, cfg, seg_col,
+                               per_batch["fused"])
     launches["int8"], int8_step = serve_int8(torch, flash, mods, params,
                                              cfg, images,
                                              dict(per_batch["fused"]))
@@ -2886,6 +2905,531 @@ def checkpoint_phase(torch, flash, mods) -> dict:
     return {"assemble_s": t_gpu, "load_s": t_load, "peak_gib": peak}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the segmentation eval
+# ---------------------------------------------------------------------------
+# the data roots (write_eval_root): (a) two images of EVAL_TINY_SIZE, (b) 8
+# COCO-sized images, each with two refs; the decode budget of both
+EVAL_TINY_SIZE = (96, 128)
+EVAL_TINY_IMAGES = 2
+EVAL_7B_SIZE = (480, 640)
+EVAL_7B_IMAGES = 8
+EVAL_MNT = 8
+# lm_head's [SEG] column scalings under which the seed-0 weights answer
+# [SEG], and so give masks, on the eval roots' prompts: a scan on the
+# H100's machine (torch 2.11) found none at TINY_SEG_SCALE or SEG_SCALE_7B
+# on them. At x 6, anyref_tiny's first [SEG] comes at 2-7 on 12 of 13
+# prompts (the decoder's weights do not depend on the SAM size);
+# anyref_7b at x 20 gives 15 of 16 refs a non-empty mask, first [SEG]s at
+# 0-6, one ref with none.
+EVAL_TINY_SEG_SCALE = 6.0
+EVAL_SEG_SCALE_7B = 20.0
+# the harnesses' metrics (cIoU, gIoU, mIoU, F), card against the CPU: a
+# pixel may flip only where the CPU's logit is within SLICE_REL_TOL of 0
+# (compare_eval_calls), and a flip moves an IoU by 1 / union
+EVAL_METRIC_TOL = 1e-2
+ADJECTIVES = ("small", "large", "dark", "bright", "striped", "old")
+PLACES = ("on the left", "on the right", "in the middle", "at the back",
+          "in front")
+
+
+def star_polygon(rng, h: int, w: int, frac: float, x_span=None) -> list:
+    """[x0, y0, x1, y1, ...]: a 12-vertex star-shaped polygon of about
+    ``frac`` of an h x w image (less where it must shrink to fit), its
+    center drawn inside ``x_span`` (default the whole width)."""
+    lo, hi = x_span or (0, w)
+    ang = np.sort(rng.uniform(0, 2 * np.pi, 12))
+    rad = rng.uniform(0.75, 1.0, 12)
+    x, y = np.cos(ang) * rad, np.sin(ang) * rad
+    unit = 0.5 * abs(np.dot(x, np.roll(y, -1)) - np.dot(y, np.roll(x, -1)))
+    r = min(np.sqrt(frac * h * w / unit), 0.49 * min(h, hi - lo))
+    cx = rng.uniform(lo + r, hi - r)
+    cy = rng.uniform(r, h - r)
+    return np.stack([cx + r * x, cy + r * y], 1).reshape(-1).tolist()
+
+
+def write_image(path: str, rng, h: int, w: int) -> None:
+    """Noise over a color gradient, as PNG or JPEG by the name."""
+    from PIL import Image
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = np.stack([255 * xx / w, 255 * yy / h, 128 + 0 * xx], -1)
+    img = np.clip(base + rng.normal(0, 40, (h, w, 3)), 0, 255)
+    Image.fromarray(img.astype(np.uint8)).save(path)
+
+
+def write_wave(path: str, rng, seconds: float = AUDIO_SECONDS) -> None:
+    import wave
+    t = np.arange(int(seconds * 16000)) / 16000
+    sig = 0.1 * rng.standard_normal(t.shape) + 0.3 * np.sin(
+        2 * np.pi * rng.uniform(200, 800) * t)
+    with wave.open(path, "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(16000)
+        f.writeframes((sig * 32767).astype(np.int16).tobytes())
+
+
+def write_eval_root(root: str, size, n_images: int, seed: int = 0) -> int:
+    """The four harnesses' layouts under ``root`` from ``seed`` (PIL writes
+    the images, ``wave`` the audio); returns the number of refCOCO refs.
+
+    COCO train2017: ``n_images`` JPEGs of ``size`` (h, w), two annotations
+    an image, no class twice: the first a COCO-20i split-0 class over 12-40%
+    of the image, the second another class over 5-40%; image 0's second
+    annotation has two polygons, image 1's is a compressed RLE. refCOCO
+    val: a ref for each annotation, two sentences (the harness reads the
+    last). COCO-20i: the split-0 list of every image and the reference
+    index (build_ref_index: one entry a class, so the loader's threads draw
+    the same reference crop in any order). ReasonSeg val: two images, one
+    sentence each, the first with an ignore region. AVSBench: the S4 and
+    MS3 test splits, one 5-frame video each (the harness scores whole
+    5-frame groups) with 5 s of audio; one MS3 frame has no object."""
+    import pickle
+
+    from PIL import Image
+
+    from anyref_tpu_torch.data import rle
+    from anyref_tpu_torch.data.categories import COCO_THING_CLASSES
+    from anyref_tpu_torch.data.coco import build_ref_index
+    from anyref_tpu_torch.data.coco20i import coco20i_split_ids
+    rng = np.random.default_rng(seed)
+    h, w = size
+    split = coco20i_split_ids(0)
+    others = [c for c in COCO_THING_CLASSES if c not in split]
+    img_dir = os.path.join(root, "coco", "train2017")
+    ann_dir = os.path.join(root, "coco", "annotations")
+    ref_dir = os.path.join(root, "refcoco")
+    fss_dir = os.path.join(root, "coco_20i", "lists", "coco", "fss_list",
+                           "val")
+    for d in (img_dir, ann_dir, ref_dir, fss_dir):
+        os.makedirs(d)
+    images, anns, refs = [], [], []
+    for i in range(n_images):
+        iid = i + 1
+        name = f"{iid:012d}.jpg"
+        write_image(os.path.join(img_dir, name), rng, h, w)
+        images.append({"id": iid, "height": h, "width": w,
+                       "file_name": name})
+        for j, cat in enumerate((split[i], others[i])):
+            if j == 1 and i == 0:
+                frac = rng.uniform(0.1, 0.4)
+                seg = [star_polygon(rng, h, w, frac / 2, (0, w / 2)),
+                       star_polygon(rng, h, w, frac / 2, (w / 2, w))]
+            else:
+                seg = [star_polygon(rng, h, w, rng.uniform(
+                    0.12 if j == 0 else 0.05, 0.4))]
+            mask = rle.annotation_to_mask(seg, h, w)
+            enc = rle.encode(mask)
+            if j == 1 and i == 1:
+                seg = {"size": [h, w], "counts":
+                       rle.counts_to_string(enc["counts"]).decode()}
+            aid = len(anns) + 1
+            anns.append({"id": aid, "image_id": iid, "category_id": cat,
+                         "segmentation": seg, "iscrowd": 0,
+                         "area": float(mask.sum()),
+                         "bbox": rle.to_bbox(enc).tolist()})
+            sents = [f"the {rng.choice(ADJECTIVES)} "
+                     f"{COCO_THING_CLASSES[cat]} {rng.choice(PLACES)}"
+                     for _ in range(2)]
+            refs.append({"ref_id": aid - 1, "ann_id": aid, "image_id": iid,
+                         "category_id": cat, "split": "val",
+                         "file_name": name,
+                         "sentences": [{"sent": s, "raw": s,
+                                        "tokens": s.split(),
+                                        "sent_id": 2 * aid + k}
+                                       for k, s in enumerate(sents)],
+                         "sent_ids": [2 * aid, 2 * aid + 1]})
+    coco = {"images": images, "annotations": anns,
+            "categories": [{"id": c, "name": n}
+                           for c, n in COCO_THING_CLASSES.items()]}
+    ann_file = os.path.join(ann_dir, "instances_train2017.json")
+    for path in (ann_file, os.path.join(ref_dir, "instances.json")):
+        with open(path, "w") as f:
+            json.dump(coco, f)
+    with open(os.path.join(ref_dir, "refs(unc).p"), "wb") as f:
+        pickle.dump(refs, f)
+    with open(os.path.join(fss_dir, "data_list_0.txt"), "w") as f:
+        for im in images:
+            f.write(f"COCO_train2014_{im['id']:012d}.jpg lbl\n")
+    build_ref_index(img_dir, ann_file,
+                    os.path.join(root, "samples_0.05_0.25.json"),
+                    box_img_threshold=0.05, mask_box_threshold=0.25)
+
+    reason = os.path.join(root, "reason", "val")
+    os.makedirs(reason)
+    for k in range(2):
+        write_image(os.path.join(reason, f"r{k}.jpg"), rng, h, w)
+        poly = np.reshape(star_polygon(rng, h, w, 0.3), (-1, 2)).tolist()
+        shapes = [{"label": "target", "points": poly}]
+        if k == 0:
+            shapes.append({"label": "ignore", "points": np.reshape(
+                star_polygon(rng, h, w, 0.05), (-1, 2)).tolist()})
+        with open(os.path.join(reason, f"r{k}.json"), "w") as f:
+            json.dump({"text": [f"the thing {PLACES[k]} that holds water"],
+                       "is_sentence": k == 0, "shapes": shapes}, f)
+
+    for sub, video, frames, audio, masks, csv in (
+            ("Single-source", "v1",
+             "s4_data/visual_frames_original_resolution/test/dog_barking/v1",
+             "s4_data/audio_wav/test/dog_barking",
+             "s4_data/gt_masks/test/dog_barking/v1",
+             ("s4_meta_data.csv", "name,vid,category,split\n"
+              "v1,1,dog_barking,test\n")),
+            ("Multi-sources", "m1", "ms3_data/visual_frames/m1",
+             "ms3_data/audio_wav", "ms3_data/gt_masks/m1",
+             ("ms3_meta_data.csv", "name,split\nm1,test\n"))):
+        base = os.path.join(root, "avsbench", sub)
+        for d in (frames, audio, masks):
+            os.makedirs(os.path.join(base, d))
+        with open(os.path.join(base, csv[0]), "w") as f:
+            f.write(csv[1])
+        write_wave(os.path.join(base, audio, f"{video}.wav"), rng)
+        for k in range(1, 6):
+            write_image(os.path.join(base, frames, f"{video}_{k}.png"), rng,
+                        h, w)
+            m = np.zeros((h, w), np.uint8)
+            if not (video == "m1" and k == 3):
+                m = rle.annotation_to_mask(
+                    [star_polygon(rng, h, w, rng.uniform(0.05, 0.4))], h, w)
+            Image.fromarray(m * 255).save(
+                os.path.join(base, masks, f"{video}_{k}.png"))
+    return len(refs)
+
+
+class RecordingPredictor:
+    """Hands a harness's batches to ``predictor`` and keeps each call's ids
+    and mask logits, in order."""
+
+    def __init__(self, predictor):
+        self.inner = predictor
+        self.cfg = predictor.cfg
+        self.device = getattr(predictor, "device", None)  # the JAX one's: none
+        self.calls = []
+
+    def predict(self, batch):
+        ids, masks = self.inner.predict(batch)
+        self.calls.append((ids, masks))
+        return ids, masks
+
+
+def mask_stats(calls) -> tuple:
+    """(refs with a non-empty mask, refs) over a RecordingPredictor's calls:
+    a mask's pixels are those the harness scores (binary_mask)."""
+    from anyref_tpu_torch.eval.runner import binary_mask
+    nonempty = refs = 0
+    for _, masks in calls:
+        for m in masks:
+            refs += 1
+            if m is not None:
+                nonempty += bool(binary_mask(m, *m.shape[-2:]).any())
+    return nonempty, refs
+
+
+def compare_eval_calls(got, want, what: str) -> int:
+    """A harness's calls on the card against the CPU's: ids equal, the
+    same refs with a mask, and each mask (binary_mask, as scored) differs
+    only at pixels where the CPU's logit lies within SLICE_REL_TOL of its
+    largest magnitude of 0. Returns the pixels that differ."""
+    from anyref_tpu_torch.eval.runner import binary_mask
+    if len(got) != len(want):
+        fail(f"{what}: {len(got)} predict calls on the card, {len(want)} on "
+             "the CPU")
+    flips = 0
+    for n, ((gi, gm), (wi, wm)) in enumerate(zip(got, want)):
+        if not np.array_equal(gi, wi):
+            fail(f"{what}, call {n}: ids {gi.tolist()} on the card, "
+                 f"{wi.tolist()} on the CPU")
+        for a, b in zip(gm, wm):
+            if (a is None) != (b is None):
+                fail(f"{what}, call {n}: a mask on one side only")
+            if a is None:
+                continue
+            h, w = b.shape[-2:]
+            diff = binary_mask(a, h, w) != binary_mask(b, h, w)
+            near = np.abs(b[0]) <= SLICE_REL_TOL * np.abs(b[0]).max()
+            if (diff & ~near).any():
+                fail(f"{what}, call {n}: {int((diff & ~near).sum())} mask "
+                     f"pixels differ where the CPU's logit is beyond "
+                     f"{SLICE_REL_TOL} of its largest magnitude from 0")
+            flips += int(diff.sum())
+    return flips
+
+
+# the rephrase weight the CLI gives each harness (tools/eval.py)
+EVAL_REPHRASE = {"referseg": 0.1, "reason": 0.0, "coco20i": 0.1, "avs": 0.0}
+
+
+def eval_harnesses(make, tok, data: str, out_root: str, flash=None) -> dict:
+    """The four harnesses as the CLI runs them, each on its own
+    RecordingPredictor ``make(rephrase_weight)``: {harness: (result,
+    predict calls, kernel launches)}. With ``flash`` the launch counts are
+    set to 0 just before each harness and read just after."""
+    from anyref_tpu_torch.eval.harnesses import (evaluate_avs,
+                                                 evaluate_coco20i,
+                                                 evaluate_reason)
+    from anyref_tpu_torch.eval.referseg import evaluate_referseg
+    runs = {
+        "referseg": lambda p: evaluate_referseg(
+            p, tok, data, "refcoco_val", out_root)["refcoco_val"],
+        "reason": lambda p: evaluate_reason(p, tok, data, out_root),
+        "coco20i": lambda p: evaluate_coco20i(p, tok, data, out_root,
+                                              splits=(0,))[0],
+        "avs": lambda p: evaluate_avs(p, tok, data, "object", "test",
+                                      out_root),
+    }
+    out = {}
+    for name, run in runs.items():
+        predictor = make(EVAL_REPHRASE[name])
+        for kernel in flash.KERNELS if flash else ():
+            kernel.launches = 0
+        result = run(predictor)
+        launches = {k.__name__: k.launches
+                    for k in (flash.KERNELS if flash else ())}
+        out[name] = (result, predictor.calls, launches)
+    return out
+
+
+def eval_tiny(torch, flash, mods, tiny, tiny512) -> None:
+    """Phase 7(a): the four harnesses (eval_harnesses) at anyref_tiny on
+    "unfused" and at its 512-pixel SAM variant on "fused", bf16 weights from
+    seed 0 with lm_head's [SEG] column x EVAL_TINY_SEG_SCALE, on the card and
+    on the CPU plain path: the calls compared (compare_eval_calls), the metrics
+    within EVAL_METRIC_TOL, n equal, a non-empty mask in every harness, each
+    kernel's launches those of a served batch a predict call (CLIP twice in a
+    COCO-20i batch, which carries a crop); then the CLI in a subprocess on the
+    "unfused" weights saved with save_params, which must print the in-process
+    referseg result."""
+    import tempfile
+
+    from anyref_tpu_torch import checkpoint
+    from anyref_tpu_torch.eval.runner import Predictor
+    tok = mods["AnyRefTokenizer"]()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        n_refs = write_eval_root(data, EVAL_TINY_SIZE, EVAL_TINY_IMAGES)
+        log(f"[eval-tiny] data root: {n_refs} refCOCO refs on "
+            f"{EVAL_TINY_IMAGES} images of {EVAL_TINY_SIZE}, 2 ReasonSeg "
+            f"images, COCO-20i split 0 ({EVAL_TINY_IMAGES} queries), AVS S4 "
+            f"and MS3 (one 5-frame video each)")
+        for path, cfg in (("unfused", tiny), ("fused", tiny512)):
+            p_cpu = mods["tparams"].init(cfg, torch.Generator().manual_seed(0),
+                                         torch.bfloat16, device="cpu")
+            p_cpu["llama"]["lm_head"][:, cfg.tokens.seg] *= \
+                EVAL_TINY_SEG_SCALE
+            per_batch = launches_per_batch(flash, cfg)[path]
+            runs = {}
+            p_gpu = _to_device(p_cpu, "cuda")
+            for dev, p in (("cpu", p_cpu), ("cuda", p_gpu)):
+                def make(weight, p=p, dev=dev):
+                    return RecordingPredictor(Predictor(
+                        p, cfg.scaled(rephrase_weight=weight),
+                        max_new_tokens=EVAL_MNT, device=dev,
+                        encoder_path=path))
+                t0 = time.time()
+                runs[dev] = eval_harnesses(
+                    make, tok, data, os.path.join(tmp, f"{path}-{dev}"),
+                    flash if dev == "cuda" else None)
+                log(f"[eval-tiny] {path}, {dev}: the four harnesses in "
+                    f"{time.time() - t0:.1f} s")
+            for name, (got, calls, launches) in runs["cuda"].items():
+                want, want_calls, _ = runs["cpu"][name]
+                what = f"eval {name} ({path}, SAM {cfg.sam.image_size} px)"
+                flips = compare_eval_calls(calls, want_calls, what)
+                deltas = {k: abs(got[k] - want[k]) for k in got if k != "n"}
+                nonempty, refs = mask_stats(calls)
+                crop = 2 if name == "coco20i" else 1
+                want_launches = {
+                    k: n * len(calls) * (crop if k == "flash_attention_qkv"
+                                         else 1)
+                    for k, n in per_batch.items()}
+                log(f"[eval-tiny] {what}: card {got}, CPU {want}; "
+                    f"{nonempty} of {refs} refs with a non-empty mask, "
+                    f"{flips} mask pixels differ; launches "
+                    f"{json.dumps({k: v for k, v in launches.items() if v})}")
+                if got["n"] != want["n"] or \
+                        max(deltas.values()) > EVAL_METRIC_TOL:
+                    fail(f"{what}: card {got}, CPU {want} (limit "
+                         f"{EVAL_METRIC_TOL})")
+                if not nonempty:
+                    fail(f"{what}: no ref has a non-empty mask, so the "
+                         f"comparison is of empty masks")
+                if launches != want_launches:
+                    fail(f"{what}: launches {launches}, want {want_launches}")
+            if path == "unfused":
+                eval_cli(checkpoint, p_cpu, data, tmp,
+                         runs["cuda"]["referseg"][0])
+
+
+def eval_cli(checkpoint, params, data: str, tmp: str, want: dict) -> None:
+    """The eval CLI in a subprocess on ``params`` saved with save_params
+    (preset tiny, "unfused", the CLI's referseg defaults): it must print
+    ``want``, the in-process result."""
+    ckpt = os.path.join(tmp, "tiny.pt")
+    checkpoint.save_params(ckpt, params)
+    cmd = [sys.executable, "-m", "anyref_tpu_torch.tools.eval", "referseg",
+           "--ckpt", ckpt, "--data_root", data,
+           "--out_root", os.path.join(tmp, "cli"), "--preset", "tiny",
+           "--device", "cuda", "--encoder_path", "unfused",
+           "--max_new_tokens", str(EVAL_MNT)]
+    t0 = time.time()
+    r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                       env=dict(os.environ, PYTHONPATH=ROOT), timeout=600)
+    printed = repr({"refcoco_val": want})
+    if r.returncode != 0 or printed not in r.stdout.splitlines():
+        fail(f"eval CLI (exit {r.returncode}) did not print {printed}:\n"
+             f"{r.stdout[-2000:]}\n{r.stderr[-2000:]}")
+    log(f"[eval-tiny] CLI `python -m anyref_tpu_torch.tools.eval referseg "
+        f"--preset tiny --device cuda --encoder_path unfused` on the saved "
+        f"weights: {time.time() - t0:.1f} s (process included), printed "
+        f"the in-process result {printed}")
+
+
+# profiled_span's kernels before its first marker and after its last: late
+# in a long process a session loses its first few device records (9 in
+# phase 7(b), the first marker among them), never a marker well inside
+SPAN_PAD_KERNELS = 256
+
+
+def profiled_span(torch, fn):
+    """(fn's wall s, device records, their device ms, the s from the end of
+    the session to the records read) of one call of fn under
+    torch.profiler, the records read between the marker kernels
+    before and after it (profiled_counts' rule); None where a session lost
+    a marker COUNT_SESSIONS times. The records are read from the
+    profiler's raw results: building its event objects for the ~10^6
+    records of a pass of 8 decode steps a ref takes minutes."""
+    from torch.profiler import ProfilerActivity, profile
+    cuda = torch.autograd.DeviceType.CUDA
+    for _ in range(COUNT_SESSIONS):
+        pad = torch.zeros(1, device="cuda")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(SPAN_PAD_KERNELS):
+                pad.add_(1)
+            torch.cuda.synchronize()
+            time.sleep(0.1)
+            torch.cuda._sleep(MARKER_CYCLES)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            torch.cuda._sleep(MARKER_CYCLES)
+            for _ in range(SPAN_PAD_KERNELS):
+                pad.add_(1)
+            torch.cuda.synchronize()
+            t_end = time.time()
+        records = sorted((e for e in prof.profiler.kineto_results.events()
+                          if e.device_type() == cuda),
+                         key=lambda e: e.start_ns())
+        marks = [i for i, e in enumerate(records) if MARKER in e.name()]
+        if len(marks) == 2:
+            span = records[marks[0] + 1:marks[1]]
+            busy = sum(e.duration_ns() for e in span) / 1e6
+            return wall, len(span), busy, time.time() - t_end
+        log(f"[profiler] a session kept {len(records)} device records and "
+            f"{len(marks)} of its 2 marker kernels, at {marks}; the first "
+            f"records {[e.name()[:40] for e in records[:3]]}, the last "
+            f"{[e.name()[:40] for e in records[-3:]]}")
+    return None
+
+
+def eval_7b(torch, flash, mods, params, cfg, seg_col, per_batch) -> dict:
+    """Phase 7(b), run on phase 4's weights before the int8 decoder replaces
+    their bf16 one: lm_head's [SEG] column at EVAL_SEG_SCALE_7B x its drawn
+    values, evaluate_referseg on "fused" at rephrase 0.1 (the CLI's referseg
+    default), EVAL_MNT new tokens, over a refCOCO val split of 16 refs on 8
+    COCO-sized images (write_eval_root): refs/s and the wall split (loader
+    wait, predict, host scoring), launches per ref those of a served batch, n,
+    both metrics in [0, 1], a non-empty mask, result.txt; then the same pass
+    warm under torch.profiler (busy and idle, kernels per ref between marker
+    kernels). The column is put back to 1000 x its values. Returns the counted
+    pass's launches."""
+    import tempfile
+
+    from anyref_tpu_torch.data import rle
+    from anyref_tpu_torch.eval.referseg import evaluate_referseg
+    from anyref_tpu_torch.eval.runner import Predictor
+    lm = params["llama"]["lm_head"]
+    lm[:, cfg.tokens.seg] = seg_col * EVAL_SEG_SCALE_7B
+    rcfg = cfg.scaled(rephrase_weight=0.1)
+    tok = mods["AnyRefTokenizer"]()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        t0 = time.time()
+        n_refs = write_eval_root(data, EVAL_7B_SIZE, EVAL_7B_IMAGES)
+        log(f"[eval-7b] data root: {n_refs} refCOCO val refs on "
+            f"{EVAL_7B_IMAGES} JPEGs of {EVAL_7B_SIZE[1]} x {EVAL_7B_SIZE[0]} "
+            f"in {time.time() - t0:.1f} s (polygons of 5-40% of an image, "
+            f"one of two parts, one compressed RLE); rle.native() = "
+            f"{rle.native()}")
+
+        def run(out):
+            pred = RecordingPredictor(Predictor(
+                params, rcfg, max_new_tokens=EVAL_MNT, encoder_path="fused"))
+            timings = {}
+            res = evaluate_referseg(pred, tok, data, "refcoco_val",
+                                    os.path.join(tmp, out),
+                                    timings=timings)["refcoco_val"]
+            return res, pred, timings
+
+        for kernel in flash.KERNELS:
+            kernel.launches = 0
+        t0 = time.time()
+        res, pred, timings = run("counted")
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = {k.__name__: k.launches for k in flash.KERNELS}
+        nonempty, refs = mask_stats(pred.calls)
+        want = {k: n * len(pred.calls) for k, n in per_batch.items()}
+        result_txt = os.path.join(tmp, "counted", "refcoco", "val",
+                                  "result.txt")
+        ids = [row.tolist() for ids, _ in pred.calls for row in ids]
+        log(f"[eval-7b] anyref_7b, fused, rephrase 0.1, lm_head[:, "
+            f"tokens.seg] x {EVAL_SEG_SCALE_7B}, {EVAL_MNT} new tokens: "
+            f"{res}; "
+            f"{refs / wall:.3f} refs/s ({wall:.2f} s wall: loader wait "
+            f"{timings['loader_s']:.3f} s, predict {timings['predict_s']:.3f}"
+            f" s, host scoring {timings['score_s']:.3f} s); {nonempty} of "
+            f"{refs} refs with a non-empty mask; {mods['card']}")
+        log(f"[eval-7b] ids {ids}")
+        log(f"[eval-7b] launches "
+            f"{json.dumps({k: v for k, v in launches.items() if v})} "
+            f"({len(pred.calls)} predict calls)")
+        if res["n"] != n_refs or refs != n_refs or not (
+                0 <= res["ciou"] <= 1 and 0 <= res["giou"] <= 1):
+            fail(f"eval at anyref_7b: {res} over {refs} refs, want n = "
+                 f"{n_refs} and both metrics in [0, 1]")
+        if not nonempty:
+            fail("eval at anyref_7b: no ref has a non-empty mask")
+        if not os.path.exists(result_txt):
+            fail(f"eval at anyref_7b: no {result_txt}")
+        if launches != want:
+            fail(f"eval at anyref_7b: launches {launches}, want {want}")
+
+        warm = {}
+        span = profiled_span(torch, lambda: warm.update(zip(
+            ("res", "pred", "timings"), run("profiled"))))
+        if span is None:
+            fail("eval at anyref_7b: the profiler lost a marker kernel "
+                 f"{COUNT_SESSIONS} times")
+        pwall, n_kernels, busy, read_s = span
+        t = warm["timings"]
+        log(f"[eval-7b] the same pass warm under torch.profiler: "
+            f"{pwall:.3f} s wall -> {n_refs / pwall:.3f} refs/s (loader wait"
+            f" {t['loader_s']:.3f} s, predict {t['predict_s']:.3f} s, host "
+            f"scoring {t['score_s']:.3f} s); kernels busy {busy:.3f} ms -> "
+            f"device idle {100 * (1 - busy / 1e3 / pwall):.1f}%; "
+            f"{n_kernels} device records between the markers, "
+            f"{n_kernels / n_refs:.1f} a ref, read {read_s:.1f} s after the "
+            f"session; {warm['res']}")
+        if warm["res"] != res:
+            fail(f"eval at anyref_7b: the warm pass gave {warm['res']}, the "
+                 f"first {res}")
+    lm[:, cfg.tokens.seg] = seg_col * 1000.0
+    return launches
+
+
 def tree_pairs(a, b, path=""):
     """(path, leaf of a, leaf of b) of two trees of one structure."""
     if isinstance(a, dict):
@@ -3033,8 +3577,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     # phase 6
     checkpoint_phase(torch, flash, mods)
+    # phase 7(a); 7(b) ran in phase 4, on its weights
+    eval_tiny(torch, flash, mods, tiny, tiny512)
 
-    # phase 7
+    # phase 8
     meta = {
         "layer_norm_fused": ("anyref_tpu_torch/csrc/norms.cu",
                              "anyref_tpu/ops/flash.py:615"),

@@ -29,7 +29,9 @@ def test_import_loads_no_jax():
         "import anyref_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    anyref_tpu_torch.__path__, 'anyref_tpu_torch.')]\n"
-        "for want in ('ops.quant', 'ops.mel', 'models.imagebind.audio'):\n"
+        "for want in ('ops.quant', 'ops.mel', 'models.imagebind.audio',\n"
+        "             'data.rle', 'data.refcoco', 'data.avs',\n"
+        "             'eval.referseg', 'eval.harnesses', 'tools.eval'):\n"
         "    assert 'anyref_tpu_torch.' + want in names, names\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
