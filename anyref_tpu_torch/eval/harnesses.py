@@ -1,18 +1,20 @@
-"""The ReasonSeg, COCO-20i and AVSBench eval harnesses (port of
-anyref_tpu/eval/harnesses.py; reference eval_reason.py, eval_coco20i.py,
-eval_avs_object.py). The region-caption inverse harness waits for the
-caption metrics."""
+"""The ReasonSeg, COCO-20i, AVSBench and region-caption inverse eval
+harnesses (port of anyref_tpu/eval/harnesses.py; reference eval_reason.py,
+eval_coco20i.py, eval_avs_object.py, eval_refer_inv.py)."""
 
 from __future__ import annotations
 
 import json
 import os
+import time
+import warnings
 from typing import Optional
 
 import numpy as np
 
 from ..data.collator import Collator
 from ..data.loader import DataLoader
+from .caption_metrics import bleu_n, cider_d, meteor, spice
 from .metrics import f_measure, mask_iou
 from .referseg import evaluate_segmentation
 from .runner import Predictor
@@ -124,5 +126,70 @@ def evaluate_avs(predictor: Predictor, tokenizer, data_root: str,
     out_dir = os.path.join(out_root, f"avs_{task}")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "avs_result.txt"), "a") as f:
+        f.write(json.dumps(result) + "\n")
+    return result
+
+
+def evaluate_refer_inverse(predictor: Predictor, tokenizer, data_root: str,
+                           dataset: str = "refcocog", split: str = "val",
+                           roi: bool = False, out_root: str = "eval_out",
+                           limit: Optional[int] = None,
+                           timings: Optional[dict] = None) -> dict:
+    """Region-caption inverse eval: generate a description of each ref from
+    its crop (or, with ``roi``, its box) and score BLEU-4, CIDEr-D, METEOR
+    and SPICE against the ref's sentences (reference eval_refer_inv.py:
+    183-211; pycocoevalcap replaced by native scorers). METEOR and SPICE
+    are NaN, with a warning, where nltk is missing. Appends the result to
+    ``out_root/dataset/split/inv_result.txt``.
+
+    ``timings``, where given, gains the wall seconds spent waiting on the
+    loader (``loader_s``), in ``predictor.predict`` (``predict_s``) and
+    decoding and scoring the captions on the host (``score_s``)."""
+    from ..data.refcoco import RefCocoValInverse
+    ds = RefCocoValInverse(data_root, dataset, split=split, roi=roi)
+    ds.cfg = predictor.cfg
+    col = Collator(tokenizer, predictor.cfg, train=False, roi=roi)
+    loader = DataLoader(ds, col, batch_size=1, num_workers=4)
+    wall = {"loader_s": 0.0, "predict_s": 0.0, "score_s": 0.0}
+    hyps, refs = [], []
+    seen = 0
+    batches = iter(loader)
+    while True:
+        t0 = time.perf_counter()
+        batch = next(batches, None)
+        t1 = time.perf_counter()
+        wall["loader_s"] += t1 - t0
+        if batch is None:
+            break
+        output_ids, _ = predictor.predict(batch)
+        t2 = time.perf_counter()
+        wall["predict_s"] += t2 - t1
+        text = tokenizer.decode(
+            [t for t in output_ids[0].tolist() if t != 2], skip_special=True)
+        hyps.append(text.strip().rstrip(".").strip())
+        gts = batch["_meta"][0]["sentence"]
+        refs.append(gts if isinstance(gts, list) else [gts])
+        wall["score_s"] += time.perf_counter() - t2
+        seen += 1
+        if limit is not None and seen >= limit:
+            break
+    batches.close()     # stops the loader's workers after a limit
+    t0 = time.perf_counter()
+    # meteor and spice stem with nltk's PorterStemmer: NaN without nltk,
+    # not a failed eval
+    try:
+        met, spc = meteor(hyps, refs), spice(hyps, refs)
+    except ImportError:
+        warnings.warn("nltk unavailable: meteor/spice reported as NaN")
+        met = spc = float("nan")
+    result = {"bleu4": bleu_n(hyps, refs, 4), "cider": cider_d(hyps, refs),
+              "meteor": met, "spice": spc, "n": seen}
+    wall["score_s"] += time.perf_counter() - t0
+    if timings is not None:
+        for k, v in wall.items():
+            timings[k] = timings.get(k, 0.0) + v
+    out_dir = os.path.join(out_root, dataset, split)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "inv_result.txt"), "a") as f:
         f.write(json.dumps(result) + "\n")
     return result

@@ -1,12 +1,15 @@
-"""Eval CLI: one front door for the segmentation harnesses (port of
-tools/eval.py; the reference hard-codes its configuration in per-script
-__main__ blocks: eval_referseg.py:235-256, eval_coco20i.py:229-240,
-eval_reason.py, eval_avs_object.py).
+"""Eval CLI: one front door for the segmentation and region-caption
+harnesses (port of tools/eval.py; the reference hard-codes its
+configuration in per-script __main__ blocks: eval_referseg.py:235-256,
+eval_coco20i.py:229-240, eval_reason.py, eval_avs_object.py,
+eval_refer_inv.py).
 
   python -m anyref_tpu_torch.tools.eval referseg --ckpt ckpt/anyref7b.pt \
       --data_root /data --val_datasets refcoco_val,refcocog_test \
       --tokenizer LLaVA-Lightning-7B-v1-1
   python -m anyref_tpu_torch.tools.eval avs --avs_task object --split test ...
+  python -m anyref_tpu_torch.tools.eval refer_inv --inv_dataset refcocog \
+      --split val --roi ...
 
 ``--ckpt`` is a params file of the port (checkpoint.save_params, or the
 conversion CLI's output). Without ``--tokenizer`` the byte-level
@@ -23,7 +26,8 @@ from ..config import ENCODER_PATHS
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("task", choices=["referseg", "reason", "coco20i", "avs"])
+    p.add_argument("task", choices=["referseg", "reason", "coco20i", "avs",
+                                    "refer_inv"])
     p.add_argument("--ckpt", required=True,
                    help="params file (checkpoint.save_params)")
     p.add_argument("--data_root", default="/data")
@@ -31,9 +35,12 @@ def main(argv=None):
     p.add_argument("--val_datasets", default="refcoco_val")
     p.add_argument("--avs_task", default="object", choices=["object", "multi"])
     p.add_argument("--split", default="test")
+    p.add_argument("--inv_dataset", default="refcocog")
+    p.add_argument("--roi", action="store_true",
+                   help="refer_inv: describe the ref's box, not its crop")
     # default matches the reference's committed __main__ configs: 0.1 for
     # referseg/coco20i (eval_referseg.py:253, eval_coco20i.py:236), 0.0 for
-    # reason/avs (eval_reason.py:185)
+    # reason/avs/refer_inv (eval_reason.py:185, eval_refer_inv.py:39)
     p.add_argument("--rephrase_weight", type=float, default=None)
     p.add_argument("--limit", type=int, default=None,
                    help="samples to score (coco20i: a split; default 101)")
@@ -76,10 +83,15 @@ def main(argv=None):
         from ..eval.harnesses import evaluate_coco20i
         res = evaluate_coco20i(predictor, tok, args.data_root, args.out_root,
                                limit=101 if args.limit is None else args.limit)
-    else:
+    elif args.task == "avs":
         from ..eval.harnesses import evaluate_avs
         res = evaluate_avs(predictor, tok, args.data_root, args.avs_task,
                            args.split, args.out_root, args.limit)
+    else:
+        from ..eval.harnesses import evaluate_refer_inverse
+        res = evaluate_refer_inverse(predictor, tok, args.data_root,
+                                     args.inv_dataset, args.split, args.roi,
+                                     args.out_root, args.limit)
     print(res)
     return res
 

@@ -215,9 +215,19 @@ def make_train_step(cfg: AnyRefConfig, lora_cfg: lora_mod.LoraConfig,
 
 def stack_microbatches(batches: list) -> dict:
     """Collated batches -> one [accum, B, ...] batch for the accumulating
-    train step (host-only keys, with a leading underscore, dropped)."""
-    keys = [k for k in batches[0] if not k.startswith("_")]
-    return {k: np.stack([b[k] for b in batches]) for k in keys}
+    train step (host-only keys, with a leading underscore, dropped). A
+    reference key that only some micro-batches carry (``ref_images``,
+    ``roi_boxes``, ``audio_mels`` and their ``*_valid``) is zeros in the
+    others, as the collator fills a row without a reference: no row of
+    theirs is valid."""
+    keys = list(dict.fromkeys(k for b in batches for k in b
+                              if not k.startswith("_")))
+    out = {}
+    for k in keys:
+        like = next(b[k] for b in batches if k in b)
+        out[k] = np.stack([b[k] if k in b else np.zeros_like(like)
+                           for b in batches])
+    return out
 
 
 def device_batch(batch: dict) -> dict:

@@ -4,8 +4,9 @@ Gradient accumulation over micro-batches, one optimizer step, metrics to
 ``metrics.jsonl``, a train-state checkpoint every ``save_steps`` with
 resume, ``merged_params`` for deployment, and ``torch.profiler`` around the
 steps named by ``profile_steps``. Runs on the CUDA device unless the caller
-passes ``device="cpu"``. Building the reference's datasets from disk is not
-part of the port yet: the caller passes the dataset.
+passes ``device="cpu"``. Without a dataset the Trainer builds the mix that
+``train_datasets`` names under ``data_root`` (data/registry.py), its AVS
+readers' mel front end on the Trainer's device.
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ from . import step as step_mod
 class TrainConfig:
     """Launch parameters (reference train.sh:1-22), one device."""
 
+    train_datasets: str = "refer_seg"
+    data_root: str = "/data"
     output_dir: str = "output"
     per_device_batch_size: int = 6
     grad_accum_steps: int = 8
@@ -41,6 +44,9 @@ class TrainConfig:
     save_steps: int = 100
     log_steps: int = 10
     seed: int = 0
+    itisseg: bool = False
+    roi: bool = False
+    no_mask: bool = False
     resume: bool = True
     profile_steps: tuple = ()          # e.g. (20, 30) traces steps 20..30
     profile_dir: str = "profile"
@@ -50,7 +56,7 @@ class TrainConfig:
 
 class Trainer:
     def __init__(self, cfg: AnyRefConfig, tc: TrainConfig, params: dict,
-                 dataset, tokenizer: Optional[AnyRefTokenizer] = None,
+                 dataset=None, tokenizer: Optional[AnyRefTokenizer] = None,
                  device="cuda"):
         check_encoder_path(tc.encoder_path)
         dev = resolve_device(device)
@@ -58,9 +64,6 @@ class Trainer:
         if p_dev.type != dev.type:
             raise ValueError(f"params live on {p_dev}, the Trainer was "
                              f"asked to run on {dev}")
-        if dataset is None:
-            raise NotImplementedError("building the reference's datasets is "
-                                      "not part of the port yet; pass one")
         self.cfg = cfg
         self.tc = tc
         self.tokenizer = tokenizer or AnyRefTokenizer()
@@ -76,8 +79,14 @@ class Trainer:
         self.step_fn = step_mod.make_train_step(
             cfg, self.lora_cfg, self.optimizer, remat=tc.remat,
             grad_accum=tc.grad_accum_steps, encoder_path=tc.encoder_path)
+        if dataset is None:
+            from ..data.registry import build_train_datasets
+            dataset = build_train_datasets(
+                tc.train_datasets, tc.data_root, cfg, itisseg=tc.itisseg,
+                roi=tc.roi, no_mask=tc.no_mask, device=dev)
         self.loader = DataLoader(dataset,
-                                 Collator(self.tokenizer, cfg, train=True),
+                                 Collator(self.tokenizer, cfg, train=True,
+                                          roi=tc.roi),
                                  batch_size=tc.per_device_batch_size,
                                  shuffle=True, num_workers=8, seed=tc.seed,
                                  drop_last=True)

@@ -101,7 +101,36 @@ Phases (any failure exits non-zero before the result line):
      predict and host scoring, launch counts, n, cIoU and gIoU, a non-empty
      mask, result.txt, then the pass warm under torch.profiler (busy,
      idle, kernels per ref between marker kernels), and rle.native();
-  8. print {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+  8. training from the reference's datasets and the region-caption eval
+     (write_train_root writes the training readers' layouts, write_eval_root
+     the eval's, in a temporary directory): (a) at anyref_tiny, the Trainer
+     with no dataset (it builds the registry's mix, TRAIN_MIX: refCOCO text
+     refs, COCO classes, ADE20K instances and classes, ReasonSeg and the
+     inverse task's crops) on the card, 2 steps of 2 micro-batches of 2,
+     "fused", remat, its batches recorded and replayed through
+     make_train_step on the CPU (every loss term within SLICE_REL_TOL),
+     then the same over refer_seg_inv_refcoco with roi and no_mask (boxes
+     into encode_roi, no mask); evaluate_refer_inverse on "unfused" with
+     crops and with boxes, card against the CPU from the same seeded
+     weights (ids, so captions and every metric, equal; launch counts); the
+     training CLI in a subprocess on tiny reference artifacts
+     (reference_state_dicts), whose merged.pt must equal
+     assemble_pretrained of the same artifacts (the first step's learning
+     rate is 0); (b) at anyref_7b, the Trainer with no dataset on random
+     bf16 weights from a seed over TRAIN_MIX from 640 x 480 JPEGs, "fused",
+     batch 2 x 2 micro-steps, 2 steps, warmup 1, remat: finite losses, the
+     LoRA weights moved and the frozen ones not, metrics.jsonl, each
+     kernel's launches against the recorded batches (CLIP twice a
+     micro-step where the step's batch carries crops), the step wall, the
+     peak memory and the registry's lengths printed; and, run in phase 4
+     on its weights before the int8 decoder replaces the bf16 one (the
+     [SEG] column at its drawn values), evaluate_refer_inverse on "fused",
+     greedy, INV_MNT new tokens, INV_REFS refs with crops and INV_REFS with
+     boxes over 8 640 x 480 JPEGs: n, BLEU-4 and CIDEr-D finite in [0, 10],
+     METEOR and SPICE NaN exactly where nltk is missing, two lines in
+     inv_result.txt, launches a ref (flash_attention_qkv 46 with a crop, 23
+     with a box), refs/s and the wall split;
+  9. print {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1705,6 +1734,9 @@ def serve_7b(torch, flash, mods):
     # phase 7(b) on these weights, before the int8 decoder replaces the bf16
     launches["eval"] = eval_7b(torch, flash, mods, params, cfg, seg_col,
                                per_batch["fused"])
+    # phase 8(b)'s inverse eval, on the same weights
+    launches["inverse"] = eval_inverse_7b(torch, flash, mods, params, cfg,
+                                          seg_col, per_batch["fused"])
     launches["int8"], int8_step = serve_int8(torch, flash, mods, params,
                                              cfg, images,
                                              dict(per_batch["fused"]))
@@ -2969,39 +3001,25 @@ def write_wave(path: str, rng, seconds: float = AUDIO_SECONDS) -> None:
         f.writeframes((sig * 32767).astype(np.int16).tobytes())
 
 
-def write_eval_root(root: str, size, n_images: int, seed: int = 0) -> int:
-    """The four harnesses' layouts under ``root`` from ``seed`` (PIL writes
-    the images, ``wave`` the audio); returns the number of refCOCO refs.
-
-    COCO train2017: ``n_images`` JPEGs of ``size`` (h, w), two annotations
-    an image, no class twice: the first a COCO-20i split-0 class over 12-40%
-    of the image, the second another class over 5-40%; image 0's second
-    annotation has two polygons, image 1's is a compressed RLE. refCOCO
-    val: a ref for each annotation, two sentences (the harness reads the
-    last). COCO-20i: the split-0 list of every image and the reference
-    index (build_ref_index: one entry a class, so the loader's threads draw
-    the same reference crop in any order). ReasonSeg val: two images, one
-    sentence each, the first with an ignore region. AVSBench: the S4 and
-    MS3 test splits, one 5-frame video each (the harness scores whole
-    5-frame groups) with 5 s of audio; one MS3 frame has no object."""
+def write_coco(root: str, rng, size, n_images: int, split: str) -> str:
+    """COCO train2017 under ``root``: ``n_images`` JPEGs of ``size`` (h, w),
+    two annotations an image, no class twice: the first a COCO-20i split-0
+    class over 12-40% of the image, the second another class over 5-40%;
+    image 0's second annotation has two polygons, image 1's is a compressed
+    RLE. refCOCO: a ref of ``split`` for each annotation, two sentences.
+    Returns the annotation file."""
     import pickle
-
-    from PIL import Image
 
     from anyref_tpu_torch.data import rle
     from anyref_tpu_torch.data.categories import COCO_THING_CLASSES
-    from anyref_tpu_torch.data.coco import build_ref_index
     from anyref_tpu_torch.data.coco20i import coco20i_split_ids
-    rng = np.random.default_rng(seed)
     h, w = size
-    split = coco20i_split_ids(0)
-    others = [c for c in COCO_THING_CLASSES if c not in split]
+    split_ids = coco20i_split_ids(0)
+    others = [c for c in COCO_THING_CLASSES if c not in split_ids]
     img_dir = os.path.join(root, "coco", "train2017")
     ann_dir = os.path.join(root, "coco", "annotations")
     ref_dir = os.path.join(root, "refcoco")
-    fss_dir = os.path.join(root, "coco_20i", "lists", "coco", "fss_list",
-                           "val")
-    for d in (img_dir, ann_dir, ref_dir, fss_dir):
+    for d in (img_dir, ann_dir, ref_dir):
         os.makedirs(d)
     images, anns, refs = [], [], []
     for i in range(n_images):
@@ -3010,7 +3028,7 @@ def write_eval_root(root: str, size, n_images: int, seed: int = 0) -> int:
         write_image(os.path.join(img_dir, name), rng, h, w)
         images.append({"id": iid, "height": h, "width": w,
                        "file_name": name})
-        for j, cat in enumerate((split[i], others[i])):
+        for j, cat in enumerate((split_ids[i], others[i])):
             if j == 1 and i == 0:
                 frac = rng.uniform(0.1, 0.4)
                 seg = [star_polygon(rng, h, w, frac / 2, (0, w / 2)),
@@ -3032,7 +3050,7 @@ def write_eval_root(root: str, size, n_images: int, seed: int = 0) -> int:
                      f"{COCO_THING_CLASSES[cat]} {rng.choice(PLACES)}"
                      for _ in range(2)]
             refs.append({"ref_id": aid - 1, "ann_id": aid, "image_id": iid,
-                         "category_id": cat, "split": "val",
+                         "category_id": cat, "split": split,
                          "file_name": name,
                          "sentences": [{"sent": s, "raw": s,
                                         "tokens": s.split(),
@@ -3048,9 +3066,35 @@ def write_eval_root(root: str, size, n_images: int, seed: int = 0) -> int:
             json.dump(coco, f)
     with open(os.path.join(ref_dir, "refs(unc).p"), "wb") as f:
         pickle.dump(refs, f)
+    return ann_file
+
+
+def write_eval_root(root: str, size, n_images: int, seed: int = 0) -> int:
+    """The four harnesses' layouts under ``root`` from ``seed`` (PIL writes
+    the images, ``wave`` the audio); returns the number of refCOCO refs.
+
+    COCO train2017 and refCOCO val (write_coco: two annotations an image, a
+    ref for each, the harness reads the last of its two sentences).
+    COCO-20i: the split-0 list of every image and the reference index
+    (build_ref_index: one entry a class, so the loader's threads draw the
+    same reference crop in any order). ReasonSeg val: two images, one
+    sentence each, the first with an ignore region. AVSBench: the S4 and
+    MS3 test splits, one 5-frame video each (the harness scores whole
+    5-frame groups) with 5 s of audio; one MS3 frame has no object."""
+    from PIL import Image
+
+    from anyref_tpu_torch.data import rle
+    from anyref_tpu_torch.data.coco import build_ref_index
+    rng = np.random.default_rng(seed)
+    h, w = size
+    ann_file = write_coco(root, rng, size, n_images, "val")
+    img_dir = os.path.join(root, "coco", "train2017")
+    fss_dir = os.path.join(root, "coco_20i", "lists", "coco", "fss_list",
+                           "val")
+    os.makedirs(fss_dir)
     with open(os.path.join(fss_dir, "data_list_0.txt"), "w") as f:
-        for im in images:
-            f.write(f"COCO_train2014_{im['id']:012d}.jpg lbl\n")
+        for i in range(n_images):
+            f.write(f"COCO_train2014_{i + 1:012d}.jpg lbl\n")
     build_ref_index(img_dir, ann_file,
                     os.path.join(root, "samples_0.05_0.25.json"),
                     box_img_threshold=0.05, mask_box_threshold=0.25)
@@ -3093,7 +3137,96 @@ def write_eval_root(root: str, size, n_images: int, seed: int = 0) -> int:
                     [star_polygon(rng, h, w, rng.uniform(0.05, 0.4))], h, w)
             Image.fromarray(m * 255).save(
                 os.path.join(base, masks, f"{video}_{k}.png"))
-    return len(refs)
+    return 2 * n_images
+
+
+def write_train_root(root: str, size, n_images: int, seed: int = 0) -> dict:
+    """The training readers' layouts under ``root`` from ``seed`` (PIL
+    writes the images); returns {layout: items}.
+
+    COCO train2017 and refCOCO train (write_coco: two annotations an image,
+    a ref for each with two sentences) and the reference index
+    (build_ref_index). ADE20K training: two images of ``size``, each with
+    an instance PNG (channel 0 the category, channel 1 the instance: two
+    classes, the first with up to three instances, so an answer carries
+    several [SEG]s, and one instance under the readers' 1% area filter)
+    and a semantic PNG of two classes and one under 1%. ReasonSeg train:
+    two images, two sentences each, and their answers. PhraseCut
+    (VGPhraseCut_v0): two images and a train task file of three tasks, one
+    of two polygon groups and one of a degenerate polygon only (a bad
+    sample)."""
+    from PIL import Image
+
+    from anyref_tpu_torch.data import rle
+    from anyref_tpu_torch.data.categories import ADE_INSTANCE_CLASSES
+    from anyref_tpu_torch.data.coco import build_ref_index
+    rng = np.random.default_rng(seed)
+    h, w = size
+    ann_file = write_coco(root, rng, size, n_images, "train")
+    build_ref_index(os.path.join(root, "coco", "train2017"), ann_file,
+                    os.path.join(root, "samples_0.05_0.25.json"),
+                    box_img_threshold=0.05, mask_box_threshold=0.25)
+
+    def blob(frac):
+        return rle.annotation_to_mask([star_polygon(rng, h, w, frac)], h, w)
+
+    ade = os.path.join(root, "ADEChallengeData2016")
+    dirs = [os.path.join(ade, d, "training") for d in
+            ("images", "annotations_instance", "annotations")]
+    for d in dirs:
+        os.makedirs(d)
+    inst_classes = sorted(ADE_INSTANCE_CLASSES)
+    for k in range(2):
+        name = f"ADE_train_{k + 1:08d}"
+        write_image(os.path.join(dirs[0], f"{name}.jpg"), rng, h, w)
+        inst = np.zeros((h, w, 3), np.uint8)
+        classes = rng.choice(inst_classes, 2, replace=False)
+        n = 1
+        for c, count in zip(classes, (int(rng.integers(2, 4)), 1)):
+            for _ in range(count):
+                m = blob(rng.uniform(0.04, 0.15)).astype(bool)
+                inst[m, 0], inst[m, 1] = c, n
+                n += 1
+        m = blob(0.004).astype(bool)        # under the 1% area filter
+        inst[m, 0], inst[m, 1] = classes[1], n
+        Image.fromarray(inst).save(os.path.join(dirs[1], f"{name}.png"))
+        sem = np.zeros((h, w), np.uint8)
+        for c, frac in zip(rng.choice(np.arange(1, 151), 3, replace=False),
+                           (rng.uniform(0.1, 0.3), rng.uniform(0.05, 0.2),
+                            0.004)):
+            sem[blob(frac).astype(bool)] = c
+        Image.fromarray(sem).save(os.path.join(dirs[2], f"{name}.png"))
+
+    reason = os.path.join(root, "reason", "train")
+    os.makedirs(reason)
+    for k in range(2):
+        write_image(os.path.join(reason, f"t{k}.jpg"), rng, h, w)
+        poly = np.reshape(star_polygon(rng, h, w, 0.25), (-1, 2)).tolist()
+        with open(os.path.join(reason, f"t{k}.json"), "w") as f:
+            json.dump({"text": [f"the thing {PLACES[k]} that holds water",
+                                f"what keeps the rain {PLACES[k + 1]} off"],
+                       "is_sentence": k == 0,
+                       "shapes": [{"label": "target", "points": poly}]}, f)
+    with open(os.path.join(root, "reason", "reason_answer_train.txt"),
+              "w") as f:
+        f.write("a bucket\nan umbrella\n")
+
+    pc = os.path.join(root, "VGPhraseCut_v0")
+    os.makedirs(os.path.join(pc, "images"))
+    tasks = []
+    for k, image_id in enumerate((11, 12)):
+        write_image(os.path.join(pc, "images", f"{image_id}.jpg"), rng, h, w)
+        groups = [[np.reshape(star_polygon(rng, h, w, 0.1), (-1, 2)).tolist()]
+                  for _ in range(1 + k)]
+        tasks.append({"task_id": f"t{k}", "image_id": image_id,
+                      "phrase": f"{ADJECTIVES[k]} thing {PLACES[k]}",
+                      "Polygons": groups})
+    tasks.append({"task_id": "t2", "image_id": 11, "phrase": "a line",
+                  "Polygons": [[[[1, 1], [5, 5]]]]})
+    with open(os.path.join(pc, "refer_train.json"), "w") as f:
+        json.dump(tasks, f)
+    return {"coco": n_images, "refcoco": 2 * n_images, "ade": 2,
+            "reason": 2, "phrasecut": len(tasks)}
 
 
 class RecordingPredictor:
@@ -3430,6 +3563,493 @@ def eval_7b(torch, flash, mods, params, cfg, seg_col, per_batch) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: training from the reference's datasets, the region-caption eval
+# ---------------------------------------------------------------------------
+# the registry's mix of every kind of training sample the slice runs: text
+# refs, COCO classes, ADE20K instances (several [SEG]s) and classes,
+# ReasonSeg, and the inverse task's crops
+TRAIN_MIX = ("refer_seg_refcoco,coco_instance,ade_instance,ade_semantic,"
+             "reason,refer_seg_inv_refcoco")
+# (b): COCO-sized images (write_train_root), 4 of them with 8 refCOCO refs
+TRAIN_7B_IMAGES = 4
+# the inverse eval: greedy new tokens, and refs of each kind at anyref_7b
+INV_MNT = 16
+INV_REFS = 8
+
+
+def record_steps(trainer) -> list:
+    """Wraps ``trainer.step_fn``; the returned list gains, for each step,
+    a host copy of the batch it was given and its metrics as floats."""
+    steps = []
+    inner = trainer.step_fn
+
+    def step_fn(state, frozen, batch):
+        kept = {k: np.array(v, copy=True) for k, v in batch.items()}
+        state, metrics = inner(state, frozen, batch)
+        steps.append((kept, {k: float(v) for k, v in metrics.items()}))
+        return state, metrics
+    trainer.step_fn = step_fn
+    return steps
+
+
+def replay_on_cpu(torch, mods, cfg, tc, params, steps) -> list:
+    """The recorded batches through make_train_step on the CPU, from the
+    state the Trainer starts from (the same seed, the LoRA draw made on the
+    CPU in both): each step's metrics."""
+    step, lora = mods["step"], mods["lora"]
+    lcfg = lora.LoraConfig()
+    opt = step.make_optimizer(lr=tc.learning_rate, warmup=tc.warmup_steps,
+                              total_steps=tc.max_steps)
+    state, frozen = step.init_state(torch.Generator().manual_seed(tc.seed),
+                                    params, lcfg, opt)
+    fn = step.make_train_step(cfg, lcfg, opt, remat=tc.remat,
+                              grad_accum=tc.grad_accum_steps,
+                              encoder_path=tc.encoder_path)
+    out = []
+    for batch, _ in steps:
+        state, m = fn(state, frozen, batch)
+        out.append({k: float(v) for k, v in m.items()})
+    return out
+
+
+def train_tiny_from_disk(torch, mods, cfg, data: str, out: str, what: str,
+                         n_steps: int, **kw) -> list:
+    """Phase 8(a), training: Trainer(dataset=None) at ``cfg`` on the card
+    (bf16 weights from seed 0, remat, "fused", batch 2 x 2 micro-steps,
+    ``n_steps`` steps, warmup 1) builds the registry's mix from ``kw``
+    (train_datasets, roi, no_mask) under ``data``; its batches are recorded
+    and replayed through make_train_step on the CPU: every loss term of
+    every step within SLICE_REL_TOL of the CPU's (check_tiny_train's
+    limit). Returns the recorded steps."""
+    p_cpu = mods["tparams"].init(cfg, torch.Generator().manual_seed(0),
+                                 torch.bfloat16, device="cpu")
+    tc = mods["TrainConfig"](
+        data_root=data, output_dir=out, per_device_batch_size=2,
+        grad_accum_steps=2, max_steps=n_steps, warmup_steps=1,
+        save_steps=10 ** 9, log_steps=1, resume=False, remat=True,
+        encoder_path="fused", **kw)
+    trainer = mods["Trainer"](cfg, tc, _to_device(p_cpu, "cuda"))
+    datasets = getattr(trainer.loader.dataset, "datasets",
+                       [trainer.loader.dataset])
+    lengths = {type(d).__name__: len(d) for d in datasets}
+    steps = record_steps(trainer)
+    trainer.train()
+    torch.cuda.synchronize()
+    cpu = replay_on_cpu(torch, mods, cfg, tc, p_cpu, steps)
+    worst = 0.0
+    for (_, m_gpu), m_cpu in zip(steps, cpu):
+        for k, v in m_cpu.items():
+            if not np.isfinite(m_gpu[k]):
+                fail(f"{what}: non-finite {k} on the card: {m_gpu}")
+            worst = max(worst, abs(m_gpu[k] - v) / max(abs(v), 1e-6))
+    refs = [(sorted(k for k in b if k in ("ref_images", "roi_boxes")),
+             int(b["ref_valid"].sum()) if "ref_valid" in b else 0,
+             int(b["mask_valid"].sum())) for b, _ in steps]
+    log(f"[train-disk] {what}: registry {json.dumps(lengths)}; {n_steps} "
+        f"steps of {tc.grad_accum_steps} micro-batches of "
+        f"{tc.per_device_batch_size}, (references, valid rows, masks) a "
+        f"step {refs}; card {[m for _, m in steps]}, CPU on the recorded "
+        f"batches {cpu}; worst loss-term rel err {worst:.4g} (limit "
+        f"{SLICE_REL_TOL})")
+    if len(steps) != n_steps or worst > SLICE_REL_TOL:
+        fail(f"{what}: the card's step disagrees with the CPU's on the same "
+             f"batch ({len(steps)} steps, worst rel err {worst})")
+    return steps
+
+
+def same_result(a: dict, b: dict) -> bool:
+    """Equal result dicts, a NaN equal to a NaN."""
+    def same(x, y):
+        return x == y or (isinstance(x, float) and isinstance(y, float)
+                          and np.isnan(x) and np.isnan(y))
+    return set(a) == set(b) and all(same(a[k], b[k]) for k in a)
+
+
+# the tiny inverse eval on the CPU follows the card's greedy ids: where
+# the CPU would pick another token, its largest logit may exceed the logit
+# of the card's pick by at most this share of the step's largest magnitude
+# (a near tie, which the two devices' bf16 roundings break apart)
+INV_LOGIT_TOL = 1e-2
+
+
+class FollowIds:
+    """Stands in for llama.logits while the CPU predicts: each call keeps
+    the CPU's logits and lifts the card's token of that step (``ids`` of the
+    current predict call, set by ``start``) to the top, so the CPU's greedy
+    decode emits the card's ids. ``gaps`` gains, for each step of a row not
+    yet ended, the CPU's largest logit less the card's pick's, over the
+    step's largest magnitude (0 where both pick the same token)."""
+
+    def __init__(self, torch, real):
+        self.torch, self.real = torch, real
+        self.gaps = []
+        self.ids = None
+        self.step = 0
+
+    def start(self, ids):
+        self.ids = self.torch.as_tensor(ids).long()
+        self.step = 0
+
+    def __call__(self, params, hidden):
+        out = self.real(params, hidden)
+        j = self.step
+        self.step += 1
+        B, mnt = self.ids.shape
+        if j >= mnt:
+            return out
+        tgt = self.ids[:, j]
+        tgt = self.torch.cat([tgt, tgt[:1].expand(out.shape[0] - B)])
+        top = out.max(-1).values
+        rows = self.torch.arange(out.shape[0])
+        live = (self.ids[:, :j] != 2).all(1)
+        scale = out.abs().max(-1).values
+        for b in range(B):
+            if live[b]:
+                self.gaps.append(float((top[b] - out[b, tgt[b]]) / scale[b]))
+        out = out.clone()
+        out[rows, tgt] = top + 1.0
+        return out
+
+
+def inverse_tiny(torch, flash, mods, cfg, data: str, tmp: str) -> None:
+    """Phase 8(a), the region-caption eval: evaluate_refer_inverse over
+    refCOCO val (write_eval_root) on "unfused" at ``cfg``, crops and then
+    boxes, on the card, then on the CPU from the same seeded bf16 weights
+    following the card's greedy ids (FollowIds): the CPU's own pick agrees
+    with the card's, or lies within INV_LOGIT_TOL of it; the result dicts
+    are equal, the masks as compare_eval_calls holds them; each kernel's
+    launches on the card those of a served batch a predict call."""
+    from anyref_tpu_torch.eval.harnesses import evaluate_refer_inverse
+    from anyref_tpu_torch.eval.runner import Predictor
+    from anyref_tpu_torch.models import llama
+    tok = mods["AnyRefTokenizer"]()
+    p_cpu = mods["tparams"].init(cfg, torch.Generator().manual_seed(0),
+                                 torch.bfloat16, device="cpu")
+    p_gpu = _to_device(p_cpu, "cuda")
+    per_batch = launches_per_batch(flash, cfg)["unfused"]
+    rcfg = cfg.scaled(rephrase_weight=0.0)
+    for roi in (False, True):
+        card = RecordingPredictor(Predictor(
+            p_gpu, rcfg, max_new_tokens=EVAL_MNT, encoder_path="unfused"))
+        for kernel in flash.KERNELS:
+            kernel.launches = 0
+        got = evaluate_refer_inverse(card, tok, data, "refcoco", "val",
+                                     roi=roi, out_root=os.path.join(
+                                         tmp, "inv-cuda"))
+        launches = {k.__name__: k.launches for k in flash.KERNELS}
+        follow = FollowIds(torch, llama.logits)
+        cpu = RecordingPredictor(Predictor(
+            p_cpu, rcfg, max_new_tokens=EVAL_MNT, device="cpu",
+            encoder_path="unfused"))
+        ids = iter([i for i, _ in card.calls])
+        inner = cpu.predict
+
+        def predict(batch):
+            follow.start(next(ids))
+            return inner(batch)
+        cpu.predict = predict
+        llama.logits = follow
+        try:
+            want = evaluate_refer_inverse(cpu, tok, data, "refcoco", "val",
+                                          roi=roi, out_root=os.path.join(
+                                              tmp, "inv-cpu"))
+        finally:
+            llama.logits = follow.real
+        what = f"inverse eval (roi={roi}, unfused, anyref_tiny)"
+        compare_eval_calls(card.calls, cpu.calls, what)
+        want_launches = {k: n * len(card.calls) for k, n in per_batch.items()}
+        apart = [g for g in follow.gaps if g > 0]
+        log(f"[inv-tiny] {what}: card {got}, CPU following the card's ids "
+            f"{want}; the CPU's own pick is the card's at "
+            f"{len(follow.gaps) - len(apart)} of {len(follow.gaps)} steps, "
+            f"elsewhere its top logit lies {sorted(apart)} of the step's "
+            f"largest magnitude above the card's pick (limit "
+            f"{INV_LOGIT_TOL}); launches "
+            f"{json.dumps({k: v for k, v in launches.items() if v})}")
+        if not same_result(got, want) or got["n"] != len(card.calls) or \
+                not got["n"] or max(follow.gaps) > INV_LOGIT_TOL:
+            fail(f"{what}: card {got}, CPU {want}, gaps {follow.gaps}")
+        if launches != want_launches:
+            fail(f"{what}: launches {launches}, want {want_launches}")
+
+
+def train_cli_tiny(torch, mods, data: str, tmp: str) -> None:
+    """Phase 8(a), the training CLI: tiny artifacts in the reference's
+    layouts (reference_state_dicts: a merged LLaVA .safetensors, a SAM
+    .pth), then `python -m anyref_tpu_torch.tools.train --preset tiny
+    --device cuda` in a subprocess, one step on refer_seg_refcoco: exit 0,
+    and a merged.pt that load_params reads, equal leaf for leaf to
+    assemble_pretrained of the same artifacts on the CPU (the first step's
+    learning rate is 0, so neither the LoRA nor a dense weight moved)."""
+    from anyref_tpu_torch import checkpoint
+    tiny = mods["anyref_tiny"]()
+    g = torch.Generator().manual_seed(11)
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g) * 0.02).to(dtype)
+
+    sds = reference_state_dicts(tiny, rand)
+    llava = os.path.join(tmp, "llava")
+    os.makedirs(llava)
+    write_safetensors(torch, os.path.join(llava, "model.safetensors"),
+                      merged_llava(sds))
+    sam_pth = os.path.join(tmp, "sam.pth")
+    torch.save({k: v.float() for k, v in sds["sam"].items()}, sam_pth)
+    out = os.path.join(tmp, "train-cli")
+    cmd = [sys.executable, "-m", "anyref_tpu_torch.tools.train",
+           "--preset", "tiny", "--device", "cuda",
+           "--train_datasets", "refer_seg_refcoco", "--data_root", data,
+           "--output_dir", out, "--max_steps", "1", "--grad_accum_steps",
+           "1", "--per_device_batch_size", "1", "--save_steps", "1",
+           "--warmup_steps", "1", "--llava_dir", llava, "--sam_ckpt",
+           sam_pth, "--imagebind_ckpt", os.path.join(tmp, "none.pth")]
+    t0 = time.time()
+    r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                       env=dict(os.environ, PYTHONPATH=ROOT), timeout=600)
+    merged = os.path.join(out, "merged.pt")
+    if r.returncode or f"wrote {merged}" not in r.stdout.splitlines():
+        fail(f"training CLI (exit {r.returncode}):\n{r.stdout[-2000:]}\n"
+             f"{r.stderr[-2000:]}")
+    t_cli = time.time() - t0
+    got = checkpoint.load_params(merged, device="cpu")
+    want = checkpoint.assemble_pretrained(
+        tiny.scaled(rephrase_weight=0.0, audio=None), llava_dir=llava,
+        sam_ckpt=sam_pth, device="cpu")
+    n = check_same_tree(torch, got, want, "the training CLI's merged.pt vs "
+                        "assemble_pretrained on the CPU")
+    log(f"[train-cli] `python -m anyref_tpu_torch.tools.train --preset tiny "
+        f"--device cuda` on tiny reference artifacts: {t_cli:.1f} s "
+        f"(process included), printed {r.stdout.splitlines()[-1]!r}; "
+        f"merged.pt: {n} leaves equal to the assembly (step 1's learning "
+        f"rate is 0)")
+
+
+def phase8_tiny(torch, flash, mods, tiny) -> None:
+    """Phase 8(a) at anyref_tiny: write_train_root and write_eval_root in a
+    temporary directory, the Trainer from disk on TRAIN_MIX and on the
+    inverse task's boxes without masks (roi, no_mask), card against the CPU
+    on the recorded batches; the inverse eval card against the CPU; the
+    training CLI."""
+    import tempfile
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "train")
+        sizes = write_train_root(data, EVAL_TINY_SIZE, EVAL_TINY_IMAGES)
+        log(f"[train-disk] training root at {EVAL_TINY_SIZE}: "
+            f"{json.dumps(sizes)}")
+        steps = train_tiny_from_disk(torch, mods, tiny, data,
+                                     os.path.join(tmp, "mix"), "the mix", 2,
+                                     train_datasets=TRAIN_MIX)
+        if not all(b["mask_valid"].any() for b, _ in steps):
+            fail("a step of the mix has no mask")
+        steps = train_tiny_from_disk(
+            torch, mods, tiny, data, os.path.join(tmp, "roi"),
+            "refer_seg_inv_refcoco, roi, no_mask", 1,
+            train_datasets="refer_seg_inv_refcoco", roi=True, no_mask=True)
+        batch = steps[0][0]
+        if "roi_boxes" not in batch or "ref_images" in batch or \
+                not batch["ref_valid"].all() or batch["mask_valid"].any():
+            fail(f"roi, no_mask: batch keys {sorted(batch)}, ref_valid "
+                 f"{batch.get('ref_valid')}, mask_valid "
+                 f"{batch['mask_valid']}")
+        ev = os.path.join(tmp, "eval")
+        write_eval_root(ev, EVAL_TINY_SIZE, EVAL_TINY_IMAGES)
+        inverse_tiny(torch, flash, mods, tiny, ev, tmp)
+        train_cli_tiny(torch, mods, data, tmp)
+    log(f"[phase 8] (a) in {time.time() - t0:.1f} s")
+
+
+def fingerprint(t) -> tuple:
+    """A frozen leaf's fingerprint: its sum and its sum of magnitudes in
+    fp64."""
+    d = t.detach().double()
+    return (d.sum().item(), d.abs().sum().item())
+
+
+def train_7b_from_disk(torch, flash, mods) -> dict:
+    """Phase 8(b), training: Trainer(dataset=None) at anyref_7b on random
+    bf16 weights from seed 0, TRAIN_MIX from write_train_root's COCO-sized
+    JPEGs, "fused", batch 2 x 2 micro-steps, 2 optimizer steps, warmup 1,
+    remat. Checks the losses finite, the LoRA weights moved and the frozen
+    ones not (fp64 fingerprints), metrics.jsonl, and each kernel's
+    launches against what the recorded batches imply (CLIP twice a
+    micro-step in a step whose batch carries crops); prints the step wall,
+    the peak memory, the registry's lengths and the crop rows."""
+    import tempfile
+    t_phase = time.time()
+    cfg = mods["anyref_7b"]()
+    step = mods["step"]
+    params = mods["tparams"].init(
+        cfg, torch.Generator(device="cuda").manual_seed(0), torch.bfloat16)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "train")
+        t0 = time.time()
+        sizes = write_train_root(data, EVAL_7B_SIZE, TRAIN_7B_IMAGES)
+        log(f"[train-disk-7b] training root of {EVAL_7B_SIZE[1]} x "
+            f"{EVAL_7B_SIZE[0]} JPEGs in {time.time() - t0:.1f} s: "
+            f"{json.dumps(sizes)}")
+        out = os.path.join(tmp, "out")
+        tc = mods["TrainConfig"](
+            train_datasets=TRAIN_MIX, data_root=data, output_dir=out,
+            per_device_batch_size=2, grad_accum_steps=2, max_steps=2,
+            warmup_steps=1, save_steps=10 ** 9, log_steps=1, resume=False,
+            remat=True, encoder_path="fused")
+        trainer = mods["Trainer"](cfg, tc, params)
+        lengths = [(type(d).__name__, len(d))
+                   for d in trainer.loader.dataset.datasets]
+        frozen = [fingerprint(t) for t in step.tree_leaves(trainer.frozen)]
+        lora0 = [t.detach().clone()
+                 for t in step.tree_leaves(trainer.state.lora)]
+        steps = record_steps(trainer)
+        for kernel in flash.KERNELS:
+            kernel.launches = 0
+        flash.flash_causal_attention_diff.backward_launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        state = trainer.train()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = {k.__name__: k.launches for k in flash.KERNELS}
+        backward = flash.flash_causal_attention_diff.backward_launches
+        peak = torch.cuda.max_memory_allocated()
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+
+    if state.step != 2 or [r["step"] for r in recs] != [1, 2]:
+        fail(f"trainer from disk ended at step {state.step}, logged "
+             f"{[r['step'] for r in recs]}")
+    if not all(np.isfinite(r[k]) for r in recs for k in step.METRICS):
+        fail(f"trainer from disk: non-finite losses {recs}")
+    if all(torch.equal(a.detach(), b) for a, b in
+           zip(step.tree_leaves(state.lora), lora0)):
+        fail("trainer from disk: the LoRA weights did not move")
+    if [fingerprint(t) for t in step.tree_leaves(trainer.frozen)] != frozen:
+        fail("trainer from disk: a frozen weight changed")
+    s, l, c = cfg.sam, cfg.llama, cfg.clip
+    n_global = len(s.encoder_global_attn_indexes)
+    n_clip = c.num_layers + c.select_layer + 1
+    want = dict.fromkeys(launches, 0)
+    crops = 0
+    for batch, _ in steps:
+        clip_passes = 2 if "ref_images" in batch else 1
+        crops += int(batch["ref_valid"].sum()) if "ref_valid" in batch else 0
+        for k, n in (("flash_causal_attention_diff", 2 * l.num_layers),
+                     ("fused_window_attn", s.encoder_depth - n_global),
+                     ("fused_mlp_stream", s.encoder_depth - n_global),
+                     ("fused_global_tail", n_global),
+                     ("layer_norm_fused", n_global),
+                     ("flash_attention_qkv", n_clip * clip_passes)):
+            want[k] += n * tc.grad_accum_steps
+    micro = tc.max_steps * tc.grad_accum_steps
+    if launches != want or backward != l.num_layers * micro:
+        fail(f"trainer from disk: launches {launches}, backward {backward};"
+             f" want {want}, backward {l.num_layers * micro}")
+    text = [int((b["labels"] != -100).sum(-1).max()) for b, _ in steps]
+    longest = max(int((b["input_ids"] != 0).sum(-1).max()) for b, _ in steps)
+    step_s = [1.0 / r["steps_per_s"] for r in recs]
+    log(f"[train-disk-7b] anyref_7b LoRA from disk, registry {lengths}, "
+        f"batch {tc.per_device_batch_size} x {tc.grad_accum_steps} "
+        f"micro-steps, L {cfg.max_seq_len}, remat, fused: {tc.max_steps} "
+        f"steps in {wall:.2f} s, step wall {[round(t, 4) for t in step_s]}"
+        f" s, peak memory allocated {peak / 2**30:.2f} GiB; {crops} crop "
+        f"rows; longest conversation {longest} of {cfg.max_text_len} "
+        f"tokens, answer tokens at most {max(text)} a row; losses "
+        + "; ".join(f"step {r['step']}: loss {r['loss']:.4f} lm "
+                    f"{r['lm_loss']:.4f} bce {r['bce_loss']:.4f} dice "
+                    f"{r['dice_loss']:.4f}" for r in recs)
+        + f"; {mods['card']}")
+    ref_keys = [sorted(k for k in b if k.startswith("ref"))
+                for b, _ in steps]
+    log(f"[train-disk-7b] launches {json.dumps(launches)}, "
+        f"flash_causal_attention_diff backward {backward} (the recorded "
+        f"batches' reference keys: {ref_keys})")
+    del trainer, state, params
+    torch.cuda.empty_cache()
+    log(f"[phase 8] (b) training in {time.time() - t_phase:.1f} s")
+    return {"steps": 2, "wall_s": wall, "peak_gib": peak / 2**30}
+
+
+def eval_inverse_7b(torch, flash, mods, params, cfg, seg_col,
+                    per_batch) -> dict:
+    """Phase 8(b), the region-caption eval, run in phase 4 on its weights
+    before the int8 decoder replaces their bf16 one, with lm_head's [SEG]
+    column at its drawn values: evaluate_refer_inverse on "fused", greedy,
+    INV_MNT new tokens, rephrase 0 (the CLI's refer_inv default), over
+    refCOCO val of write_eval_root's 8 COCO-sized JPEGs: INV_REFS refs with
+    crops, then INV_REFS with boxes. Checks n, BLEU-4 and CIDEr-D finite in
+    [0, 10], METEOR and SPICE NaN exactly where nltk is missing, two lines
+    in inv_result.txt, and the launches a ref (flash_attention_qkv 2 x
+    CLIP's layers with a crop); prints refs/s and the wall split. The
+    column is put back to 1000 x its values. Returns the crop pass's
+    launches."""
+    import importlib.util
+    import tempfile
+
+    from anyref_tpu_torch.eval.harnesses import evaluate_refer_inverse
+    from anyref_tpu_torch.eval.runner import Predictor
+    t_phase = time.time()
+    lm = params["llama"]["lm_head"]
+    lm[:, cfg.tokens.seg] = seg_col
+    rcfg = cfg.scaled(rephrase_weight=0.0)
+    tok = mods["AnyRefTokenizer"]()
+    has_nltk = importlib.util.find_spec("nltk") is not None
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        write_eval_root(data, EVAL_7B_SIZE, EVAL_7B_IMAGES)
+        out_root = os.path.join(tmp, "out")
+        for roi in (False, True):
+            pred = RecordingPredictor(Predictor(
+                params, rcfg, max_new_tokens=INV_MNT, encoder_path="fused"))
+            for kernel in flash.KERNELS:
+                kernel.launches = 0
+            timings = {}
+            t0 = time.time()
+            res = evaluate_refer_inverse(pred, tok, data, "refcoco", "val",
+                                         roi=roi, out_root=out_root,
+                                         limit=INV_REFS, timings=timings)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = {k.__name__: k.launches for k in flash.KERNELS}
+            kind = "boxes" if roi else "crops"
+            want = {k: n * len(pred.calls) * (
+                2 if k == "flash_attention_qkv" and not roi else 1)
+                for k, n in per_batch.items()}
+            caps = [tok.decode([t for t in ids[0].tolist() if t != 2],
+                               skip_special=True) for ids, _ in pred.calls]
+            log(f"[inv-7b] anyref_7b, fused, greedy, {INV_MNT} new tokens, "
+                f"{INV_REFS} refs with {kind}: {res}; "
+                f"{res['n'] / wall:.3f} refs/s ({wall:.2f} s wall: loader "
+                f"wait {timings['loader_s']:.3f} s, predict "
+                f"{timings['predict_s']:.3f} s, decoding and scoring "
+                f"{timings['score_s']:.3f} s); nltk "
+                f"{'present' if has_nltk else 'absent'}; {mods['card']}")
+            log(f"[inv-7b] {kind}: captions {caps[:3]}... (ids "
+                f"{pred.calls[0][0][0].tolist()}); launches "
+                f"{json.dumps({k: v for k, v in launches.items() if v})}")
+            nan = [np.isnan(res[k]) for k in ("meteor", "spice")]
+            if res["n"] != INV_REFS or len(pred.calls) != INV_REFS or not \
+                    all(np.isfinite(res[k]) and 0 <= res[k] <= 10
+                        for k in ("bleu4", "cider")) or \
+                    nan != [not has_nltk] * 2:
+                fail(f"inverse eval at anyref_7b ({kind}): {res}, "
+                     f"{len(pred.calls)} predict calls, nltk {has_nltk}")
+            if launches != want:
+                fail(f"inverse eval at anyref_7b ({kind}): launches "
+                     f"{launches}, want {want}")
+            out[kind] = launches
+        with open(os.path.join(out_root, "refcoco", "val",
+                               "inv_result.txt")) as f:
+            lines = f.read().splitlines()
+        if len(lines) != 2:
+            fail(f"inverse eval at anyref_7b: inv_result.txt holds {lines}")
+    lm[:, cfg.tokens.seg] = seg_col * 1000.0
+    log(f"[phase 8] (b) inverse eval in {time.time() - t_phase:.1f} s")
+    return out["crops"]
+
+
 def tree_pairs(a, b, path=""):
     """(path, leaf of a, leaf of b) of two trees of one structure."""
     if isinstance(a, dict):
@@ -3541,7 +4161,8 @@ def main() -> int:
                                               "common": common,
                                               "attention": attention,
                                               "quant": quant})
-    mods = {"anyref_7b": anyref_7b, "tparams": tparams, "Server": Server,
+    mods = {"anyref_7b": anyref_7b, "anyref_tiny": anyref_tiny,
+            "tparams": tparams, "Server": Server,
             "Request": Request, "AnyRefTokenizer": AnyRefTokenizer,
             "seg_question": seg_question, "seg_answer": seg_answer,
             "tokenize_prompt": tokenize_prompt,
@@ -3579,8 +4200,12 @@ def main() -> int:
     checkpoint_phase(torch, flash, mods)
     # phase 7(a); 7(b) ran in phase 4, on its weights
     eval_tiny(torch, flash, mods, tiny, tiny512)
+    # phase 8(a), and (b)'s training (its inverse eval ran in phase 4)
+    phase8_tiny(torch, flash, mods, tiny)
+    train_7b_from_disk(torch, flash, mods)
+    torch.cuda.empty_cache()
 
-    # phase 8
+    # phase 9
     meta = {
         "layer_norm_fused": ("anyref_tpu_torch/csrc/norms.cu",
                              "anyref_tpu/ops/flash.py:615"),

@@ -338,9 +338,10 @@ def test_cli_help():
                        env=dict(os.environ, PYTHONPATH=str(ROOT)),
                        timeout=300)
     assert r.returncode == 0, r.stderr
-    assert "{referseg,reason,coco20i,avs}" in r.stdout
+    assert "{referseg,reason,coco20i,avs,refer_inv}" in r.stdout
     for flag in ("--ckpt", "--tokenizer", "--device", "--encoder_path",
-                 "--limit", "--max_new_tokens", "--preset"):
+                 "--limit", "--max_new_tokens", "--preset", "--inv_dataset",
+                 "--roi"):
         assert flag in r.stdout
 
 

@@ -31,7 +31,10 @@ def test_import_loads_no_jax():
         "    anyref_tpu_torch.__path__, 'anyref_tpu_torch.')]\n"
         "for want in ('ops.quant', 'ops.mel', 'models.imagebind.audio',\n"
         "             'data.rle', 'data.refcoco', 'data.avs',\n"
-        "             'eval.referseg', 'eval.harnesses', 'tools.eval'):\n"
+        "             'eval.referseg', 'eval.harnesses', 'tools.eval',\n"
+        "             'eval.scene_graph', 'eval.caption_metrics',\n"
+        "             'data.ade', 'data.phrasecut', 'data.registry',\n"
+        "             'tools.train', 'tools.build_ref_index'):\n"
         "    assert 'anyref_tpu_torch.' + want in names, names\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
