@@ -1,13 +1,30 @@
 """SAM: image encoder, prompt encoder and mask decoder (port of
-anyref_tpu/models/sam/__init__.py, text-prompt path)."""
+anyref_tpu/models/sam/__init__.py). SAM alone, prompted by points, boxes
+and masks: predictor.SamPredictor and amg.SamAutomaticMaskGenerator."""
 
 from __future__ import annotations
 
 import torch
 
-from ...config import SamConfig
-from ...ops.resize import postprocess_masks_fixed
+from ...config import SAM_PIXEL_MEAN, SAM_PIXEL_STD, SamConfig
+from ...ops.resize import postprocess_masks_fixed, sam_normalize_pad
+from ...params import _Maker, _sam, resolve_device
 from . import image_encoder, mask_decoder, prompt_encoder
+
+
+def init(cfg: SamConfig, generator: torch.Generator, dtype=torch.float32,
+         device="cuda") -> dict:
+    """SAM's part of the tree alone ({"image_encoder", "prompt_encoder",
+    "mask_decoder"}), random weights of the reference init's shapes made on
+    ``device`` from ``generator`` (which must live there), so that a
+    SAM-only caller builds no decoder."""
+    return _sam(_Maker(generator, resolve_device(device)), cfg, dtype)
+
+
+def preprocess(x, cfg: SamConfig):
+    """Normalize and bottom/right pad already-resized pixels [..., 3, h, w]
+    (0..255) to the square input frame."""
+    return sam_normalize_pad(x, cfg.image_size, SAM_PIXEL_MEAN, SAM_PIXEL_STD)
 
 
 def encode_image(params: dict, x, cfg: SamConfig,

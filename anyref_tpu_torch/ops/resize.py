@@ -91,6 +91,20 @@ def get_preprocess_shape(old_h: int, old_w: int,
     return int(new_h + 0.5), int(new_w + 0.5)
 
 
+def sam_normalize_pad(x: torch.Tensor, image_size: int, pixel_mean,
+                      pixel_std) -> torch.Tensor:
+    """Normalize float RGB pixels (0..255) ``x`` [..., 3, H, W] and zero-pad
+    them at the bottom and right to ``image_size`` square (the dataset-side
+    sam_preprocess)."""
+    mean = torch.tensor(pixel_mean, dtype=x.dtype,
+                        device=x.device).reshape(-1, 1, 1)
+    std = torch.tensor(pixel_std, dtype=x.dtype,
+                       device=x.device).reshape(-1, 1, 1)
+    x = (x - mean) / std
+    h, w = x.shape[-2], x.shape[-1]
+    return torch.nn.functional.pad(x, (0, image_size - w, 0, image_size - h))
+
+
 def postprocess_masks_np(low_or_canvas: np.ndarray,
                          input_size: tuple[int, int],
                          original_size: tuple[int, int]) -> np.ndarray:

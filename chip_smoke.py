@@ -130,7 +130,31 @@ Phases (any failure exits non-zero before the result line):
      METEOR and SPICE NaN exactly where nltk is missing, two lines in
      inv_result.txt, launches a ref (flash_attention_qkv 46 with a crop, 23
      with a box), refs/s and the wall split;
-  9. print {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+  9. SAM alone, prompted by points, boxes and a grid (SamPredictor,
+     SamAutomaticMaskGenerator, export_sam_decoder, the demo and
+     AVS-refinement CLIs): (a) at anyref_tiny on "unfused" and at its
+     512-pixel SAM on "fused", bf16 SAM weights from seed 0 (sam.init) on
+     the card and on the CPU plain path: set_image's launches (one SAM
+     encode), predict on a box, on points (labels 1 and 0) and on both,
+     multimask on and off (iou and low-res logits within SLICE_REL_TOL,
+     masks different only near 0, no launch), generate at 4 points a side
+     in chunks of 6 with every mask kept (records paired by point, scores
+     within SLICE_REL_TOL, masks different only near 0 and stability
+     scores within what that allows, against the CPU's logits of every
+     grid point), the exported decoder loaded on the card against the
+     unexported function; the demo CLI and convert_avs_masks (a tiny SAM
+     .pth of the reference's layout on a synthetic AVSBench root) in
+     subprocesses, each printing and writing what its main does in
+     process; (b), run in phase 4 on its SAM-H weights: set_image on a 640
+     x 480 JPEG on each encoder path (launches those of phase 4's SAM
+     encode, first and warm walls, kernel time under the profiler),
+     predict on a box warm, generate at the defaults on "fused" (records,
+     the wall split between encode, decode, stability and the host, the
+     device's busy and idle share under the profiler), export_sam_decoder
+     at SAM-H's decoder against the unexported function. Phase 2 also
+     holds the encoder kernels at the SAM-alone path's batch-1 SAM-H
+     shapes;
+ 10. print {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -219,6 +243,12 @@ RELPOS_SPLIT_CASES = ((50, 14, 14, 16, 80), (2, 64, 64, 16, 80),
 RELPOS_QKV_CASES = ((50, 14, 14, 16, 80), (3, 9, 9, 2, 36),
                     (3, 16, 16, 2, 32), (3, 8, 12, 2, 32), (3, 20, 20, 2, 32),
                     (2, 64, 64, 16, 80), (2, 17, 19, 2, 36))
+# SAM-H at batch 1, the SAM-alone path's shapes (SamPredictor.set_image,
+# SamAutomaticMaskGenerator.generate): 25 windows of 14 x 14 and one 64 x 64
+# global grid, 16 heads of 80, for both rel-pos wrappers; their inputs come
+# from a generator of their own (batch1_rnd), so every other case keeps its
+# inputs
+BATCH1_RELPOS_CASES = ((25, 14, 14, 16, 80), (1, 64, 64, 16, 80))
 
 TEXTS = (
     "the small brown dog that is sitting on the left side of the wooden "
@@ -483,6 +513,7 @@ def check_kernels(torch, F, flash, port):
     check_fused_kernels(torch, F, flash, port, rnd, run_case)
     check_relpos_qkv_and_int8(torch, F, flash, port["quant"], rnd, rnd_extra,
                               run_case, per_call)
+    check_batch1(torch, F, flash, port, run_case, per_call)
     del timer
     torch.cuda.empty_cache()
     return results
@@ -809,11 +840,24 @@ def check_gemm_and_row_pass(torch, F, flash, run_case):
         del x
 
 
-def check_fused_kernels(torch, F, flash, port, rnd, run_case):
+# check_fused_kernels' cases: the window layers (B, C, heads, window, grid),
+# the global layers (B, H, W, C, heads) and CLIP's attention (B, L, heads,
+# head width): the main path's shapes (SAM-H and CLIP-L at batch 2), then
+# one small odd shape each
+FUSED_WINDOW_CASES = ((2, 1280, 16, 14, 64), (2, 128, 4, 8, 20))
+FUSED_GLOBAL_CASES = ((2, 64, 64, 1280, 16), (2, 16, 64, 64, 2))
+CLIP_QKV_CASES = ((2, 257, 16, 64), (2, 77, 4, 36))
+
+
+def check_fused_kernels(torch, F, flash, port, rnd, run_case,
+                        window_cases=FUSED_WINDOW_CASES,
+                        global_cases=FUSED_GLOBAL_CASES,
+                        clip_cases=CLIP_QKV_CASES):
     """The four kernels of the fused encoder path, at the main path's shapes
     (SAM-H at batch 2: C 1280, 16 heads of 80, MLP 5120, windows of 14 on
     the 64 x 64 grid padded to 70, global grid 64 x 64; CLIP-L: [2, 257,
-    3072], 16 heads of 64) and at one small odd shape each."""
+    3072], 16 heads of 64) and at one small odd shape each, or at the cases
+    given."""
     enc, common = port["image_encoder"], port["common"]
     eps = 1e-6
 
@@ -833,7 +877,7 @@ def check_fused_kernels(torch, F, flash, port, rnd, run_case):
     # fused_window_attn / fused_mlp_stream / fused_window_block: 7B
     # windows, then C 128 (4 heads of 32) with windows of 8 on a 20 x 20
     # grid (edge windows overhang)
-    for B, C, nh, ws, G in ((2, 1280, 16, 14, 64), (2, 128, 4, 8, 20)):
+    for B, C, nh, ws, G in window_cases:
         hd = C // nh
         p = {"norm1": ln(C), "norm2": ln(C),
              "attn": {"qkv": lin(C, 3 * C), "proj": lin(C, C),
@@ -912,7 +956,7 @@ def check_fused_kernels(torch, F, flash, port, rnd, run_case):
 
     # fused_global_tail: the 7B global layer, then a 16 x 64 grid of 2
     # heads of 32
-    for B, H, W, C, nh in ((2, 64, 64, 1280, 16), (2, 16, 64, 64, 2)):
+    for B, H, W, C, nh in global_cases:
         hd, L = C // nh, H * W
         p = {"norm2": ln(C), "proj": lin(C, C), "lin1": lin(C, 4 * C),
              "lin2": lin(4 * C, C)}
@@ -944,7 +988,7 @@ def check_fused_kernels(torch, F, flash, port, rnd, run_case):
 
     # flash_attention_qkv: CLIP-L at batch 2, then L 77 with 4 heads of 36
     # (a head width the wrapper zero-pads to 40 for the kernel's TMA loads)
-    for B, L, nh, hd in ((2, 257, 16, 64), (2, 77, 4, 36)):
+    for B, L, nh, hd in clip_cases:
         C = nh * hd
         qkv = rnd(B, L, 3 * C)
         q, k, v = (qkv[..., i * C:(i + 1) * C].view(B, L, nh, hd)
@@ -1065,7 +1109,49 @@ def count_cases(torch, flash, rnd) -> dict:
     cases[("flash_attention_qkv", "2x257x3072")] = (
         lambda: flash.flash_attention_qkv(qkv, 16))
     cases.update(fused_layer_cases(torch, flash, g))
+    cases.update(batch1_count_cases(torch, flash))
     return cases
+
+
+def batch1_count_cases(torch, flash) -> dict:
+    """count_cases' entries of the rel-pos wrappers at BATCH1_RELPOS_CASES
+    (their factor einsums alone on the global route), inputs from
+    batch1_rnd. A function of its own: count_cases' calls read its locals
+    when they run."""
+    cases = {}
+    r1 = batch1_rnd(torch)
+    for shape in BATCH1_RELPOS_CASES:
+        glob = shape[1] * shape[2] > flash.WINDOW_MAX_L
+        label, q, k, v, th, tw = relpos_split_case(r1, *shape)
+        cases[("flash_relpos_attention", label)] = (
+            lambda q=q, k=k, v=v, th=th, tw=tw, hw=shape[1:3]:
+            flash.flash_relpos_attention(q, k, v, th, tw, hw))
+        if glob:
+            cases[("factors", "flash_relpos_attention", label)] = (
+                lambda q=q, th=th, tw=tw, hw=shape[1:3]:
+                [t.contiguous() for t in flash.relpos_factors(q, th, tw,
+                                                              hw)])
+        label, qkv, th, tw = relpos_qkv_case(r1, *shape)
+        cases[("flash_relpos_attention_qkv", label)] = (
+            lambda qkv=qkv, th=th, tw=tw, hw=shape[1:3], nh=shape[3]:
+            flash.flash_relpos_attention_qkv(qkv, th, tw, hw, nh))
+        if glob:
+            cases[("factors", "flash_relpos_attention_qkv", label)] = (
+                lambda qkv=qkv, th=th, tw=tw, hw=shape[1:3], nh=shape[3]:
+                [t.contiguous() for t in flash.relpos_factors(
+                    flash._split_qkv(qkv, nh)[0], th, tw, hw)])
+    return cases
+
+
+def batch1_rnd(torch):
+    """rnd of the batch-1 cases: bf16 normals from a generator of their
+    own."""
+    g = torch.Generator(device="cuda").manual_seed(1357)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale).to(
+            torch.bfloat16)
+    return rnd
 
 
 def profiled_counts(torch, cases: dict, calls: int):
@@ -1198,6 +1284,56 @@ def relpos_case(torch, F, flash, run_case, kname, shape_desc, kernel, plain,
     if want is not None and per_call != want:
         fail(f"{kname} {shape_desc}: {per_call:g} CUDA kernels a call on the "
              f"{route} route, want {want:g}")
+
+
+def check_batch1(torch, F, flash, port, run_case, per_call):
+    """The encoder kernels at SAM-H's batch-1 shapes, those of the SAM-alone
+    path (SamPredictor.set_image, SamAutomaticMaskGenerator.generate), each
+    against its plain version and timed: layer_norm_fused on 25 windows of
+    196 rows and on the 64 x 64 global grid, both rel-pos wrappers at
+    BATCH1_RELPOS_CASES (one CUDA kernel a call on the window route, the
+    factor einsums' plus one on "global"), and the fused layers on one
+    image (25 windows; one [1, 4096, 1280] global layer), inputs from
+    batch1_rnd."""
+    r1 = batch1_rnd(torch)
+    for N in (4900, 4096):
+        x, s, b = r1(N, 1280, scale=2.0), r1(1280), r1(1280)
+        run_case("layer_norm_fused", f"{N}x1280",
+                 lambda: flash.layer_norm_fused(x, s, b, 1e-6),
+                 lambda: flash.layer_norm_plain(x, s, b, 1e-6),
+                 lambda: F.layer_norm(x, (1280,), s, b, 1e-6),
+                 2 * N * 1280 * 2 + 2 * 1280 * 2, 8 * N * 1280,
+                 H100_FP32_OPS_PER_S)
+    for B, H, W, nh, hd in BATCH1_RELPOS_CASES:
+        label, q, k, v, th, tw = relpos_split_case(r1, B, H, W, nh, hd)
+        relpos_case(torch, F, flash, run_case, "flash_relpos_attention",
+                    label,
+                    lambda: flash.flash_relpos_attention(q, k, v, th, tw,
+                                                         (H, W)),
+                    lambda: flash.relpos_attention_plain(q, k, v, th, tw,
+                                                         (H, W)),
+                    q, k, v, th, tw, (H, W), flash._relpos_route(H * W, hd),
+                    per_call[("flash_relpos_attention", label)],
+                    per_call.get(("factors", "flash_relpos_attention",
+                                  label)))
+        label, qkv, th, tw = relpos_qkv_case(r1, B, H, W, nh, hd)
+        C = nh * hd
+        q, k, v = (qkv[..., i * C:(i + 1) * C].view(B, H * W, nh, hd)
+                   .transpose(1, 2) for i in range(3))
+        relpos_case(torch, F, flash, run_case, "flash_relpos_attention_qkv",
+                    label,
+                    lambda: flash.flash_relpos_attention_qkv(qkv, th, tw,
+                                                             (H, W), nh),
+                    lambda: flash.relpos_attention_qkv_plain(qkv, th, tw,
+                                                             (H, W), nh),
+                    q, k, v, th, tw, (H, W), flash._relpos_route(H * W, hd),
+                    per_call[("flash_relpos_attention_qkv", label)],
+                    per_call.get(("factors", "flash_relpos_attention_qkv",
+                                  label)))
+        del q, k, v, qkv
+    check_fused_kernels(torch, F, flash, port, r1, run_case,
+                        window_cases=((1, 1280, 16, 14, 64),),
+                        global_cases=((1, 64, 64, 1280, 16),), clip_cases=())
 
 
 def check_relpos_qkv_and_int8(torch, F, flash, quant, rnd, rnd_extra,
@@ -1737,6 +1873,8 @@ def serve_7b(torch, flash, mods):
     # phase 8(b)'s inverse eval, on the same weights
     launches["inverse"] = eval_inverse_7b(torch, flash, mods, params, cfg,
                                           seg_col, per_batch["fused"])
+    # phase 9(b), SAM alone, on the same SAM weights
+    launches.update(sam_alone_7b(torch, flash, mods, params, cfg))
     launches["int8"], int8_step = serve_int8(torch, flash, mods, params,
                                              cfg, images,
                                              dict(per_batch["fused"]))
@@ -3140,6 +3278,33 @@ def write_eval_root(root: str, size, n_images: int, seed: int = 0) -> int:
     return 2 * n_images
 
 
+def write_avs_refine_root(root: str, size, seed: int = 0) -> int:
+    """An AVSBench S4 train split for tools/convert_avs_masks.py under
+    ``root``: one video of 4 ground-truth masks of ``size`` (h, w), frames
+    beside the first 3 (mask 3 empty, so skipped; mask 4 has no frame, so
+    skipped with a warning). Returns the masks the tool refines (2)."""
+    from PIL import Image
+
+    from anyref_tpu_torch.data import rle
+    rng = np.random.default_rng(seed)
+    h, w = size
+    frames = os.path.join(root, "s4_data", "visual_frames_original_resolution",
+                          "train", "dog_barking", "v1")
+    masks = os.path.join(root, "s4_data", "gt_masks", "train", "dog_barking",
+                         "v1")
+    os.makedirs(frames)
+    os.makedirs(masks)
+    for k in range(1, 5):
+        if k < 4:
+            write_image(os.path.join(frames, f"v1_{k}.png"), rng, h, w)
+        m = np.zeros((h, w), np.uint8)
+        if k != 3:
+            m = rle.annotation_to_mask(
+                [star_polygon(rng, h, w, rng.uniform(0.1, 0.4))], h, w)
+        Image.fromarray(m * 255).save(os.path.join(masks, f"v1_{k}.png"))
+    return 2
+
+
 def write_train_root(root: str, size, n_images: int, seed: int = 0) -> dict:
     """The training readers' layouts under ``root`` from ``seed`` (PIL
     writes the images); returns {layout: items}.
@@ -4050,6 +4215,541 @@ def eval_inverse_7b(torch, flash, mods, params, cfg, seg_col,
     return out["crops"]
 
 
+# ---------------------------------------------------------------------------
+# phase 9: SAM alone (SamPredictor, the automatic mask generator, the
+# exported mask decoder, the demo and AVS-refinement CLIs)
+# ---------------------------------------------------------------------------
+# the mask decoder's last hypernetwork layer x SAM_HYPER_SCALE in 9(a):
+# random weights then give mask logits of O(10), so the stability score
+# spreads (tests/test_torch_sam_prompts.py's AMG_HYPER_SCALE)
+SAM_HYPER_SCALE = 30.0
+# 9(a)'s image (non-square: the resized frame leaves a bottom pad) and the
+# prompts in its pixels: two points (labels 1 and 0) and a box
+SAM_TINY_HW = (96, 128)
+SAM_PROMPTS = {
+    "box": {"box": np.asarray([20.0, 10.0, 120.0, 80.0])},
+    "points": {"point_coords": np.asarray([[40.0, 40.0], [100.0, 60.0]]),
+               "point_labels": np.asarray([1, 0])},
+    "points+box": {"point_coords": np.asarray([[40.0, 40.0],
+                                               [100.0, 60.0]]),
+                   "point_labels": np.asarray([1, 0]),
+                   "box": np.asarray([20.0, 10.0, 120.0, 80.0])}}
+# the generator in 9(a): 4 points a side in chunks of 6 (the last chunk of
+# 4 zero-padded), every mask kept (no score or stability filter, no NMS:
+# the CPU tests hold those host steps against the JAX package; the card
+# adds the decode and the stability score). Each point's records are
+# paired with the CPU's by the pairing that flips the fewest pixels, then
+# held as compare_predict holds masks (compare_amg), against the CPU's own
+# logits of every grid point (amg_reference)
+SAM_AMG_TINY = dict(points_per_side=4, points_per_batch=6,
+                    pred_iou_thresh=-1e9, stability_score_thresh=0.0,
+                    box_nms_thresh=1.0)
+# the exported decoder's prompts: the ONNX wrapper's labels, a positive
+# point, a box's two corners, a padding point and a negative point
+EXPORT_LABELS = (1.0, 2.0, 3.0, -1.0, 0.0)
+# 9(b): COCO's image size, as a JPEG; warm repeats of set_image and predict
+SAM_H_HW = (480, 640)
+SAM_REPEATS = 5
+
+
+def zero_launches(flash) -> None:
+    for kernel in flash.KERNELS:
+        kernel.launches = 0
+
+
+def read_launches(flash) -> dict:
+    return {k.__name__: k.launches for k in flash.KERNELS}
+
+
+def sam_encode_launches(flash, cfg, path: str) -> dict:
+    """{kernel: launches} of one SAM image encode on ``path``: a served
+    batch's (launches_per_batch) without the decoder's and CLIP's."""
+    want = dict(launches_per_batch(flash, cfg)[path])
+    for name in ("rms_norm_fused", "flash_causal_attention",
+                 "flash_attention_qkv"):
+        want[name] = 0
+    return want
+
+
+def check_set_image(torch, flash, pred, image, want: dict, what: str):
+    """pred.set_image(image) with the counts at 0 just before and read just
+    after: -> (wall s, launches), failing unless they are ``want``."""
+    zero_launches(flash)
+    t0 = time.time()
+    pred.set_image(image)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_launches(flash)
+    if launches != want:
+        fail(f"{what}: set_image launched {launches}, want {want}")
+    return wall, launches
+
+
+def compare_predict(got, want, input_hw, image_size: int, what: str):
+    """SamPredictor.predict on the card against the CPU: iou and low-res
+    logits within SLICE_REL_TOL of the CPU's largest magnitude, the masks
+    different only where the CPU's logit lies within SLICE_REL_TOL of its
+    largest magnitude of 0. -> (iou rel err, logit rel err, flipped
+    pixels)."""
+    from anyref_tpu_torch.ops.resize import postprocess_low_res_np
+    (gm, gi, gl), (wm, wi, wl) = got, want
+    if gm.shape != wm.shape or gi.shape != wi.shape or \
+            gl.shape != wl.shape or not np.isfinite(gl).all():
+        fail(f"{what}: card {gm.shape} {gi.shape} {gl.shape}, CPU "
+             f"{wm.shape} {wi.shape} {wl.shape}, or not finite")
+    rel_iou = float(np.abs(gi - wi).max() / max(np.abs(wi).max(), 1e-30))
+    rel_low = float(np.abs(gl - wl).max() / np.abs(wl).max())
+    logits = postprocess_low_res_np(wl, image_size, input_hw, wm.shape[-2:])
+    diff = gm != wm
+    near = np.abs(logits) <= SLICE_REL_TOL * np.abs(logits).max()
+    if (diff & ~near).any():
+        fail(f"{what}: {int((diff & ~near).sum())} mask pixels differ where "
+             f"the CPU's logit is beyond {SLICE_REL_TOL} of its largest "
+             "magnitude from 0")
+    if rel_iou > SLICE_REL_TOL or rel_low > SLICE_REL_TOL:
+        fail(f"{what}: iou rel err {rel_iou:.4g}, low-res rel err "
+             f"{rel_low:.4g} (limit {SLICE_REL_TOL})")
+    return rel_iou, rel_low, int(diff.sum())
+
+
+def amg_reference(mods, p, s, image, path: str, gen) -> dict:
+    """{point (x, y) in the original image: (iou [3], low-res logits [3,
+    4g, 4g], logits at the original size [3, H, W])} of every grid point of
+    ``gen`` from the CPU plain path on SAM weights ``p``, and the low-res
+    extent the stability score counts (under key "valid_hw")."""
+    import torch
+
+    from anyref_tpu_torch.models.sam import amg, predictor
+    from anyref_tpu_torch.ops.resize import postprocess_masks_np
+    h, w = image.shape[:2]
+    emb, (nh, nw) = predictor.encode_resized(p, s, image, "cpu", path)
+    coords = gen.grid * np.asarray([nw, nh])
+    with torch.inference_mode():
+        low, iou = amg._batched_point_decode(
+            p, s, emb, torch.from_numpy(coords.astype(np.float32)))
+    low, iou = low.float().numpy(), iou.float().numpy()
+    lg = low.shape[-1]
+    ref = {"valid_hw": (-(-nh * lg // s.image_size),
+                        -(-nw * lg // s.image_size))}
+    for j, c in enumerate(coords):
+        ref[(float(c[0] * w / nw), float(c[1] * h / nh))] = (
+            iou[j], low[j], postprocess_masks_np(low[j], (nh, nw), (h, w)))
+    return ref
+
+
+def compare_amg(got: list, want: list, ref: dict, offset: float,
+                what: str) -> dict:
+    """The generator's records on the card against the CPU's: the same
+    number at each grid point, paired by the permutation that flips the
+    fewest pixels; a pair's score within SLICE_REL_TOL of the largest
+    |score| of the grid, its mask different only where the CPU's logit lies
+    within SLICE_REL_TOL of its largest magnitude of 0, and its stability
+    score inside the range the same rule allows: the counts above +offset
+    and -offset may move by the low-res pixels within that distance of
+    +offset and -offset. -> the largest differences."""
+    import itertools
+
+    from anyref_tpu_torch.data import rle
+    if len(got) != len(want):
+        fail(f"{what}: {len(got)} records on the card, {len(want)} on the "
+             "CPU")
+    by_point = {}
+    for side, recs in (("got", got), ("want", want)):
+        for r in recs:
+            by_point.setdefault(tuple(r["point_coords"][0]), {}).setdefault(
+                side, []).append((r, rle.decode(r["segmentation"]) > 0))
+    vh, vw = ref.pop("valid_hw")
+    iou_scale = max(float(np.abs(v[0]).max()) for v in ref.values())
+    worst = {"iou": 0.0, "stability": 0.0, "box_px": 0.0, "area_rel": 0.0,
+             "flipped_px": 0}
+    for point, sides in by_point.items():
+        g, w = sides.get("got", []), sides.get("want", [])
+        if len(g) != len(w):
+            fail(f"{what}: point {point}: {len(g)} records on the card, "
+                 f"{len(w)} on the CPU")
+        iou, low, full = ref[point]
+        pairing = min(itertools.permutations(g), key=lambda perm: sum(
+            int((a[1] != b[1]).sum()) for a, b in zip(perm, w)))
+        for (a, ma), (b, mb) in zip(pairing, w):
+            # the CPU mask's index: its logits give exactly its pixels
+            m = int(np.argmin([((f > 0) != mb).sum() for f in full]))
+            near = np.abs(full[m]) <= SLICE_REL_TOL * np.abs(full[m]).max()
+            flips = ma != mb
+            d_iou = abs(a["predicted_iou"] - b["predicted_iou"])
+            lm = low[m][:vh, :vw]
+            delta = SLICE_REL_TOL * np.abs(low[m]).max()
+            hi, lo = (lm > offset).sum(), (lm > -offset).sum()
+            n_hi = (np.abs(lm - offset) <= delta).sum()
+            n_lo = (np.abs(lm + offset) <= delta).sum()
+            st = a["stability_score"]
+            st_min = max(hi - n_hi, 0) / max(lo + n_lo, 1)
+            st_max = (hi + n_hi) / max(lo - n_lo, 1)
+            if (flips & ~near).any() or \
+                    d_iou > SLICE_REL_TOL * iou_scale or \
+                    not st_min - 1e-6 <= st <= st_max + 1e-6:
+                fail(f"{what}: point {point}, mask {m}: "
+                     f"{int((flips & ~near).sum())} pixels differ beyond "
+                     f"{SLICE_REL_TOL} of the largest logit from 0; score "
+                     f"{a['predicted_iou']} vs {b['predicted_iou']}; "
+                     f"stability {st} outside [{st_min}, {st_max}]")
+            d = {"iou": d_iou,
+                 "stability": abs(st - b["stability_score"]),
+                 "box_px": float(np.abs(np.subtract(a["bbox"],
+                                                    b["bbox"])).max()),
+                 "area_rel": abs(a["area"] - b["area"]) / max(b["area"], 1),
+                 "flipped_px": int(flips.sum())}
+            worst = {k: max(worst[k], d[k]) for k in worst}
+    return worst
+
+
+def export_inputs(torch, s, embedding, seed: int):
+    """(embedding, point_coords [1, 5, 2], point_labels [1, 5]) on the card,
+    the coordinates drawn in the image_size frame."""
+    rng = np.random.default_rng(seed)
+    coords = rng.uniform(0, s.image_size, (1, len(EXPORT_LABELS), 2))
+    return (embedding,
+            torch.tensor(coords, dtype=torch.float32, device="cuda"),
+            torch.tensor([EXPORT_LABELS], dtype=torch.float32,
+                         device="cuda"))
+
+
+def check_export(torch, flash, mods, p, s, embedding, tmp: str,
+                 what: str) -> dict:
+    """export_sam_decoder on the card, loaded and run against the unexported
+    sam_decoder_fn on the same inputs (outputs within SLICE_REL_TOL of the
+    unexported's largest magnitude; bit equality printed); neither may
+    launch a kernel. -> the export's numbers."""
+    export = mods["export"]
+    path = os.path.join(tmp, f"sam_decoder_{s.image_size}.pt2")
+    t0 = time.time()
+    export.export_sam_decoder(p, s, path, num_points=len(EXPORT_LABELS))
+    t_export = time.time() - t0
+    loaded = export.load_exported(path)
+    live = export.sam_decoder_fn(p, s)
+    args = export_inputs(torch, s, embedding, 0)
+    zero_launches(flash)
+    with torch.inference_mode():
+        got, want = loaded(*args), live(*args)
+        torch.cuda.synchronize()
+        if any(read_launches(flash).values()):
+            fail(f"{what}: the mask decoder launched {read_launches(flash)}")
+        errs = [float((a.float() - b.float()).abs().max()
+                      / b.float().abs().max()) for a, b in zip(got, want)]
+        equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        times = {}
+        for name, fn in (("exported", loaded), ("unexported", live)):
+            walls = []
+            for _ in range(SAM_REPEATS):
+                t0 = time.time()
+                fn(*args)
+                torch.cuda.synchronize()
+                walls.append(time.time() - t0)
+            times[name] = float(np.median(walls)) * 1e3
+    shapes = [tuple(t.shape) for t in got]
+    if shapes != [tuple(t.shape) for t in want] or \
+            not all(bool(torch.isfinite(t).all()) for t in got) or \
+            max(errs) > SLICE_REL_TOL:
+        fail(f"{what}: exported {shapes}, rel errs {errs} (limit "
+             f"{SLICE_REL_TOL})")
+    out = {"export_s": t_export, "bytes": os.path.getsize(path),
+           "rel_err": max(errs), "bit_equal": equal,
+           "exported_ms": times["exported"],
+           "unexported_ms": times["unexported"], "shapes": shapes}
+    log(f"[sam] {what}: export_sam_decoder {t_export:.1f} s, "
+        f"{out['bytes']} bytes; loaded on the card against the unexported "
+        f"function: outputs {shapes}, rel err {max(errs):.3g}, bit-equal "
+        f"{equal}; a call {times['exported']:.3f} ms exported, "
+        f"{times['unexported']:.3f} ms unexported (wall, median of "
+        f"{SAM_REPEATS})")
+    return out
+
+
+def sam_alone_tiny(torch, flash, mods, tiny, tiny512) -> None:
+    """Phase 9(a): SamPredictor, the generator and the exported decoder at
+    anyref_tiny on "unfused" and at its 512-pixel SAM on "fused", bf16 SAM
+    weights from seed 0 (sam.init, the last hypernetwork layer x
+    SAM_HYPER_SCALE) on the card and on the CPU plain path: set_image's
+    launches (one SAM encode), predict on SAM_PROMPTS with multimask on and
+    off (compare_predict; predict launches nothing), generate (compare_amg;
+    one encode's launches), the export (check_export); then the demo and
+    AVS-refinement CLIs (sam_clis_tiny)."""
+    import tempfile
+    t_phase = time.time()
+    image = np.random.default_rng(9).integers(0, 256, (*SAM_TINY_HW, 3),
+                                              np.uint8)
+    for path, cfg in (("unfused", tiny), ("fused", tiny512)):
+        s = cfg.sam
+        what = f"SAM alone ({path}, {s.image_size} px)"
+        p_cpu = mods["sam"].init(s, torch.Generator().manual_seed(0),
+                                 torch.bfloat16, device="cpu")
+        p_cpu["mask_decoder"]["hyper_mlps"][2]["w"] *= SAM_HYPER_SCALE
+        p_gpu = _to_device(p_cpu, "cuda")
+        encode = sam_encode_launches(flash, cfg, path)
+        preds = {}
+        for dev, p in (("cpu", p_cpu), ("cuda", p_gpu)):
+            preds[dev] = mods["SamPredictor"](p, s, encoder_path=path,
+                                              device=dev)
+        check_set_image(torch, flash, preds["cuda"], image, encode, what)
+        preds["cpu"].set_image(image)
+        worst = [0.0, 0.0, 0]
+        for name, kw in SAM_PROMPTS.items():
+            for multimask in (True, False):
+                zero_launches(flash)
+                got = preds["cuda"].predict(multimask_output=multimask, **kw)
+                if any(read_launches(flash).values()):
+                    fail(f"{what}: predict launched {read_launches(flash)}")
+                want = preds["cpu"].predict(multimask_output=multimask, **kw)
+                errs = compare_predict(
+                    got, want, preds["cpu"]._input_hw, s.image_size,
+                    f"{what}, predict {name}, multimask {multimask}")
+                worst = [max(a, b) for a, b in zip(worst, errs)]
+        log(f"[sam-tiny] {what}: set_image launches "
+            f"{json.dumps({k: v for k, v in encode.items() if v})}; predict "
+            f"on {', '.join(SAM_PROMPTS)}, multimask on and off, card vs "
+            f"CPU: iou rel err <= {worst[0]:.3g}, low-res rel err <= "
+            f"{worst[1]:.3g} (limit {SLICE_REL_TOL}), {worst[2]} mask pixels "
+            f"flipped near 0 in all")
+        gens = {dev: mods["SamAutomaticMaskGenerator"](
+            p, s, encoder_path=path, device=dev, **SAM_AMG_TINY)
+            for dev, p in (("cpu", p_cpu), ("cuda", p_gpu))}
+        zero_launches(flash)
+        got = gens["cuda"].generate(image)
+        torch.cuda.synchronize()
+        if read_launches(flash) != encode:
+            fail(f"{what}: generate launched {read_launches(flash)}, want "
+                 f"one encode's {encode}")
+        want = gens["cpu"].generate(image)
+        ref = amg_reference(mods, p_cpu, s, image, path, gens["cpu"])
+        diffs = compare_amg(got, want, ref, gens["cpu"].st_offset,
+                            f"{what}, generate")
+        log(f"[sam-tiny] {what}: generate, 16 points in chunks of 6 (the "
+            f"last padded): {len(got)} records on the card and the CPU, "
+            f"largest card-vs-CPU differences {json.dumps(diffs)}")
+        with tempfile.TemporaryDirectory() as tmp:
+            check_export(torch, flash, mods, p_gpu, s,
+                         preds["cuda"]._embedding, tmp, what)
+    sam_clis_tiny(torch, flash, mods, tiny)
+    log(f"[phase 9] (a) in {time.time() - t_phase:.1f} s")
+
+
+def run_cli(module: str, args: list, what: str) -> list:
+    """``python -m module args`` in a subprocess from the repository root;
+    -> its stdout lines (fails on a non-zero exit)."""
+    t0 = time.time()
+    r = subprocess.run([sys.executable, "-m", module] + args, cwd=ROOT,
+                       capture_output=True, text=True,
+                       env=dict(os.environ, PYTHONPATH=ROOT), timeout=600)
+    if r.returncode != 0:
+        fail(f"{what} (exit {r.returncode}):\n{r.stdout[-2000:]}\n"
+             f"{r.stderr[-2000:]}")
+    log(f"[sam-cli] {what}: {time.time() - t0:.1f} s (process included)")
+    return r.stdout.splitlines()
+
+
+def in_process(fn, argv):
+    """fn(argv) with its stdout captured: -> (its return, stdout lines)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(argv)
+    return out, buf.getvalue().splitlines()
+
+
+def same_pngs(a: str, b: str) -> int:
+    """Fail unless the PNG files under directories a and b have the same
+    relative paths and pixels; -> their count."""
+    from PIL import Image
+    names = {}
+    for root in (a, b):
+        names[root] = sorted(os.path.relpath(os.path.join(d, f), root)
+                             for d, _, fs in os.walk(root) for f in fs)
+    if names[a] != names[b]:
+        fail(f"PNG files differ: {names[a]} and {names[b]}")
+    for rel in names[a]:
+        with Image.open(os.path.join(a, rel)) as x, \
+                Image.open(os.path.join(b, rel)) as y:
+            if not np.array_equal(np.asarray(x), np.asarray(y)):
+                fail(f"{rel} differs between {a} and {b}")
+    return len(names[a])
+
+
+def sam_clis_tiny(torch, flash, mods, tiny) -> None:
+    """The demo CLI (anyref_tiny, "unfused", seed-0 bf16 weights with the
+    [SEG] column x EVAL_TINY_SEG_SCALE, saved with save_params) and
+    convert_avs_masks (a tiny SAM .pth of the reference's layout on
+    write_avs_refine_root's root, every mask kept) in subprocesses on the
+    card: each prints what the same CLI's main prints in this process on
+    the card and writes the same PNGs; the in-process AVS run launches
+    one SAM encode a refined mask."""
+    import tempfile
+
+    from anyref_tpu_torch import checkpoint
+    from anyref_tpu_torch.tools import convert_avs_masks, demo
+    with tempfile.TemporaryDirectory() as tmp:
+        p = mods["tparams"].init(tiny, torch.Generator().manual_seed(0),
+                                 torch.bfloat16, device="cpu")
+        p["llama"]["lm_head"][:, tiny.tokens.seg] *= EVAL_TINY_SEG_SCALE
+        ckpt = os.path.join(tmp, "tiny.pt")
+        checkpoint.save_params(ckpt, p)
+        img = os.path.join(tmp, "image.png")
+        write_image(img, np.random.default_rng(3), *EVAL_TINY_SIZE)
+        masks = {k: os.path.join(tmp, k) for k in ("sub", "in")}
+        for d in masks.values():
+            os.makedirs(d)
+        args = ["--ckpt", ckpt, "--image", img, "--text", "the bowl",
+                "--preset", "tiny", "--max_new_tokens", str(EVAL_MNT),
+                "--device", "cuda", "--encoder_path", "unfused"]
+        printed = run_cli("anyref_tpu_torch.tools.demo", args + [
+            "--out", os.path.join(masks["sub"], "mask.png")],
+            "demo CLI, --text, tiny, unfused")
+        (_, mask), want = in_process(demo.main, args + [
+            "--out", os.path.join(masks["in"], "mask.png")])
+        if printed != [line.replace(masks["in"], masks["sub"])
+                       for line in want]:
+            fail(f"demo CLI printed {printed}, in process {want}")
+        same_pngs(masks["sub"], masks["in"])
+        log(f"[sam-cli] demo CLI: {printed[0]!r}, a mask of "
+            f"{int(mask.sum())} pixels, the same PNG as in process")
+
+        g = torch.Generator().manual_seed(0)
+        sd = reference_state_dicts(tiny, lambda *shape: torch.randn(
+            shape, generator=g) * 0.1)["sam"]
+        pth = os.path.join(tmp, "sam_tiny.pth")
+        torch.save(sd, pth)
+        roots = {k: os.path.join(tmp, f"avs-{k}") for k in ("sub", "in")}
+        for r in roots.values():
+            n = write_avs_refine_root(r, EVAL_TINY_SIZE)
+        args = ["--sam_ckpt", pth, "--iou_threshold", "0.0", "--preset",
+                "tiny", "--device", "cuda", "--encoder_path", "unfused"]
+        printed = run_cli("anyref_tpu_torch.tools.convert_avs_masks",
+                          args + ["--avs_root", roots["sub"]],
+                          "convert_avs_masks, tiny, unfused")
+        zero_launches(flash)
+        kept, want = in_process(convert_avs_masks.main,
+                                args + ["--avs_root", roots["in"]])
+        torch.cuda.synchronize()
+        encode = sam_encode_launches(flash, tiny, "unfused")
+        launches = read_launches(flash)
+        if launches != {k: n * v for k, v in encode.items()}:
+            fail(f"convert_avs_masks: launched {launches}, want {n} x "
+                 f"{encode}")
+        line = f"refined {n}/{n} masks (IoU >= 0.0)"
+        if kept != (n, n) or printed[-1] != line or printed != [
+                w.replace(roots["in"], roots["sub"]) for w in want]:
+            fail(f"convert_avs_masks printed {printed}, in process {want} "
+                 f"(kept {kept}), want the last line {line!r}")
+        sub = os.path.join("s4_data", "gt_masks_sam")
+        count = same_pngs(os.path.join(roots["sub"], sub),
+                          os.path.join(roots["in"], sub))
+        log(f"[sam-cli] convert_avs_masks: {printed[-1]!r}, {count} PNGs, "
+            f"the same as in process")
+
+
+def sam_alone_7b(torch, flash, mods, params, cfg) -> dict:
+    """Phase 9(b), run in phase 4 on its SAM-H weights: set_image on a 640 x
+    480 JPEG on each encoder path (launches one SAM encode's, the first
+    call's wall, warm walls and the kernels under the profiler), predict on
+    a box warm, generate at the defaults on "fused" (records, the wall
+    split between encode, decode, stability and the host's filters and
+    RLE, then under the profiler: the device's busy and idle share), and
+    export_sam_decoder at SAM-H's decoder against the unexported function.
+    -> {"sam_set_image_<path>": launches}."""
+    import tempfile
+
+    from anyref_tpu_torch.data.base import load_image_rgb
+    t_phase = time.time()
+    sam, s = params["sam"], cfg.sam
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        jpg = os.path.join(tmp, "image.jpg")
+        write_image(jpg, np.random.default_rng(11), *SAM_H_HW)
+        image = load_image_rgb(jpg)
+        preds = {}
+        for path in PATHS:
+            pred = preds[path] = mods["SamPredictor"](sam, s,
+                                                      encoder_path=path)
+            encode = sam_encode_launches(flash, cfg, path)
+            first, out[f"sam_set_image_{path}"] = check_set_image(
+                torch, flash, pred, image, encode, f"SAM-H set_image {path}")
+            walls = []
+            for _ in range(SAM_REPEATS):
+                walls.append(check_set_image(
+                    torch, flash, pred, image, encode,
+                    f"SAM-H set_image {path}, warm")[0])
+            span = profiled_span(torch, lambda: pred.set_image(image))
+            kern = ("not measured (the profiler lost a marker)" if span is None
+                    else f"{span[2]:.3f} ms of kernels in {span[1]} device "
+                    f"records, wall {span[0] * 1e3:.2f} ms profiled")
+            log(f"[sam-7b] set_image {path}, {SAM_H_HW[1]} x {SAM_H_HW[0]} "
+                f"JPEG: first call {first:.3f} s, warm "
+                f"{np.median(walls) * 1e3:.2f} ms wall (median of "
+                f"{SAM_REPEATS}); {kern}; launches "
+                f"{json.dumps({k: v for k, v in encode.items() if v})}")
+        pred = preds["fused"]
+        box = np.asarray([120.0, 80.0, 400.0, 360.0])
+        zero_launches(flash)
+        masks, iou, low = pred.predict(box=box)
+        if any(read_launches(flash).values()):
+            fail(f"SAM-H predict launched {read_launches(flash)}")
+        g4 = 4 * s.embedding_size
+        if masks.shape != (3, *SAM_H_HW) or iou.shape != (3,) or \
+                low.shape != (3, g4, g4) or not np.isfinite(low).all():
+            fail(f"SAM-H predict: {masks.shape} {iou.shape} {low.shape}")
+        walls = []
+        for _ in range(2 * SAM_REPEATS):
+            t0 = time.time()
+            pred.predict(box=box)
+            walls.append(time.time() - t0)
+        span = profiled_span(torch, lambda: pred.predict(box=box))
+        kern = ("not measured" if span is None else
+                f"{span[2]:.3f} ms of kernels in {span[1]} device records")
+        log(f"[sam-7b] predict, a box, multimask, fused: "
+            f"{np.median(walls) * 1e3:.2f} ms wall (median of "
+            f"{2 * SAM_REPEATS}, the host's upscale to {SAM_H_HW} "
+            f"included); {kern}; iou {iou.tolist()}, mask pixels "
+            f"{masks.sum((1, 2)).tolist()}")
+
+        gen = mods["SamAutomaticMaskGenerator"](sam, s, encoder_path="fused")
+        encode = sam_encode_launches(flash, cfg, "fused")
+        for run in ("first", "warm"):
+            zero_launches(flash)
+            timings = {}
+            t0 = time.time()
+            recs = gen.generate(image, timings=timings)
+            wall = time.time() - t0
+            if read_launches(flash) != encode:
+                fail(f"SAM-H generate launched {read_launches(flash)}, want "
+                     f"one encode's {encode}")
+            for r in recs:
+                x, y, w, h = r["bbox"]
+                if not (0 < r["area"] <= SAM_H_HW[0] * SAM_H_HW[1]) or \
+                        x < 0 or y < 0 or x + w > SAM_H_HW[1] or \
+                        y + h > SAM_H_HW[0] or r["predicted_iou"] < 0.88 or \
+                        r["stability_score"] < 0.95:
+                    fail(f"SAM-H generate: a record out of bounds or below "
+                         f"the thresholds: {r['bbox']} {r['area']} "
+                         f"{r['predicted_iou']} {r['stability_score']}")
+            log(f"[sam-7b] generate ({run}), fused, 32 x 32 points in 16 "
+                f"chunks of 64 (x 3 masks), thresholds 0.88 / 0.95 / NMS 0.7:"
+                f" {len(recs)} records, {wall:.3f} s wall: "
+                + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items()))
+        span = profiled_span(torch, lambda: gen.generate(image))
+        if span is None:
+            log("[sam-7b] generate under the profiler: not measured (the "
+                "profiler lost a marker)")
+        else:
+            wall, n_rec, busy, _ = span
+            log(f"[sam-7b] generate under the profiler: {wall:.3f} s wall, "
+                f"{busy:.2f} ms of kernels in {n_rec} device records -> "
+                f"device busy {100 * busy / 1e3 / wall:.1f}%, idle "
+                f"{100 * (1 - busy / 1e3 / wall):.1f}% of the wall")
+        check_export(torch, flash, mods, sam, s, pred._embedding, tmp,
+                     "SAM-H's decoder")
+    log(f"[phase 9] (b) in {time.time() - t_phase:.1f} s")
+    return out
+
+
 def tree_pairs(a, b, path=""):
     """(path, leaf of a, leaf of b) of two trees of one structure."""
     if isinstance(a, dict):
@@ -4121,8 +4821,11 @@ def main() -> int:
         from anyref_tpu_torch.data.preprocess import (crop_box_np,
                                                       preprocess_clip_np)
         from anyref_tpu_torch.models import anyref as anyref_mod
-        from anyref_tpu_torch.models import llama
+        from anyref_tpu_torch import export
+        from anyref_tpu_torch.models import llama, sam
         from anyref_tpu_torch.models.sam import image_encoder
+        from anyref_tpu_torch.models.sam.amg import SamAutomaticMaskGenerator
+        from anyref_tpu_torch.models.sam.predictor import SamPredictor
         from anyref_tpu_torch.ops import attention, common, flash, mel, quant
         from anyref_tpu_torch.serve import Request, Server
         from anyref_tpu_torch.tokenizer import (AnyRefTokenizer,
@@ -4173,7 +4876,10 @@ def main() -> int:
             "mel": mel, "img_ref_question": img_ref_question,
             "audio_ref_question": audio_ref_question,
             "crop_box_np": crop_box_np,
-            "preprocess_clip_np": preprocess_clip_np, "card": card}
+            "preprocess_clip_np": preprocess_clip_np, "card": card,
+            "sam": sam, "SamPredictor": SamPredictor,
+            "SamAutomaticMaskGenerator": SamAutomaticMaskGenerator,
+            "export": export}
     # phase 3: "unfused" and "unfused_qkv" at anyref_tiny, "fused" and
     # "fused_block" where both fused SAM gates open (64 <= ws^2 and a 32 x
     # 32 global grid), the int8 decoder at anyref_tiny, and one train step
@@ -4204,8 +4910,10 @@ def main() -> int:
     phase8_tiny(torch, flash, mods, tiny)
     train_7b_from_disk(torch, flash, mods)
     torch.cuda.empty_cache()
+    # phase 9(a); (b) ran in phase 4, on its SAM weights
+    sam_alone_tiny(torch, flash, mods, tiny, tiny512)
 
-    # phase 9
+    # phase 10
     meta = {
         "layer_norm_fused": ("anyref_tpu_torch/csrc/norms.cu",
                              "anyref_tpu/ops/flash.py:615"),

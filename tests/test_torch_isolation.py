@@ -34,7 +34,10 @@ def test_import_loads_no_jax():
         "             'eval.referseg', 'eval.harnesses', 'tools.eval',\n"
         "             'eval.scene_graph', 'eval.caption_metrics',\n"
         "             'data.ade', 'data.phrasecut', 'data.registry',\n"
-        "             'tools.train', 'tools.build_ref_index'):\n"
+        "             'tools.train', 'tools.build_ref_index',\n"
+        "             'models.sam.predictor', 'models.sam.amg', 'export',\n"
+        "             'utils.logging', 'utils.profiling', 'tools.demo',\n"
+        "             'tools.export', 'tools.convert_avs_masks'):\n"
         "    assert 'anyref_tpu_torch.' + want in names, names\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
@@ -71,7 +74,10 @@ def test_entry_points_refuse_cpu_without_gpu(monkeypatch):
     from anyref_tpu_torch import params as tparams
     from anyref_tpu_torch.config import anyref_tiny
     from anyref_tpu_torch.eval.runner import Predictor
-    from anyref_tpu_torch.models import anyref
+    from anyref_tpu_torch.export import export_sam_decoder
+    from anyref_tpu_torch.models import anyref, sam
+    from anyref_tpu_torch.models.sam.amg import SamAutomaticMaskGenerator
+    from anyref_tpu_torch.models.sam.predictor import SamPredictor
     from anyref_tpu_torch.ops.mel import audio_to_mel_clips
     from anyref_tpu_torch.ops.quant import quantize_llama
     from anyref_tpu_torch.serve import Server
@@ -104,6 +110,15 @@ def test_entry_points_refuse_cpu_without_gpu(monkeypatch):
         Predictor(q, cfg, speculative=False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Server(q, cfg, speculative=False, preprocess_workers=1)
+    # SAM alone: its init, the predictor, the generator and the export
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sam.init(cfg.sam, torch.Generator())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SamPredictor(p["sam"], cfg.sam)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SamAutomaticMaskGenerator(p["sam"], cfg.sam)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        export_sam_decoder(p["sam"], cfg.sam, "unused.pt2")
 
 
 def test_train_step_loads_no_jax():
