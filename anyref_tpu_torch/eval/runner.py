@@ -7,7 +7,9 @@ from a small fixed set. The reference keys (crops, boxes, audio clips and
 their validity) ride along, padded the same way. uint8 images are
 normalized on the device. The fetch packs ids, [SEG] validity and the
 decode pass count into one int32 array; the variable-shape tail (crop the
-padded canvas, resize to each image's size) runs on the host.
+padded canvas, resize to each image's size) runs on the host. A speculative
+Predictor first converts the caller's decoder tree to the serving layout
+(models/llama.py fuse_for_serving), in place.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 
 from ..config import (SAM_PIXEL_MEAN, SAM_PIXEL_STD, AnyRefConfig,
                       check_encoder_path)
-from ..models import anyref, clip_vit
+from ..models import anyref, clip_vit, llama
 from ..ops.quant import is_quantized
 from ..ops.resize import postprocess_low_res_np
 from ..params import resolve_device
@@ -64,6 +66,14 @@ class Predictor:
                 "an int8 decoder (ops.quant.quantize_llama) is served with "
                 "speculative=False: the reference's speculative serving "
                 "needs the bf16 serving layout of the decoder")
+        if speculative:
+            # the reference's serving layout (transposed, fused q/k/v and
+            # gate/up matrices), made IN PLACE, weight by weight: it
+            # consumes the caller's tree, as the reference's does. The
+            # reference converts a single-device tree only; the port runs
+            # one device, so always.
+            params["llama"] = llama.fuse_for_serving(
+                llama.transpose_for_serving(params["llama"]))
         self.params = params
         self.cfg = cfg
         self.mnt = max_new_tokens or cfg.max_new_tokens

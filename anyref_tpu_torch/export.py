@@ -1,5 +1,6 @@
-"""Ahead-of-time export of the SAM mask decoder with torch.export (port of
-anyref_tpu/export.py, whose artifact is jax.export's StableHLO).
+"""Ahead-of-time export with torch.export (port of anyref_tpu/export.py,
+whose artifacts are jax.export's StableHLO): the SAM mask decoder, and the
+whole generate step.
 
 The decoder is exported as a ``.pt2`` program that ``torch.export.load``
 runs without the model code, with the prompt interface of the reference's
@@ -14,19 +15,28 @@ point_labels: -1 padding point, 0 negative, 1 positive, 2 / 3 the top-left
 export. The prompt-encoder and mask-decoder weights are buffers of the
 exported module, so the artifact carries them.
 
-The JAX module's ``export_generate`` (the whole generate step) has no port
-yet: generate's host loop branches on data and its kernels launch through
-ctypes, which torch.export cannot trace; it needs each kernel wrapper as a
-torch.library custom op with a fake implementation and generate split into
-a prefill and a decode step.
+``export_generate`` exports greedy generate at batch 1:
+
+  (input_ids [1, prompt_len] int32 (left-padded, one <image>),
+   clip_images [1, 3, 224, 224] fp32, sam_images [1, 3, S, S] fp32)
+      -> (output_ids [1, max_new_tokens], low_res_masks [1, n_seg, 4g, 4g],
+          seg_valid [1, n_seg])
+
+with the whole param tree as buffers. The decode runs all
+``max_new_tokens`` steps (anyref.generate's ``fixed_steps``: the same ids
+as the early exit, whose branch on the data a program cannot hold), and
+every kernel is a call of its registered op (ops/flash.py), which a
+loading interpreter gets by importing this module.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .config import SamConfig
+from .config import AnyRefConfig, SamConfig
+from .models import anyref
 from .models.sam import prompt_encoder
+from .ops import flash  # noqa: F401  (registers the anyref:: ops)
 from .models.sam.predictor import decode_prompts
 from .params import resolve_device
 
@@ -113,6 +123,54 @@ def export_sam_decoder(params: dict, cfg: SamConfig, path: str,
     torch.export.save(program, path)
 
 
+class GenerateProgram(torch.nn.Module):
+    """Greedy generate at fixed steps as a module whose buffers are the
+    whole param tree (named as SamDecoder names them)."""
+
+    def __init__(self, params: dict, cfg: AnyRefConfig, max_new_tokens: int,
+                 encoder_path: str):
+        super().__init__()
+        self.cfg = cfg
+        self.max_new_tokens = max_new_tokens
+        self.encoder_path = encoder_path
+        self._skel = _skeleton(params)
+        for path, leaf in _leaves(params):
+            self.register_buffer("__".join(path), leaf)
+
+    def forward(self, input_ids, clip_images, sam_images):
+        tree = _fill(self._skel, lambda name: getattr(self, name))
+        out = anyref.generate(
+            tree, self.cfg, {"input_ids": input_ids,
+                             "clip_images": clip_images,
+                             "sam_images": sam_images},
+            max_new_tokens=self.max_new_tokens, device=input_ids.device,
+            encoder_path=self.encoder_path, fixed_steps=True)
+        return out.output_ids, out.low_res_masks, out.seg_valid
+
+
+def export_generate(params: dict, cfg: AnyRefConfig, path: str,
+                    prompt_len: int = 129, max_new_tokens: int = 32,
+                    device="cuda", encoder_path: str = "fused") -> None:
+    """Export greedy generate at batch 1 on ``device``, where the params
+    must live, on ``encoder_path``, to ``path`` (torch.export.save, a .pt2
+    file). The decoder runs in whichever layout the tree has."""
+    dev = resolve_device(device)
+    p_dev = params["llama"]["embed_tokens"].device
+    if p_dev.type != dev.type:
+        raise ValueError(f"params live on {p_dev}, the export was asked for "
+                         f"{dev}")
+    module = GenerateProgram(params, cfg, max_new_tokens, encoder_path)
+    ids = torch.full((1, prompt_len), 1, dtype=torch.int32, device=dev)
+    ids[0, 1] = cfg.tokens.image
+    args = (ids,
+            torch.zeros(1, 3, cfg.clip.image_size, cfg.clip.image_size,
+                        device=dev),
+            torch.zeros(1, 3, cfg.sam.image_size, cfg.sam.image_size,
+                        device=dev))
+    program = torch.export.export(module, args, strict=False)
+    torch.export.save(program, path)
+
+
 def load_exported(path: str):
-    """An exported artifact as a callable module."""
+    """An exported artifact (either) as a callable module."""
     return torch.export.load(path).module()

@@ -280,10 +280,13 @@ def _speculative_decode(params, cfg, exp_ids, pad_len, cache, first_tok,
 
 
 def _greedy_decode(params, cfg, pad_len, cache, first_tok, Lp: int, mnt: int,
-                   dtype, lastin: bool = False):
-    """Greedy decode with early exit once every row has emitted EOS.
-    Returns (ids [B, mnt], hidden [B, mnt, D], final-layer inputs
-    [B, mnt, D] or None, steps)."""
+                   dtype, lastin: bool = False, fixed_steps: bool = False):
+    """Greedy decode with early exit once every row has emitted EOS, or,
+    with ``fixed_steps``, all ``mnt`` steps with no branch on the data (a
+    program torch.export can trace): finished rows write EOS and zero states
+    either way (the reference's comment at its decode loop: running every
+    step gives the same ids). Returns (ids [B, mnt], hidden [B, mnt, D],
+    final-layer inputs [B, mnt, D] or None, steps)."""
     eos = EOS_ID
     B = first_tok.shape[0]
     dev = first_tok.device
@@ -295,7 +298,7 @@ def _greedy_decode(params, cfg, pad_len, cache, first_tok, Lp: int, mnt: int,
     tok = first_tok
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     i = 0
-    while i < mnt and not bool(done.all()):
+    while i < mnt and (fixed_steps or not bool(done.all())):
         emb = llama.embed(params["llama"], tok[:, None], dtype=dtype)
         h, cache, *lin = llama.decode_step(params["llama"], cfg.llama, emb,
                                            Lp + i, cache, pad_len=pad_len,
@@ -337,7 +340,7 @@ def _last_layer_attn_row(params: dict, cfg: AnyRefConfig, q_in, k_roped,
     nh, kvh, hd = lcfg.num_heads, lcfg.num_kv_heads, lcfg.head_dim
     p = params["llama"]["layers"][-1]
     h = rms_norm(p["input_norm"], q_in[:, None, :], eps=lcfg.rms_norm_eps)
-    q = linear(p["attn"]["q"], h)                            # [B, 1, nh*hd]
+    q = linear(llama.attn_proj(p["attn"], "q", lcfg), h)     # [B, 1, nh*hd]
     B = q.shape[0]
     q = q.reshape(B, 1, nh, hd).transpose(1, 2)
     q = llama._rope(q, llama._rope_tables(q_pos[:, None], hd,
@@ -373,7 +376,7 @@ def _rephrase_pool(params: dict, cfg: AnyRefConfig, hidden, last_in,
     lcfg = cfg.llama
     p = params["llama"]["layers"][-1]
     hn = rms_norm(p["input_norm"], last_in, eps=lcfg.rms_norm_eps)
-    k = linear(p["attn"]["k"], hn).reshape(
+    k = linear(llama.attn_proj(p["attn"], "k", lcfg), hn).reshape(
         B, L, lcfg.num_kv_heads, lcfg.head_dim).transpose(1, 2)
     k = llama._rope(k, llama._rope_tables(
         torch.arange(L, device=hidden.device), lcfg.head_dim,
@@ -481,7 +484,8 @@ def generate(params: dict, cfg: AnyRefConfig, batch: dict,
              speculative: bool = False, draft_len: int = 31,
              lookup_ngram: int = 2, max_accept: Optional[int] = None,
              force_accept: bool = False, device="cuda",
-             encoder_path: str = "fused") -> GenerateOutput:
+             encoder_path: str = "fused",
+             fixed_steps: bool = False) -> GenerateOutput:
     """Greedy (or speculative) decode + SAM mask synthesis.
 
     batch: input_ids [B, T] (prompt only, LEFT-padded, one <image> per
@@ -490,8 +494,14 @@ def generate(params: dict, cfg: AnyRefConfig, batch: dict,
     tensors, moved to ``device``. The params must
     already live on ``device``. ``encoder_path`` selects the towers' path
     (config.ENCODER_PATHS). An int8 decoder tree (ops.quant.quantize_llama)
-    runs greedy and speculative decode alike."""
+    runs greedy and speculative decode alike; so does either layout of the
+    decoder (llama.fuse_for_serving). ``fixed_steps`` is the form
+    export.export_generate traces: greedy, all ``max_new_tokens`` steps
+    with no branch on the data; its outputs are those of the early
+    exit."""
     check_encoder_path(encoder_path)
+    if fixed_steps and speculative:
+        raise ValueError("fixed_steps is the greedy decode's traced form")
     dev = resolve_device(device)
     # embed_tokens: a leaf of both the float and the int8 decoder tree
     p_dev = params["llama"]["embed_tokens"].device
@@ -537,7 +547,7 @@ def generate(params: dict, cfg: AnyRefConfig, batch: dict,
     else:
         output_ids, gen_hidden, gen_lastin, decode_passes = _greedy_decode(
             params, cfg, pad_len, cache, first_tok, Lp, mnt, embeds.dtype,
-            lastin=lastin)
+            lastin=lastin, fixed_steps=fixed_steps)
     num_generated = (output_ids != EOS_ID).sum(1)
 
     # the hidden state that EMITS [SEG] at output k is gen_hidden[k-1], or

@@ -4,9 +4,19 @@ RMSNorm in fp32, HF rotate-half rope with fp32 tables, SiLU MLP. The forward
 consumes embeddings, because AnyRef splices image features into the sequence
 first. Hidden states returned are post-final-RMSNorm.
 
-The KV cache is one stacked pair [layers, B, kv_heads, max_len, head_dim];
-each layer writes its fresh k/v into it IN PLACE at ``write_pos`` (the
-reference returns an updated copy; in place saves the copy). Prefill runs
+Serving layout (the reference's, for speculative serving):
+``transpose_for_serving`` stores every decoder matrix as ``w_t`` [out, in]
+and ``fuse_for_serving`` concatenates q/k/v into ``attn["qkv"]`` and
+gate/up into ``mlp["gate_up"]``, 7 products a layer becoming 4; ``_layer``
+reads either layout, and ``attn_proj`` gives one attention projection of
+either.
+
+The KV cache is a pair of lists of per-layer [B, kv_heads, max_len,
+head_dim] tensors (the reference stacks them [layers, ...]); each layer
+writes its fresh k/v into its own tensor IN PLACE at ``write_pos`` (the
+reference returns an updated copy; in place saves the copy, and a traced
+program whose writes are made functional copies one layer's cache a write,
+not all of them). Prefill runs
 the causal CUDA kernel and the fused RMSNorm kernel; decode steps and
 speculative verify chunks run plain attention and plain norms, as the
 reference does. ``forward`` (training) writes no cache and runs the
@@ -27,12 +37,68 @@ from ..ops.common import linear, rms_norm, silu
 
 
 class KVCache(NamedTuple):
-    k: torch.Tensor  # [layers, B, kv_heads, max_len, head_dim]
-    v: torch.Tensor
+    k: list  # layers x [B, kv_heads, max_len, head_dim]
+    v: list
 
 
 def embed(params: dict, input_ids, dtype=torch.bfloat16):
     return params["embed_tokens"][input_ids].to(dtype)
+
+
+@torch.no_grad()
+def transpose_for_serving(params: dict) -> dict:
+    """Store each decoder matrix transposed, ``{"w_t": [out, in]}``
+    (ops.common.linear's "w_t" path), IN PLACE, weight by weight: the
+    contiguous [out, in] copy of one projection is made, then its [in, out]
+    weight dropped, so peak memory stays within one extra projection. The
+    caller's tree is consumed. Leaves without "w" (an int8 leaf, one
+    already transposed) are left as they are."""
+    for layer in params["layers"]:
+        for grp in ("attn", "mlp"):
+            for name in list(layer[grp]):
+                p = layer[grp][name]
+                if "w" in p:
+                    new = {"w_t": p["w"].T.contiguous()}
+                    if "b" in p:
+                        new["b"] = p["b"]
+                    layer[grp][name] = new
+    return params
+
+
+@torch.no_grad()
+def fuse_for_serving(params: dict) -> dict:
+    """Concatenate each layer's q/k/v weights into ``attn["qkv"]`` and its
+    gate/up weights into ``mlp["gate_up"]``, ``{"w_t": [out, in]}`` (rows
+    in that order), IN PLACE, layer by layer, so peak memory stays within
+    one extra fused projection. Each output element is the same dot product
+    as before; only the number of products drops (7 -> 4 a layer). Takes the
+    transposed layout of transpose_for_serving, or plain [in, out] weights,
+    transposed on the fly; idempotent."""
+    def take(p):
+        return p["w_t"] if "w_t" in p else p["w"].T
+
+    for layer in params["layers"]:
+        attn, mlp = layer["attn"], layer["mlp"]
+        if "qkv" not in attn:
+            attn["qkv"] = {"w_t": torch.cat(
+                [take(attn.pop(k)) for k in ("q", "k", "v")], 0)}
+        if "gate_up" not in mlp:
+            mlp["gate_up"] = {"w_t": torch.cat(
+                [take(mlp.pop(k)) for k in ("gate", "up")], 0)}
+    return params
+
+
+def attn_proj(attn: dict, name: str, cfg: LlamaConfig) -> dict:
+    """The linear leaf of one attention projection ("q", "k" or "v") in
+    either layout: after fuse_for_serving, a row-block view of the fused
+    ``qkv["w_t"]`` (the rephrase pooling projects q and k alone)."""
+    if name in attn:
+        return attn[name]
+    nq = cfg.num_heads * cfg.head_dim
+    nkv = cfg.num_kv_heads * cfg.head_dim
+    lo, hi = {"q": (0, nq), "k": (nq, nq + nkv),
+              "v": (nq + nkv, nq + 2 * nkv)}[name]
+    return {"w_t": attn["qkv"]["w_t"][lo:hi]}
 
 
 def _rope_tables(positions, hd: int, theta: float):
@@ -72,18 +138,24 @@ def _layer(p, cfg: LlamaConfig, x, mode: str, cache, write_pos: int,
     "full" (training) writes no cache and takes the differentiable causal
     kernel (``cache`` is None there)."""
     h = rms_norm(p["input_norm"], x, eps=cfg.rms_norm_eps, fused=fused_norms)
-    q = _split_heads(linear(p["attn"]["q"], h), cfg.num_heads, cfg.head_dim)
-    k = _split_heads(linear(p["attn"]["k"], h), cfg.num_kv_heads,
-                     cfg.head_dim)
-    v = _split_heads(linear(p["attn"]["v"], h), cfg.num_kv_heads,
-                     cfg.head_dim)
+    if "qkv" in p["attn"]:       # the fused serving layout
+        nq = cfg.num_heads * cfg.head_dim
+        nkv = cfg.num_kv_heads * cfg.head_dim
+        qkv = linear(p["attn"]["qkv"], h)
+        q_p, k_p, v_p = (qkv[..., :nq], qkv[..., nq:nq + nkv],
+                         qkv[..., nq + nkv:])
+    else:
+        q_p, k_p, v_p = (linear(p["attn"][n], h) for n in ("q", "k", "v"))
+    q = _split_heads(q_p, cfg.num_heads, cfg.head_dim)
+    k = _split_heads(k_p, cfg.num_kv_heads, cfg.head_dim)
+    v = _split_heads(v_p, cfg.num_kv_heads, cfg.head_dim)
     q = _rope(q, rope_tables)
     k = _rope(k, rope_tables)
 
     if mode != "full":
         L = k.shape[2]
-        cache.k[layer_idx, :, :, write_pos:write_pos + L] = k
-        cache.v[layer_idx, :, :, write_pos:write_pos + L] = v
+        cache.k[layer_idx][:, :, write_pos:write_pos + L] = k
+        cache.v[layer_idx][:, :, write_pos:write_pos + L] = v
     if mode == "decode":
         k, v = cache.k[layer_idx], cache.v[layer_idx]
     rep = cfg.num_heads // cfg.num_kv_heads
@@ -98,9 +170,13 @@ def _layer(p, cfg: LlamaConfig, x, mode: str, cache, write_pos: int,
     x = x + linear(p["attn"]["o"], _merge_heads(attn))
     h = rms_norm(p["post_attn_norm"], x, eps=cfg.rms_norm_eps,
                  fused=fused_norms)
-    h = linear(p["mlp"]["down"],
-               silu(linear(p["mlp"]["gate"], h)) * linear(p["mlp"]["up"], h))
-    return x + h
+    if "gate_up" in p["mlp"]:    # the fused serving layout
+        gu = linear(p["mlp"]["gate_up"], h)
+        inter = cfg.intermediate_size
+        gate, up = gu[..., :inter], gu[..., inter:]
+    else:
+        gate, up = (linear(p["mlp"][n], h) for n in ("gate", "up"))
+    return x + linear(p["mlp"]["down"], silu(gate) * up)
 
 
 def forward(params: dict, cfg: LlamaConfig, embeds, positions=None,
@@ -133,9 +209,11 @@ def forward(params: dict, cfg: LlamaConfig, embeds, positions=None,
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda") -> KVCache:
-    shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
-    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros(shape, dtype=dtype, device=device))
+    """Zeros [B, kv_heads, max_len, head_dim], one tensor a layer, for k
+    and for v."""
+    shape = (batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+    return KVCache(*([torch.zeros(shape, dtype=dtype, device=device)
+                      for _ in range(cfg.num_layers)] for _ in range(2)))
 
 
 def _run(params, cfg, x, positions, mode, cache, write_pos, pad_len,

@@ -1,8 +1,10 @@
 """Shared functional NN primitives (port of anyref_tpu/ops/common.py).
 
 Parameter convention: nested dicts of tensors, keys as in the JAX tree.
-  linear: {"w": [in, out], "b": [out]?} or, int8 (ops/quant.py),
-          {"w_q": int8 [in, out], "scale": fp32 [out]}
+  linear: {"w": [in, out], "b": [out]?}; in the decoder's serving layout
+          (models/llama.py transpose_for_serving) {"w_t": [out, in],
+          "b": [out]?}; int8 (ops/quant.py) {"w_q": int8 [in, out],
+          "scale": fp32 [out]}
   layer_norm: {"scale": [d], "bias": [d]}
   conv: {"w": [out, in, kh, kw], "b": [out]?}   (OIHW)
 """
@@ -19,11 +21,16 @@ from .quant import quant_linear
 def linear(p, x: torch.Tensor) -> torch.Tensor:
     """x [..., in] @ w [in, out] (+ b) in x's dtype: the weight is rounded
     to x's dtype and the product accumulates in fp32, as the reference's
-    einsum with preferred_element_type=x.dtype does. An int8 leaf goes
-    through quant_linear (the int8_matmul kernel)."""
+    einsum with preferred_element_type=x.dtype does. A transposed leaf
+    (``w_t`` [out, in]) is the same product on the transposed view, which
+    the GEMM reads in place; an int8 leaf goes through quant_linear (the
+    int8_matmul kernel)."""
     if "w_q" in p:
         return quant_linear(p, x)
-    y = torch.matmul(x, p["w"].to(x.dtype))
+    if "w_t" in p:
+        y = torch.matmul(x, p["w_t"].to(x.dtype).T)
+    else:
+        y = torch.matmul(x, p["w"].to(x.dtype))
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y

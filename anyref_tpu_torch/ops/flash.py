@@ -52,14 +52,20 @@ zero-padded to one by the wrapper (``_causal_route``, ``_relpos_route``,
 ``_tma_heads``). The two norms are one kernel template
 (``csrc/norms.cu``) that reads bf16 or fp32 weights as they are.
 
-Each wrapper runs its plain version when, and only when, its input lies on
-the CPU (the tests). For a CUDA tensor it launches its kernels or raises:
-there is no fallback. Each wrapper carries ``.launches``, a plain int it
-raises by one per call that launched its kernel (or chain), so a run can
-show which kernels its path went through;
-``flash_causal_attention_diff`` counts forward calls in ``.launches``
-(recomputation under checkpointing included) and backward calls in
-``.backward_launches``.
+Every launch goes through a torch op of the ``anyref`` namespace,
+registered with ``torch.library`` (``OPS``, at the end of this file): its
+CUDA implementation launches the kernel (or chain), its CPU implementation
+is the plain version, and its fake implementation gives the CUDA output's
+shape, dtype and strides, so ``torch.export`` traces a program through the
+kernels (``export.export_generate``). A wrapper checks its inputs (CPU
+tensors, or bf16 CUDA tensors; any other device or dtype raises) and calls
+its op: the dispatcher takes the plain version only for CPU tensors, and a
+CUDA tensor launches the kernel or raises. There is no fallback. Each
+wrapper carries ``.launches``, a plain int its CUDA implementation raises by
+one per call that launched its kernel (or chain), so a run can show which
+kernels its path went through; ``flash_causal_attention_diff`` counts
+forward calls in ``.launches`` (recomputation under checkpointing included)
+and backward calls in ``.backward_launches``.
 
 Build: at first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a``
 (one process per source, all started together) and links them into one
@@ -180,8 +186,8 @@ def _library():
 
 
 def _on_cpu(name: str, *tensors: torch.Tensor) -> bool:
-    """True: run the plain version. False: the inputs are bf16 CUDA tensors
-    the kernel takes. Anything else raises."""
+    """True: CPU tensors, which the op's plain version takes. False: bf16
+    CUDA tensors, which its kernel takes. Anything else raises."""
     dev = tensors[0].device
     if any(t.device != dev for t in tensors):
         raise ValueError(f"{name}: inputs on different devices")
@@ -193,6 +199,13 @@ def _on_cpu(name: str, *tensors: torch.Tensor) -> bool:
         raise TypeError(f"{name}: the CUDA kernel takes bfloat16, got "
                         f"{[t.dtype for t in tensors]}")
     return False
+
+
+def _on_card(name: str, *tensors: torch.Tensor) -> None:
+    """The check that opens a CUDA implementation: bf16 CUDA tensors."""
+    if _on_cpu(name, *tensors):
+        raise ValueError(f"{name}: the CUDA implementation was given CPU "
+                         "tensors")
 
 
 def _aligned(*tensors: torch.Tensor) -> bool:
@@ -247,8 +260,12 @@ def _norm_weights(name: str, C: int, device, *ws):
 def layer_norm_fused(x, scale, bias, eps: float):
     """x [..., C], scale/bias [C] -> LayerNorm(x), same dtype as x. One CUDA
     kernel a call: bf16 or fp32 weights are read as they are."""
-    if _on_cpu("layer_norm_fused", x):
-        return layer_norm_plain(x, scale, bias, eps)
+    _on_cpu("layer_norm_fused", x)
+    return torch.ops.anyref.layer_norm_fused(x, scale, bias, float(eps))
+
+
+def _layer_norm_cuda(x, scale, bias, eps: float):
+    _on_card("layer_norm_fused", x)
     C = x.shape[-1]
     s, b = _norm_weights("layer_norm_fused", C, x.device, scale, bias)
     xc = x.contiguous()
@@ -269,8 +286,12 @@ def rms_norm_fused(x, scale, eps: float):
     """x [..., C], scale [C] -> RMSNorm(x), same dtype as x. One CUDA
     kernel a call: a bf16 or fp32 scale is read as it is (another dtype is
     first converted to fp32)."""
-    if _on_cpu("rms_norm_fused", x):
-        return rms_norm_plain(x, scale, eps)
+    _on_cpu("rms_norm_fused", x)
+    return torch.ops.anyref.rms_norm_fused(x, scale, float(eps))
+
+
+def _rms_norm_cuda(x, scale, eps: float):
+    _on_card("rms_norm_fused", x)
     C = x.shape[-1]
     (s,) = _norm_weights("rms_norm_fused", C, x.device, scale)
     xc = x.contiguous()
@@ -440,9 +461,13 @@ def flash_relpos_attention(q, k, v, rel_h_table, rel_w_table, size_hw):
     launch: the window kernel up to WINDOW_MAX_L tokens, else the global
     kernel after the fp32 factor einsums; both read strided views such as
     the heads of a fused QKV in place."""
-    if _on_cpu("flash_relpos_attention", q, k, v):
-        return relpos_attention_plain(q, k, v, rel_h_table, rel_w_table,
-                                      size_hw)
+    _on_cpu("flash_relpos_attention", q, k, v)
+    return torch.ops.anyref.flash_relpos_attention(
+        q, k, v, rel_h_table, rel_w_table, list(size_hw))
+
+
+def _relpos_attention_cuda(q, k, v, rel_h_table, rel_w_table, size_hw):
+    _on_card("flash_relpos_attention", q, k, v)
     H, W = size_hw
     B, nh, L, hd = q.shape
     if H * W != L or k.shape != q.shape or v.shape != q.shape:
@@ -546,20 +571,30 @@ def _causal_forward(wrapper, q, k, v, kv_start, with_lse: bool):
     lse = (torch.empty(B, nh, L, dtype=torch.float32, device=q.device)
            if with_lse else None)
     if out.numel() == 0:
-        return out[..., :hd], lse
+        return _narrow(out, hd), lse
     with torch.cuda.device(q.device):
         _launch("anyref_causal_attention", q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), None if ks is None else ks.data_ptr(),
                 out.data_ptr(), None if lse is None else lse.data_ptr(),
                 B, nh, L, hd8, hd ** -0.5, _stream(q))
     wrapper.launches += 1
-    return out[..., :hd], lse
+    return _narrow(out, hd), lse
+
+
+def _narrow(t, hd: int):
+    """The first hd columns of t, contiguous (a copy where the kernels ran
+    zero-padded heads), as the op's fake implementation states them."""
+    return t if t.shape[-1] == hd else t[..., :hd].contiguous()
 
 
 def flash_causal_attention(q, k, v, kv_start=None):
     """q/k/v [B, nh, L, hd] prefill attention; kv_start [B] int or None."""
-    if _on_cpu("flash_causal_attention", q, k, v):
-        return causal_attention_plain(q, k, v, kv_start)
+    _on_cpu("flash_causal_attention", q, k, v)
+    return torch.ops.anyref.flash_causal_attention(q, k, v, kv_start)
+
+
+def _causal_attention_cuda(q, k, v, kv_start):
+    _on_card("flash_causal_attention", q, k, v)
     return _causal_forward(flash_causal_attention, q, k, v, kv_start,
                            with_lse=False)[0]
 
@@ -609,44 +644,64 @@ def causal_delta(do, out):
 
 
 def causal_attention_diff_fwd(q, k, v, kv_start=None):
-    """The training forward's kernel: (out, lse [B, nh, L] fp32). q/k/v
-    bf16 [B, nh, L, hd] on the card."""
+    """The training forward's op: (out, lse [B, nh, L] fp32) of q/k/v
+    [B, nh, L, hd], the plain version on the CPU, the kernel for bf16 on
+    the card."""
+    _on_cpu("flash_causal_attention_diff", q, k, v)
+    return torch.ops.anyref.causal_attention_diff_fwd(q, k, v, kv_start)
+
+
+def _causal_diff_fwd_cuda(q, k, v, kv_start):
+    _on_card("flash_causal_attention_diff", q, k, v)
     return _causal_forward(flash_causal_attention_diff, q, k, v, kv_start,
                            with_lse=True)
 
 
 def causal_attention_diff_bwd(q, k, v, out, lse, do, kv_start=None):
-    """The training backward's kernels: delta = causal_delta(dO, O), then
-    the dq and dk/dv kernels. bf16 but lse; returns (dq, dk, dv)."""
+    """The training backward: delta = causal_delta(dO, O), a torch op here
+    as in the reference's wrapper, then the op of the dq and dk/dv kernels
+    (one C entry launches both). bf16 on the card but lse; returns (dq, dk,
+    dv)."""
+    _on_cpu("flash_causal_attention_diff", q, k, v, do)
+    delta = causal_delta(do, out)
+    return torch.ops.anyref.causal_attention_diff_bwd(q, k, v, do, lse,
+                                                      delta, kv_start)
+
+
+def _causal_diff_bwd_plain(q, k, v, do, lse, delta, kv_start):
+    dq = causal_attention_dq_plain(q, k, v, do, lse, delta, kv_start)
+    return (dq, *causal_attention_dkv_plain(q, k, v, do, lse, delta,
+                                            kv_start))
+
+
+def _causal_diff_bwd_cuda(q, k, v, do, lse, delta, kv_start):
+    _on_card("flash_causal_attention_diff", q, k, v, do)
     B, nh, L, hd, hd8, ks = _causal_args("flash_causal_attention_diff", q,
                                          k, v, kv_start)
-    delta = causal_delta(do, out)
     q, k, v, do = (_causal_operand(t, hd8) for t in (q, k, v, do))
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    if dq.numel() == 0:
-        return dq[..., :hd], dk[..., :hd], dv[..., :hd]
-    with torch.cuda.device(q.device):
-        _launch("anyref_causal_attention_bwd", q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                None if ks is None else ks.data_ptr(), dq.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), B, nh, L, hd8, hd ** -0.5,
-                _stream(q))
-    flash_causal_attention_diff.backward_launches += 1
-    return dq[..., :hd], dk[..., :hd], dv[..., :hd]
+    if dq.numel():
+        with torch.cuda.device(q.device):
+            _launch("anyref_causal_attention_bwd", q.data_ptr(),
+                    k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                    lse.data_ptr(), delta.data_ptr(),
+                    None if ks is None else ks.data_ptr(), dq.data_ptr(),
+                    dk.data_ptr(), dv.data_ptr(), B, nh, L, hd8, hd ** -0.5,
+                    _stream(q))
+        flash_causal_attention_diff.backward_launches += 1
+    return tuple(_narrow(t, hd) for t in (dq, dk, dv))
 
 
 class _CausalAttentionDiff(torch.autograd.Function):
-    """Saves q, k, v, out, lse and kv_start; the backward runs the plain
-    versions for CPU tensors and the kernels for CUDA ones."""
+    """Saves q, k, v, out, lse and kv_start; both directions run through
+    their ops, so the plain versions for CPU tensors and the kernels for
+    CUDA ones."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_start):
-        ctx.plain = _on_cpu("flash_causal_attention_diff", q, k, v)
-        if ctx.plain:
-            out, lse = causal_attention_diff_fwd_plain(q, k, v, kv_start)
-        else:
+        if not _on_cpu("flash_causal_attention_diff", q, k, v):
             q, k, v = (t.contiguous() for t in (q, k, v))
-            out, lse = causal_attention_diff_fwd(q, k, v, kv_start)
+        out, lse = causal_attention_diff_fwd(q, k, v, kv_start)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.kv_start = kv_start
         return out
@@ -654,15 +709,8 @@ class _CausalAttentionDiff(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        ks = ctx.kv_start
-        do = do.contiguous()
-        if ctx.plain:
-            delta = causal_delta(do, out)
-            dq = causal_attention_dq_plain(q, k, v, do, lse, delta, ks)
-            dk, dv = causal_attention_dkv_plain(q, k, v, do, lse, delta, ks)
-        else:
-            _on_cpu("flash_causal_attention_diff", do)
-            dq, dk, dv = causal_attention_diff_bwd(q, k, v, out, lse, do, ks)
+        dq, dk, dv = causal_attention_diff_bwd(q, k, v, out, lse,
+                                               do.contiguous(), ctx.kv_start)
         return dq, dk, dv, None
 
 
@@ -878,6 +926,16 @@ def layer_norm_rows_plain(x, scale, bias, eps: float, keep=None):
 # ---------------------------------------------------------------------------
 # fused SAM layers: kernels
 # ---------------------------------------------------------------------------
+def _ln(p):
+    """A LayerNorm leaf as the ops take it: (scale, bias)."""
+    return p["scale"], p["bias"]
+
+
+def _lin(p):
+    """A linear leaf with its bias as the ops take it: (w, b)."""
+    return p["w"], p["b"]
+
+
 _E_BIAS, _E_GELU, _E_RES = 0, 1, 2
 
 
@@ -1016,9 +1074,15 @@ def fused_window_attn(xw, ln1, qkv_p, tht, twt, proj_p, size_hw,
     gathered rel-pos tables, rows (j, s); grid_hw the token grid before
     padding; nwc windows per row. Four launches: the LayerNorm row pass, QKV
     GEMM, window attention, proj GEMM."""
-    if _on_cpu("fused_window_attn", xw, qkv_p["w"], proj_p["w"]):
-        return fused_window_attn_plain(xw, ln1, qkv_p, tht, twt, proj_p,
-                                       size_hw, num_heads, grid_hw, nwc, eps)
+    _on_cpu("fused_window_attn", xw, qkv_p["w"], proj_p["w"])
+    return torch.ops.anyref.fused_window_attn(
+        xw, *_ln(ln1), *_lin(qkv_p), tht, twt, *_lin(proj_p), list(size_hw),
+        num_heads, list(grid_hw), nwc, float(eps))
+
+
+def _fused_window_attn_cuda(xw, ln1, qkv_p, tht, twt, proj_p, size_hw,
+                            num_heads: int, grid_hw, nwc: int, eps: float):
+    _on_card("fused_window_attn", xw, qkv_p["w"], proj_p["w"])
     ws, NW, L, C = _window_args("fused_window_attn", xw, size_hw, num_heads)
     x2 = xw.reshape(NW * L, C).contiguous()
     _gemm_operands("fused_window_attn", x2, qkv_p["w"], proj_p["w"])
@@ -1039,11 +1103,19 @@ def fused_window_block(xw, ln1, qkv_p, tht, twt, proj_p, ln2, mlp1_p, mlp2_p,
     writing the residual x1 in fp32, then the LayerNorm row pass of fp32
     x1, the fc1 GEMM (GELU) and the fc2 GEMM (fp32 residual x1, bf16
     out)."""
-    if _on_cpu("fused_window_block", xw, qkv_p["w"], proj_p["w"],
-               mlp1_p["w"], mlp2_p["w"]):
-        return fused_window_block_plain(xw, ln1, qkv_p, tht, twt, proj_p,
-                                        ln2, mlp1_p, mlp2_p, size_hw,
-                                        num_heads, grid_hw, nwc, eps)
+    _on_cpu("fused_window_block", xw, qkv_p["w"], proj_p["w"], mlp1_p["w"],
+            mlp2_p["w"])
+    return torch.ops.anyref.fused_window_block(
+        xw, *_ln(ln1), *_lin(qkv_p), tht, twt, *_lin(proj_p), *_ln(ln2),
+        *_lin(mlp1_p), *_lin(mlp2_p), list(size_hw), num_heads,
+        list(grid_hw), nwc, float(eps))
+
+
+def _fused_window_block_cuda(xw, ln1, qkv_p, tht, twt, proj_p, ln2, mlp1_p,
+                             mlp2_p, size_hw, num_heads: int, grid_hw,
+                             nwc: int, eps: float):
+    _on_card("fused_window_block", xw, qkv_p["w"], proj_p["w"], mlp1_p["w"],
+             mlp2_p["w"])
     ws, NW, L, C = _window_args("fused_window_block", xw, size_hw,
                                 num_heads)
     x2 = xw.reshape(NW * L, C).contiguous()
@@ -1063,8 +1135,13 @@ def fused_mlp_stream(x, ln2, mlp1_p, mlp2_p, eps: float):
     """x [N, C] -> x + fc2(GELU(fc1(LN2(x)))). Three launches: the
     LayerNorm row pass (bf16 h), fc1 GEMM with the GELU epilogue (bf16
     hidden), fc2 GEMM with the residual epilogue."""
-    if _on_cpu("fused_mlp_stream", x, mlp1_p["w"], mlp2_p["w"]):
-        return fused_mlp_stream_plain(x, ln2, mlp1_p, mlp2_p, eps)
+    _on_cpu("fused_mlp_stream", x, mlp1_p["w"], mlp2_p["w"])
+    return torch.ops.anyref.fused_mlp_stream(
+        x, *_ln(ln2), *_lin(mlp1_p), *_lin(mlp2_p), float(eps))
+
+
+def _fused_mlp_stream_cuda(x, ln2, mlp1_p, mlp2_p, eps: float):
+    _on_card("fused_mlp_stream", x, mlp1_p["w"], mlp2_p["w"])
     xc = x.contiguous()
     _gemm_operands("fused_mlp_stream", xc, mlp1_p["w"], mlp2_p["w"])
     with torch.cuda.device(x.device):
@@ -1081,10 +1158,17 @@ def fused_global_tail(x, qkv, tht, twt, proj_p, ln2, mlp1_p, mlp2_p,
     wrapper; then five launches: attention off the fused QKV, proj GEMM
     into fp32 x1, the LayerNorm row pass of x1, fc1 GEMM (GELU), fc2 GEMM
     (fp32 residual)."""
-    if _on_cpu("fused_global_tail", x, qkv, proj_p["w"], mlp1_p["w"],
-               mlp2_p["w"]):
-        return fused_global_tail_plain(x, qkv, tht, twt, proj_p, ln2, mlp1_p,
-                                       mlp2_p, size_hw, num_heads, eps)
+    _on_cpu("fused_global_tail", x, qkv, proj_p["w"], mlp1_p["w"],
+            mlp2_p["w"])
+    return torch.ops.anyref.fused_global_tail(
+        x, qkv, tht, twt, *_lin(proj_p), *_ln(ln2), *_lin(mlp1_p),
+        *_lin(mlp2_p), list(size_hw), num_heads, float(eps))
+
+
+def _fused_global_tail_cuda(x, qkv, tht, twt, proj_p, ln2, mlp1_p, mlp2_p,
+                            size_hw, num_heads: int, eps: float):
+    _on_card("fused_global_tail", x, qkv, proj_p["w"], mlp1_p["w"],
+             mlp2_p["w"])
     B, L, C = x.shape
     if qkv.shape != (B, L, 3 * C):
         raise ValueError(f"fused_global_tail: x {tuple(x.shape)}, qkv "
@@ -1109,9 +1193,14 @@ def flash_relpos_attention_qkv(qkv, rel_h_table, rel_w_table, size_hw,
     merged. One launch: the window kernel up to WINDOW_MAX_L tokens (the
     bias factors computed in it), else the global kernel after the fp32
     factor einsums, as the reference's wrapper computes them."""
-    if _on_cpu("flash_relpos_attention_qkv", qkv):
-        return relpos_attention_qkv_plain(qkv, rel_h_table, rel_w_table,
-                                          size_hw, num_heads)
+    _on_cpu("flash_relpos_attention_qkv", qkv)
+    return torch.ops.anyref.flash_relpos_attention_qkv(
+        qkv, rel_h_table, rel_w_table, list(size_hw), num_heads)
+
+
+def _relpos_attention_qkv_cuda(qkv, rel_h_table, rel_w_table, size_hw,
+                               num_heads: int):
+    _on_card("flash_relpos_attention_qkv", qkv)
     B, L, C, hd = _qkv_dims(qkv, size_hw, num_heads)
     qc = qkv.contiguous()
     with torch.cuda.device(qkv.device):
@@ -1135,8 +1224,13 @@ def flash_attention_qkv(qkv, num_heads: int, scale=None):
     launch of csrc/relpos_global.cu without the bias, the thirds of qkv
     read in place and the output written head-merged (heads whose width is
     not a multiple of 8 copied and zero-padded first, _tma_heads)."""
-    if _on_cpu("flash_attention_qkv", qkv):
-        return attention_qkv_plain(qkv, num_heads, scale)
+    _on_cpu("flash_attention_qkv", qkv)
+    return torch.ops.anyref.flash_attention_qkv(
+        qkv, num_heads, None if scale is None else float(scale))
+
+
+def _attention_qkv_cuda(qkv, num_heads: int, scale=None):
+    _on_card("flash_attention_qkv", qkv)
     B, L, C3 = qkv.shape
     C = C3 // 3
     hd = C // num_heads
@@ -1218,11 +1312,18 @@ def int8_matmul(x, w_q, scale):
     a split-K streaming kernel whose blocks sum their partials through
     distributed shared memory (``_int8_decode_plan``); more rows, a
     warp-specialised wgmma GEMM fed by TMA."""
+    _int8_inputs(x, w_q, scale)
+    return torch.ops.anyref.int8_matmul(x, w_q, scale)
+
+
+def _int8_inputs(x, w_q, scale) -> bool:
+    """True for CPU tensors (the plain version), False for the CUDA tensors
+    the kernel takes: bf16 x, int8 w_q, fp32 scale. Anything else raises."""
     dev = x.device
     if w_q.device != dev or scale.device != dev:
         raise ValueError("int8_matmul: inputs on different devices")
     if dev.type == "cpu":
-        return int8_matmul_plain(x, w_q, scale)
+        return True
     if dev.type != "cuda":
         raise ValueError(f"int8_matmul: no kernel for device {dev}")
     if (x.dtype, w_q.dtype, scale.dtype) != (torch.bfloat16, torch.int8,
@@ -1230,6 +1331,14 @@ def int8_matmul(x, w_q, scale):
         raise TypeError(f"int8_matmul: the CUDA kernel takes bf16 x, int8 "
                         f"w_q and fp32 scale, got {x.dtype}, {w_q.dtype}, "
                         f"{scale.dtype}")
+    return False
+
+
+def _int8_matmul_cuda(x, w_q, scale):
+    if _int8_inputs(x, w_q, scale):
+        raise ValueError("int8_matmul: the CUDA implementation was given CPU "
+                         "tensors")
+    dev = x.device
     K, N = w_q.shape
     x2 = x.reshape(-1, K).contiguous()
     sc = scale.contiguous()
@@ -1265,3 +1374,133 @@ KERNELS = (layer_norm_fused, rms_norm_fused, flash_relpos_attention,
            fused_global_tail, flash_attention_qkv,
            flash_causal_attention_diff, flash_relpos_attention_qkv,
            fused_window_block, int8_matmul)
+
+
+# ---------------------------------------------------------------------------
+# the registered ops: anyref::<name>, one for each unit that launches
+# ---------------------------------------------------------------------------
+_LIB = torch.library.Library("anyref", "DEF")
+OPS = {}   # op name -> its CUDA implementation, on the op's own arguments
+
+
+def _contiguous(out):
+    """A plain version's outputs laid out as the CUDA implementation lays
+    out its own: contiguous."""
+    if isinstance(out, tuple):
+        return tuple(t.contiguous() for t in out)
+    return out.contiguous()
+
+
+def _register(name: str, schema: str, cuda, plain: str, fake,
+              unflatten=None) -> None:
+    """Define anyref::<name>: ``cuda`` for CUDA tensors, the plain version
+    named ``plain`` for CPU tensors (looked up at each call, so a test may
+    wrap it), ``fake`` for torch.export's tracing. ``unflatten`` turns the
+    op's flat arguments back into the wrapper's (LayerNorm and linear leaves
+    as dicts)."""
+    def unflat(args):
+        return unflatten(*args) if unflatten is not None else args
+
+    def on_card(*args):
+        return cuda(*unflat(args))
+
+    def on_cpu(*args):
+        return _contiguous(globals()[plain](*unflat(args)))
+
+    _LIB.define(name + schema)
+    _LIB.impl(name, on_card, "CUDA")
+    _LIB.impl(name, on_cpu, "CPU")
+    torch.library.register_fake(f"anyref::{name}", fake, lib=_LIB)
+    OPS[name] = on_card
+
+
+def _like(x, *_):
+    return x.new_empty(x.shape)
+
+
+def _heads_out(qkv, *_):
+    return qkv.new_empty((*qkv.shape[:-1], qkv.shape[-1] // 3))
+
+
+def _window_attn_args(xw, s1, b1, wqkv, bqkv, tht, twt, wp, bp, size_hw,
+                      num_heads, grid_hw, nwc, eps):
+    return (xw, {"scale": s1, "bias": b1}, {"w": wqkv, "b": bqkv}, tht, twt,
+            {"w": wp, "b": bp}, size_hw, num_heads, grid_hw, nwc, eps)
+
+
+def _window_block_args(xw, s1, b1, wqkv, bqkv, tht, twt, wp, bp, s2, b2, w1,
+                       b1_, w2, b2_, size_hw, num_heads, grid_hw, nwc, eps):
+    return (xw, {"scale": s1, "bias": b1}, {"w": wqkv, "b": bqkv}, tht, twt,
+            {"w": wp, "b": bp}, {"scale": s2, "bias": b2}, {"w": w1, "b": b1_},
+            {"w": w2, "b": b2_}, size_hw, num_heads, grid_hw, nwc, eps)
+
+
+def _mlp_stream_args(x, s2, b2, w1, b1, w2, b2_, eps):
+    return (x, {"scale": s2, "bias": b2}, {"w": w1, "b": b1},
+            {"w": w2, "b": b2_}, eps)
+
+
+def _global_tail_args(x, qkv, tht, twt, wp, bp, s2, b2, w1, b1, w2, b2_,
+                      size_hw, num_heads, eps):
+    return (x, qkv, tht, twt, {"w": wp, "b": bp}, {"scale": s2, "bias": b2},
+            {"w": w1, "b": b1}, {"w": w2, "b": b2_}, size_hw, num_heads, eps)
+
+
+_WINDOW = ("Tensor xw, Tensor ln1_scale, Tensor ln1_bias, Tensor qkv_w, "
+           "Tensor qkv_b, Tensor tht, Tensor twt, Tensor proj_w, "
+           "Tensor proj_b")
+_MLP = ("Tensor ln2_scale, Tensor ln2_bias, Tensor mlp1_w, Tensor mlp1_b, "
+        "Tensor mlp2_w, Tensor mlp2_b")
+_register("layer_norm_fused",
+          "(Tensor x, Tensor scale, Tensor bias, float eps) -> Tensor",
+          _layer_norm_cuda, "layer_norm_plain", _like)
+_register("rms_norm_fused", "(Tensor x, Tensor scale, float eps) -> Tensor",
+          _rms_norm_cuda, "rms_norm_plain", _like)
+_register("flash_relpos_attention",
+          "(Tensor q, Tensor k, Tensor v, Tensor rel_h_table, "
+          "Tensor rel_w_table, int[] size_hw) -> Tensor",
+          _relpos_attention_cuda, "relpos_attention_plain", _like)
+_register("flash_causal_attention",
+          "(Tensor q, Tensor k, Tensor v, Tensor? kv_start) -> Tensor",
+          _causal_attention_cuda, "causal_attention_plain", _like)
+_register("causal_attention_diff_fwd",
+          "(Tensor q, Tensor k, Tensor v, Tensor? kv_start) -> "
+          "(Tensor, Tensor)",
+          _causal_diff_fwd_cuda, "causal_attention_diff_fwd_plain",
+          lambda q, *_: (q.new_empty(q.shape),
+                         q.new_empty(q.shape[:3], dtype=torch.float32)))
+_register("causal_attention_diff_bwd",
+          "(Tensor q, Tensor k, Tensor v, Tensor dout, Tensor lse, "
+          "Tensor delta, Tensor? kv_start) -> (Tensor, Tensor, Tensor)",
+          _causal_diff_bwd_cuda, "_causal_diff_bwd_plain",
+          lambda q, k, v, *_: (_like(q), _like(k), _like(v)))
+_register("fused_window_attn",
+          f"({_WINDOW}, int[] size_hw, int num_heads, int[] grid_hw, "
+          "int nwc, float eps) -> Tensor",
+          _fused_window_attn_cuda, "fused_window_attn_plain", _like,
+          _window_attn_args)
+_register("fused_window_block",
+          f"({_WINDOW}, {_MLP}, int[] size_hw, int num_heads, "
+          "int[] grid_hw, int nwc, float eps) -> Tensor",
+          _fused_window_block_cuda, "fused_window_block_plain", _like,
+          _window_block_args)
+_register("fused_mlp_stream", f"(Tensor x, {_MLP}, float eps) -> Tensor",
+          _fused_mlp_stream_cuda, "fused_mlp_stream_plain", _like,
+          _mlp_stream_args)
+_register("fused_global_tail",
+          "(Tensor x, Tensor qkv, Tensor tht, Tensor twt, Tensor proj_w, "
+          f"Tensor proj_b, {_MLP}, int[] size_hw, int num_heads, float eps)"
+          " -> Tensor",
+          _fused_global_tail_cuda, "fused_global_tail_plain", _like,
+          _global_tail_args)
+_register("flash_relpos_attention_qkv",
+          "(Tensor qkv, Tensor rel_h_table, Tensor rel_w_table, "
+          "int[] size_hw, int num_heads) -> Tensor",
+          _relpos_attention_qkv_cuda, "relpos_attention_qkv_plain",
+          _heads_out)
+_register("flash_attention_qkv",
+          "(Tensor qkv, int num_heads, float? scale) -> Tensor",
+          _attention_qkv_cuda, "attention_qkv_plain", _heads_out)
+_register("int8_matmul", "(Tensor x, Tensor w_q, Tensor scale) -> Tensor",
+          _int8_matmul_cuda, "int8_matmul_plain",
+          lambda x, w_q, _: x.new_empty((*x.shape[:-1], w_q.shape[1])))

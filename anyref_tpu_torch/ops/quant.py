@@ -11,7 +11,10 @@ step at batch 2 is bound by the weight bytes, which int8 halves (about
 
 Serving on an int8 tree is greedy (``Predictor`` / ``Server`` with
 ``speculative=False``): the reference's speculative ``Predictor`` converts
-the decoder to its bf16 serving layout, which an int8 tree lacks.
+the decoder to its bf16 serving layout, which an int8 tree lacks. A tree
+already in that layout (``models/llama.py`` ``transpose_for_serving``,
+``fuse_for_serving``) is refused, as the reference's quantize_llama, which
+reads ``"w"``, refuses it with a KeyError.
 """
 
 from __future__ import annotations
@@ -24,6 +27,20 @@ __all__ = ["int8_matmul", "int8_matmul_plain", "is_quantized",
            "quant_linear", "quantize_int8", "quantize_llama"]
 
 _MATRICES = {"attn": ("q", "k", "v", "o"), "mlp": ("gate", "up", "down")}
+
+
+def plain_layout(layers, matrices: dict, what: str) -> None:
+    """Raise a ValueError naming the serving layout unless every matrix
+    ``matrices`` names ({part: names}) of every layer is an [in, out]
+    ``"w"`` leaf."""
+    for layer in layers:
+        for part, names in matrices.items():
+            if any("w" not in layer[part].get(n, {}) for n in names):
+                raise ValueError(
+                    f"{what} takes the decoder's [in, out] layout ({{'w': "
+                    "...}} leaves); this tree is in the serving layout of "
+                    "llama.transpose_for_serving / fuse_for_serving, into "
+                    "which a speculative Predictor converts its tree")
 
 
 def quantize_int8(w) -> dict:
@@ -56,7 +73,9 @@ def quantize_llama(params: dict) -> dict:
     the device the weights live on, one matrix at a time (so the fp32
     temporary is one matrix): a new tree whose layers keep their norms,
     ``lm_head_q`` added, ``lm_head`` None and ``embed_tokens`` in bf16. The
-    caller's tree is left as it is; dropping it frees the float weights."""
+    caller's tree is left as it is; dropping it frees the float weights.
+    A tree in the serving layout raises a ValueError."""
+    plain_layout(params["layers"], _MATRICES, "quantize_llama")
     out = dict(params)
     out["layers"] = [
         {"input_norm": layer["input_norm"],

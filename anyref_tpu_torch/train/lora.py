@@ -13,6 +13,8 @@ from dataclasses import dataclass
 
 import torch
 
+from ..ops.quant import plain_layout
+
 
 @dataclass(frozen=True)
 class LoraConfig:
@@ -25,7 +27,9 @@ def init(generator: torch.Generator, llama_params: dict,
          cfg: LoraConfig) -> dict:
     """One fp32 (A, B) pair per targeted projection per layer:
     A ~ N(0, 1) / r drawn from ``generator`` on its device, B = 0 (training
-    starts at the base model); both on the weight's device."""
+    starts at the base model); both on the weight's device. A decoder in
+    the serving layout raises a ValueError."""
+    plain_layout(llama_params["layers"], {"attn": cfg.targets}, "lora.init")
     adapters = []
     for layer in llama_params["layers"]:
         entry = {}
@@ -41,7 +45,9 @@ def init(generator: torch.Generator, llama_params: dict,
 
 
 def apply(llama_params: dict, lora_params: dict, cfg: LoraConfig) -> dict:
-    """llama params with the adapted weights W + (alpha/r) A@B."""
+    """llama params with the adapted weights W + (alpha/r) A@B; a decoder in
+    the serving layout raises a ValueError."""
+    plain_layout(llama_params["layers"], {"attn": cfg.targets}, "lora.apply")
     scale = cfg.alpha / cfg.r
     out_layers = []
     for layer, ad in zip(llama_params["layers"], lora_params["layers"]):

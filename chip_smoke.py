@@ -35,6 +35,10 @@ Phases (any failure exits non-zero before the result line):
      8192, held against an fp32 product and timed beside torch.matmul
      (timed only), with both rates in TFLOP/s, and the LayerNorm row pass
      (csrc/norms.cu) on bf16 and fp32 rows, with and without the pad mask;
+     torch.library.opcheck of each of the 13 anyref:: ops through which
+     every kernel launches (ops/flash.py OPS) on bf16 CUDA tensors, and
+     each op's host cost a call against a direct call of its CUDA
+     implementation (each call timed alone, the launch queue empty);
   3. check the slice on the card against the same weights and inputs on the
      CPU (whose plain versions the CPU tests hold against the JAX package):
      "unfused" and "unfused_qkv" at anyref_tiny(), "fused" and "fused_block"
@@ -45,7 +49,9 @@ Phases (any failure exits non-zero before the result line):
      to the CPU's); a crop, a box and a text + audio batch, greedy and
      speculative, on "unfused" and "fused" (ids equal to the CPU's); and
      one train step's losses and gradients at anyref_tiny();
-  4. for each encoder path, "fused" (the default), "fused_block",
+  4. quantise the decoder for the int8 runs below and run phase 10(b) on
+     these weights (the last run on the [in, out] layout); then for each
+     encoder path, "fused" (the default), "fused_block",
      "unfused_qkv" and "unfused": serve 4 text requests at anyref_7b width
      and depth (random weights from a seed) through Server -> Predictor ->
      generate with speculative decode, max_batch 2, and check every answer
@@ -65,8 +71,9 @@ Phases (any failure exits non-zero before the result line):
      fire once, a counted round, Server.reset_stats, a profiled round), and
      generate's pooled term held against an fp32 recomputation from
      llama.forward (relative L2 <= 1e-2). Then the int8 decoder: time a
-     greedy decode step on the bf16 decoder, quantize_llama the same
-     weights on the card, free the bf16 decoder, time the step again, and
+     greedy decode step on the bf16 decoder (in the serving layout by
+     then), swap in the int8 decoder quantised at the phase's start, free
+     the bf16 decoder, time the step again, and
      serve the 4 requests greedy
      (Server(speculative=False)) on the default path, answers, launch
      counts (int8_matmul per decoder pass) and peak memory checked; the
@@ -154,7 +161,29 @@ Phases (any failure exits non-zero before the result line):
      at SAM-H's decoder against the unexported function. Phase 2 also
      holds the encoder kernels at the SAM-alone path's batch-1 SAM-H
      shapes;
- 10. print {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+ 10. the decoder's serving layouts and the exported generate: (a) at
+     anyref_tiny on "unfused" and at its 512-pixel SAM on "fused", seeded
+     bf16 weights ([SEG] column x TINY_SEG_SCALE) on the card and on the
+     CPU: a speculative Predictor at rephrase 0.1 converts each tree in
+     place (ids, [SEG] slots and masks card vs CPU); export_generate of the
+     card tree and of the unfused tree's decoder quantised by
+     quantize_llama (nothing launched while tracing) and the export CLI's
+     generate choice in a subprocess; a fresh interpreter loads each
+     program and runs it on two prompts (ids and [SEG] slots equal to eager
+     generate on the card, masks bit-equal, the same launches, no JAX
+     module); (b), run in phase 4 on its anyref_7b weights before
+     its first Server: speculative generate at batch 2 called directly on
+     the [in, out] tree and on the same tree converted in place (ids,
+     decode passes, busy time and idle share under the profiler, product
+     calls and GEMM kernels a layer, prefill and verify-chunk device time;
+     the prefill states within the bf16 floor measured in the same call,
+     a differing id only at a near tie), then export_generate on "fused"
+     of the tree cut to EXPORT_LAYERS_7B decoder layers at full width
+     (free disk checked; export and load seconds, artifact bytes, the
+     graph's write bytes; the program against eager generate on two
+     requests: ids, [SEG] slots and masks bit-equal, the same launches,
+     wall and device time);
+ 11. print {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -344,6 +373,130 @@ def causal_ops(L: int, hd: int, nh: int, kv_start) -> float:
 def kept_pairs(L: int, kv_start) -> int:
     """(query, key) pairs the causal and pad mask keep, over the batch."""
     return sum(sum(q - pad + 1 for q in range(pad, L)) for pad in kv_start)
+
+
+# ---------------------------------------------------------------------------
+# the registered ops (ops/flash.py OPS): sample calls, opcheck, dispatch cost
+# ---------------------------------------------------------------------------
+def op_cases(torch, flash, device, dtype) -> dict:
+    """{op name: its arguments} for each anyref:: op, at small shapes its
+    kernel takes (heads of 64, widths multiples of 8, windows of 8 x 8, a
+    16 x 16 global grid), the float tensors in ``dtype`` (bf16 for the
+    kernels, fp32 on the CPU), from seed 0. The training backward gets the
+    log-sum-exp and delta of its forward on the same inputs."""
+    g = torch.Generator().manual_seed(0)
+
+    def r(*shape, scale=1.0, dt=None):
+        t = torch.randn(*shape, generator=g) * scale
+        return t.to(device=device, dtype=dt or dtype)
+
+    C, nh, hd, ws = 256, 4, 64, 8
+    ln = (r(C, scale=0.1) + 1, r(C, scale=0.1))
+    qkv_p = (r(C, 3 * C, scale=C ** -0.5), r(3 * C, scale=0.1))
+    proj = (r(C, C, scale=C ** -0.5), r(C, scale=0.1))
+    mlp = (*ln, r(C, 4 * C, scale=C ** -0.5), r(4 * C, scale=0.1),
+           r(4 * C, C, scale=(4 * C) ** -0.5), r(C, scale=0.1))
+    tab = (r(ws * ws, hd, scale=0.1), r(ws * ws, hd, scale=0.1))
+    heads = [r(2, nh, 256, hd) for _ in range(4)]
+    kv_start = torch.tensor([0, 37], device=device)
+    out, lse = flash.causal_attention_diff_fwd_plain(*heads[:3], kv_start)
+    delta = flash.causal_delta(heads[3], out)
+    w = r(C, 2 * C, scale=C ** -0.5, dt=torch.float32)
+    scale = w.abs().amax(0).clamp_min(1e-8) / 127.0
+    w_q = torch.round(w / scale).clamp(-127, 127).to(torch.int8)
+    window = [r(2, nh, ws * ws, hd) for _ in range(3)]
+    grid = (14, 14)          # 2 x 2 windows of 8 over a 14 x 14 grid
+    return {
+        "layer_norm_fused": (r(4, 37, C), *ln, 1e-6),
+        "rms_norm_fused": (r(2, 19, 2 * C), r(2 * C, scale=0.1) + 1, 1e-6),
+        "flash_relpos_attention": (*window, r(ws, ws, hd, scale=0.1),
+                                   r(ws, ws, hd, scale=0.1), [ws, ws]),
+        "flash_causal_attention": (*heads[:3], kv_start),
+        "causal_attention_diff_fwd": (*heads[:3], kv_start),
+        "causal_attention_diff_bwd": (*heads, lse, delta, kv_start),
+        "fused_window_attn": (r(4, ws * ws, C), *ln, *qkv_p, *tab, *proj,
+                              [ws, ws], nh, list(grid), 2, 1e-6),
+        "fused_window_block": (r(4, ws * ws, C), *ln, *qkv_p, *tab, *proj,
+                               *mlp, [ws, ws], nh, list(grid), 2, 1e-6),
+        "fused_mlp_stream": (r(300, C), *mlp, 1e-6),
+        "fused_global_tail": (r(1, 256, C), r(1, 256, 3 * C),
+                              r(16, 16, hd, scale=0.1),
+                              r(16, 16, hd, scale=0.1), *proj, *mlp,
+                              [16, 16], nh, 1e-6),
+        "flash_relpos_attention_qkv": (r(2, ws * ws, 3 * C),
+                                       r(ws, ws, hd, scale=0.1),
+                                       r(ws, ws, hd, scale=0.1), [ws, ws],
+                                       nh),
+        "flash_attention_qkv": (r(2, 257, 3 * C), nh, None),
+        "int8_matmul": (r(3, C), w_q, scale),
+    }
+
+
+# op calls timed for the dispatch cost: pairs of one call each way
+DISPATCH_PAIRS = 101
+
+
+def check_ops(torch, flash) -> dict:
+    """Phase 2's check of the registered ops: torch.library.opcheck of each
+    anyref:: op on bf16 CUDA tensors (op_cases: its schema, its fake
+    implementation's shapes, dtypes and strides against the kernel's
+    outputs, its trace under AOT dispatch); then each op's host cost a
+    call. Each call is timed alone on the host's clock, the card
+    synchronised before it (an empty launch queue, so the time is the
+    host's enqueue and nothing waits on the card; op_cases' small shapes
+    keep any device work far below it) and after it (not timed):
+    DISPATCH_PAIRS pairs of torch.ops.anyref.<op> and a direct call of its
+    CUDA implementation (flash.OPS), the pair's order swapped each time.
+    -> {op: {"op_us", "direct_us" (medians), "overhead_us" (the median of
+    the pairs' differences), "overhead_iqr_us" (its quartiles)}}."""
+    t0 = time.time()
+    cases = op_cases(torch, flash, "cuda", torch.bfloat16)
+    if set(cases) != set(flash.OPS):
+        fail(f"op cases {sorted(cases)} for ops {sorted(flash.OPS)}")
+    for name, args in cases.items():
+        op = getattr(torch.ops.anyref, name).default
+        result = torch.library.opcheck(op, args)
+        if set(result.values()) != {"SUCCESS"}:
+            fail(f"opcheck of anyref::{name} on the card: {result}")
+    log(f"[ops] torch.library.opcheck on bf16 CUDA tensors: all "
+        f"{len(cases)} anyref:: ops pass (schema, fake tensors, AOT "
+        f"dispatch) in {time.time() - t0:.1f} s")
+
+    def host_us(fn, args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*args)
+        us = (time.perf_counter() - t0) * 1e6
+        torch.cuda.synchronize()
+        return us
+    out = {}
+    for name, args in cases.items():
+        op = getattr(torch.ops.anyref, name).default
+        direct = flash.OPS[name]
+        for _ in range(5):
+            host_us(op, args)
+            host_us(direct, args)
+        pairs = []
+        for i in range(DISPATCH_PAIRS):
+            if i % 2:
+                d = host_us(direct, args)
+                pairs.append((host_us(op, args), d))
+            else:
+                pairs.append((host_us(op, args), host_us(direct, args)))
+        pairs = np.asarray(pairs)
+        diff = pairs[:, 0] - pairs[:, 1]
+        q1, q3 = (float(x) for x in np.percentile(diff, [25, 75]))
+        out[name] = {"op_us": float(np.median(pairs[:, 0])),
+                     "direct_us": float(np.median(pairs[:, 1])),
+                     "overhead_us": float(np.median(diff)),
+                     "overhead_iqr_us": [q1, q3]}
+        r = out[name]
+        log(f"[ops] {name}: {r['op_us']:8.2f} us a call through "
+            f"torch.ops.anyref, {r['direct_us']:8.2f} us calling its CUDA "
+            f"implementation (host, queue empty, medians of "
+            f"{DISPATCH_PAIRS}); dispatch {r['overhead_us']:+7.2f} us "
+            f"(quartiles {q1:+.2f} .. {q3:+.2f})")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1824,8 +1977,12 @@ PATHS = ("fused", "fused_block", "unfused_qkv", "unfused")
 def serve_7b(torch, flash, mods):
     """The four encoder paths at anyref_7b on one set of weights, then the
     int8 decoder quantised from the same weights; returns the launch counts
-    of each counted run ("int8" for the last) and serve_int8's step
-    numbers."""
+    of each counted run ("int8" for the last), serve_int8's step numbers
+    and phase 10(b)'s. The decoder is quantised, and phase 10(b) compares
+    the two layouts, before the first Server: its speculative Predictor
+    converts the tree to the serving layout in place, so every run after
+    it (the Servers, eval, the inverse eval, serve_int8's bf16 step) is on
+    the fused layout, and quantize_llama refuses that layout."""
     cfg = mods["anyref_7b"]()
     t0 = time.time()
     params = mods["tparams"].init(
@@ -1857,6 +2014,16 @@ def serve_7b(torch, flash, mods):
         f"kernels a step")
 
     images = request_images()
+    # the int8 decoder, quantised now from the [in, out] weights (after the
+    # [SEG] column scaling, which serve_rephrase puts back as it found it)
+    t0 = time.time()
+    int8_llama = mods["quant"].quantize_llama(params["llama"])
+    torch.cuda.synchronize()
+    quantize_s = time.time() - t0
+    # phase 10(b): both layouts, then the exported generate on the fused one
+    phase10 = {"layouts": layouts_7b(torch, mods, params, cfg, images)}
+    phase10["export"] = export_7b(torch, flash, mods, params, cfg, images)
+    torch.cuda.empty_cache()
     per_batch = launches_per_batch(flash, cfg)
     launches = {}
     for path in PATHS:
@@ -1875,10 +2042,10 @@ def serve_7b(torch, flash, mods):
                                           seg_col, per_batch["fused"])
     # phase 9(b), SAM alone, on the same SAM weights
     launches.update(sam_alone_7b(torch, flash, mods, params, cfg))
-    launches["int8"], int8_step = serve_int8(torch, flash, mods, params,
-                                             cfg, images,
-                                             dict(per_batch["fused"]))
-    return launches, int8_step
+    launches["int8"], int8_step = serve_int8(
+        torch, flash, mods, params, cfg, images, dict(per_batch["fused"]),
+        int8_llama, quantize_s)
+    return launches, int8_step, phase10
 
 
 def launches_per_batch(flash, cfg) -> dict:
@@ -2356,18 +2523,7 @@ def check_pooled_term(torch, mods, params, cfg, images):
     floor (llama.forward's [SEG]-emitting state against generate's).
     Answers without a span must keep their embedding exactly."""
     anyref_mod, llama = mods["anyref"], mods["llama"]
-    ds = mods["SegDataset"](cfg)
-    samples = [ds.make_sample(im, mods["seg_question"](t), None, None)
-               for im, t in zip(images, TEXTS)]
-    fb = mods["Collator"](mods["AnyRefTokenizer"](), cfg)(samples)
-    B, bucket = len(TEXTS), 385
-    ids = np.zeros((B, bucket), np.int64)
-    for b in range(B):
-        n = int(fb["prompt_lens"][b])
-        ids[b, bucket - n:] = fb["input_ids"][b, :n]
-    batch = {"input_ids": torch.from_numpy(ids).cuda(),
-             "clip_images": torch.from_numpy(fb["clip_images"]).cuda(),
-             "sam_images": torch.from_numpy(fb["sam_images"]).cuda()}
+    batch = bucket_batch(torch, mods, cfg, images, TEXTS, 385)
     seen = {"row": [], "pool": [], "state": []}
     attn_row, span_pool = anyref_mod._last_layer_attn_row, anyref_mod._span_pool
     project = anyref_mod.project_seg_hidden
@@ -2435,7 +2591,9 @@ def check_pooled_term(torch, mods, params, cfg, images):
 
     q_in, keys, q_pos, q_slot, kv_start, row = seen["row"][0]
     _, hidden, pooled = seen["pool"][0]
-    wq, wk = layer["attn"]["q"]["w"].float(), layer["attn"]["k"]["w"].float()
+    # [in, out] in fp32, in either layout of the decoder
+    wq, wk = (p["w"].float() if "w" in p else p["w_t"].float().T
+              for p in (llama.attn_proj(layer["attn"], n, c) for n in "qk"))
     names = ("row", "pooled", "term", "term_fp32_sum", "forward_pooled",
              "forward_term", "floor")
     err = {name: [0.0, 0.0] for name in names}
@@ -2562,10 +2720,13 @@ def decode_step_ms(torch, llama, lp, cfg):
             {k: (count[k] / n, us / 1e3 / n) for k, us in by_name.items()})
 
 
-def serve_int8(torch, flash, mods, params, cfg, images, per_batch):
-    """The int8 decoder: a decode step timed on the bf16 decoder, then
-    quantize_llama of the same weights on the card (after the [SEG] column
-    scaling, which the column's scale absorbs), the bf16 decoder freed, the
+def serve_int8(torch, flash, mods, params, cfg, images, per_batch,
+               int8_llama, quantize_s):
+    """The int8 decoder: a decode step timed on the bf16 decoder (by now in
+    the serving layout), then ``int8_llama``, quantize_llama of the same
+    weights on the card in ``quantize_s`` s before the layout conversion
+    (after the [SEG] column scaling, which the column's scale absorbs),
+    replaces it, the bf16 decoder freed, the
     step timed again, and the 4 requests served greedy (Server(speculative=
     False)) on the default encoder path, every answer and launch count
     checked: int8_matmul 224 products per decoder pass (7 per layer) plus
@@ -2577,12 +2738,11 @@ def serve_int8(torch, flash, mods, params, cfg, images, per_batch):
     can undercount but never overcount. The step's kernel time is printed
     against the bytes bound of the decoder's int8 weights and scales.
     Returns (launch counts, that step's int8 numbers)."""
-    llama, quant = mods["llama"], mods["quant"]
-    steps = {"bf16": decode_step_ms(torch, llama, params["llama"], cfg)}
-    t0 = time.time()
-    params["llama"] = quant.quantize_llama(params["llama"])
-    torch.cuda.synchronize()
-    q_s = time.time() - t0
+    llama = mods["llama"]
+    steps = {"bf16 (serving layout)": decode_step_ms(torch, llama,
+                                                     params["llama"], cfg)}
+    params["llama"] = int8_llama
+    q_s = quantize_s
     torch.cuda.empty_cache()
     flash.int8_matmul.launches = 0
     steps["int8"] = decode_step_ms(torch, llama, params["llama"], cfg)
@@ -4750,6 +4910,749 @@ def sam_alone_7b(torch, flash, mods, params, cfg) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the decoder's serving layouts and the exported generate
+# ---------------------------------------------------------------------------
+# 10(a): the prompts' bucket (tiny_batch's), the exported programs' steps
+EXPORT_PROMPT_LEN_TINY = 257
+EXPORT_MNT_TINY = 4
+# 10(b): the exported generate at anyref_7b width, cut to this many decoder
+# layers (the artifact carries the whole tree, ~0.4 GB a layer beside the
+# ~2.7 GB of the rest, written, read back and loaded inside the run's
+# limit), greedy, batch 1, in the 385 bucket of phase 4's prompts
+EXPORT_LAYERS_7B = 4
+EXPORT_MNT_7B = 8
+EXPORT_PROMPT_LEN_7B = 385
+
+
+def left_padded(fb, bucket: int) -> list:
+    """Each prompt of a collated batch alone, left-padded into ``bucket``:
+    [(input_ids [1, bucket] int32, clip_images [1, ...], sam_images
+    [1, ...])] as numpy arrays."""
+    out = []
+    for b in range(fb["input_ids"].shape[0]):
+        n = int(fb["prompt_lens"][b])
+        ids = np.zeros((1, bucket), np.int32)
+        ids[0, bucket - n:] = fb["input_ids"][b, :n]
+        out.append((ids, fb["clip_images"][b:b + 1],
+                    fb["sam_images"][b:b + 1]))
+    return out
+
+
+def batched(prompts: list) -> dict:
+    """Left-padded prompts of one bucket as one generate batch."""
+    return {k: np.concatenate([p[i] for p in prompts])
+            for i, k in enumerate(("input_ids", "clip_images",
+                                   "sam_images"))}
+
+
+def tiny_requests(cfg) -> dict:
+    """tiny_batch's prompts as a collated batch (each prompt at the front
+    of its row, its length in prompt_lens), which the Predictor pads back
+    into the 257 bucket: the inputs on which phase 3's rephrase check
+    finds a first [SEG] at k >= 1."""
+    batch = tiny_batch(cfg)
+    ids = batch["input_ids"]
+    B, T = ids.shape
+    lens = (ids != 0).sum(1)
+    front = np.zeros_like(ids)
+    for b in range(B):
+        front[b, :lens[b]] = ids[b, T - lens[b]:]
+    S = cfg.sam.image_size
+    return {"input_ids": front, "prompt_lens": lens,
+            "clip_images": batch["clip_images"],
+            "sam_images": batch["sam_images"],
+            "sam_resized_sizes": np.full((B, 2), S),
+            "_meta": [{"height": S, "width": S}] * B}
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want|, in fp32."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def predict_speculative(torch, mods, params, cfg, fb, device, path):
+    """A speculative Predictor at rephrase 0.1 on ``params`` (which it
+    converts) -> (ids, seg_valid, the low-res mask logits of every [SEG]
+    slot as fetched, the original-size masks)."""
+    pred = mods["Predictor"](params, cfg.scaled(rephrase_weight=0.1),
+                             max_new_tokens=EXPORT_MNT_TINY,
+                             speculative=True, device=device,
+                             encoder_path=path)
+    layer = params["llama"]["layers"][0]
+    if set(layer["attn"]) != {"qkv", "o"} or \
+            set(layer["mlp"]) != {"gate_up", "down"}:
+        fail(f"speculative Predictor ({device}): the tree was not "
+             f"converted: {sorted(layer['attn'])}, {sorted(layer['mlp'])}")
+    handle = pred.predict_async(fb)
+    (meta, low), _, B = handle
+    seg_valid = meta[:B, pred.mnt:-1].cpu().numpy()
+    low = low[:B].float().cpu().numpy()
+    ids, masks = pred.complete(handle)
+    return ids, seg_valid, low, masks
+
+
+def serving_tiny(torch, flash, mods, tiny, tiny512) -> None:
+    """Phase 10(a): at anyref_tiny on "unfused" and at its 512-pixel SAM on
+    "fused" (serving_tiny_path each), and the int8 decoder (int8_tiny).
+    Beside the fused path's checks, the export CLI's generate choice in a
+    subprocess (tiny preset, "unfused", on the unfused path's tree); beside
+    the CLI, a fresh interpreter that imports no JAX loads the three
+    programs of export_generate and runs each on both prompts; then this
+    process runs the CLI's program. Each: ids, [SEG] slots and masks
+    bit-equal to eager generate on the card, and the same launches of each
+    kernel as eager generate made."""
+    import tempfile
+    t_phase = time.time()
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs, want, procs = {}, {}, []
+        try:
+            jobs["unfused"], want["unfused"], tree = serving_tiny_path(
+                torch, flash, mods, tiny, "unfused", tmp)
+            ckpt = os.path.join(tmp, "tiny.pt")
+            mods["checkpoint"].save_params(ckpt, tree)
+            cli_art = os.path.join(tmp, "generate-cli.pt2")
+            t0 = time.time()
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "anyref_tpu_torch.tools.export",
+                 "generate", "--ckpt", ckpt, "--out", cli_art, "--preset",
+                 "tiny", "--device", "cuda", "--prompt_len",
+                 str(EXPORT_PROMPT_LEN_TINY), "--max_new_tokens",
+                 str(EXPORT_MNT_TINY), "--encoder_path", "unfused"],
+                cwd=ROOT, env=env, text=True, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE))
+            jobs["fused"], want["fused"], _ = serving_tiny_path(
+                torch, flash, mods, tiny512, "fused", tmp)
+            jobs["int8"], want["int8"] = int8_tiny(torch, flash, mods, tiny,
+                                                   tmp)
+            jobs_file = os.path.join(tmp, "jobs.pt")
+            out_file = os.path.join(tmp, "outs.pt")
+            torch.save(jobs, jobs_file)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", LOADER, jobs_file, out_file],
+                cwd=ROOT, env=env, text=True, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE))
+            ends = [p.communicate(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        for p, (out, err), what in zip(procs, ends, (
+                "tools.export generate",
+                "the exported programs in a fresh interpreter")):
+            if p.returncode != 0:
+                fail(f"{what} (exit {p.returncode}):\n{out[-2000:]}\n"
+                     f"{err[-3000:]}")
+        if f"wrote {cli_art}" not in ends[0][0]:
+            fail(f"tools.export generate printed {ends[0][0][-2000:]}")
+        log(f"[layout-tiny] tools.export generate and a fresh interpreter "
+            f"(no JAX module loaded) in subprocesses: "
+            f"{time.time() - t0:.1f} s (processes included, beside the "
+            "fused path's checks)")
+        check_programs(torch, torch.load(out_file), want,
+                       "a fresh interpreter")
+        check_programs(torch, run_programs(torch, flash, mods["export"], {
+            "cli": (cli_art, jobs["unfused"][1])}), {"cli": want["unfused"]},
+            "this process")
+    log(f"[phase 10] (a) in {time.time() - t_phase:.1f} s")
+
+
+def serving_tiny_path(torch, flash, mods, cfg, path: str, tmp: str):
+    """Phase 10(a) on one path: seeded bf16 weights with lm_head's [SEG]
+    column x TINY_SEG_SCALE on the card and on the CPU; a speculative
+    Predictor at rephrase 0.1 converts each tree in place (ids, [SEG] slots,
+    every slot's low-res logits and the masks, card against CPU); then
+    export_generate of the converted card tree into ``tmp`` (nothing
+    launched while tracing) and eager generate on the card on each prompt
+    alone. -> ((artifact, prompts), [((ids, masks, seg_valid), launches)
+    of eager generate a prompt], the card tree)."""
+    p_cpu = mods["tparams"].init(cfg, torch.Generator().manual_seed(0),
+                                 torch.bfloat16, device="cpu")
+    p_cpu["llama"]["lm_head"][:, cfg.tokens.seg] *= TINY_SEG_SCALE
+    p_gpu = _to_device(p_cpu, "cuda")
+    fb = tiny_requests(cfg)
+    got = predict_speculative(torch, mods, p_gpu, cfg, fb, "cuda", path)
+    ref = predict_speculative(torch, mods, p_cpu, cfg, fb, "cpu", path)
+    if not np.array_equal(got[0], ref[0]) or \
+            not np.array_equal(got[1], ref[1]):
+        fail(f"speculative Predictor, {path}: ids {got[0].tolist()} / [SEG] "
+             f"slots {got[1].tolist()} on the card, {ref[0].tolist()} / "
+             f"{ref[1].tolist()} on the CPU")
+    # every slot's low-res logits (a slot without [SEG] decodes the last
+    # prompt state), then the masks of the valid slots
+    rels = [rel_err(got[2], ref[2])]
+    for a, b in zip(got[3], ref[3]):
+        if (a is None) != (b is None):
+            fail(f"speculative Predictor, {path}: a mask on one side only")
+        if a is not None:
+            rels.append(rel_err(a, b))
+    ks = first_seg(got[0], cfg.tokens.seg)
+    if max(rels) > SLICE_REL_TOL or not any(k is not None and k >= 1
+                                            for k in ks):
+        fail(f"speculative Predictor, {path}: low-res logits and masks "
+             f"{rels} (limit {SLICE_REL_TOL}); first [SEG]s {ks} (a span "
+             "at k >= 1 wanted, so that rephrase pools)")
+    log(f"[layout-tiny] {path}, SAM {cfg.sam.image_size} px, speculative "
+        f"Predictor at rephrase 0.1 on the converted tree (qkv, gate_up), "
+        f"card vs CPU: ids {got[0].tolist()} (first [SEG] at {ks}), [SEG] "
+        f"slots {got[1].tolist()} equal, low-res logits max rel err "
+        f"{rels[0]:.4g}, {len(rels) - 1} masks "
+        f"{max(rels[1:], default=0.0):.4g} (limit {SLICE_REL_TOL})")
+
+    job, eager = export_and_eager(torch, flash, mods, p_gpu, cfg, path,
+                                  left_padded(fb, EXPORT_PROMPT_LEN_TINY),
+                                  os.path.join(tmp, f"generate-{path}.pt2"))
+    return job, eager, p_gpu
+
+
+def int8_tiny(torch, flash, mods, cfg, tmp: str):
+    """Phase 10(a)'s int8 case: the seeded tiny tree ([SEG] column x
+    TINY_SEG_SCALE) with its decoder quantised by quantize_llama on the
+    card (int8 products through anyref::int8_matmul, lm_head None beside
+    lm_head_q), exported on "unfused" -> export_and_eager's result."""
+    p = _to_device(mods["tparams"].init(
+        cfg, torch.Generator().manual_seed(0), torch.bfloat16,
+        device="cpu"), "cuda")
+    p["llama"]["lm_head"][:, cfg.tokens.seg] *= TINY_SEG_SCALE
+    p["llama"] = mods["quant"].quantize_llama(p["llama"])
+    if p["llama"]["lm_head"] is not None:
+        fail("quantize_llama kept a float lm_head")
+    prompts = left_padded(tiny_requests(cfg), EXPORT_PROMPT_LEN_TINY)
+    job, eager = export_and_eager(torch, flash, mods, p, cfg, "unfused",
+                                  prompts,
+                                  os.path.join(tmp, "generate-int8.pt2"))
+    if not all(e[1]["int8_matmul"] for e in eager):
+        fail("int8 eager generate launched no int8_matmul")
+    return job, eager
+
+
+def export_and_eager(torch, flash, mods, params, cfg, path: str, prompts,
+                     art: str):
+    """export_generate of ``params`` on ``path`` into ``art`` (nothing
+    launched while tracing), then eager generate on the card on each
+    prompt alone -> ((art, prompts as tensors), [((ids, masks, seg_valid),
+    launches) of eager generate a prompt])."""
+    before = read_launches(flash)
+    t0 = time.time()
+    mods["export"].export_generate(
+        params, cfg, art, prompt_len=EXPORT_PROMPT_LEN_TINY,
+        max_new_tokens=EXPORT_MNT_TINY, device="cuda", encoder_path=path)
+    export_s = time.time() - t0
+    name = os.path.basename(art)
+    if read_launches(flash) != before:
+        fail(f"export_generate ({name}) launched kernels while tracing")
+    eager = []
+    for prompt in prompts:
+        zero_launches(flash)
+        out = mods["anyref"].generate(
+            params, cfg, dict(zip(("input_ids", "clip_images",
+                                   "sam_images"), prompt)),
+            max_new_tokens=EXPORT_MNT_TINY, device="cuda",
+            encoder_path=path)
+        torch.cuda.synchronize()
+        eager.append(((out.output_ids.cpu(), out.low_res_masks.cpu(),
+                       out.seg_valid.cpu()), read_launches(flash)))
+    log(f"[layout-tiny] export_generate({name}, {path}, prompt_len "
+        f"{EXPORT_PROMPT_LEN_TINY}, max_new_tokens {EXPORT_MNT_TINY}) on "
+        f"the card: {export_s:.1f} s, {os.path.getsize(art)} bytes; eager "
+        f"ids {[e[0][0].tolist() for e in eager]}")
+    return ((art, [tuple(torch.from_numpy(a) for a in p) for p in prompts]),
+            eager)
+
+
+def run_programs(torch, flash, export, jobs: dict) -> dict:
+    """Load each program of ``jobs`` ({name: (artifact, prompts)}) and run
+    it on each prompt on the card -> {name: {"outs": [((ids, masks,
+    seg_valid) on the CPU, launches)], "load_s": seconds}}."""
+    res = {}
+    for name, (art, prompts) in jobs.items():
+        t0 = time.time()
+        program = export.load_exported(art)
+        load_s = time.time() - t0
+        outs = []
+        for prompt in prompts:
+            zero_launches(flash)
+            out = program(*(a.cuda() for a in prompt))
+            torch.cuda.synchronize()
+            outs.append((tuple(t.cpu() for t in out), read_launches(flash)))
+        res[name] = {"outs": outs, "load_s": load_s}
+    return res
+
+
+# phase 10(a)'s fresh interpreter: imports the port's export module (the op
+# registrations), no JAX
+LOADER = """
+import json, sys, torch
+import chip_smoke
+from anyref_tpu_torch import export
+from anyref_tpu_torch.ops import flash
+res = chip_smoke.run_programs(torch, flash, export, torch.load(sys.argv[1]))
+torch.save(res, sys.argv[2])
+bad = [n for n in sys.modules if n.split(".")[0] in
+       ("jax", "jaxlib", "anyref_tpu")]
+print(json.dumps({"jax_modules": bad}))
+sys.exit(1 if bad else 0)
+"""
+
+
+def check_programs(torch, res: dict, want: dict, where: str) -> None:
+    """Hold run_programs' results against ``want`` ({name: per prompt
+    ((ids, masks, seg_valid), launches)} of eager generate)."""
+    for name, got in res.items():
+        for i, ((ids, masks, valid), launches) in enumerate(got["outs"]):
+            (w_ids, w_masks, w_valid), w_launches = want[name][i]
+            ran = {k: n for k, n in launches.items() if n}
+            w_ran = {k: n for k, n in w_launches.items() if n}
+            if not torch.equal(ids, w_ids) or not torch.equal(valid,
+                                                              w_valid):
+                fail(f"exported program {name}, prompt {i}: ids "
+                     f"{ids.tolist()} / [SEG] {valid.tolist()}, eager "
+                     f"{w_ids.tolist()} / {w_valid.tolist()}")
+            if not torch.equal(masks, w_masks) or launches != w_launches \
+                    or not ran:
+                fail(f"exported program {name}, prompt {i}: masks differ "
+                     f"from eager by up to "
+                     f"{rel_err(masks.float(), w_masks.float())} of the "
+                     f"largest (bit equality wanted); launches {ran}, "
+                     f"eager {w_ran}")
+            log(f"[layout-tiny] exported {name}, prompt {i}, in {where} "
+                f"(loaded in {got['load_s']:.1f} s): ids {ids.tolist()}, "
+                f"[SEG] slots and masks bit-equal to eager generate on the "
+                f"card, launches {json.dumps(ran)} as eager")
+
+
+def bucket_batch(torch, mods, cfg, images, texts, bucket: int) -> dict:
+    """The requests' prompts left-padded into ``bucket`` as one generate
+    batch on the card (the Predictor's padding, by hand)."""
+    ds = mods["SegDataset"](cfg)
+    fb = mods["Collator"](mods["AnyRefTokenizer"](), cfg)(
+        [ds.make_sample(im, mods["seg_question"](t), None, None)
+         for im, t in zip(images, texts)])
+    return {k: torch.from_numpy(v).cuda()
+            for k, v in batched(left_padded(fb, bucket)).items()}
+
+
+def profiled_busy(torch, fn):
+    """One call of fn under torch.profiler, after a synchronize: (its
+    result, wall s, kernel ms, the kernels by name {name: (count, ms)})."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n, ms = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, ms + e.device_time_total / 1e3)
+    return out, wall, sum(ms for _, ms in by_name.values()), by_name
+
+
+GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
+
+
+def layout_numbers(torch, mods, params, cfg, batch) -> dict:
+    """The speculative generate at batch 2 on ``params`` as it stands
+    (warm, then under the profiler), the decoder's product calls and GEMM
+    kernels a layer in one verify chunk of draft_len + 1 = 32 tokens, and
+    the device time of one prefill and of that chunk."""
+    anyref_mod, llama = mods["anyref"], mods["llama"]
+    lp, lc = params["llama"], cfg.llama
+
+    def gen():
+        return anyref_mod.generate(params, cfg, batch, max_new_tokens=8,
+                                   speculative=True, encoder_path="fused")
+    gen()
+    out, wall, busy, _ = profiled_busy(torch, gen)
+    with torch.inference_mode():
+        clip = anyref_mod.encode_clip_images(params, cfg,
+                                             batch["clip_images"], "fused")
+        embeds, _, _ = anyref_mod.assemble_embeds(params, cfg,
+                                                  batch["input_ids"], clip)
+        pad = (batch["input_ids"] != 0).to(torch.uint8).argmax(1)
+        B, L, _ = embeds.shape
+        cache = llama.init_cache(lc, B, L + 48)
+
+        def prefill():
+            return llama.prefill(lp, lc, embeds, cache, pad_len=pad)[0]
+        chunk = embeds[:, -32:].contiguous()
+
+        def verify():
+            return llama.decode_chunk(lp, lc, chunk, L, cache,
+                                      pad_len=pad)[0]
+        hidden = prefill()
+        verify()
+        _, _, prefill_ms, _ = profiled_busy(torch, prefill)
+        _, _, chunk_ms, kernels = profiled_busy(torch, verify)
+        calls = [0]
+        linear = llama.linear
+
+        def counted(p, x):
+            calls[0] += 1
+            return linear(p, x)
+        llama.linear = counted
+        try:
+            verify()
+        finally:
+            llama.linear = linear
+    gemms = sum(n for name, (n, _) in kernels.items()
+                if any(g in name.lower() for g in GEMM_NAMES))
+    return {"ids": out.output_ids.cpu(), "passes": out.decode_passes,
+            "wall_s": wall, "busy_ms": busy,
+            "idle": 1 - busy / 1e3 / wall,
+            "products_per_layer": calls[0] / lc.num_layers,
+            "gemm_kernels_per_layer": gemms / lc.num_layers,
+            "prefill_ms": prefill_ms, "chunk_ms": chunk_ms,
+            "hidden": hidden, "embeds": embeds, "pad": pad}
+
+
+def row_rel_l2(a, b, pad) -> list:
+    """Relative L2 of a against b [B, L, D] per row, over its real (not
+    left-pad) positions, in fp32."""
+    out = []
+    for r in range(a.shape[0]):
+        x = a[r, int(pad[r]):].float()
+        y = b[r, int(pad[r]):].float()
+        out.append(float((x - y).norm() / y.norm()))
+    return out
+
+
+def teacher_forced_logits(torch, mods, lp, cfg, numbers, ids, row: int,
+                          j: int):
+    """The logits that choose output j of ``row``: prefill over the row's
+    prompt and its outputs 0 .. j-1 (the ids both layouts agreed on), the
+    last position's logits in fp32."""
+    llama = mods["llama"]
+    with torch.inference_mode():
+        emb = numbers["embeds"][row:row + 1]
+        if j:
+            toks = ids[row:row + 1, :j].cuda()
+            emb = torch.cat([emb, llama.embed(lp, toks, dtype=emb.dtype)], 1)
+        cache = llama.init_cache(cfg.llama, 1, -(-emb.shape[1] // 16) * 16)
+        h, _ = llama.prefill(lp, cfg.llama, emb, cache,
+                             pad_len=numbers["pad"][row:row + 1])
+        return llama.logits(lp, h[:, -1])[0]
+
+
+# 10(b): rounds of prefill and verify chunk on the two layouts in turns
+LAYOUT_TURNS = 9
+
+
+def layout_turns(torch, mods, lp, cfg, numbers) -> dict:
+    """Prefill and 32-token verify-chunk kernel time on both layouts,
+    LAYOUT_TURNS rounds with the two in turns (plain first in even rounds,
+    fused first in odd ones), on layout_numbers' embeddings of the plain
+    run. The fused decoder is built beside the plain one (about 13 GB more
+    on the card, freed after) by fuse_for_serving(transpose_for_serving) of
+    a copy of the tree's dicts, which leaves ``lp`` as it was. Each time is
+    the summed device time of the call's kernels under the profiler, and
+    its GEMM kernels' share; the prefill's kernels by name are summed over
+    the rounds. -> {"plain" | "fused": {"prefill_ms", "prefill_gemm_ms",
+    "chunk_ms", "chunk_gemm_ms": [one per round], "prefill_by_name":
+    {kernel: ms a prefill, the mean over the rounds}}}."""
+    llama, lc = mods["llama"], cfg.llama
+    copy = dict(lp, layers=[{k: dict(v) if isinstance(v, dict) else v
+                             for k, v in layer.items()}
+                            for layer in lp["layers"]])
+    trees = {"plain": lp, "fused": llama.fuse_for_serving(
+        llama.transpose_for_serving(copy))}
+    if "qkv" in lp["layers"][0]["attn"]:
+        fail("layout_turns converted the plain tree")
+    embeds, pad = numbers["embeds"], numbers["pad"]
+    B, L, _ = embeds.shape
+    chunk = embeds[:, -32:].contiguous()
+    out = {name: {k: [] for k in ("prefill_ms", "prefill_gemm_ms",
+                                  "chunk_ms", "chunk_gemm_ms")}
+           for name in trees}
+    with torch.inference_mode():
+        cache = llama.init_cache(lc, B, L + 48)
+        calls = {name: {
+            "prefill": lambda t=t: llama.prefill(t, lc, embeds, cache,
+                                                 pad_len=pad),
+            "chunk": lambda t=t: llama.decode_chunk(t, lc, chunk, L, cache,
+                                                    pad_len=pad)}
+            for name, t in trees.items()}
+        for fns in calls.values():
+            for fn in fns.values():
+                fn()
+        for r in range(LAYOUT_TURNS):
+            for name in (("plain", "fused") if r % 2 == 0
+                         else ("fused", "plain")):
+                for what, fn in calls[name].items():
+                    _, _, ms, kernels = profiled_busy(torch, fn)
+                    gemm = sum(m for k, (_, m) in kernels.items()
+                               if any(g in k.lower() for g in GEMM_NAMES))
+                    out[name][f"{what}_ms"].append(ms)
+                    out[name][f"{what}_gemm_ms"].append(gemm)
+                    if what == "prefill":
+                        by = out[name].setdefault("prefill_by_name", {})
+                        for k, (_, m) in kernels.items():
+                            by[k] = by.get(k, 0.0) + m / LAYOUT_TURNS
+    del calls, trees, copy
+    torch.cuda.empty_cache()
+    return out
+
+
+def layouts_7b(torch, mods, params, cfg, images) -> dict:
+    """Phase 10(b), the two layouts, run in phase 4 on its anyref_7b
+    weights before its first Server: speculative generate at batch 2
+    (requests 0 and 1 in the 385 bucket, "fused" encoders, 8 new tokens)
+    called directly, on the [in, out] tree, then on the same tree
+    converted in place (transpose_for_serving, fuse_for_serving: what the
+    Servers' Predictors would do). For each: ids, decode passes, busy time
+    and idle share under the profiler, the decoder's product calls (7 and
+    4) and GEMM kernels a layer in a verify chunk, prefill and verify-chunk
+    device time; then prefill and verify chunk again on both layouts in
+    turns (layout_turns). The fused prefill's post-norm states are held
+    against the
+    plain layout's within the bf16 floor measured in the same call (the
+    plain layout at batch 1 against batch 2, or one bf16 ulp, 2^-8,
+    whichever is larger), relative L2 over each row's real positions; an
+    id that differs must sit at a near tie: the top-two logit gap there
+    (teacher-forced over the agreed prefix, on the converted tree) at most
+    twice the logit floor (the last position's logits, batch 1 against
+    batch 2 on the plain layout) plus one bf16 ulp of the top logit."""
+    llama = mods["llama"]
+    t_phase = time.time()
+    batch = bucket_batch(torch, mods, cfg, images[:2], TEXTS[:2],
+                         EXPORT_PROMPT_LEN_7B)
+    lp = params["llama"]
+    plain = layout_numbers(torch, mods, params, cfg, batch)
+    with torch.inference_mode():
+        floor_h, floor_logit = [], 0.0
+        for r in range(2):
+            cache = llama.init_cache(cfg.llama, 1, plain["embeds"].shape[1])
+            h1, _ = llama.prefill(lp, cfg.llama, plain["embeds"][r:r + 1],
+                                  cache, pad_len=plain["pad"][r:r + 1])
+            floor_h += row_rel_l2(h1, plain["hidden"][r:r + 1],
+                                  plain["pad"][r:r + 1])
+            floor_logit = max(floor_logit, float(
+                (llama.logits(lp, h1[:, -1])
+                 - llama.logits(lp, plain["hidden"][r:r + 1, -1])
+                 ).abs().max()))
+    turns = layout_turns(torch, mods, lp, cfg, plain)
+    for what in ("prefill", "chunk"):
+        p_ms, f_ms = (np.asarray(turns[n][f"{what}_ms"])
+                      for n in ("plain", "fused"))
+        p_g, f_g = (np.asarray(turns[n][f"{what}_gemm_ms"])
+                    for n in ("plain", "fused"))
+        diff = f_ms - p_ms
+        log(f"[layout-7b] {what}, {LAYOUT_TURNS} rounds in turns, ms of "
+            f"kernels: plain median {np.median(p_ms):.3f} (min "
+            f"{p_ms.min():.3f}, max {p_ms.max():.3f}; GEMMs "
+            f"{np.median(p_g):.3f}), fused median {np.median(f_ms):.3f} "
+            f"(min {f_ms.min():.3f}, max {f_ms.max():.3f}; GEMMs "
+            f"{np.median(f_g):.3f}); fused - plain by round: median "
+            f"{np.median(diff):+.3f} ({100 * np.median(diff / p_ms):+.2f}%),"
+            f" min {diff.min():+.3f}, max {diff.max():+.3f}; all "
+            f"{[round(float(x), 3) for x in diff]}")
+    by_p, by_f = (turns[n]["prefill_by_name"] for n in ("plain", "fused"))
+    moved = sorted(((by_f.get(k, 0.0) - by_p.get(k, 0.0), k)
+                    for k in set(by_p) | set(by_f)), reverse=True)
+    log(f"[layout-7b] prefill kernels by name, fused - plain, ms a "
+        f"prefill (mean of {LAYOUT_TURNS} rounds), most up: "
+        + "; ".join(f"{d:+.3f} {k[:90]}" for d, k in moved[:6])
+        + "; most down: "
+        + "; ".join(f"{d:+.3f} {k[:90]}" for d, k in moved[-4:]))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    params["llama"] = llama.fuse_for_serving(llama.transpose_for_serving(lp))
+    torch.cuda.synchronize()
+    convert_s = time.time() - t0
+    lp = params["llama"]
+    fused = layout_numbers(torch, mods, params, cfg, batch)
+    diff_h = row_rel_l2(fused["hidden"], plain["hidden"], plain["pad"])
+    floor = max(max(floor_h), 2.0 ** -8)
+    log(f"[layout-7b] speculative generate, batch 2 (385 bucket, fused "
+        f"encoders, 8 new tokens), [in, out] tree then converted in place "
+        f"in {convert_s:.2f} s; {mods['card']}")
+    for name, n in (("plain", plain), ("fused", fused)):
+        log(f"[layout-7b] {name}: ids {n['ids'].tolist()}, {n['passes']} "
+            f"decode passes; under the profiler {n['wall_s']:.3f} s wall, "
+            f"kernels busy {n['busy_ms']:.1f} ms, device idle "
+            f"{100 * n['idle']:.1f}%; products a layer "
+            f"{n['products_per_layer']:g}, GEMM kernels a layer in a "
+            f"32-token verify chunk {n['gemm_kernels_per_layer']:g}; "
+            f"prefill (batch 2, {n['embeds'].shape[1]} tokens) "
+            f"{n['prefill_ms']:.3f} ms, verify chunk {n['chunk_ms']:.3f} ms "
+            "of kernels")
+    log(f"[layout-7b] prefill post-norm states, fused against plain, rel "
+        f"L2 by row {[f'{x:.3g}' for x in diff_h]}; floor (plain, batch 1 "
+        f"against 2) {[f'{x:.3g}' for x in floor_h]}, held at "
+        f"{floor:.3g}; last-position logit floor {floor_logit:.4g}")
+    if plain["products_per_layer"] != 7 or fused["products_per_layer"] != 4:
+        fail(f"decoder products a layer: {plain['products_per_layer']} "
+             f"plain, {fused['products_per_layer']} fused (want 7, 4)")
+    if max(diff_h) > floor:
+        fail(f"the fused layout's prefill states differ from the plain "
+             f"layout's by {diff_h}, past the bf16 floor {floor}")
+    ties = []
+    for r in range(2):
+        a, b = plain["ids"][r].tolist(), fused["ids"][r].tolist()
+        if a == b:
+            continue
+        j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        logits = teacher_forced_logits(torch, mods, lp, cfg, plain,
+                                       plain["ids"], r, j)
+        top = logits.topk(2).values
+        gap = float(top[0] - top[1])
+        ties.append((r, j, gap))
+        log(f"[layout-7b] row {r} differs at output {j} ({a[j]} plain, "
+            f"{b[j]} fused): top-two logit gap there {gap:.4g} "
+            f"(teacher-forced on the converted tree), logit floor "
+            f"{floor_logit:.4g}")
+        if gap > 2 * floor_logit + 2.0 ** -8 * float(top[0].abs()):
+            fail(f"layouts: row {r} output {j} differs at a logit gap of "
+                 f"{gap}, not a near tie (floor {floor_logit})")
+    log(f"[phase 10] (b) layouts in {time.time() - t_phase:.1f} s")
+    return {"plain": {k: v for k, v in plain.items()
+                      if k not in ("hidden", "embeds", "pad", "ids")},
+            "fused": {k: v for k, v in fused.items()
+                      if k not in ("hidden", "embeds", "pad", "ids")},
+            "ties": ties, "prefill_rel_l2": diff_h, "floor": floor,
+            "turns": {n: {k: v for k, v in d.items()
+                          if k != "prefill_by_name"}
+                      for n, d in turns.items()}}
+
+
+def cache_write_bytes(program) -> dict:
+    """The bytes the exported graph's writes move: the destinations of its
+    in-place copies, and the whole outputs of any functional scatter (a
+    write made functional copies its whole buffer)."""
+    total = {"copy_": 0, "scatter": 0}
+    for node in program.graph.nodes:
+        if node.op != "call_function":
+            continue
+        name = str(node.target)
+        val = (node.args[0].meta.get("val") if "copy_" in name
+               else node.meta.get("val"))
+        if val is None or not hasattr(val, "numel"):
+            continue
+        nbytes = val.numel() * val.element_size()
+        if "copy_" in name:
+            total["copy_"] += nbytes
+        elif "scatter" in name or "index_put" in name:
+            total["scatter"] += nbytes
+    return total
+
+
+def export_7b(torch, flash, mods, params, cfg, images) -> dict:
+    """Phase 10(b), the exported generate, run in phase 4 on its anyref_7b
+    weights after layouts_7b converted them: export_generate on "fused",
+    greedy, EXPORT_MNT_7B new tokens, batch 1 in the 385 bucket, of the
+    tree cut to EXPORT_LAYERS_7B decoder layers at full width (the free
+    disk space checked first), to a temporary directory deleted after;
+    export seconds, artifact bytes, load seconds, the graph's write bytes;
+    then on requests 0 and 1 the program against eager generate on the
+    same cut tree: ids, [SEG] slots and masks bit-equal, the same launches, and each one's wall and device time warm."""
+    import tempfile
+    t_phase = time.time()
+    n = EXPORT_LAYERS_7B
+    lcfg = dataclasses.replace(cfg.llama, num_layers=n)
+    cut_cfg = dataclasses.replace(cfg, llama=lcfg)
+    cut = dict(params, llama=dict(params["llama"],
+                                  layers=params["llama"]["layers"][:n]))
+    nbytes = tensor_bytes(cut)
+    prompts = [{k: v[r:r + 1] for k, v in bucket_batch(
+        torch, mods, cfg, images[:2], TEXTS[:2],
+        EXPORT_PROMPT_LEN_7B).items()} for r in range(2)]
+    with tempfile.TemporaryDirectory() as tmp:
+        free = shutil.disk_usage(tmp).free
+        log(f"[export-7b] the tree cut to {n} of {cfg.llama.num_layers} "
+            f"decoder layers at full width: {nbytes / 2**30:.2f} GiB of "
+            f"tensors; {free / 2**30:.1f} GiB free on the temporary "
+            "directory's disk")
+        if free < 1.5 * nbytes:
+            fail(f"export_generate at anyref_7b: {free} bytes free for "
+                 f"{nbytes} bytes of weights")
+        art = os.path.join(tmp, "generate-7b.pt2")
+        before = read_launches(flash)
+        t0 = time.time()
+        mods["export"].export_generate(
+            cut, cut_cfg, art, prompt_len=EXPORT_PROMPT_LEN_7B,
+            max_new_tokens=EXPORT_MNT_7B, device="cuda",
+            encoder_path="fused")
+        export_s = time.time() - t0
+        if read_launches(flash) != before:
+            fail("export_generate at anyref_7b launched kernels while "
+                 "tracing")
+        size = os.path.getsize(art)
+        t0 = time.time()
+        program = torch.export.load(art)
+        module = program.module()
+        torch.cuda.synchronize()
+        load_s = time.time() - t0
+        writes = cache_write_bytes(program)
+        del program
+        rows = []
+        for r, prompt in enumerate(prompts):
+            args = (prompt["input_ids"].int(), prompt["clip_images"],
+                    prompt["sam_images"])
+
+            def eager():
+                return mods["anyref"].generate(
+                    cut, cut_cfg, prompt, max_new_tokens=EXPORT_MNT_7B,
+                    encoder_path="fused")
+            zero_launches(flash)
+            want = eager()
+            torch.cuda.synchronize()
+            w_launch = read_launches(flash)
+            zero_launches(flash)
+            got = module(*args)
+            torch.cuda.synchronize()
+            g_launch = read_launches(flash)
+            rel = rel_err(got[1].float().cpu(),
+                          want.low_res_masks.float().cpu())
+            if not torch.equal(got[0].cpu(), want.output_ids.cpu()) or \
+                    not torch.equal(got[2].cpu(), want.seg_valid.cpu()) or \
+                    not torch.equal(got[1], want.low_res_masks) or \
+                    g_launch != w_launch:
+                fail(f"exported generate at anyref_7b, request {r}: ids "
+                     f"{got[0].tolist()} / {want.output_ids.tolist()}, "
+                     f"[SEG] {got[2].tolist()} / {want.seg_valid.tolist()}, "
+                     f"masks {rel} apart (bit equality wanted), launches "
+                     f"{g_launch} / {w_launch}")
+            _, e_wall, e_busy, _ = profiled_busy(torch, eager)
+            _, p_wall, p_busy, _ = profiled_busy(torch, lambda: module(*args))
+            rows.append({"ids": got[0].tolist(),
+                         "eager_wall_s": e_wall, "eager_busy_ms": e_busy,
+                         "program_wall_s": p_wall, "program_busy_ms": p_busy,
+                         "eager_decode_passes": want.decode_passes})
+            log(f"[export-7b] request {r}: ids {got[0].tolist()}, [SEG] "
+                f"slots and masks bit-equal to eager generate, launches as "
+                f"eager "
+                f"({json.dumps({k: v for k, v in g_launch.items() if v})}); "
+                f"warm under the profiler: program {p_wall:.3f} s wall, "
+                f"{p_busy:.1f} ms of kernels ({EXPORT_MNT_7B} steps); eager "
+                f"{e_wall:.3f} s wall, {e_busy:.1f} ms of kernels "
+                f"({want.decode_passes} steps, early exit)")
+        del module
+    steps = EXPORT_MNT_7B
+    log(f"[export-7b] export_generate(anyref_7b cut to {n} layers, "
+        f"\"fused\", prompt_len {EXPORT_PROMPT_LEN_7B}, max_new_tokens "
+        f"{steps}): {export_s:.1f} s, {size} bytes ({size / 2**30:.2f} GiB); "
+        f"torch.export.load + module() {load_s:.1f} s; the graph's writes: "
+        f"in-place copies {writes['copy_']} bytes, functional scatters "
+        f"{writes['scatter']} bytes a run; {mods['card']}")
+    log(f"[phase 10] (b) export in {time.time() - t_phase:.1f} s")
+    return {"layers": n, "export_s": export_s, "bytes": size,
+            "load_s": load_s, "writes": writes, "rows": rows}
+
+
+def tensor_bytes(tree) -> int:
+    """Bytes of the tensors in a tree."""
+    if isinstance(tree, dict):
+        return sum(tensor_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tensor_bytes(v) for v in tree)
+    return 0 if tree is None else tree.numel() * tree.element_size()
+
+
 def tree_pairs(a, b, path=""):
     """(path, leaf of a, leaf of b) of two trees of one structure."""
     if isinstance(a, dict):
@@ -4821,7 +5724,8 @@ def main() -> int:
         from anyref_tpu_torch.data.preprocess import (crop_box_np,
                                                       preprocess_clip_np)
         from anyref_tpu_torch.models import anyref as anyref_mod
-        from anyref_tpu_torch import export
+        from anyref_tpu_torch import checkpoint, export
+        from anyref_tpu_torch.eval.runner import Predictor
         from anyref_tpu_torch.models import llama, sam
         from anyref_tpu_torch.models.sam import image_encoder
         from anyref_tpu_torch.models.sam.amg import SamAutomaticMaskGenerator
@@ -4864,6 +5768,7 @@ def main() -> int:
                                               "common": common,
                                               "attention": attention,
                                               "quant": quant})
+    dispatch = check_ops(torch, flash)
     mods = {"anyref_7b": anyref_7b, "anyref_tiny": anyref_tiny,
             "tparams": tparams, "Server": Server,
             "Request": Request, "AnyRefTokenizer": AnyRefTokenizer,
@@ -4879,7 +5784,8 @@ def main() -> int:
             "preprocess_clip_np": preprocess_clip_np, "card": card,
             "sam": sam, "SamPredictor": SamPredictor,
             "SamAutomaticMaskGenerator": SamAutomaticMaskGenerator,
-            "export": export}
+            "export": export, "Predictor": Predictor,
+            "checkpoint": checkpoint}
     # phase 3: "unfused" and "unfused_qkv" at anyref_tiny, "fused" and
     # "fused_block" where both fused SAM gates open (64 <= ws^2 and a 32 x
     # 32 global grid), the int8 decoder at anyref_tiny, and one train step
@@ -4897,7 +5803,7 @@ def main() -> int:
     check_tiny_references(torch, tiny512, "fused", mods)
     check_tiny_train(torch, tiny, mods)
     # phase 4
-    launches, int8_step = serve_7b(torch, flash, mods)
+    launches, int8_step, phase10 = serve_7b(torch, flash, mods)
     torch.cuda.empty_cache()
     # phase 5
     trained = train_7b(torch, flash, mods)
@@ -4912,8 +5818,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     # phase 9(a); (b) ran in phase 4, on its SAM weights
     sam_alone_tiny(torch, flash, mods, tiny, tiny512)
+    # phase 10(a); (b) ran in phase 4, on its weights before its first Server
+    serving_tiny(torch, flash, mods, tiny, tiny512)
 
-    # phase 10
+    # phase 11
     meta = {
         "layer_norm_fused": ("anyref_tpu_torch/csrc/norms.cu",
                              "anyref_tpu/ops/flash.py:615"),
@@ -4973,6 +5881,8 @@ def main() -> int:
         "other_shapes": diff[1:],
         "cuda_per_call": {"forward": results["causal_per_call"]["forward"],
                           "backward": results["causal_per_call"]["backward"]},
+        "dispatch_us": {"forward": dispatch["causal_attention_diff_fwd"],
+                        "backward": dispatch["causal_attention_diff_bwd"]},
     })
     for name, (src, replaces) in meta.items():
         rows = results[name]
@@ -5011,8 +5921,10 @@ def main() -> int:
             **({"decode_step": int8_step} if name == "int8_matmul" else {}),
             "unfused_ms": head.get("unfused_ms"),
             "split_pair_ms": head.get("split_pair_ms"),
+            "dispatch_us": dispatch[name],
             "other_shapes": rows[1:],
         })
+    log(f"[phase 10] (b) {json.dumps(phase10)}")
     log(f"[card] {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,9 @@
 JAX (nor optax or orbax) nor the JAX package, its sources (and
 chip_smoke.py) import none of them, a train step loads none of them either,
 and its entry points refuse to carry on on the CPU when no device was named
-and no GPU exists, for a float and an int8 decoder alike."""
+and no GPU exists, for a float and an int8 decoder alike (the generate
+program's loading in a fresh interpreter, which imports the port's op
+registrations but no JAX, is held in tests/test_torch_export.py)."""
 
 import os
 import pathlib
@@ -74,7 +76,7 @@ def test_entry_points_refuse_cpu_without_gpu(monkeypatch):
     from anyref_tpu_torch import params as tparams
     from anyref_tpu_torch.config import anyref_tiny
     from anyref_tpu_torch.eval.runner import Predictor
-    from anyref_tpu_torch.export import export_sam_decoder
+    from anyref_tpu_torch.export import export_generate, export_sam_decoder
     from anyref_tpu_torch.models import anyref, sam
     from anyref_tpu_torch.models.sam.amg import SamAutomaticMaskGenerator
     from anyref_tpu_torch.models.sam.predictor import SamPredictor
@@ -119,6 +121,9 @@ def test_entry_points_refuse_cpu_without_gpu(monkeypatch):
         SamAutomaticMaskGenerator(p["sam"], cfg.sam)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         export_sam_decoder(p["sam"], cfg.sam, "unused.pt2")
+    # the generate program is refused the same way, before any tracing
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        export_generate(p, cfg, "unused.pt2")
 
 
 def test_train_step_loads_no_jax():
