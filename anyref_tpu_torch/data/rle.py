@@ -3,7 +3,9 @@ over csrc/rle.cpp, the COCO string (de)compression layer, and the numpy
 versions of the codec.
 
 The native library is built with g++ (host code, no nvcc) into
-``anyref_tpu_torch/build/`` on first use, named by a hash of its source.
+``anyref_tpu_torch/build/`` on first use, named by a hash of its source;
+processes that start together build it once (``build_library`` holds a
+file lock: the others wait, then load the finished library).
 A failed build raises with the compiler's output: there is no silent
 fallback, because the numpy polygon fill (PIL's) is not the native
 pycocotools fill, and ground-truth masks drawn by another fill change cIoU.
@@ -23,6 +25,8 @@ from pathlib import Path
 from typing import List, Sequence
 
 import numpy as np
+
+from ..utils.locks import file_lock
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "rle.cpp"
@@ -58,13 +62,26 @@ def compile_library(src: Path, so: Path) -> Path:
     return so
 
 
+def build_library(src: Path, so: Path) -> bool:
+    """Build ``so`` from ``src`` unless it exists, under a lock on
+    ``<so>.lock`` so that one of the processes racing the first use
+    compiles and the rest wait for its library. True where this call
+    compiled."""
+    if so.exists():
+        return False
+    with file_lock(so.with_name(so.name + ".lock")):
+        if so.exists():
+            return False
+        compile_library(src, so)
+        return True
+
+
 def _load():
     global _lib
     with _load_lock:   # the loader's worker threads race the first use
         if _lib is None:
             so = library_path()
-            if not so.exists():
-                compile_library(SOURCE, so)
+            build_library(SOURCE, so)
             lib = ctypes.CDLL(str(so))
             u32p = ctypes.POINTER(ctypes.c_uint32)
             u8p = ctypes.POINTER(ctypes.c_uint8)

@@ -7,13 +7,15 @@ reference exactly.
   * f_measure              — 255-threshold PR sweep, beta^2 = 0.3
                              (reference utils/pyutils.py:191-235)
   * AverageMeter           — accumulator (reference utils/utils.py:36-57);
-                             the port runs one process, so its all_reduce
-                             keeps the sums
+                             all_reduce sums over the ranks of an
+                             initialised torch.distributed process group
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 
 def intersection_and_union(output: np.ndarray, target: np.ndarray, K: int,
@@ -94,7 +96,17 @@ class AverageMeter:
     def avg(self):
         return self.sum / max(self.count, 1)
 
-    def all_reduce(self):
-        """The sum over processes. The port runs one process, so the sums
-        stay as they are (the JAX meter's result where process_count() is
-        1); a torch.distributed reduction comes with multi-device serving."""
+    def all_reduce(self, group=None):
+        """The sum and count over the ranks of ``group`` (the world by
+        default) where a process group is initialised, as the reference's
+        process_allgather(...).sum(0); one process keeps its sums."""
+        if not (dist.is_available() and dist.is_initialized()) \
+                or dist.get_world_size(group) == 1:
+            return
+        dev = "cuda" if dist.get_backend(group) == "nccl" else "cpu"
+        arr = torch.tensor([*np.atleast_1d(self.sum), self.count],
+                           dtype=torch.float64, device=dev)
+        dist.all_reduce(arr, group=group)
+        arr = arr.cpu().numpy()
+        self.sum = arr[:-1] if np.ndim(self.sum) else float(arr[0])
+        self.count = int(arr[-1])

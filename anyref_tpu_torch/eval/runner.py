@@ -10,6 +10,16 @@ decode pass count into one int32 array; the variable-shape tail (crop the
 padded canvas, resize to each image's size) runs on the host. A speculative
 Predictor first converts the caller's decoder tree to the serving layout
 (models/llama.py fuse_for_serving), in place.
+
+On a mesh of several ranks (parallel/mesh.py; the tree of
+parallel/partition.py ``shard_params``), every rank calls the same
+Predictor methods on the same batch, in the same order: the batch bucket is
+a multiple of the "data" size, each rank runs its rows, and with more than
+one data rank the rows are gathered over the host group before
+``predict_async`` returns, so every rank's results are the whole batch's.
+A sharded tree keeps its layout, as the reference's does: speculative
+decode runs on the [in, out] (or transposed) layout, an int8 tree
+included.
 """
 
 from __future__ import annotations
@@ -18,11 +28,14 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import (SAM_PIXEL_MEAN, SAM_PIXEL_STD, AnyRefConfig,
                       check_encoder_path)
 from ..models import anyref, clip_vit, llama
 from ..ops.quant import is_quantized
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
+from ..parallel.partition import shard_batch
 from ..ops.resize import postprocess_low_res_np
 from ..params import resolve_device
 
@@ -53,12 +66,19 @@ class Predictor:
                  force_accept: bool = False,
                  mask_fetch_dtype: str = "float32",
                  fetch_segs: Optional[int] = None,
-                 device="cuda", encoder_path: str = "fused"):
+                 device="cuda", encoder_path: str = "fused", mesh=None):
         # buckets = 1 (mod 128): the +255 image expansion lands prefill on
         # multiples of 128 (384/448/512/640/768)
-        self.device = resolve_device(device)
+        # the mesh: the argument, or the one shard_params cut the tree for;
+        # it names the device
+        self.mesh = mesh if mesh is not None else getattr(params, "mesh",
+                                                          None)
+        self.device = (self.mesh.device if self.mesh is not None
+                       else resolve_device(device))
         self.encoder_path = check_encoder_path(encoder_path)
-        if speculative and is_quantized(params["llama"]):
+        # the reference converts a single-device tree only
+        sharded = self.mesh is not None and self.mesh.size > 1
+        if speculative and not sharded and is_quantized(params["llama"]):
             # the reference's speculative Predictor first converts the
             # decoder to its bf16 serving layout (transposed, fused
             # matrices), which an int8 tree does not have
@@ -66,12 +86,10 @@ class Predictor:
                 "an int8 decoder (ops.quant.quantize_llama) is served with "
                 "speculative=False: the reference's speculative serving "
                 "needs the bf16 serving layout of the decoder")
-        if speculative:
+        if speculative and not sharded:
             # the reference's serving layout (transposed, fused q/k/v and
             # gate/up matrices), made IN PLACE, weight by weight: it
-            # consumes the caller's tree, as the reference's does. The
-            # reference converts a single-device tree only; the port runs
-            # one device, so always.
+            # consumes the caller's tree, as the reference's does
             params["llama"] = llama.fuse_for_serving(
                 llama.transpose_for_serving(params["llama"]))
         self.params = params
@@ -118,6 +136,8 @@ class Predictor:
         B = ids.shape[0]
         BB = max(next((b for b in self.batch_buckets if b >= B),
                       self.batch_buckets[-1]), B)
+        n_data = 1 if self.mesh is None else self.mesh.shape[DATA_AXIS]
+        BB = -(-BB // n_data) * n_data     # padded rows split over "data"
         left = np.zeros((BB, bucket), ids.dtype)
         for b in range(B):
             n = min(int(batch["prompt_lens"][b]), bucket)
@@ -140,9 +160,13 @@ class Predictor:
         if batch["sam_images"].dtype == np.uint8:
             host["sam_resized_sizes"] = pad_rows(
                 np.asarray(batch["sam_resized_sizes"], np.int32))
-        self.h2d_bytes_total += sum(int(v.nbytes) for v in host.values())
-        dev = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-               for k, v in host.items()}
+        if self.mesh is not None:
+            dev = shard_batch(host, self.mesh)
+        else:
+            dev = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+                self.device) for k, v in host.items()}
+        self.h2d_bytes_total += sum(t.numel() * t.element_size()
+                                    for t in dev.values())
         if dev["sam_images"].dtype == torch.uint8:
             dev["sam_images"] = _sam_normalize_device(
                 dev["sam_images"], dev.pop("sam_resized_sizes"))
@@ -153,15 +177,32 @@ class Predictor:
                               max_new_tokens=self.mnt,
                               speculative=self.speculative,
                               device=self.device,
-                              encoder_path=self.encoder_path, **self.gen_kw)
+                              encoder_path=self.encoder_path,
+                              mesh=self.mesh, **self.gen_kw)
         low = out.low_res_masks
         if self.fetch_segs is not None:
             low = low[:, :self.fetch_segs]
         meta = torch.cat([
             out.output_ids.int(), out.seg_valid.int(),
-            torch.full((BB, 1), out.decode_passes, dtype=torch.int32,
-                       device=self.device)], 1)
-        return (meta, low.to(self.mask_fetch_dtype)), batch, B
+            torch.full((out.output_ids.shape[0], 1), out.decode_passes,
+                       dtype=torch.int32, device=self.device)], 1)
+        low = low.to(self.mask_fetch_dtype)
+        if n_data > 1:
+            meta, low = self._gather_rows(meta, low)
+        return (meta, low), batch, B
+
+    def _gather_rows(self, meta, low):
+        """Every data rank's rows, in rank order, on the host: each rank
+        sends its fetched rows over the mesh's host group and keeps those
+        of the model rank 0 of each data rank (the model ranks of one data
+        rank hold the same rows)."""
+        mesh = self.mesh
+        parts = [None] * mesh.size
+        dist.all_gather_object(parts, (meta.cpu(), low.cpu()),
+                               group=mesh.host_group)
+        keep = parts[::mesh.shape[MODEL_AXIS]]
+        return (torch.cat([m for m, _ in keep]),
+                torch.cat([lo for _, lo in keep]))
 
     def complete(self, handle):
         """Fetch + host postprocess for a predict_async handle."""
@@ -172,7 +213,8 @@ class Predictor:
         low = low_res.float().cpu().numpy()[:B]
         output_ids = meta_np[:B, :self.mnt]
         seg_valid = meta_np[:B, self.mnt:-1]
-        self.decode_passes_total += int(meta_np[0, -1])
+        # the most a data rank took (each data rank decodes its own rows)
+        self.decode_passes_total += int(meta_np[:, -1].max())
         self.completed_batches += 1
         masks: List[Optional[np.ndarray]] = []
         for b in range(low.shape[0]):

@@ -19,6 +19,12 @@ audio (ImageBind's audio tower, 3 clips, projected): their features fill
 the prompt's 4 <img_ref> or 3 <audio_ref> placeholders. A batch carries a
 crop or a box, never both, plus optional audio; rows without one keep the
 placeholders' token embeddings.
+
+On a mesh (parallel/mesh.py), ``generate`` runs on this rank's rows of the
+batch with the decoder's blocks of parallel/partition.py ``shard_params``,
+its collectives over the mesh's "model" group (models/llama.py); the
+[SEG] states are whole after the last one, so the towers, text_hidden_fcs
+and SAM run replicated on the rank's rows.
 """
 
 from __future__ import annotations
@@ -26,12 +32,14 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..config import (IGNORE_INDEX, IMG_REF_NUM, NUM_IMAGE_TOKENS,
                       AnyRefConfig, check_encoder_path)
 from ..ops.common import linear, rms_norm
 from ..ops.losses import dice_loss, lm_cross_entropy, sigmoid_ce_loss
 from ..params import resolve_device
+from ..parallel.mesh import MODEL_AXIS
 from ..tokenizer import EOS_ID, PAD_ID
 from . import clip_vit, llama
 from . import sam as sam_mod
@@ -129,19 +137,19 @@ def _encode_reference_feats(params: dict, cfg: AnyRefConfig, batch: dict,
 
 def assemble_embeds(params: dict, cfg: AnyRefConfig, input_ids, clip_feats,
                     ref_feats=None, ref_valid=None, audio_feats=None,
-                    audio_valid=None, labels=None):
+                    audio_valid=None, labels=None, group=None):
     """input_ids [B, T] with one <image> token per row -> (embeds
     [B, T+255, D] with the CLIP features spliced in, expanded ids, expanded
     labels (IGNORE_INDEX over the image) or None). ``ref_feats`` [B, 4, D]
     fill the <img_ref> placeholders and ``audio_feats`` [B, 3, D] the
     <audio_ref> ones, in rows whose ``*_valid`` [B] is true (every row
-    where it is None)."""
+    where it is None). ``group``: llama.embed's "model" group."""
     tk = cfg.tokens
     B, T = input_ids.shape
     L = T + NUM_IMAGE_TOKENS - 1
     img_pos = (input_ids == tk.image).to(torch.uint8).argmax(1)
     exp_ids = _expand_image(input_ids, img_pos, tk.image, L)
-    embeds = llama.embed(params["llama"], exp_ids)
+    embeds = llama.embed(params["llama"], exp_ids, group=group)
     j = torch.arange(L, device=input_ids.device)[None, :]
     p = img_pos[:, None]
     in_img = (j >= p) & (j < p + NUM_IMAGE_TOKENS)
@@ -209,7 +217,8 @@ def _prompt_lookup_draft(seq, cur_len: int, ngram: int, draft_len: int):
 def _speculative_decode(params, cfg, exp_ids, pad_len, cache, first_tok,
                         Lp: int, mnt: int, G: int, ngram: int, dtype,
                         max_accept: Optional[int] = None,
-                        force_accept: bool = False, lastin: bool = False):
+                        force_accept: bool = False, lastin: bool = False,
+                        group=None):
     """Batched prompt-lookup speculative decode, lockstep-min acceptance:
     each pass verifies the pending token plus G per-row drafts in one chunk;
     all rows advance by the minimum accepted length over unfinished rows.
@@ -239,11 +248,12 @@ def _speculative_decode(params, cfg, exp_ids, pad_len, cache, first_tok,
         draft = _prompt_lookup_draft(all_ids, Lp + i + 1, ngram, G)
         feed = torch.cat([tok[:, None], draft], 1)
         feed = torch.where(done[:, None], eos, feed)
-        emb = llama.embed(params["llama"], feed, dtype=dtype)
+        emb = llama.embed(params["llama"], feed, dtype=dtype, group=group)
         h, cache, *lin = llama.decode_chunk(params["llama"], cfg.llama, emb,
                                             Lp + i, cache, pad_len=pad_len,
-                                            return_last_input=lastin)
-        nxt = llama.logits(params["llama"], h).argmax(-1)       # [B, G+1]
+                                            return_last_input=lastin,
+                                            group=group)
+        nxt = llama.logits(params["llama"], h, group).argmax(-1)  # [B, G+1]
 
         match = torch.cumprod((feed[:, 1:] == nxt[:, :G]).long(), 1)
         acc = torch.cat([ones, match], 1)
@@ -280,7 +290,8 @@ def _speculative_decode(params, cfg, exp_ids, pad_len, cache, first_tok,
 
 
 def _greedy_decode(params, cfg, pad_len, cache, first_tok, Lp: int, mnt: int,
-                   dtype, lastin: bool = False, fixed_steps: bool = False):
+                   dtype, lastin: bool = False, fixed_steps: bool = False,
+                   group=None):
     """Greedy decode with early exit once every row has emitted EOS, or,
     with ``fixed_steps``, all ``mnt`` steps with no branch on the data (a
     program torch.export can trace): finished rows write EOS and zero states
@@ -299,11 +310,13 @@ def _greedy_decode(params, cfg, pad_len, cache, first_tok, Lp: int, mnt: int,
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     i = 0
     while i < mnt and (fixed_steps or not bool(done.all())):
-        emb = llama.embed(params["llama"], tok[:, None], dtype=dtype)
+        emb = llama.embed(params["llama"], tok[:, None], dtype=dtype,
+                          group=group)
         h, cache, *lin = llama.decode_step(params["llama"], cfg.llama, emb,
                                            Lp + i, cache, pad_len=pad_len,
-                                           return_last_input=lastin)
-        nxt = llama.logits(params["llama"], h[:, 0]).argmax(-1)
+                                           return_last_input=lastin,
+                                           group=group)
+        nxt = llama.logits(params["llama"], h[:, 0], group).argmax(-1)
         done_next = done | (tok == eos)
         toks[:, i] = torch.where(done, eos, tok)
         hids[:, i] = h[:, 0]
@@ -325,7 +338,7 @@ class TrainOutput(NamedTuple):
 
 
 def _last_layer_attn_row(params: dict, cfg: AnyRefConfig, q_in, k_roped,
-                         q_pos, q_slot, kv_start=None):
+                         q_pos, q_slot, kv_start=None, group=None):
     """The final decoder layer's attention probabilities for one query row
     per sample, softmax per head over the full causal row in fp32, then the
     mean over heads (reference anyref.py:376-381, :745-748). Recomputed from
@@ -335,13 +348,14 @@ def _last_layer_attn_row(params: dict, cfg: AnyRefConfig, q_in, k_roped,
     k_roped [B, kv_heads, T, hd]: that layer's roped keys (the KV cache, read
     in place, or recomputed); q_pos [B]: the query's rope position; q_slot
     [B]: its key slot (causal bound); kv_start [B]: the first unmasked key
-    (left pad). Returns [B, T] fp32."""
+    (left pad); group: the "model" group over which a rank's block of
+    heads is summed before the mean. Returns [B, T] fp32."""
     lcfg = cfg.llama
-    nh, kvh, hd = lcfg.num_heads, lcfg.num_kv_heads, lcfg.head_dim
+    hd = lcfg.head_dim
     p = params["llama"]["layers"][-1]
     h = rms_norm(p["input_norm"], q_in[:, None, :], eps=lcfg.rms_norm_eps)
     q = linear(llama.attn_proj(p["attn"], "q", lcfg), h)     # [B, 1, nh*hd]
-    B = q.shape[0]
+    B, nh, kvh = q.shape[0], q.shape[-1] // hd, k_roped.shape[1]
     q = q.reshape(B, 1, nh, hd).transpose(1, 2)
     q = llama._rope(q, llama._rope_tables(q_pos[:, None], hd,
                                           lcfg.rope_theta))[:, :, 0]
@@ -353,7 +367,12 @@ def _last_layer_attn_row(params: dict, cfg: AnyRefConfig, q_in, k_roped,
     if kv_start is not None:
         mask = mask & (t >= kv_start[:, None, None])
     logits = torch.where(mask, logits, torch.finfo(torch.float32).min)
-    return torch.softmax(logits, -1).mean(1)
+    probs = torch.softmax(logits, -1)
+    if group is None or nh == lcfg.num_heads:
+        return probs.mean(1)
+    total = probs.sum(1)
+    dist.all_reduce(total, group=group)
+    return total / lcfg.num_heads
 
 
 def _span_pool(row, hidden, span):
@@ -485,7 +504,7 @@ def generate(params: dict, cfg: AnyRefConfig, batch: dict,
              lookup_ngram: int = 2, max_accept: Optional[int] = None,
              force_accept: bool = False, device="cuda",
              encoder_path: str = "fused",
-             fixed_steps: bool = False) -> GenerateOutput:
+             fixed_steps: bool = False, mesh=None) -> GenerateOutput:
     """Greedy (or speculative) decode + SAM mask synthesis.
 
     batch: input_ids [B, T] (prompt only, LEFT-padded, one <image> per
@@ -498,7 +517,9 @@ def generate(params: dict, cfg: AnyRefConfig, batch: dict,
     decoder (llama.fuse_for_serving). ``fixed_steps`` is the form
     export.export_generate traces: greedy, all ``max_new_tokens`` steps
     with no branch on the data; its outputs are those of the early
-    exit."""
+    exit. ``mesh`` (parallel/mesh.py): the batch holds this rank's rows
+    (parallel/partition.py ``shard_batch``) and the params its blocks
+    (``shard_params``); the outputs are this rank's rows."""
     check_encoder_path(encoder_path)
     if fixed_steps and speculative:
         raise ValueError("fixed_steps is the greedy decode's traced form")
@@ -508,6 +529,12 @@ def generate(params: dict, cfg: AnyRefConfig, batch: dict,
     if p_dev.type != dev.type:
         raise ValueError(f"params live on {p_dev}, generate was asked to run "
                          f"on {dev}")
+    group = None if mesh is None else mesh.group(MODEL_AXIS)
+    if group is not None and (params["llama"]["embed_tokens"].shape[0]
+                              * mesh.shape[MODEL_AXIS]
+                              != cfg.llama.padded_vocab_size):
+        raise ValueError("a mesh with a model axis takes the tree of "
+                         "parallel.partition.shard_params")
     mnt = max_new_tokens or cfg.max_new_tokens
     tk = cfg.tokens
     input_ids = torch.as_tensor(batch["input_ids"], device=dev).long()
@@ -517,7 +544,8 @@ def generate(params: dict, cfg: AnyRefConfig, batch: dict,
     clip_feats = encode_clip_images(params, cfg, clip_images, encoder_path)
     embeds, exp_ids, _ = assemble_embeds(
         params, cfg, input_ids, clip_feats,
-        *_encode_reference_feats(params, cfg, batch, dev, encoder_path))
+        *_encode_reference_feats(params, cfg, batch, dev, encoder_path),
+        group=group)
     # left pad: pad keys are masked and rope positions shift so each row's
     # first real token is position 0
     pad_len = (input_ids != PAD_ID).to(torch.uint8).argmax(1)
@@ -528,26 +556,29 @@ def generate(params: dict, cfg: AnyRefConfig, batch: dict,
     cache_len = Lp + mnt + (draft_len + 1 if speculative else 0)
     cache_len = -(-cache_len // 16) * 16
     cache = llama.init_cache(cfg.llama, B, cache_len, dtype=embeds.dtype,
-                             device=dev)
+                             device=dev, kv_heads=llama.local_kv_heads(
+                                 params["llama"], cfg.llama))
     # the final layer's input is carried only for rephrase pooling
     lastin = cfg.rephrase_weight > 0
     hidden, cache, *pf_lastin = llama.prefill(
         params["llama"], cfg.llama, embeds, cache, pad_len=pad_len,
-        return_last_input=lastin)
+        return_last_input=lastin, group=group)
     sam_embeddings = sam_mod.encode_image(params["sam"], sam_images, cfg.sam,
                                           encoder_path)
-    first_tok = llama.logits(params["llama"], hidden[:, -1]).argmax(-1)
+    first_tok = llama.logits(params["llama"], hidden[:, -1],
+                             group).argmax(-1)
 
     if speculative:
         output_ids, gen_hidden, gen_lastin, decode_passes = \
             _speculative_decode(params, cfg, exp_ids, pad_len, cache,
                                 first_tok, Lp, mnt, draft_len, lookup_ngram,
                                 embeds.dtype, max_accept=max_accept,
-                                force_accept=force_accept, lastin=lastin)
+                                force_accept=force_accept, lastin=lastin,
+                                group=group)
     else:
         output_ids, gen_hidden, gen_lastin, decode_passes = _greedy_decode(
             params, cfg, pad_len, cache, first_tok, Lp, mnt, embeds.dtype,
-            lastin=lastin, fixed_steps=fixed_steps)
+            lastin=lastin, fixed_steps=fixed_steps, group=group)
     num_generated = (output_ids != EOS_ID).sum(1)
 
     # the hidden state that EMITS [SEG] at output k is gen_hidden[k-1], or
@@ -565,7 +596,8 @@ def generate(params: dict, cfg: AnyRefConfig, batch: dict,
         all_lastin = torch.cat([pf_lastin[0][:, -1:], gen_lastin], 1)
         q_in = all_lastin[torch.arange(B, device=dev), k_pos]
         row = _last_layer_attn_row(params, cfg, q_in, cache.k[-1],
-                                   q_slot - pad_len, q_slot, kv_start=pad_len)
+                                   q_slot - pad_len, q_slot, kv_start=pad_len,
+                                   group=group)
         span = torch.arange(mnt + 1, device=dev)[None, :] < k_pos[:, None]
         pooled = _span_pool(row[:, Lp - 1:Lp + mnt], all_hidden, span)
         seg_hidden = seg_hidden + (cfg.rephrase_weight

@@ -22,6 +22,16 @@ speculative verify chunks run plain attention and plain norms, as the
 reference does. ``forward`` (training) writes no cache and runs the
 differentiable causal kernel with plain norms (the reference's fused
 RMSNorm has no gradient); with ``remat`` each layer is checkpointed.
+
+Tensor parallel (parallel/partition.py ``shard_params``, ``group`` the
+mesh's "model" process group): a layer reads its local head counts from its
+weights' widths, and the row-parallel o and down products sum their fp32
+partials over the group (one all-reduce each, where the reference's
+compiler inserts them) before the one rounding to the activations' dtype;
+``embed`` looks up the rank's vocabulary rows and ``logits`` writes the
+rank's columns into the full row, each summed over the group (exact: the
+other ranks add zeros). An int8 decoder is replicated (the reference's
+specs): its layers and lm_head_q run whole on every rank.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from ..config import LlamaConfig
@@ -41,8 +52,19 @@ class KVCache(NamedTuple):
     v: list
 
 
-def embed(params: dict, input_ids, dtype=torch.bfloat16):
-    return params["embed_tokens"][input_ids].to(dtype)
+def embed(params: dict, input_ids, dtype=torch.bfloat16, group=None):
+    """Token embeddings in ``dtype``; with a "model" ``group``, the rank's
+    block of vocabulary rows looked up (zeros elsewhere) and summed over
+    the group."""
+    table = params["embed_tokens"]
+    if group is None:
+        return table[input_ids].to(dtype)
+    n = table.shape[0]
+    local = input_ids - dist.get_rank(group) * n
+    mine = (local >= 0) & (local < n)
+    out = torch.where(mine[..., None], table[local.clamp(0, n - 1)], 0)
+    dist.all_reduce(out, group=group)
+    return out.to(dtype)
 
 
 @torch.no_grad()
@@ -101,6 +123,38 @@ def attn_proj(attn: dict, name: str, cfg: LlamaConfig) -> dict:
     return {"w_t": attn["qkv"]["w_t"][lo:hi]}
 
 
+def _width(p: dict) -> int:
+    """Output features of a linear leaf in any storage ("w" [in, out],
+    "w_t" [out, in], int8 "w_q" [in, out])."""
+    return p["w_t"].shape[0] if "w_t" in p else (p.get("w", p.get("w_q"))
+                                                 .shape[1])
+
+
+def local_kv_heads(params: dict, cfg: LlamaConfig) -> int:
+    """The kv heads this rank's decoder holds (cfg's, unless "k" is a
+    block of them)."""
+    attn = params["layers"][0]["attn"]
+    return _width(attn["k"]) // cfg.head_dim if "k" in attn \
+        else cfg.num_kv_heads
+
+
+def _row_parallel(p: dict, x, group):
+    """A row-parallel product (the rank's block of input features): the
+    fp32 partial summed over ``group``, then rounded to x's dtype once, as
+    the unsharded product rounds its fp32 accumulator."""
+    w = (p["w_t"].T if "w_t" in p else p["w"]).to(x.dtype)
+    if x.is_cuda:
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w,
+                     out_dtype=torch.float32).reshape(*x.shape[:-1], -1)
+    else:
+        y = torch.matmul(x.float(), w.float())
+    dist.all_reduce(y, group=group)
+    y = y.to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
 def _rope_tables(positions, hd: int, theta: float):
     """cos/sin [B, 1, L, hd/2] in fp32, shared by all layers."""
     inv_freq = 1.0 / (theta ** (torch.arange(
@@ -132,11 +186,12 @@ def _merge_heads(x):
 
 def _layer(p, cfg: LlamaConfig, x, mode: str, cache, write_pos: int,
            layer_idx: int, rope_tables, kv_start=None, kv_len=None,
-           fused_norms: bool = False):
+           fused_norms: bool = False, group=None):
     """mode "prefill" attends over the fresh prompt keys (causal kernel);
     "decode" attends over the whole cache after writing the new keys;
     "full" (training) writes no cache and takes the differentiable causal
-    kernel (``cache`` is None there)."""
+    kernel (``cache`` is None there). With a "model" ``group``, the
+    attention and the MLP whose weights are blocks sum over it."""
     h = rms_norm(p["input_norm"], x, eps=cfg.rms_norm_eps, fused=fused_norms)
     if "qkv" in p["attn"]:       # the fused serving layout
         nq = cfg.num_heads * cfg.head_dim
@@ -146,9 +201,10 @@ def _layer(p, cfg: LlamaConfig, x, mode: str, cache, write_pos: int,
                          qkv[..., nq + nkv:])
     else:
         q_p, k_p, v_p = (linear(p["attn"][n], h) for n in ("q", "k", "v"))
-    q = _split_heads(q_p, cfg.num_heads, cfg.head_dim)
-    k = _split_heads(k_p, cfg.num_kv_heads, cfg.head_dim)
-    v = _split_heads(v_p, cfg.num_kv_heads, cfg.head_dim)
+    hd = cfg.head_dim
+    q = _split_heads(q_p, q_p.shape[-1] // hd, hd)
+    k = _split_heads(k_p, k_p.shape[-1] // hd, hd)
+    v = _split_heads(v_p, v_p.shape[-1] // hd, hd)
     q = _rope(q, rope_tables)
     k = _rope(k, rope_tables)
 
@@ -158,7 +214,7 @@ def _layer(p, cfg: LlamaConfig, x, mode: str, cache, write_pos: int,
         cache.v[layer_idx][:, :, write_pos:write_pos + L] = v
     if mode == "decode":
         k, v = cache.k[layer_idx], cache.v[layer_idx]
-    rep = cfg.num_heads // cfg.num_kv_heads
+    rep = q.shape[1] // k.shape[1]
     if rep > 1:
         k = k.repeat_interleave(rep, dim=1)
         v = v.repeat_interleave(rep, dim=1)
@@ -167,7 +223,10 @@ def _layer(p, cfg: LlamaConfig, x, mode: str, cache, write_pos: int,
                             q_offset=write_pos if mode == "decode" else 0,
                             kv_len=kv_len, kv_start=kv_start,
                             differentiable=mode == "full")
-    x = x + linear(p["attn"]["o"], _merge_heads(attn))
+    if group is not None and q.shape[1] < cfg.num_heads:
+        x = x + _row_parallel(p["attn"]["o"], _merge_heads(attn), group)
+    else:
+        x = x + linear(p["attn"]["o"], _merge_heads(attn))
     h = rms_norm(p["post_attn_norm"], x, eps=cfg.rms_norm_eps,
                  fused=fused_norms)
     if "gate_up" in p["mlp"]:    # the fused serving layout
@@ -176,6 +235,8 @@ def _layer(p, cfg: LlamaConfig, x, mode: str, cache, write_pos: int,
         gate, up = gu[..., :inter], gu[..., inter:]
     else:
         gate, up = (linear(p["mlp"][n], h) for n in ("gate", "up"))
+    if group is not None and gate.shape[-1] < cfg.intermediate_size:
+        return x + _row_parallel(p["mlp"]["down"], silu(gate) * up, group)
     return x + linear(p["mlp"]["down"], silu(gate) * up)
 
 
@@ -208,16 +269,18 @@ def forward(params: dict, cfg: LlamaConfig, embeds, positions=None,
 
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device="cuda") -> KVCache:
+               dtype=torch.bfloat16, device="cuda",
+               kv_heads=None) -> KVCache:
     """Zeros [B, kv_heads, max_len, head_dim], one tensor a layer, for k
-    and for v."""
-    shape = (batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+    and for v; ``kv_heads`` defaults to cfg's (a tensor-parallel rank holds
+    ``local_kv_heads``)."""
+    shape = (batch, kv_heads or cfg.num_kv_heads, max_len, cfg.head_dim)
     return KVCache(*([torch.zeros(shape, dtype=dtype, device=device)
                       for _ in range(cfg.num_layers)] for _ in range(2)))
 
 
 def _run(params, cfg, x, positions, mode, cache, write_pos, pad_len,
-         fused_norms, return_last_input):
+         fused_norms, return_last_input, group):
     rt = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     last = len(params["layers"]) - 1
     last_in = None
@@ -225,13 +288,13 @@ def _run(params, cfg, x, positions, mode, cache, write_pos, pad_len,
         if i == last:
             last_in = x
         x = _layer(p, cfg, x, mode, cache, write_pos, i, rt,
-                   kv_start=pad_len, fused_norms=fused_norms)
+                   kv_start=pad_len, fused_norms=fused_norms, group=group)
     out = (rms_norm(params["final_norm"], x, eps=cfg.rms_norm_eps), cache)
     return out + (last_in,) if return_last_input else out
 
 
 def prefill(params: dict, cfg: LlamaConfig, embeds, cache: KVCache,
-            pad_len=None, return_last_input: bool = False):
+            pad_len=None, return_last_input: bool = False, group=None):
     """Run the prompt, filling cache slots [0, L). Returns (post-norm hidden
     [B, L, D], cache)[, the residual stream entering the final layer
     [B, L, D]]. ``pad_len`` [B] is each row's left pad: rope positions
@@ -241,12 +304,12 @@ def prefill(params: dict, cfg: LlamaConfig, embeds, cache: KVCache,
     if pad_len is not None:
         positions = (positions[None, :] - pad_len[:, None]).clamp_min(0)
     return _run(params, cfg, embeds, positions, "prefill", cache, 0, pad_len,
-                True, return_last_input)
+                True, return_last_input, group)
 
 
 def decode_chunk(params: dict, cfg: LlamaConfig, embeds, pos: int,
                  cache: KVCache, pad_len=None,
-                 return_last_input: bool = False):
+                 return_last_input: bool = False, group=None):
     """G consecutive tokens [B, G, D] at cache slots pos .. pos+G-1 (a
     speculative verify chunk; G = 1 is a decode step); outputs as
     ``prefill``'s. Rejected draft entries left in the cache are rewritten
@@ -256,21 +319,30 @@ def decode_chunk(params: dict, cfg: LlamaConfig, embeds, pos: int,
     if pad_len is not None:
         positions = positions - pad_len[:, None]
     return _run(params, cfg, embeds, positions, "decode", cache, pos, pad_len,
-                False, return_last_input)
+                False, return_last_input, group)
 
 
 def decode_step(params: dict, cfg: LlamaConfig, embeds, pos: int,
                 cache: KVCache, pad_len=None,
-                return_last_input: bool = False):
+                return_last_input: bool = False, group=None):
     """One decode step, embeds [B, 1, D] at cache slot ``pos``."""
     return decode_chunk(params, cfg, embeds, pos, cache, pad_len,
-                        return_last_input)
+                        return_last_input, group)
 
 
-def logits(params: dict, hidden):
+def logits(params: dict, hidden, group=None):
     """lm_head in fp32; on an int8 tree (ops/quant.py) the int8 lm_head in
     hidden's dtype (bf16 in generate), only then cast to fp32, as the
-    reference rounds it."""
+    reference rounds it. With a "model" ``group``, the rank's block of
+    columns written into the full row and summed over the group."""
     if params.get("lm_head_q") is not None:
         return linear(params["lm_head_q"], hidden).float()
-    return torch.matmul(hidden.float(), params["lm_head"].float())
+    out = torch.matmul(hidden.float(), params["lm_head"].float())
+    if group is None:
+        return out
+    n = out.shape[-1]
+    lo = dist.get_rank(group) * n
+    full = out.new_zeros(*out.shape[:-1], n * dist.get_world_size(group))
+    full[..., lo:lo + n] = out
+    dist.all_reduce(full, group=group)
+    return full

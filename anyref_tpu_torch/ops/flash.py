@@ -70,8 +70,9 @@ and backward calls in ``.backward_launches``.
 Build: at first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a``
 (one process per source, all started together) and links them into one
 shared library under ``anyref_tpu_torch/build/``, named after a hash of the
-sources; the library is loaded with ``ctypes`` and each C entry returns
-``cudaGetLastError()``.
+sources, under a file lock (ranks that start together build it once; the
+rest wait and load it); the library is loaded with ``ctypes`` and each C
+entry returns ``cudaGetLastError()``.
 """
 
 from __future__ import annotations
@@ -87,6 +88,8 @@ from pathlib import Path
 from typing import NamedTuple
 
 import torch
+
+from ..utils.locks import file_lock
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -121,11 +124,19 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile and link the kernels unless a library of the same sources
     exists. The ptxas report of each source (registers, shared memory,
-    spills) stays beside it as ``<source>-<hash>.log``."""
+    spills) stays beside it as ``<source>-<hash>.log``. Processes share the
+    object names, so one builds at a time (a file lock); one that waited
+    finds the library."""
     lib = library_path()
     if lib.exists():
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with file_lock(lib.with_name(lib.name + ".lock")):
+        if not lib.exists():
+            _compile(lib)
+    return lib
+
+
+def _compile(lib: Path) -> None:
     nvcc = _nvcc()
     tag = lib.stem.rsplit("-", 1)[1]
     jobs = []
@@ -148,7 +159,6 @@ def build() -> Path:
     subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
                     *(str(j[1]) for j in jobs)], check=True)
     os.replace(tmp, lib)
-    return lib
 
 
 def _library():

@@ -16,6 +16,22 @@ inside the server), so decode's weight streaming is shared across the batch.
 There is one batch bucket, max_batch: a short group rides the full-batch
 shapes with padded rows. Host postprocess (crop, original-size resize,
 binarize) runs on the completion thread, off the device loop.
+
+Across ranks (a mesh of parallel/mesh.py, the tree of
+parallel/partition.py ``shard_params``): rank 0 runs the Server (queue,
+batcher, host postprocess) and every other rank runs ``follow``, the same
+Predictor without a queue. Over the mesh's serve group (gloo, host
+objects, a timeout of a year, so an idle Server loses no follower) the
+leader sends its Predictor's arguments once, then each collated batch
+before its own Predictor step, and a None when it stops; a follower builds
+its Predictor from those arguments, runs the same step on each batch and
+returns on the None. Only the leader's device loop issues collectives on
+rank 0, so every rank issues them in one order. A step that fails on one
+rank leaves the ranks' collectives out of step, so neither side goes on:
+the exception ends ``follow`` (the rank's process exits with it, which
+fails the leader's pending collective at once), and on the leader a step
+that fails after its batch went out answers that batch with the error and
+shuts the Server down; the ranks are restarted together.
 """
 
 from __future__ import annotations
@@ -28,6 +44,7 @@ from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 import numpy as np
+import torch.distributed as dist
 
 from .config import AnyRefConfig
 from .data.base import SegDataset
@@ -71,20 +88,27 @@ class Server:
                  fetch_segs: Optional[int] = 1,
                  fill_wait_ms: float = 500.0,
                  pipeline_depth: int = 3,
-                 device="cuda", encoder_path: str = "fused"):
+                 device="cuda", encoder_path: str = "fused", mesh=None):
         self.cfg = cfg
         self.tok = tokenizer or AnyRefTokenizer()
-        # bf16 mask fetch and one fetched [SEG] slot: serving answers carry
-        # one [SEG]; fetch_segs=None fetches every slot
-        self.predictor = Predictor(params, cfg, speculative=speculative,
-                                   max_new_tokens=max_new_tokens,
-                                   draft_len=draft_len,
-                                   max_accept=max_accept,
-                                   force_accept=force_accept,
-                                   batch_buckets=(max_batch,),
-                                   mask_fetch_dtype="bfloat16",
-                                   fetch_segs=fetch_segs, device=device,
-                                   encoder_path=encoder_path)
+        # the Predictor's arguments, which the followers take from here
+        predictor_kw = dict(
+            max_batch=max_batch, speculative=speculative,
+            max_new_tokens=max_new_tokens, draft_len=draft_len,
+            max_accept=max_accept, force_accept=force_accept,
+            fetch_segs=fetch_segs, encoder_path=encoder_path)
+        self.predictor = serving_predictor(params, cfg, device=device,
+                                           mesh=mesh, **predictor_kw)
+        mesh = self.predictor.mesh
+        # the group over which the batches go to the followers
+        self._followers = None
+        if mesh is not None and mesh.size > 1:
+            if mesh.rank != 0:
+                raise ValueError(f"rank {mesh.rank} runs serve.follow; the "
+                                 "Server runs on rank 0")
+            self._followers = mesh.serve_group
+            dist.broadcast_object_list([predictor_kw], src=0,
+                                       group=self._followers)
         self.collator = Collator(self.tok, cfg)
         self._roi_collator = Collator(self.tok, cfg, roi=True)
         self.max_batch = max_batch
@@ -294,14 +318,30 @@ class Server:
                 self.collator
             try:
                 batch = collator(list(samples))
-                t3 = time.time()
-                self.stats["collate_ms"] += (t3 - t2) * 1e3
+            except Exception as e:
+                for req in reqs:
+                    self._finish(req, {"error": repr(e)})
+                continue
+            t3 = time.time()
+            self.stats["collate_ms"] += (t3 - t2) * 1e3
+            try:
+                if self._followers is not None:
+                    dist.broadcast_object_list([batch], src=0,
+                                               group=self._followers)
                 handle = self.predictor.predict_async(batch)
                 self.stats["dispatch_ms"] += (time.time() - t3) * 1e3
             except Exception as e:
                 for req in reqs:
                     self._finish(req, {"error": repr(e)})
-                continue
+                if self._followers is None:
+                    continue
+                # the ranks' collectives may be out of step: stop serving,
+                # and send the followers no None
+                logging.getLogger(__name__).exception(
+                    "step failed across ranks; shutting the Server down")
+                self._followers = None
+                threading.Thread(target=self.shutdown, daemon=True).start()
+                break
             item = (reqs, samples, handle)
             while not self._stop.is_set():
                 try:
@@ -315,6 +355,8 @@ class Server:
         if carry is not None:   # taken from the queue, never grouped
             self._ungroup(1)
             self._finish(carry[0], {"error": "server shut down"})
+        if self._followers is not None:
+            dist.broadcast_object_list([None], src=0, group=self._followers)
 
     def _complete_loop(self):
         while not self._stop.is_set():
@@ -342,3 +384,46 @@ class Server:
             except Exception as e:
                 for req in reqs:
                     self._finish(req, {"error": repr(e)})
+
+
+def serving_predictor(params, cfg: AnyRefConfig, max_batch: int = 2,
+                      speculative: bool = True,
+                      max_new_tokens: Optional[int] = None,
+                      draft_len: Optional[int] = None,
+                      max_accept: Optional[int] = None,
+                      force_accept: bool = False,
+                      fetch_segs: Optional[int] = 1, device="cuda",
+                      encoder_path: str = "fused", mesh=None) -> Predictor:
+    """The Server's Predictor: one batch bucket, max_batch; bf16 mask fetch
+    and one fetched [SEG] slot (serving answers carry one [SEG];
+    fetch_segs=None fetches every slot)."""
+    return Predictor(params, cfg, speculative=speculative,
+                     max_new_tokens=max_new_tokens, draft_len=draft_len,
+                     max_accept=max_accept, force_accept=force_accept,
+                     batch_buckets=(max_batch,), mask_fetch_dtype="bfloat16",
+                     fetch_segs=fetch_segs, device=device,
+                     encoder_path=encoder_path, mesh=mesh)
+
+
+def follow(params, cfg: AnyRefConfig, mesh=None) -> int:
+    """A follower rank's serving loop: the Predictor that the rank-0 Server
+    sends the arguments of, and its step on each batch the Server
+    broadcasts, until the Server stops. ``mesh`` as Predictor's (the
+    argument, or the sharded tree's); the device is the mesh's. An
+    exception of a step ends the loop. Returns the number of batches
+    run."""
+    mesh = mesh if mesh is not None else getattr(params, "mesh", None)
+    if mesh is None or mesh.size == 1 or mesh.rank == 0:
+        raise ValueError("follow runs on a rank other than 0 of a mesh of "
+                         "several ranks")
+    box = [None]
+    dist.broadcast_object_list(box, src=0, group=mesh.serve_group)
+    predictor = serving_predictor(params, cfg, mesh=mesh, **box[0])
+    n = 0
+    while True:
+        box = [None]
+        dist.broadcast_object_list(box, src=0, group=mesh.serve_group)
+        if box[0] is None:
+            return n
+        predictor.predict_async(box[0])
+        n += 1

@@ -182,8 +182,28 @@ Phases (any failure exits non-zero before the result line):
      (free disk checked; export and load seconds, artifact bytes, the
      graph's write bytes; the program against eager generate on two
      requests: ids, [SEG] slots and masks bit-equal, the same launches,
-     wall and device time);
- 11. print {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+     wall and device time). Phase 2 also holds flash_causal_attention at
+     one rank's heads under a "model" axis of 2 ([2, 16, 640, 128]);
+ 11. multi-device serving on torch.distributed, two ranks on the one card
+     over gloo (spawned processes, a collective timeout, the kernels built
+     by this process first): (a) anyref_tiny's seed-0 bf16 weights sharded
+     at mesh (1, 2), greedy and speculative generate on "unfused" (ids
+     equal to the single-rank port's on the CPU, masks within
+     SLICE_REL_TOL); (b) anyref_7b at full width and depth, seed-0 bf16
+     weights made on the card with the [SEG] column x 1000: the 4 requests
+     in pinned pairs through a single-process Server (speculative,
+     "fused", max_batch 2), and again with the decoder's input embeddings
+     moved by one bf16 ulp (the bf16 floor of the low-res logits), then
+     two ranks at (1, 2), each making the same
+     weights and keeping its blocks (parallel/partition.py shard_params):
+     rank 0's leader Server and rank 1's follower serve the same pairs
+     (ids equal to the single process's, low-res logits within
+     PARALLEL_FLOOR_FACTOR x the floor, the plain layout kept, each
+     kernel's launches as phase 4 counts them on "fused" on both ranks,
+     flash_causal_attention at [2, 16, 640, 128]), and each rank prints its
+     wall, its all-reduces and their bytes a prefill and a decode pass, the
+     seconds in them, its peak memory and the phase's seconds;
+ 12. print {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -304,6 +324,9 @@ AUDIO_SECONDS = 5.0
 # floor, so from each other by at most twice it; a wrong weight, row or
 # pooling is O(1)
 REF_FLOOR_FACTOR = 2.0
+# phase 11(b): the 2-rank low-res logits against the single process's, in
+# units of the bf16 floor measured in the same call
+PARALLEL_FLOOR_FACTOR = 2.0
 # the mel clips, card (cuFFT) against CPU, after (x - mean) / std: the CPU
 # tests' limit against the reference (tests/test_torch_references.py)
 MEL_ATOL = 2e-3 / 9.138
@@ -658,6 +681,17 @@ def check_kernels(torch, F, flash, port):
              lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep),
              4 * B * nh * L * hd * 2 + B * 4,
              causal_ops(L, hd, nh, (0, 200)), H100_BF16_OPS_PER_S)
+    # the same prefill at one rank's heads under a "model" axis of 2 (phase
+    # 11), drawn from a generator of its own
+    g_local = torch.Generator(device="cuda").manual_seed(2020)
+    nh_local = nh // 2
+    q, k, v = (rnd(B, nh_local, L, hd, gen=g_local) for _ in range(3))
+    run_case("flash_causal_attention", f"{B}x{nh_local}x{L}x{hd}",
+             lambda: flash.flash_causal_attention(q, k, v, ks),
+             lambda: flash.causal_attention_plain(q, k, v, ks),
+             lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep),
+             4 * B * nh_local * L * hd * 2 + B * 4,
+             causal_ops(L, hd, nh_local, (0, 200)), H100_BF16_OPS_PER_S)
     del q, k, v, keep
     check_causal_diff(torch, F, flash, timer, rnd, compare_scaled, results)
     check_causal_diff_wrapper(torch, F, flash, port["attention"], rnd,
@@ -2528,8 +2562,9 @@ def check_pooled_term(torch, mods, params, cfg, images):
     attn_row, span_pool = anyref_mod._last_layer_attn_row, anyref_mod._span_pool
     project = anyref_mod.project_seg_hidden
 
-    def observed_row(p, c, q_in, k_roped, q_pos, q_slot, kv_start=None):
-        row = attn_row(p, c, q_in, k_roped, q_pos, q_slot, kv_start)
+    def observed_row(p, c, q_in, k_roped, q_pos, q_slot, kv_start=None,
+                     group=None):
+        row = attn_row(p, c, q_in, k_roped, q_pos, q_slot, kv_start, group)
         seen["row"].append((q_in.clone(), k_roped.clone(), q_pos, q_slot,
                             kv_start, row))
         return row
@@ -4016,8 +4051,8 @@ class FollowIds:
         self.ids = self.torch.as_tensor(ids).long()
         self.step = 0
 
-    def __call__(self, params, hidden):
-        out = self.real(params, hidden)
+    def __call__(self, params, hidden, group=None):
+        out = self.real(params, hidden, group)
         j = self.step
         self.step += 1
         B, mnt = self.ids.shape
@@ -5644,6 +5679,455 @@ def export_7b(torch, flash, mods, params, cfg, images) -> dict:
             "load_s": load_s, "writes": writes, "rows": rows}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: multi-device serving on torch.distributed
+# ---------------------------------------------------------------------------
+# each rank's collective timeout; the phase's ranks are joined within
+# PARALLEL_JOIN_S
+PARALLEL_TIMEOUT_S = 240.0
+PARALLEL_JOIN_S = 400.0
+PARALLEL_MNT = 8
+# one rank's prefill attention under a "model" axis of 2: batch 2, 16 of
+# LLaMA-7B's 32 heads, the 385 bucket + 255 image tokens
+PARALLEL_CAUSAL_SHAPE = (2, 16, 640, 128)
+
+
+def run_ranks(task: str, world: int, **kw) -> list:
+    """``task`` on ``world`` spawned ranks of cuda:0 over gloo (a FileStore
+    in a temporary directory, PARALLEL_TIMEOUT_S on every collective);
+    every rank's result in rank order. A rank that fails, or no result
+    within PARALLEL_JOIN_S, fails the run; every rank is joined or killed
+    before this returns."""
+    import multiprocessing as mp
+    import queue
+    import tempfile
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    tmp = tempfile.mkdtemp(prefix="anyref_ranks_")
+    procs = [ctx.Process(target=parallel_rank,
+                         args=(r, world, os.path.join(tmp, "store"), task, kw,
+                               q), daemon=True) for r in range(world)]
+    for p in procs:
+        p.start()
+    results, error = {}, None
+    try:
+        deadline = time.time() + PARALLEL_JOIN_S
+        while len(results) < world and error is None:
+            try:
+                rank, ok, out = q.get(timeout=max(1.0, deadline - time.time()))
+            except queue.Empty:
+                error = (f"{task}: no result from ranks "
+                         f"{sorted(set(range(world)) - set(results))} within "
+                         f"{PARALLEL_JOIN_S} s")
+                break
+            if ok:
+                results[rank] = out
+            else:
+                error = f"{task}, rank {rank}:\n{out}"
+    finally:
+        for p in procs:
+            p.join(timeout=30 if error is None else 1)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=30)
+        shutil.rmtree(tmp, ignore_errors=True)
+    if error is not None:
+        fail(error)
+    return [results[r] for r in range(world)]
+
+
+def parallel_rank(rank, world, store, task, kw, q):
+    """A spawned rank: joins the process group, runs the task, puts
+    (rank, ok, result or traceback)."""
+    import traceback
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    try:
+        from anyref_tpu_torch.parallel.mesh import init_process_group
+        init_process_group(rank, world, f"file://{store}", "gloo",
+                           timeout_s=PARALLEL_TIMEOUT_S)
+        fn = {"tiny": parallel_tiny_rank, "7b": parallel_7b_rank}[task]
+        q.put((rank, True, fn(torch, rank, **kw)))
+    except BaseException:
+        q.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def parallel_tiny_rank(torch, rank):
+    """Phase 11(a), one rank: anyref_tiny's seed-0 bf16 weights (made on
+    the CPU, as phase 3's) sharded at (1, 2) on cuda:0, greedy and
+    speculative generate on tiny_batch on "unfused"."""
+    from anyref_tpu_torch import params as tparams
+    from anyref_tpu_torch.config import anyref_tiny
+    from anyref_tpu_torch.models import anyref
+    from anyref_tpu_torch.parallel.mesh import make_mesh
+    from anyref_tpu_torch.parallel.partition import shard_batch, shard_params
+    cfg = anyref_tiny()
+    mesh = make_mesh(1, 2, device="cuda:0")
+    p = _to_device(tparams.init(cfg, torch.Generator().manual_seed(0),
+                                torch.bfloat16, device="cpu"), "cuda:0")
+    sp = shard_params(p, mesh, cfg)
+    batch = shard_batch(tiny_batch(cfg), mesh)
+    out = {}
+    for name, kw in (("greedy", {}), ("speculative",
+                                      {"speculative": True,
+                                       "draft_len": 3})):
+        g = anyref.generate(sp, cfg, batch, max_new_tokens=4,
+                            encoder_path="unfused", mesh=mesh, **kw)
+        out[name] = (g.output_ids.cpu().numpy(),
+                     g.low_res_masks.float().cpu().numpy())
+    return out
+
+
+def parallel_tiny(torch, mods) -> None:
+    """Phase 11(a): anyref_tiny at (1, 2) on cuda:0 over gloo, greedy and
+    speculative, against the single-rank port on the CPU from the same
+    weights: ids equal, masks within SLICE_REL_TOL (phase 3's limit)."""
+    t0 = time.time()
+    cfg = mods["anyref_tiny"]()
+    p_cpu = mods["tparams"].init(cfg, torch.Generator().manual_seed(0),
+                                 torch.bfloat16, device="cpu")
+    want = mods["anyref"].generate(p_cpu, cfg, tiny_batch(cfg),
+                                   max_new_tokens=4, device="cpu",
+                                   encoder_path="unfused")
+    w_ids, w_low = want.output_ids.numpy(), want.low_res_masks.float().numpy()
+    ranks = run_ranks("tiny", 2)
+    for rank, res in enumerate(ranks):
+        for name, (ids, low) in res.items():
+            rel = float(np.abs(low - w_low).max() / np.abs(w_low).max())
+            log(f"[parallel-tiny] rank {rank} {name}: ids {ids.tolist()} "
+                f"(CPU single rank {w_ids.tolist()}), mask max rel err "
+                f"{rel:.4g} (limit {SLICE_REL_TOL})")
+            if not np.array_equal(ids, w_ids):
+                fail(f"phase 11(a): rank {rank} {name} ids {ids.tolist()} "
+                     f"differ from the CPU single rank's {w_ids.tolist()}")
+            if not np.isfinite(low).all() or rel > SLICE_REL_TOL:
+                fail(f"phase 11(a): rank {rank} {name} masks off by {rel}")
+    log(f"[phase 11] (a) anyref_tiny at (1, 2) over gloo on cuda:0 in "
+        f"{time.time() - t0:.1f} s")
+
+
+def params_7b(torch, mods, cfg):
+    """anyref_7b's seed-0 bf16 weights on the card with the [SEG] column x
+    1000 (phase 4's)."""
+    params = mods["tparams"].init(
+        cfg, torch.Generator(device="cuda").manual_seed(0), torch.bfloat16)
+    params["llama"]["lm_head"][:, cfg.tokens.seg] *= 1000.0
+    return params
+
+
+def record_seg_states(anyref) -> list:
+    """Wrap anyref.project_seg_hidden to keep each generate's [SEG] states
+    (fp32, on the host), in order."""
+    inner, got = anyref.project_seg_hidden, []
+
+    def project(params, hidden):
+        got.append(hidden.float().cpu().numpy())
+        return inner(params, hidden)
+
+    anyref.project_seg_hidden = project
+    return got
+
+
+def nudged(torch, assemble_embeds):
+    """assemble_embeds with every nonzero bf16 embedding moved by one ulp,
+    up or down in magnitude by a draw from a seeded generator (the same
+    draws in every run)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def assemble(*a, **kw):
+        embeds, ids, labels = assemble_embeds(*a, **kw)
+        step = torch.randint(0, 2, embeds.shape, generator=gen,
+                             device=embeds.device, dtype=torch.int16) * 2 - 1
+        moved = (embeds.view(torch.int16) + step).view(embeds.dtype)
+        return torch.where(embeds != 0, moved, embeds), ids, labels
+
+    return assemble
+
+
+def record_low_res(server) -> list:
+    """Wrap the Server's Predictor.complete to keep each batch's fetched
+    low-res logits (its real rows, fp32, on the host), in order."""
+    pred = server.predictor
+    inner, got = pred.complete, []
+
+    def complete(handle):
+        (_, low), _, B = handle
+        got.append(low[:B].float().cpu().numpy())
+        return inner(handle)
+
+    pred.complete = complete
+    return got
+
+
+def serve_in_pairs(server, Request, images) -> list:
+    """The 4 requests in pinned pairs (a pair submitted once the previous
+    one was answered), so every server coalesces the same batches."""
+    out = []
+    for i in range(0, len(TEXTS), 2):
+        reqs = [server.submit(Request(image=im, text=t))
+                for im, t in zip(images[i:i + 2], TEXTS[i:i + 2])]
+        out.extend(r.result(timeout=600) for r in reqs)
+    for i, r in enumerate(out):
+        if not r or "error" in r:
+            fail(f"phase 11: request {i}: {r}")
+    return out
+
+
+class CollectiveMeter:
+    """Counts the all-reduces of a rank by region ("prefill", "decode": the
+    speculative loop, "other": the prompt's embedding and the first
+    token's logits), their bytes and the seconds they take (the card
+    synchronised before and after each, so that a call's time is its
+    own); the host broadcasts of the Server apart."""
+
+    def __init__(self, torch, dist, llama, anyref):
+        self.torch, self.region = torch, "other"
+        self.calls, self.bytes, self.seconds = {}, {}, {}
+        self.host_calls = 0
+        inner_ar, inner_bc = dist.all_reduce, dist.broadcast_object_list
+        inner_pf, inner_sd = llama.prefill, anyref._speculative_decode
+
+        def all_reduce(t, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner_ar(t, *a, **kw)
+            torch.cuda.synchronize()
+            r = self.region
+            self.seconds[r] = self.seconds.get(r, 0.0) + (
+                time.perf_counter() - t0)
+            self.calls[r] = self.calls.get(r, 0) + 1
+            self.bytes[r] = self.bytes.get(r, 0) + t.numel() * t.element_size()
+            return out
+
+        def broadcast_object_list(*a, **kw):
+            self.host_calls += 1
+            return inner_bc(*a, **kw)
+
+        def within(region, fn):
+            def wrapped(*a, **kw):
+                self.region = region
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    self.region = "other"
+            return wrapped
+
+        dist.all_reduce = all_reduce
+        dist.broadcast_object_list = broadcast_object_list
+        llama.prefill = within("prefill", inner_pf)
+        anyref._speculative_decode = within("decode", inner_sd)
+
+
+def parallel_7b_rank(torch, rank, images):
+    """Phase 11(b), one rank: anyref_7b's weights made on the card (seed
+    0, [SEG] x 1000), sharded at (1, 2) on cuda:0; rank 0 serves the 4
+    requests through the leader Server (speculative, "fused", max_batch 2,
+    in pinned pairs), rank 1 follows. Returns the answers (rank 0), the
+    launch counts, the causal kernel's shapes, the collective counts and
+    times, the wall and the peak memory."""
+    import torch.distributed as dist
+    from anyref_tpu_torch.config import anyref_7b
+    from anyref_tpu_torch.models import anyref, llama
+    from anyref_tpu_torch.ops import flash
+    from anyref_tpu_torch.parallel.mesh import make_mesh
+    from anyref_tpu_torch.parallel.partition import shard_params
+    from anyref_tpu_torch.serve import Request, Server, follow
+    from anyref_tpu_torch import params as tparams
+    cfg = anyref_7b()
+    mesh = make_mesh(1, 2, device="cuda:0")
+    torch.cuda.set_device(0)
+    t0 = time.time()
+    sp = shard_params(params_7b(torch, {"tparams": tparams}, cfg), mesh, cfg)
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated()
+    held = torch.cuda.memory_allocated()
+    build_s = time.time() - t0
+    torch.cuda.reset_peak_memory_stats()
+    meter = CollectiveMeter(torch, dist, llama, anyref)
+    shapes = {}
+    inner_causal = llama.causal_attention
+
+    def causal(q, *a, **kw):
+        n0 = flash.flash_causal_attention.launches
+        out = inner_causal(q, *a, **kw)
+        n = flash.flash_causal_attention.launches - n0
+        if n:
+            shapes[tuple(q.shape)] = shapes.get(tuple(q.shape), 0) + n
+        return out
+
+    llama.causal_attention = causal
+    seg_states = record_seg_states(anyref)
+    passes = []
+    inner_gen = anyref.generate
+
+    def generate(*a, **kw):
+        out = inner_gen(*a, **kw)
+        passes.append(out.decode_passes)
+        return out
+
+    anyref.generate = generate
+    kw = dict(max_batch=2, speculative=True, max_new_tokens=PARALLEL_MNT,
+              encoder_path="fused", mesh=mesh)
+    for kernel in flash.KERNELS:
+        kernel.launches = 0
+    t0 = time.time()
+    if rank == 0:
+        server = Server(sp, cfg, **kw)
+        lows = record_low_res(server)
+        results = serve_in_pairs(server, Request, images)
+        server.shutdown()
+        answers = [{"ids": r["output_ids"], "mask": r["mask"]}
+                   for r in results]
+        batches = server.stats["batches"]
+    else:
+        batches = follow(sp, cfg)
+        answers, lows = None, None
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {k.__name__: k.launches for k in flash.KERNELS}
+    return {"answers": answers, "low_res": lows, "batches": batches,
+            "launches": launches, "causal_shapes": shapes,
+            "passes": passes, "wall_s": wall, "build_s": build_s,
+            "init_peak_gib": init_peak / 2**30, "held_gib": held / 2**30,
+            "serve_peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "calls": meter.calls, "bytes": meter.bytes,
+            "seconds": meter.seconds, "host_broadcasts": meter.host_calls,
+            "layout": sorted(sp["llama"]["layers"][0]["attn"]),
+            "seg_states": seg_states}
+
+
+def rel_l2(a, b) -> float:
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def parallel_7b(torch, flash, mods) -> dict:
+    """Phase 11(b): the single-process run first (the same weights: the 4
+    requests in pinned pairs through a Server at max_batch 2, then again
+    with every input embedding of the decoder moved by one bf16 ulp for
+    the bf16 floor: the low-res logits' relative L2 of the two runs, over
+    the requests whose ids agree, or 2^-8, whichever is larger), its
+    weights freed; then two ranks on the card. Rank 0's ids must equal the single process's, its low-res
+    logits within PARALLEL_FLOOR_FACTOR x the floor, every kernel of the
+    "fused" path launched as many times a batch as phase 4 counts on both
+    ranks, the causal kernel at PARALLEL_CAUSAL_SHAPE. Returns rank 0's
+    launch counts."""
+    t_phase = time.time()
+    cfg = mods["anyref_7b"]()
+    images = request_images()
+    Server, Request = mods["Server"], mods["Request"]
+    params = params_7b(torch, mods, cfg)
+    inner_project = mods["anyref"].project_seg_hidden
+    segs = record_seg_states(mods["anyref"])
+    t0 = time.time()
+    server = Server(params, cfg, max_batch=2, speculative=True,
+                    max_new_tokens=PARALLEL_MNT, encoder_path="fused")
+    lows2 = record_low_res(server)
+    single = serve_in_pairs(server, Request, images)
+    server.shutdown()
+    single_s = time.time() - t0
+    segs2 = np.concatenate(segs)
+    segs.clear()
+    # the floor: the same run with every input embedding of the decoder
+    # moved by one bf16 ulp (up or down, drawn from a seed)
+    inner_assemble = mods["anyref"].assemble_embeds
+    mods["anyref"].assemble_embeds = nudged(torch, inner_assemble)
+    server = Server(params, cfg, max_batch=2, speculative=True,
+                    max_new_tokens=PARALLEL_MNT, encoder_path="fused")
+    lows1 = record_low_res(server)
+    alone = serve_in_pairs(server, Request, images)
+    server.shutdown()
+    segs1 = np.concatenate(segs)
+    mods["anyref"].project_seg_hidden = inner_project
+    mods["anyref"].assemble_embeds = inner_assemble
+    del params, server
+    torch.cuda.empty_cache()
+    low2, low1 = np.concatenate(lows2), np.concatenate(lows1)
+    agree = [i for i in range(len(TEXTS)) if np.array_equal(
+        alone[i]["output_ids"], single[i]["output_ids"])]
+    floor = max([rel_l2(low1[i], low2[i]) for i in agree] + [2.0 ** -8])
+    log(f"[parallel-7b] single process, 4 requests in pinned pairs in "
+        f"{single_s:.2f} s: ids {[r['output_ids'].tolist() for r in single]}"
+        f"; the decoder's inputs moved by one bf16 ulp: ids agree for "
+        f"requests {agree}, low-res rel L2 "
+        f"{[f'{rel_l2(low1[i], low2[i]):.3g}' for i in range(len(TEXTS))]}"
+        f" -> floor {floor:.4g}")
+
+    t0 = time.time()
+    ranks = run_ranks("7b", 2, images=images)
+    spawn_s = time.time() - t0
+    lead = ranks[0]
+    per_batch = launches_per_batch(flash, cfg)["fused"]
+    for rank, res in enumerate(ranks):
+        n_b = res["batches"]
+        if n_b != 2:
+            fail(f"phase 11(b): rank {rank} ran {n_b} batches, want 2")
+        for name, n in per_batch.items():
+            if res["launches"][name] != n * n_b or (n and not n_b):
+                fail(f"phase 11(b): rank {rank} {name}: "
+                     f"{res['launches'][name]} launches, want {n * n_b}")
+        want_shapes = {PARALLEL_CAUSAL_SHAPE: cfg.llama.num_layers * n_b}
+        if res["causal_shapes"] != want_shapes:
+            fail(f"phase 11(b): rank {rank} causal kernel shapes "
+                 f"{res['causal_shapes']}, want {want_shapes}")
+        if res["layout"] != ["k", "o", "q", "v"]:
+            fail(f"phase 11(b): rank {rank} layout {res['layout']}: the "
+                 "sharded tree must keep the plain layout")
+        passes = sum(res["passes"])
+        per = {r: (res["calls"].get(r, 0), res["bytes"].get(r, 0))
+               for r in ("prefill", "decode", "other")}
+        log(f"[parallel-7b] rank {rank}: weights made and sharded in "
+            f"{res['build_s']:.2f} s (peak {res['init_peak_gib']:.2f} GiB, "
+            f"{res['held_gib']:.2f} GiB held after); 4 requests in {n_b} "
+            f"batches, {res['wall_s']:.2f} s wall, {passes} decode passes "
+            f"{res['passes']}; all-reduces a prefill "
+            f"{per['prefill'][0] / n_b:g} ({per['prefill'][1] / n_b / 2**20:.2f}"
+            f" MiB), a decode pass {per['decode'][0] / passes:g} "
+            f"({per['decode'][1] / passes / 2**20:.3f} MiB), other "
+            f"{per['other'][0] / n_b:g} a batch ("
+            f"{per['other'][1] / n_b / 2**20:.3f} MiB); seconds in "
+            f"all-reduces (card synchronised around each) "
+            f"{json.dumps({k: round(v, 4) for k, v in res['seconds'].items()})}"
+            f" of {res['wall_s']:.2f}; host broadcasts "
+            f"{res['host_broadcasts']}; peak serving memory "
+            f"{res['serve_peak_gib']:.2f} GiB; flash_causal_attention "
+            f"{json.dumps({str(list(k)): v for k, v in res['causal_shapes'].items()})}")
+    low_tp = np.concatenate(lead["low_res"])
+    segs_tp = np.concatenate(lead["seg_states"])
+    for i in range(len(TEXTS)):
+        log(f"[parallel-7b] request {i} [SEG] states by slot, rel L2: 2 ranks"
+            f" against 1 {[f'{rel_l2(segs_tp[i, j], segs2[i, j]):.3g}' for j in range(segs2.shape[1])]}"
+            f"; inputs moved by one ulp {[f'{rel_l2(segs1[i, j], segs2[i, j]):.3g}' for j in range(segs2.shape[1])]}"
+            f"; norms {[f'{np.linalg.norm(segs2[i, j]):.4g}' for j in range(segs2.shape[1])]}")
+    log(f"[parallel-7b] [SEG] states, rel L2 by request: 2 ranks against "
+        f"the single process "
+        f"{[f'{rel_l2(segs_tp[i], segs2[i]):.3g}' for i in range(len(TEXTS))]}"
+        f", inputs moved by one ulp "
+        f"{[f'{rel_l2(segs1[i], segs2[i]):.3g}' for i in range(len(TEXTS))]}")
+    for i, (a, r) in enumerate(zip(lead["answers"], single)):
+        if not np.array_equal(a["ids"], r["output_ids"]):
+            fail(f"phase 11(b): request {i} ids {a['ids'].tolist()} on 2 "
+                 f"ranks, {r['output_ids'].tolist()} on one process")
+        err = rel_l2(low_tp[i], low2[i])
+        log(f"[parallel-7b] request {i}: ids equal; low-res rel L2 {err:.4g}"
+            f" (limit {PARALLEL_FLOOR_FACTOR} x {floor:.4g}); mask "
+            f"pixels differing {int((a['mask'] != r['mask']).sum())} of "
+            f"{r['mask'].size}")
+        if not np.isfinite(low_tp[i]).all() or \
+                err > PARALLEL_FLOOR_FACTOR * floor:
+            fail(f"phase 11(b): request {i} low-res logits off by {err}, "
+                 f"past {PARALLEL_FLOOR_FACTOR} x the floor {floor}")
+    log(f"[parallel-7b] {mods['card']}; gloo reduces each CUDA all-reduce "
+        f"through the host: these are no NCCL figures")
+    log(f"[phase 11] (b) anyref_7b at (1, 2), two ranks on cuda:0 over gloo,"
+        f" in {time.time() - t_phase:.1f} s (ranks {spawn_s:.1f} s)")
+    return lead["launches"]
+
+
 def tensor_bytes(tree) -> int:
     """Bytes of the tensors in a tree."""
     if isinstance(tree, dict):
@@ -5820,8 +6304,12 @@ def main() -> int:
     sam_alone_tiny(torch, flash, mods, tiny, tiny512)
     # phase 10(a); (b) ran in phase 4, on its weights before its first Server
     serving_tiny(torch, flash, mods, tiny, tiny512)
+    # phase 11: two ranks on the one card
+    parallel_tiny(torch, mods)
+    launches["parallel"] = parallel_7b(torch, flash, mods)
+    torch.cuda.empty_cache()
 
-    # phase 11
+    # phase 12
     meta = {
         "layer_norm_fused": ("anyref_tpu_torch/csrc/norms.cu",
                              "anyref_tpu/ops/flash.py:615"),

@@ -369,7 +369,10 @@ class CaptionStub:
         self.batches.append(batch)
         rows = []
         for m in batch["_meta"]:
-            key = f"{self.seed}|{m['file_name']}|{m['sentence']}"
+            # the image's name, not its path: the data root is a
+            # temporary directory whose name changes from run to run
+            key = (f"{self.seed}|{os.path.basename(m['file_name'])}|"
+                   f"{m['sentence']}")
             rng = np.random.default_rng(zlib.crc32(key.encode()))
             words = str(rng.choice(m["sentence"])).split()
             if rng.random() < 0.5:

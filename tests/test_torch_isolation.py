@@ -39,7 +39,8 @@ def test_import_loads_no_jax():
         "             'tools.train', 'tools.build_ref_index',\n"
         "             'models.sam.predictor', 'models.sam.amg', 'export',\n"
         "             'utils.logging', 'utils.profiling', 'tools.demo',\n"
-        "             'tools.export', 'tools.convert_avs_masks'):\n"
+        "             'tools.export', 'tools.convert_avs_masks',\n"
+        "             'parallel.mesh', 'parallel.partition'):\n"
         "    assert 'anyref_tpu_torch.' + want in names, names\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
@@ -82,6 +83,7 @@ def test_entry_points_refuse_cpu_without_gpu(monkeypatch):
     from anyref_tpu_torch.models.sam.predictor import SamPredictor
     from anyref_tpu_torch.ops.mel import audio_to_mel_clips
     from anyref_tpu_torch.ops.quant import quantize_llama
+    from anyref_tpu_torch.parallel.mesh import make_mesh
     from anyref_tpu_torch.serve import Server
     from anyref_tpu_torch.train.trainer import TrainConfig, Trainer
 
@@ -124,6 +126,9 @@ def test_entry_points_refuse_cpu_without_gpu(monkeypatch):
     # the generate program is refused the same way, before any tracing
     with pytest.raises(RuntimeError, match="no CUDA device"):
         export_generate(p, cfg, "unused.pt2")
+    # the mesh names its rank's device: CUDA unless told
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
 
 
 def test_train_step_loads_no_jax():
