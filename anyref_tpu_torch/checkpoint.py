@@ -3,8 +3,10 @@
 The format is the port's own, one ``torch.save`` of plain containers (dicts,
 lists, ints, None and CPU tensors), loadable with ``weights_only=True``:
 ``save_params`` / ``load_params`` for a param tree, and
-``<dir>/checkpoint-<step>/train_state.pt`` for the train state. A JAX
-(orbax) checkpoint crosses as numpy through ``params.from_numpy``.
+``<dir>/checkpoint-<step>/train_state.pt`` for the train state, one
+logical file whatever the mesh that wrote it (train/trainer.py gathers the
+blocks first and rank 0 writes). A JAX (orbax) checkpoint crosses as numpy
+through ``params.from_numpy``.
 
 ``assemble_pretrained`` builds a full tree from the reference's torch
 artifacts (LLaVA HF dir, SAM .pth, ImageBind .pth, CLIP dir): .pth / .bin
@@ -116,12 +118,15 @@ def _rebuild_by_name(template, restored, where="state"):
     return restored
 
 
-def restore_train_state(path: str, template=None):
+def restore_train_state(path: str, template=None, cut=None):
     """The saved tree; with ``template`` (e.g. {"step", "lora", "dense",
     "opt_state"} of a fresh state) rebuilt into its containers, devices and
-    dtypes."""
+    dtypes. ``cut`` maps the saved tree first (a rank on a mesh takes its
+    blocks of the whole leaves: parallel/partition.py ``shard_tree``)."""
     restored = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
                           weights_only=True)
+    if cut is not None:
+        restored = cut(restored)
     if template is None:
         return restored
     return _rebuild_by_name(template, restored)

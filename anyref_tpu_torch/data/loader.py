@@ -1,11 +1,13 @@
-"""Threaded prefetching data loader (port of anyref_tpu/data/loader.py, one
-process).
+"""Threaded prefetching data loader (port of anyref_tpu/data/loader.py).
 
 Worker threads run dataset __getitem__ and the collator (numpy and IO
 release the GIL) while the card consumes earlier batches. Batches come out
 in order; a worker may only start a batch within ``prefetch + num_workers``
 of the next one to emit, so out-of-order results never pile up. Shuffling
-is deterministic per epoch from ``seed``.
+is deterministic per epoch from ``seed``. On a mesh each data rank loads a
+disjoint shard, as each host of the reference does: every rank shuffles
+the whole index list with the same seed and takes the strided slice
+``[process_index::process_count]``.
 """
 
 from __future__ import annotations
@@ -19,7 +21,11 @@ from typing import Callable, Iterator, Sequence
 class DataLoader:
     def __init__(self, dataset, collate_fn: Callable, batch_size: int = 1,
                  shuffle: bool = False, num_workers: int = 4,
-                 prefetch: int = 4, seed: int = 0, drop_last: bool = False):
+                 prefetch: int = 4, seed: int = 0, drop_last: bool = False,
+                 process_index: int = 0, process_count: int = 1):
+        """``process_index`` / ``process_count``: this rank's "data"
+        coordinate and the "data" axis's size (ranks that share a data
+        coordinate load the same rows); ``batch_size`` is this rank's."""
         self.dataset = dataset
         self.collate = collate_fn
         self.batch_size = batch_size
@@ -28,10 +34,13 @@ class DataLoader:
         self.prefetch = prefetch
         self.seed = seed
         self.drop_last = drop_last
+        self.process_index = process_index
+        self.process_count = max(1, process_count)
         self.epoch = 0
 
     def __len__(self):
-        n = len(self.dataset)
+        n = len(range(self.process_index, len(self.dataset),
+                      self.process_count))
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -40,6 +49,7 @@ class DataLoader:
         idx = list(range(len(self.dataset)))
         if self.shuffle:
             random.Random(self.seed + self.epoch).shuffle(idx)
+        idx = idx[self.process_index::self.process_count]
         for i in range(0, len(idx), self.batch_size):
             b = idx[i:i + self.batch_size]
             if self.drop_last and len(b) < self.batch_size:

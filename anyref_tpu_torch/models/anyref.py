@@ -20,11 +20,13 @@ the prompt's 4 <img_ref> or 3 <audio_ref> placeholders. A batch carries a
 crop or a box, never both, plus optional audio; rows without one keep the
 placeholders' token embeddings.
 
-On a mesh (parallel/mesh.py), ``generate`` runs on this rank's rows of the
-batch with the decoder's blocks of parallel/partition.py ``shard_params``,
-its collectives over the mesh's "model" group (models/llama.py); the
-[SEG] states are whole after the last one, so the towers, text_hidden_fcs
-and SAM run replicated on the rank's rows.
+On a mesh (parallel/mesh.py), ``generate`` and ``train_forward`` run on
+this rank's rows of the batch with the decoder's blocks of
+parallel/partition.py ``shard_params``, their collectives over the mesh's
+"model" group (models/llama.py); the [SEG] states are whole after the last
+one, so the towers, text_hidden_fcs and SAM run replicated on the rank's
+rows. ``train_forward``'s losses are the global batch's means over
+"data" (ops/losses.py).
 """
 
 from __future__ import annotations
@@ -32,14 +34,14 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
-import torch.distributed as dist
 
 from ..config import (IGNORE_INDEX, IMG_REF_NUM, NUM_IMAGE_TOKENS,
                       AnyRefConfig, check_encoder_path)
 from ..ops.common import linear, rms_norm
 from ..ops.losses import dice_loss, lm_cross_entropy, sigmoid_ce_loss
 from ..params import resolve_device
-from ..parallel.mesh import MODEL_AXIS
+from ..parallel.collectives import copy_to_group, reduce_from_group
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
 from ..tokenizer import EOS_ID, PAD_ID
 from . import clip_vit, llama
 from . import sam as sam_mod
@@ -354,7 +356,8 @@ def _last_layer_attn_row(params: dict, cfg: AnyRefConfig, q_in, k_roped,
     hd = lcfg.head_dim
     p = params["llama"]["layers"][-1]
     h = rms_norm(p["input_norm"], q_in[:, None, :], eps=lcfg.rms_norm_eps)
-    q = linear(llama.attn_proj(p["attn"], "q", lcfg), h)     # [B, 1, nh*hd]
+    q = linear(llama.attn_proj(p["attn"], "q", lcfg),
+               copy_to_group(h, group))                     # [B, 1, nh*hd]
     B, nh, kvh = q.shape[0], q.shape[-1] // hd, k_roped.shape[1]
     q = q.reshape(B, 1, nh, hd).transpose(1, 2)
     q = llama._rope(q, llama._rope_tables(q_pos[:, None], hd,
@@ -370,9 +373,7 @@ def _last_layer_attn_row(params: dict, cfg: AnyRefConfig, q_in, k_roped,
     probs = torch.softmax(logits, -1)
     if group is None or nh == lcfg.num_heads:
         return probs.mean(1)
-    total = probs.sum(1)
-    dist.all_reduce(total, group=group)
-    return total / lcfg.num_heads
+    return reduce_from_group(probs.sum(1), group) / lcfg.num_heads
 
 
 def _span_pool(row, hidden, span):
@@ -385,33 +386,36 @@ def _span_pool(row, hidden, span):
 
 
 def _rephrase_pool(params: dict, cfg: AnyRefConfig, hidden, last_in,
-                   exp_labels, seg_pos):
+                   exp_labels, seg_pos, group=None):
     """Training-path rephrase pooling (reference anyref.py:372-392): query =
     the state emitting the first [SEG] (seg_pos - 1), span = [first label
     - 1, seg_pos - 1), weights = the final layer's head-mean softmax row,
     renormalised over the span; the keys recomputed from ``last_in``.
+    ``group``: the "model" group over which the rank's heads are summed.
     Returns [B, 1, D] in hidden's dtype."""
     B, L, _ = hidden.shape
     lcfg = cfg.llama
     p = params["llama"]["layers"][-1]
     hn = rms_norm(p["input_norm"], last_in, eps=lcfg.rms_norm_eps)
-    k = linear(llama.attn_proj(p["attn"], "k", lcfg), hn).reshape(
-        B, L, lcfg.num_kv_heads, lcfg.head_dim).transpose(1, 2)
+    k = linear(llama.attn_proj(p["attn"], "k", lcfg),
+               copy_to_group(hn, group)).reshape(
+        B, L, -1, lcfg.head_dim).transpose(1, 2)
     k = llama._rope(k, llama._rope_tables(
         torch.arange(L, device=hidden.device), lcfg.head_dim,
         lcfg.rope_theta))
     ans_start = (exp_labels > 0).to(torch.uint8).argmax(1) - 1
     q_pos = (seg_pos[:, 0] - 1).clamp_min(0)
     q_in = last_in[torch.arange(B, device=hidden.device), q_pos]
-    row = _last_layer_attn_row(params, cfg, q_in, k, q_pos, q_pos)
+    row = _last_layer_attn_row(params, cfg, q_in, k, q_pos, q_pos,
+                               group=group)
     j = torch.arange(L, device=hidden.device)[None, :]
     span = (j >= ans_start[:, None]) & (j < q_pos[:, None])
     return _span_pool(row, hidden, span)[:, None, :].to(hidden.dtype)
 
 
 def train_forward(params: dict, cfg: AnyRefConfig, batch: dict,
-                  encoder_path: str = "fused",
-                  remat: bool = False) -> TrainOutput:
+                  encoder_path: str = "fused", remat: bool = False,
+                  mesh=None) -> TrainOutput:
     """One training forward, on the device the params live on.
 
     batch (arrays or tensors): input_ids [B, T], labels [B, T],
@@ -423,10 +427,15 @@ def train_forward(params: dict, cfg: AnyRefConfig, batch: dict,
     with ref_valid [B], audio_mels [B, 3, 1, 128, 204] with audio_valid
     [B]. CLIP, mm_projector, the audio tower and the SAM image encoder run
     under ``torch.no_grad`` (frozen towers; the reference's
-    stop_gradient). ``remat`` checkpoints each decoder layer."""
+    stop_gradient). ``remat`` checkpoints each decoder layer. ``mesh``
+    (parallel/mesh.py): the batch holds this rank's rows and the params its
+    blocks (``shard_params``); the loss terms are the global batch's."""
     check_encoder_path(encoder_path)
     tk = cfg.tokens
     dev = params["llama"]["embed_tokens"].device
+    group = data = None
+    if mesh is not None:
+        group, data = mesh.group(MODEL_AXIS), mesh.group(DATA_AXIS)
 
     def t(key, dtype=None):
         x = torch.as_tensor(batch[key], device=dev)
@@ -442,11 +451,12 @@ def train_forward(params: dict, cfg: AnyRefConfig, batch: dict,
     embeds, exp_ids, exp_labels = assemble_embeds(
         params, cfg, input_ids, clip_feats,
         *_encode_reference_feats(params, cfg, batch, dev, encoder_path),
-        labels=labels)
+        labels=labels, group=group)
     hidden, last_in = llama.forward(params["llama"], cfg.llama, embeds,
-                                    return_last_input=True, remat=remat)
-    lm_loss = lm_cross_entropy(llama.logits(params["llama"], hidden),
-                               exp_labels, IGNORE_INDEX)
+                                    return_last_input=True, remat=remat,
+                                    group=group)
+    lm_loss = lm_cross_entropy(llama.logits(params["llama"], hidden, group),
+                               exp_labels, IGNORE_INDEX, group=data)
 
     seg_pos, seg_valid = _seg_slots(exp_ids, tk.seg, cfg.max_seg_per_sample)
     B, S = seg_pos.shape
@@ -455,7 +465,7 @@ def train_forward(params: dict, cfg: AnyRefConfig, batch: dict,
     seg_hidden = torch.gather(hidden, 1, hid_idx[:, :, None].expand(-1, -1, D))
     if cfg.rephrase_weight > 0:
         seg_hidden = seg_hidden + cfg.rephrase_weight * _rephrase_pool(
-            params, cfg, hidden, last_in, exp_labels, seg_pos)
+            params, cfg, hidden, last_in, exp_labels, seg_pos, group)
     pred_emb = project_seg_hidden(params, seg_hidden)           # [B, S, out]
     if cfg.use_loc_tokens and "loc_boxes" in batch:
         # the mean of each [SEG] slot's 4 loc embeddings (reference
@@ -480,8 +490,8 @@ def train_forward(params: dict, cfg: AnyRefConfig, batch: dict,
     flat_pred = canvas.reshape(B * S, g, g)
     flat_gt = t("gt_masks", torch.float32).reshape(B * S, g, g)
     flat_valid = valid.reshape(B * S)
-    bce = sigmoid_ce_loss(flat_pred, flat_gt, flat_valid, pixel_mask)
-    dce = dice_loss(flat_pred, flat_gt, flat_valid, pixel_mask)
+    bce = sigmoid_ce_loss(flat_pred, flat_gt, flat_valid, pixel_mask, data)
+    dce = dice_loss(flat_pred, flat_gt, flat_valid, pixel_mask, data)
     loss = (cfg.ce_loss_weight * lm_loss + cfg.bce_loss_weight * bce
             + cfg.dice_loss_weight * dce)
     return TrainOutput(loss, lm_loss, bce, dce, canvas, valid)

@@ -31,7 +31,11 @@ compiler inserts them) before the one rounding to the activations' dtype;
 ``embed`` looks up the rank's vocabulary rows and ``logits`` writes the
 rank's columns into the full row, each summed over the group (exact: the
 other ranks add zeros). An int8 decoder is replicated (the reference's
-specs): its layers and lm_head_q run whole on every rank.
+specs): its layers and lm_head_q run whole on every rank. Under autograd
+(``forward``, training) those sums pass the gradient through unchanged
+and the inputs of the column-parallel q/k/v, gate/up and lm_head sum their
+gradient over the group (parallel/collectives.py), so the residual
+stream's gradient is the whole one on every rank; serving sums in place.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from torch.utils.checkpoint import checkpoint
 from ..config import LlamaConfig
 from ..ops.attention import causal_attention
 from ..ops.common import linear, rms_norm, silu
+from ..parallel.collectives import copy_to_group, reduce_from_group
 
 
 class KVCache(NamedTuple):
@@ -63,8 +68,7 @@ def embed(params: dict, input_ids, dtype=torch.bfloat16, group=None):
     local = input_ids - dist.get_rank(group) * n
     mine = (local >= 0) & (local < n)
     out = torch.where(mine[..., None], table[local.clamp(0, n - 1)], 0)
-    dist.all_reduce(out, group=group)
-    return out.to(dtype)
+    return reduce_from_group(out, group).to(dtype)
 
 
 @torch.no_grad()
@@ -138,18 +142,36 @@ def local_kv_heads(params: dict, cfg: LlamaConfig) -> int:
         else cfg.num_kv_heads
 
 
+class _PartialProduct(torch.autograd.Function):
+    """x [N, K] @ w [K, M] in x's dtype, accumulated and returned in fp32
+    (``torch.mm(out_dtype=torch.float32)``, which autograd does not
+    differentiate); the backward's products in x's dtype, as the unsharded
+    product's backward computes them."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        grad = grad.to(x.dtype)
+        return (grad @ w.T if ctx.needs_input_grad[0] else None,
+                x.T @ grad if ctx.needs_input_grad[1] else None)
+
+
 def _row_parallel(p: dict, x, group):
     """A row-parallel product (the rank's block of input features): the
     fp32 partial summed over ``group``, then rounded to x's dtype once, as
     the unsharded product rounds its fp32 accumulator."""
     w = (p["w_t"].T if "w_t" in p else p["w"]).to(x.dtype)
     if x.is_cuda:
-        y = torch.mm(x.reshape(-1, x.shape[-1]), w,
-                     out_dtype=torch.float32).reshape(*x.shape[:-1], -1)
+        y = _PartialProduct.apply(x.reshape(-1, x.shape[-1]), w).reshape(
+            *x.shape[:-1], -1)
     else:
         y = torch.matmul(x.float(), w.float())
-    dist.all_reduce(y, group=group)
-    y = y.to(x.dtype)
+    y = reduce_from_group(y, group).to(x.dtype)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
@@ -192,7 +214,11 @@ def _layer(p, cfg: LlamaConfig, x, mode: str, cache, write_pos: int,
     "full" (training) writes no cache and takes the differentiable causal
     kernel (``cache`` is None there). With a "model" ``group``, the
     attention and the MLP whose weights are blocks sum over it."""
+    tp = group is not None and "q" in p["attn"] and (
+        _width(p["attn"]["q"]) < cfg.num_heads * cfg.head_dim)
     h = rms_norm(p["input_norm"], x, eps=cfg.rms_norm_eps, fused=fused_norms)
+    if tp:
+        h = copy_to_group(h, group)
     if "qkv" in p["attn"]:       # the fused serving layout
         nq = cfg.num_heads * cfg.head_dim
         nkv = cfg.num_kv_heads * cfg.head_dim
@@ -223,33 +249,38 @@ def _layer(p, cfg: LlamaConfig, x, mode: str, cache, write_pos: int,
                             q_offset=write_pos if mode == "decode" else 0,
                             kv_len=kv_len, kv_start=kv_start,
                             differentiable=mode == "full")
-    if group is not None and q.shape[1] < cfg.num_heads:
+    if tp:
         x = x + _row_parallel(p["attn"]["o"], _merge_heads(attn), group)
     else:
         x = x + linear(p["attn"]["o"], _merge_heads(attn))
     h = rms_norm(p["post_attn_norm"], x, eps=cfg.rms_norm_eps,
                  fused=fused_norms)
+    if tp:
+        h = copy_to_group(h, group)
     if "gate_up" in p["mlp"]:    # the fused serving layout
         gu = linear(p["mlp"]["gate_up"], h)
         inter = cfg.intermediate_size
         gate, up = gu[..., :inter], gu[..., inter:]
     else:
         gate, up = (linear(p["mlp"][n], h) for n in ("gate", "up"))
-    if group is not None and gate.shape[-1] < cfg.intermediate_size:
+    if tp:
         return x + _row_parallel(p["mlp"]["down"], silu(gate) * up, group)
     return x + linear(p["mlp"]["down"], silu(gate) * up)
 
 
 def forward(params: dict, cfg: LlamaConfig, embeds, positions=None,
             kv_len=None, return_last_input: bool = False,
-            remat: bool = False):
+            remat: bool = False, group=None):
     """Full-sequence forward (training, no cache): post-final-norm hidden
     [B, L, D]; with ``return_last_input`` also the residual stream entering
     the final layer. ``kv_len`` [B] masks trailing keys and takes plain
     attention, as in the reference. ``remat`` checkpoints each layer
     (``torch.utils.checkpoint``, non-reentrant): only the layer inputs stay
     alive between the passes and the backward recomputes each layer, the
-    attention kernel's forward included."""
+    attention kernel's forward and the layer's collectives included (every
+    rank recomputes in the same order). ``group``: the "model" group of a
+    tree from ``shard_params`` (the attention then runs on the rank's
+    heads)."""
     B, L, _ = embeds.shape
     if positions is None:
         positions = torch.arange(L, device=embeds.device)
@@ -259,7 +290,8 @@ def forward(params: dict, cfg: LlamaConfig, embeds, positions=None,
     for i, p in enumerate(params["layers"]):
         if i == len(params["layers"]) - 1:
             last_in = x
-        args = (p, cfg, x, "full", None, 0, i, rt, None, kv_len)
+        args = (p, cfg, x, "full", None, 0, i, rt, None, kv_len, False,
+                group)
         x = (checkpoint(_layer, *args, use_reentrant=False) if remat
              else _layer(*args))
     out = rms_norm(params["final_norm"], x, eps=cfg.rms_norm_eps)
@@ -337,12 +369,12 @@ def logits(params: dict, hidden, group=None):
     columns written into the full row and summed over the group."""
     if params.get("lm_head_q") is not None:
         return linear(params["lm_head_q"], hidden).float()
+    hidden = copy_to_group(hidden, group)
     out = torch.matmul(hidden.float(), params["lm_head"].float())
     if group is None:
         return out
     n = out.shape[-1]
     lo = dist.get_rank(group) * n
-    full = out.new_zeros(*out.shape[:-1], n * dist.get_world_size(group))
-    full[..., lo:lo + n] = out
-    dist.all_reduce(full, group=group)
-    return full
+    width = n * dist.get_world_size(group)
+    full = torch.nn.functional.pad(out, (lo, width - lo - n))
+    return reduce_from_group(full, group)

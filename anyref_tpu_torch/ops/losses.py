@@ -5,16 +5,35 @@ Masks are packed to a fixed budget [N, H, W] on the shared SAM canvas with
 (which canvas pixels lie inside the image, excluding the bottom/right
 padding). The reference's double normalisation over samples and masks
 cancels to a flat mean over valid masks.
+
+Each loss divides a sum by a count (valid masks, valid tokens). With a
+"data" ``group`` (training on a mesh, this rank's rows) both are summed
+over the group first, so the loss is the global batch's mean, and each
+rank's backward gives its rows' share of the global gradient
+(parallel/collectives.py ``reduce_from_group``); without one the result is
+unchanged.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..parallel.collectives import reduce_from_group
 
-def dice_loss(pred_logits, targets, valid, pixel_mask=None):
+
+def _mean(total, count, group):
+    """(total, count) summed over ``group`` in one all-reduce; the count
+    carries no gradient."""
+    if group is None:
+        return total, count
+    both = reduce_from_group(torch.stack([total, count.detach()]), group)
+    return both[0], both[1]
+
+
+def dice_loss(pred_logits, targets, valid, pixel_mask=None, group=None):
     """Per mask 1 - (2 sum(p t) + 1) / (sum(p) + sum(t) + 1),
-    p = sigmoid(logits), mean over valid masks."""
+    p = sigmoid(logits), mean over valid masks (of the "data" ``group``'s
+    rows)."""
     p = torch.sigmoid(pred_logits.float())
     t = targets.float()
     if pixel_mask is not None:
@@ -25,12 +44,14 @@ def dice_loss(pred_logits, targets, valid, pixel_mask=None):
     den = p.sum((-2, -1)) + t.sum((-2, -1))
     per_mask = 1.0 - (num + 1.0) / (den + 1.0)
     v = valid.float()
-    return (per_mask * v).sum() / (v.sum() + 1e-8)
+    total, count = _mean((per_mask * v).sum(), v.sum(), group)
+    return total / (count + 1e-8)
 
 
-def sigmoid_ce_loss(pred_logits, targets, valid, pixel_mask=None):
+def sigmoid_ce_loss(pred_logits, targets, valid, pixel_mask=None,
+                    group=None):
     """Per-pixel BCE with logits, mean per mask over in-image pixels, mean
-    over valid masks."""
+    over valid masks (of the "data" ``group``'s rows)."""
     x = pred_logits.float()
     t = targets.float()
     per_px = x.clamp_min(0.0) - x * t + torch.log1p(torch.exp(-x.abs()))
@@ -40,13 +61,14 @@ def sigmoid_ce_loss(pred_logits, targets, valid, pixel_mask=None):
     else:
         per_mask = per_px.mean((-2, -1))
     v = valid.float()
-    return (per_mask * v).sum() / (v.sum() + 1e-8)
+    total, count = _mean((per_mask * v).sum(), v.sum(), group)
+    return total / (count + 1e-8)
 
 
-def lm_cross_entropy(logits, labels, ignore_index: int = -100):
+def lm_cross_entropy(logits, labels, ignore_index: int = -100, group=None):
     """Causal-LM loss: shift-by-one cross entropy averaged over the targets
-    that are not ``ignore_index``, in fp32. logits [B, L, V], labels [B, L]
-    aligned to the input positions."""
+    that are not ``ignore_index`` (of the "data" ``group``'s rows), in fp32.
+    logits [B, L, V], labels [B, L] aligned to the input positions."""
     logits = logits[:, :-1].float()
     targets = labels[:, 1:]
     valid = targets != ignore_index
@@ -54,4 +76,5 @@ def lm_cross_entropy(logits, labels, ignore_index: int = -100):
     logz = torch.logsumexp(logits, -1)
     tok = torch.gather(logits, -1, safe[..., None])[..., 0]
     nll = (logz - tok) * valid.float()
-    return nll.sum() / valid.float().sum().clamp_min(1.0)
+    total, count = _mean(nll.sum(), valid.float().sum(), group)
+    return total / count.clamp_min(1.0)

@@ -12,11 +12,18 @@ leaves are replicated; a batch's rows split over "data".
 
 A spec is a tuple of axis names or None, one entry per leading dim, as the
 reference's PartitionSpec (``()`` replicates).
+
+Training keeps the trainables and their Adam moments as blocks of the same
+specs (``trainable_spec``: LoRA's b and the dense embed_tokens and lm_head
+over "model", the rest replicated); ``gather_tree`` rebuilds the whole
+leaves on every rank (a checkpoint, the merged params) and ``shard_tree``
+cuts them again.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from .mesh import DATA_AXIS, MODEL_AXIS, Mesh
 
@@ -99,6 +106,27 @@ def lora_spec(lora_tree) -> dict:
     return walk(lora_tree, None)
 
 
+def dense_spec(dense: dict) -> dict:
+    """The dense trainables (train/lora.py ``split_trainable``, None at the
+    frozen positions): embed_tokens and lm_head as the decoder's specs give
+    them, the rest replicated."""
+    spec = _replicate_like(dense)
+    llama = dense.get("llama")
+    if llama is not None:
+        for key, sp in (("embed_tokens", (MODEL_AXIS, None)),
+                        ("lm_head", (None, MODEL_AXIS))):
+            if llama.get(key) is not None:
+                spec["llama"][key] = sp
+    return spec
+
+
+def trainable_spec(trainables) -> list:
+    """Specs of a (lora, dense) pair of trees (a TrainState's trainables,
+    their gradients or their Adam moments)."""
+    lora, dense = trainables
+    return [lora_spec(lora), dense_spec(dense)]
+
+
 def local_block(x, spec: tuple, mesh: Mesh):
     """The block of ``x`` that the rank at ``mesh.coords`` holds under
     ``spec`` (a view); a dim that its axis does not divide raises."""
@@ -161,6 +189,41 @@ def shard_params(params: dict, mesh: Mesh, cfg) -> ShardedParams:
             mesh.device, memory_format=torch.contiguous_format, copy=True)
 
     return ShardedParams(place(params, spec), mesh)
+
+
+def shard_tree(tree, spec, mesh: Mesh):
+    """This rank's blocks of ``tree``'s leaves under ``spec`` (views;
+    replicated leaves as they are)."""
+    return _tree_map(lambda x, sp: local_block(x, sp, mesh) if any(sp)
+                     else x, tree, spec)
+
+
+@torch.no_grad()
+def gather_tree(tree, spec, mesh: Mesh):
+    """The whole leaves of a tree of this rank's blocks under ``spec``,
+    on every rank: each block written into zeros of the whole shape and
+    summed over its axes' groups (exact: the other ranks add zeros).
+    Collective over those groups; replicated leaves are returned as they
+    are."""
+    def gather(x, sp):
+        if not any(sp):
+            return x
+        shape, index = list(x.shape), []
+        for dim, axis in enumerate(sp):
+            if axis is None:
+                index.append(slice(None))
+                continue
+            n = x.shape[dim]
+            shape[dim] = n * mesh.shape[axis]
+            index.append(slice(mesh.coords[axis] * n,
+                               (mesh.coords[axis] + 1) * n))
+        full = x.new_zeros(shape)
+        full[tuple(index)] = x
+        for axis in dict.fromkeys(a for a in sp if a is not None):
+            if mesh.group(axis) is not None:
+                dist.all_reduce(full, group=mesh.group(axis))
+        return full
+    return _tree_map(gather, tree, spec)
 
 
 def shard_batch(batch: dict, mesh: Mesh) -> dict:

@@ -1,4 +1,4 @@
-"""The training step (port of anyref_tpu/train/step.py, one device).
+"""The training step (port of anyref_tpu/train/step.py).
 
 Optimizer: AdamW after clipping by the global norm, with a linear warmup
 then a linear decay to zero, computed as optax computes
@@ -11,6 +11,21 @@ are updated in place. ``remat`` checkpoints each decoder layer where the
 reference checkpoints its whole loss with a policy that keeps the matmul
 outputs: here only the layer inputs are kept and each layer is recomputed
 in the backward.
+
+On a mesh (parallel/mesh.py; one process a rank) a step computes what the
+reference's single-device step computes on the global batch, the union of
+the "data" ranks' rows in rank order: the decoder and its trainables are
+Megatron blocks over "model" (parallel/partition.py ``shard_params``,
+``trainable_spec``), the loss terms the global batch's means (ops/losses.py),
+and each rank's gradient its rows' share. ``value_and_grad`` then sums
+LoRA's replicated a over "model" (each model rank's gradient of a comes
+from its block of the adapted columns) and every leaf over "data", in fp32,
+rounding once to the leaf's dtype; the replicated leaves downstream of the
+decoder's last sum (text_hidden_fcs, the mask decoder, loc_embeddings) and
+those whose gradient reaches them through the whole residual stream
+(roi_embed, audio_projector) already hold the whole gradient on every model
+rank. The Adam moments live on the blocks, and the clipping norm sums the
+sharded leaves' squares over "model" and counts the replicated ones once.
 """
 
 from __future__ import annotations
@@ -22,6 +37,9 @@ import torch
 
 from ..config import AnyRefConfig
 from ..models import anyref
+from ..parallel.collectives import all_reduce_grads, reduce_from_group
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
+from ..parallel.partition import trainable_spec
 from . import lora as lora_mod
 
 METRICS = ("lm_loss", "bce_loss", "dice_loss", "loss")
@@ -54,6 +72,18 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def sharded_leaves(tree, spec) -> list:
+    """For each tensor leaf of ``tree`` (tree_leaves' order), whether its
+    partition spec names an axis."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [f for k, v in tree.items() for f in sharded_leaves(v, spec[k])]
+    if isinstance(tree, (list, tuple)):
+        return [f for v, sp in zip(tree, spec) for f in sharded_leaves(v, sp)]
+    return [any(spec)]
+
+
 class OptState(NamedTuple):
     count: int      # updates made so far
     mu: tuple       # first moments, a (lora, dense) tree
@@ -82,12 +112,23 @@ class AdamW:
         return OptState(0, zeros, tree_map(torch.zeros_like, params))
 
     @torch.no_grad()
-    def update(self, grads, state: OptState, params):
+    def update(self, grads, state: OptState, params, mesh=None):
         """(updates, new state); updates are added to params by the caller.
-        All on the device the tensors live on, no host sync."""
+        All on the device the tensors live on, no host sync. ``mesh``: the
+        trees are a (lora, dense) pair of this rank's blocks, and the
+        clipping norm is the whole tree's."""
         if self.grad_clip:
-            norm = torch.sqrt(sum((g.float() * g.float()).sum()
-                                  for g in tree_leaves(grads)))
+            squares = [(g.float() * g.float()).sum()
+                       for g in tree_leaves(grads)]
+            group = None if mesh is None else mesh.group(MODEL_AXIS)
+            if group is None:
+                total = sum(squares)
+            else:
+                sharded = sharded_leaves(grads, trainable_spec(grads))
+                total = reduce_from_group(
+                    sum(q for q, b in zip(squares, sharded) if b), group) \
+                    + sum(q for q, b in zip(squares, sharded) if not b)
+            norm = torch.sqrt(total)
             keep = norm < self.grad_clip
             grads = tree_map(lambda g: torch.where(
                 keep, g, g / norm.to(g.dtype) * self.grad_clip), grads)
@@ -131,11 +172,23 @@ def make_optimizer(lr: float = 5e-5, warmup: int = 200,
                  weight_decay=weight_decay, grad_clip=grad_clip)
 
 
+def _check_mesh(params_llama: dict, cfg: AnyRefConfig, mesh) -> None:
+    group = None if mesh is None else mesh.group(MODEL_AXIS)
+    if group is not None and (params_llama["embed_tokens"].shape[0]
+                              * mesh.shape[MODEL_AXIS]
+                              != cfg.llama.padded_vocab_size):
+        raise ValueError("a mesh with a model axis takes the tree of "
+                         "parallel.partition.shard_params")
+
+
 def init_state(generator: torch.Generator, params: dict,
                lora_cfg: lora_mod.LoraConfig,
                optimizer: AdamW) -> tuple[TrainState, dict]:
     """Returns (state, frozen_params). The dense trainables are copied, so
-    training never writes into ``params``; the frozen leaves are shared."""
+    training never writes into ``params``; the frozen leaves are shared.
+    On this rank's blocks of a tree (``shard_params``) the state is the
+    single device's cut into blocks: the draw of LoRA's a does not depend
+    on the blocks, and b's zeros are the rank's block."""
     lora_params = lora_mod.init(generator, params["llama"], lora_cfg)
     dense, frozen = lora_mod.split_trainable(params)
     dense = tree_map(lambda t: t.detach().clone(), dense)
@@ -147,63 +200,91 @@ def init_state(generator: torch.Generator, params: dict,
 
 def loss_fn(lora_params: dict, dense: dict, frozen: dict, cfg: AnyRefConfig,
             lora_cfg: lora_mod.LoraConfig, batch: dict,
-            encoder_path: str = "fused", remat: bool = False):
+            encoder_path: str = "fused", remat: bool = False, mesh=None):
     params = lora_mod.merge_params(dense, frozen)
     params = {**params,
               "llama": lora_mod.apply(params["llama"], lora_params, lora_cfg)}
     out = anyref.train_forward(params, cfg, batch, encoder_path=encoder_path,
-                               remat=remat)
+                               remat=remat, mesh=mesh)
     metrics = {k: getattr(out, k).detach() for k in METRICS}
     return out.loss, metrics
+
+
+def reduce_grads(grads: list, trainables, mesh, scale: float = 1.0) -> list:
+    """The gradient leaves of this rank's (lora, dense) ``trainables`` made
+    the global batch's: LoRA's replicated leaves (a) summed over "model",
+    then every leaf over "data", in fp32 with one rounding to the leaf's
+    dtype, times ``scale``."""
+    if mesh is None:
+        return all_reduce_grads(grads, None, scale)
+    n_lora = len(tree_leaves(trainables[0]))
+    partial = [i for i, sharded in enumerate(
+        sharded_leaves(trainables, trainable_spec(trainables)))
+        if i < n_lora and not sharded]
+    grads = list(grads)
+    if mesh.group(MODEL_AXIS) is not None and partial:
+        summed = all_reduce_grads([grads[i] for i in partial],
+                                  mesh.group(MODEL_AXIS))
+        for i, g in zip(partial, summed):
+            grads[i] = g
+    return all_reduce_grads(grads, mesh.group(DATA_AXIS), scale)
 
 
 def value_and_grad(lora_params: dict, dense: dict, frozen: dict,
                    cfg: AnyRefConfig, lora_cfg: lora_mod.LoraConfig,
                    batch: dict, encoder_path: str = "fused",
-                   remat: bool = False):
+                   remat: bool = False, mesh=None, grad_accum: int = 1):
     """(loss, metrics, grads) with grads a (lora, dense) tree; a trainable
-    the loss does not reach gets a zero gradient."""
+    the loss does not reach gets a zero gradient. With ``grad_accum`` > 1
+    the batch carries a leading micro-step axis ([accum, B, ...],
+    stack_microbatches): the gradients are summed over micro-steps and
+    divided by ``grad_accum``, the loss and metrics averaged. On a
+    ``mesh`` the batch holds this rank's rows and the trees its blocks; the
+    loss and metrics are the global batch's and the gradient of each of
+    this rank's leaves the global one (``reduce_grads``)."""
+    _check_mesh(dense["llama"], cfg, mesh)
     params = (lora_params, dense)
     leaves = tree_leaves(params)
-    loss, metrics = loss_fn(lora_params, dense, frozen, cfg, lora_cfg, batch,
-                            encoder_path, remat)
-    grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
-
-    def fill(p):
-        g = next(grads)
-        return torch.zeros_like(p) if g is None else g
-    return loss.detach(), metrics, tree_map(fill, params)
+    total = metrics = loss_sum = None
+    for i in range(grad_accum):
+        micro = batch if grad_accum == 1 else {k: v[i]
+                                               for k, v in batch.items()}
+        loss, m = loss_fn(lora_params, dense, frozen, cfg, lora_cfg, micro,
+                          encoder_path, remat, mesh)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
+            leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
+        if total is None:
+            total, metrics, loss_sum = grads, m, loss.detach()
+        else:
+            total = [a + b for a, b in zip(total, grads)]
+            metrics = {k: metrics[k] + m[k] for k in m}
+            loss_sum = loss_sum + loss.detach()
+    if grad_accum > 1:
+        metrics = {k: v / grad_accum for k, v in metrics.items()}
+    grads = iter(reduce_grads(total, params, mesh, 1.0 / grad_accum))
+    return (loss_sum / grad_accum, metrics,
+            tree_map(lambda _: next(grads), params))
 
 
 def make_train_step(cfg: AnyRefConfig, lora_cfg: lora_mod.LoraConfig,
                     optimizer: AdamW, remat: bool = True, grad_accum: int = 1,
-                    encoder_path: str = "fused"):
+                    encoder_path: str = "fused", mesh=None):
     """One optimizer step: ``train_step(state, frozen, batch) -> (state,
     metrics)``. With ``grad_accum`` > 1 the batch carries a leading
     micro-step axis ([accum, B, ...], stack_microbatches); gradients are
     summed over micro-steps and divided by ``grad_accum`` before the single
-    update, and the metrics are averaged."""
-    def grads_of(state, frozen, batch):
-        _, metrics, grads = value_and_grad(state.lora, state.dense, frozen,
-                                           cfg, lora_cfg, batch, encoder_path,
-                                           remat)
-        return metrics, grads
-
+    update, and the metrics are averaged. ``mesh``: the state holds this
+    rank's blocks and the batch its rows (value_and_grad)."""
     def train_step(state: TrainState, frozen: dict, batch: dict):
-        if grad_accum == 1:
-            metrics, grads = grads_of(state, frozen, batch)
-        else:
-            grads = metrics = None
-            for i in range(grad_accum):
-                m, g = grads_of(state, frozen,
-                                {k: v[i] for k, v in batch.items()})
-                grads = g if grads is None else tree_map(torch.add, grads, g)
-                metrics = m if metrics is None else {
-                    k: metrics[k] + m[k] for k in m}
-            grads = tree_map(lambda g: g / grad_accum, grads)
-            metrics = {k: v / grad_accum for k, v in metrics.items()}
+        _, metrics, grads = value_and_grad(
+            state.lora, state.dense, frozen, cfg, lora_cfg, batch,
+            encoder_path, remat, mesh, grad_accum)
         params = (state.lora, state.dense)
-        updates, opt_state = optimizer.update(grads, state.opt_state, params)
+        # the mesh only where there is one: on one device any object with
+        # init and update (grads, state, params) serves as the optimizer
+        updates, opt_state = optimizer.update(
+            grads, state.opt_state, params,
+            *(() if mesh is None else (mesh,)))
         with torch.no_grad():
             for p, u in zip(tree_leaves(params), tree_leaves(updates)):
                 p.add_(u)

@@ -1,4 +1,4 @@
-"""The training loop (port of anyref_tpu/train/trainer.py, one device).
+"""The training loop (port of anyref_tpu/train/trainer.py).
 
 Gradient accumulation over micro-batches, one optimizer step, metrics to
 ``metrics.jsonl``, a train-state checkpoint every ``save_steps`` with
@@ -7,6 +7,18 @@ steps named by ``profile_steps``. Runs on the CUDA device unless the caller
 passes ``device="cpu"``. Without a dataset the Trainer builds the mix that
 ``train_datasets`` names under ``data_root`` (data/registry.py), its AVS
 readers' mel front end on the Trainer's device.
+
+Across ranks (one process a rank, torch.distributed initialised by the
+caller, or a ``mesh`` passed in): a ("data", "model") mesh of
+``mesh_model_axis`` model ranks (parallel/mesh.py ``make_mesh``); the
+params cut into this rank's blocks (``shard_params``, consuming the
+caller's tree where the model axis is larger than 1), the state kept as
+blocks, each data rank loading ``per_device_batch_size`` rows of its own
+shard (the global batch is ``per_device_batch_size`` x data ranks), and the
+step of train/step.py on the mesh. Rank 0 alone writes ``metrics.jsonl``
+and the console line; a checkpoint gathers the blocks and rank 0 writes
+one file of the single-device format, so a run saved on one mesh resumes
+on another (every rank reads it and cuts its blocks).
 """
 
 from __future__ import annotations
@@ -18,12 +30,15 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from .. import checkpoint as ckpt
 from ..config import AnyRefConfig, check_encoder_path
 from ..data.collator import Collator
 from ..data.loader import DataLoader
 from ..params import resolve_device
+from ..parallel import partition
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh
 from ..tokenizer import AnyRefTokenizer
 from . import lora as lora_mod
 from . import step as step_mod
@@ -31,7 +46,7 @@ from . import step as step_mod
 
 @dataclass
 class TrainConfig:
-    """Launch parameters (reference train.sh:1-22), one device."""
+    """Launch parameters (reference train.sh:1-22)."""
 
     train_datasets: str = "refer_seg"
     data_root: str = "/data"
@@ -50,6 +65,7 @@ class TrainConfig:
     resume: bool = True
     profile_steps: tuple = ()          # e.g. (20, 30) traces steps 20..30
     profile_dir: str = "profile"
+    mesh_model_axis: int = 1
     remat: bool = True
     encoder_path: str = "fused"        # the towers' path (config.ENCODER_PATHS)
 
@@ -57,15 +73,24 @@ class TrainConfig:
 class Trainer:
     def __init__(self, cfg: AnyRefConfig, tc: TrainConfig, params: dict,
                  dataset=None, tokenizer: Optional[AnyRefTokenizer] = None,
-                 device="cuda"):
+                 device="cuda", mesh=None):
+        """``mesh``: this rank's view of a ("data", "model") grid; without
+        one, the grid over every rank of the initialised process group
+        with ``tc.mesh_model_axis`` model ranks on ``device``, or one
+        device where no process group is initialised."""
         check_encoder_path(tc.encoder_path)
-        dev = resolve_device(device)
+        if mesh is None and dist.is_available() and dist.is_initialized():
+            mesh = make_mesh(model=tc.mesh_model_axis, device=device)
+        dev = resolve_device(device) if mesh is None else mesh.device
+        if mesh is not None and mesh.shape[MODEL_AXIS] > 1:
+            params = partition.shard_params(params, mesh, cfg)
         p_dev = params["llama"]["embed_tokens"].device
         if p_dev.type != dev.type:
             raise ValueError(f"params live on {p_dev}, the Trainer was "
                              f"asked to run on {dev}")
         self.cfg = cfg
         self.tc = tc
+        self.mesh = mesh
         self.tokenizer = tokenizer or AnyRefTokenizer()
         self.lora_cfg = lora_mod.LoraConfig()
         self.optimizer = step_mod.make_optimizer(
@@ -78,19 +103,21 @@ class Trainer:
             self.optimizer)
         self.step_fn = step_mod.make_train_step(
             cfg, self.lora_cfg, self.optimizer, remat=tc.remat,
-            grad_accum=tc.grad_accum_steps, encoder_path=tc.encoder_path)
+            grad_accum=tc.grad_accum_steps, encoder_path=tc.encoder_path,
+            mesh=mesh)
         if dataset is None:
             from ..data.registry import build_train_datasets
             dataset = build_train_datasets(
                 tc.train_datasets, tc.data_root, cfg, itisseg=tc.itisseg,
                 roi=tc.roi, no_mask=tc.no_mask, device=dev)
-        self.loader = DataLoader(dataset,
-                                 Collator(self.tokenizer, cfg, train=True,
-                                          roi=tc.roi),
-                                 batch_size=tc.per_device_batch_size,
-                                 shuffle=True, num_workers=8, seed=tc.seed,
-                                 drop_last=True)
+        self.loader = DataLoader(
+            dataset, Collator(self.tokenizer, cfg, train=True, roi=tc.roi),
+            batch_size=tc.per_device_batch_size, shuffle=True, num_workers=8,
+            seed=tc.seed, drop_last=True,
+            process_index=0 if mesh is None else mesh.coords[DATA_AXIS],
+            process_count=1 if mesh is None else mesh.shape[DATA_AXIS])
         self.profiler = None
+        self.writer = mesh is None or mesh.rank == 0
         os.makedirs(tc.output_dir, exist_ok=True)
         self._log_path = os.path.join(tc.output_dir, "metrics.jsonl")
 
@@ -100,16 +127,58 @@ class Trainer:
                 s = self.state
                 restored = ckpt.restore_train_state(
                     latest, {"step": 0, "lora": s.lora, "dense": s.dense,
-                             "opt_state": s.opt_state})
+                             "opt_state": s.opt_state}, cut=self._cut)
                 self.state = step_mod.TrainState(
                     int(restored["step"]), restored["lora"],
                     restored["dense"], restored["opt_state"])
                 for t in step_mod.tree_leaves((self.state.lora,
                                                self.state.dense)):
                     t.requires_grad_(True)
-                print(f"resumed from {latest}")
+                if self.writer:
+                    print(f"resumed from {latest}")
+
+    def _specs(self):
+        """Partition specs of the (lora, dense) trainables."""
+        return partition.trainable_spec((self.state.lora, self.state.dense))
+
+    def _cut(self, saved: dict) -> dict:
+        """This rank's blocks of a saved train state's whole leaves."""
+        if self.mesh is None:
+            return saved
+        spec = self._specs()
+        cut = partition.shard_tree([saved["lora"], saved["dense"]], spec,
+                                   self.mesh)
+        opt = saved["opt_state"]
+        return {**saved, "lora": cut[0], "dense": cut[1], "opt_state": {
+            **opt, "mu": partition.shard_tree(opt["mu"], spec, self.mesh),
+            "nu": partition.shard_tree(opt["nu"], spec, self.mesh)}}
+
+    def gathered_state(self) -> step_mod.TrainState:
+        """The train state with whole leaves (collective over "model" on a
+        mesh; the state itself elsewhere)."""
+        s = self.state
+        if self.mesh is None:
+            return s
+        spec = self._specs()
+        lora, dense = partition.gather_tree([s.lora, s.dense], spec,
+                                            self.mesh)
+        opt = s.opt_state
+        return step_mod.TrainState(s.step, lora, dense, step_mod.OptState(
+            opt.count, partition.gather_tree(opt.mu, spec, self.mesh),
+            partition.gather_tree(opt.nu, spec, self.mesh)))
+
+    def save(self, step: int) -> None:
+        """``checkpoint-{step}`` in the single-device format: the blocks
+        gathered, rank 0 writing, every rank waiting until it has."""
+        state = self.gathered_state()
+        if self.writer:
+            ckpt.save_train_state(self.tc.output_dir, step, state)
+        if self.mesh is not None and self.mesh.host_group is not None:
+            dist.barrier(group=self.mesh.host_group)
 
     def log(self, step: int, metrics: dict, extra: Optional[dict] = None):
+        if not self.writer:
+            return
         rec = {"step": step, **{k: float(v) for k, v in metrics.items()}}
         if extra:
             rec.update(extra)
@@ -133,9 +202,10 @@ class Trainer:
             torch.cuda.synchronize()
         self.profiler.__exit__(None, None, None)
         os.makedirs(self.tc.profile_dir, exist_ok=True)
+        rank = "" if self.mesh is None else f"-rank{self.mesh.rank}"
         self.profiler.export_chrome_trace(os.path.join(
             self.tc.profile_dir, f"trace-{self.tc.profile_steps[0]}-{step}"
-            ".json"))
+            f"{rank}.json"))
 
     def train(self):
         tc = self.tc
@@ -176,15 +246,19 @@ class Trainer:
                          {"steps_per_s": tc.log_steps / max(dt, 1e-9)})
                 t0 = time.time()
             if step % tc.save_steps == 0:
-                ckpt.save_train_state(tc.output_dir, step, self.state)
+                self.save(step)
         return self.state
 
     def merged_params(self) -> dict:
         """Deployment params: the dense trainables merged back and LoRA
-        folded in."""
+        folded in; on a mesh the whole tree on every rank (collective over
+        "model")."""
+        state, frozen = self.gathered_state(), self.frozen
+        if self.mesh is not None:
+            frozen = partition.gather_tree(
+                frozen, partition.anyref_spec(frozen, self.cfg), self.mesh)
         params = lora_mod.merge_params(
-            step_mod.tree_map(torch.Tensor.detach, self.state.dense),
-            self.frozen)
+            step_mod.tree_map(torch.Tensor.detach, state.dense), frozen)
         return {**params,
-                "llama": lora_mod.merge(params["llama"], self.state.lora,
+                "llama": lora_mod.merge(params["llama"], state.lora,
                                         self.lora_cfg)}

@@ -203,7 +203,30 @@ Phases (any failure exits non-zero before the result line):
      flash_causal_attention at [2, 16, 640, 128]), and each rank prints its
      wall, its all-reduces and their bytes a prefill and a decode pass, the
      seconds in them, its peak memory and the phase's seconds;
- 12. print {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+ 12. multi-device LoRA training on torch.distributed, two ranks on the one
+     card over gloo (spawned as in phase 11, the parent holding no model
+     tensor while they run): (a) anyref_tiny's seed-0 bf16 weights at
+     mesh (1, 2) and at (2, 1), the Trainer for 2 steps of 2
+     micro-batches of 2 a data rank ("fused", remat, warmup 0, a
+     checkpoint every step): the first step's loss terms and reduced
+     gradient, gathered, within TRAIN_LOSS_TOL and TRAIN_GRAD_TOL (the
+     CPU tests' limits) of a single process on the card on the same
+     global batch, both ranks' losses equal, metrics.jsonl written once,
+     and the (1, 2) run's checkpoint-1 resumed by a single-process
+     Trainer; (b) anyref_7b at full width and depth at (1, 2), seed-0 bf16
+     weights made on the card by each rank, which keeps its blocks, and
+     (c) at (2, 1), each rank holding the whole tree: the Trainer for
+     TRAIN_7B_STEPS steps of 2 micro-batches of 2 (the first warm),
+     remat, "fused", after a single process's first step on the same
+     global batch: finite losses equal on both ranks, step 1's within
+     TRAIN_LOSS_TOL of the single process's, LoRA moved and the frozen
+     weights untouched, each kernel's launches those of phase 5 a
+     micro-step, flash_causal_attention_diff only at the rank's heads
+     ([2, 16, 768, 128] at (1, 2)); each rank prints its step walls, its
+     all-reduces a step and their bytes by axis, the seconds in them (the
+     card synchronised around each) and its peak memory. Phase 2 also
+     holds the training attention at [2, 16, 768, 128];
+ 13. print {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -710,21 +733,28 @@ def check_causal_diff(torch, F, flash, timer, rnd, compare, results):
     """The training attention at LLaMA-7B training (batch 2, L = 512 + 255
     padded to 768, no pad), then at [2, 4, 200 -> 256, 32] with kv_start
     [0, 50], the cotangent zero on left-pad and right-pad rows as the
-    slice and the reference's test give it. Forward: O and LSE; backward:
+    slice and the reference's test give it, at a ragged [1, 2, 300, 64],
+    and at one rank's heads under a "model" axis of 2 (phase 12(b): [2,
+    16, 768, 128]). Forward: O and LSE; backward:
     delta = rowsum(dO * O), dq and dk/dv from the forward's O and LSE, each
     side from its own forward."""
-    # the ragged case draws from its own generator, so the others and the
-    # wrapper check after them keep their inputs
-    g_ragged = torch.Generator(device="cuda").manual_seed(4242)
+    # the ragged case and one rank's heads under a "model" axis of 2 draw
+    # from generators of their own, so the others and the wrapper check
+    # after them keep their inputs
+    def own_draw(seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
 
-    def rnd_ragged(*shape, scale=1.0):
-        return (torch.randn(shape, generator=g_ragged, device="cuda")
-                * scale).to(torch.bfloat16)
+        def draw(*shape, scale=1.0):
+            return (torch.randn(shape, generator=g, device="cuda")
+                    * scale).to(torch.bfloat16)
+        return draw
 
     for B, nh, L, Lp, hd, pads, draw in (
             (2, 32, 768, 768, 128, None, rnd),
             (2, 4, 200, 256, 32, (0, 50), rnd),
-            (1, 2, 300, 300, 64, None, rnd_ragged)):
+            (1, 2, 300, 300, 64, None, own_draw(4242)),
+            (*TRAIN_RANK_CAUSAL_SHAPE[:2], 768, 768, 128, None,
+             own_draw(4343))):
         q, k, v = (torch.nn.functional.pad(draw(B, nh, L, hd, scale=0.5),
                                            (0, 0, 0, Lp - L))
                    for _ in range(3))
@@ -1931,26 +1961,9 @@ def train_7b(torch, flash, mods):
         fail("a frozen weight changed")
     del frozen, lora0
 
-    s, l, c = cfg.sam, cfg.llama, cfg.clip
-    n_global = len(s.encoder_global_attn_indexes)
     micro = tc.max_steps * tc.grad_accum_steps
-    per_micro = {"flash_causal_attention_diff": 2 * l.num_layers,
-                 "fused_window_attn": s.encoder_depth - n_global,
-                 "fused_mlp_stream": s.encoder_depth - n_global,
-                 "fused_global_tail": n_global,
-                 "layer_norm_fused": n_global,
-                 "flash_attention_qkv": c.num_layers + c.select_layer + 1,
-                 "flash_relpos_attention": 0, "rms_norm_fused": 0,
-                 "flash_causal_attention": 0,
-                 "flash_relpos_attention_qkv": 0, "fused_window_block": 0,
-                 "int8_matmul": 0}
-    for name, n in per_micro.items():
-        if launches[name] != n * micro:
-            fail(f"{name}: {launches[name]} launches in training, want {n} "
-                 f"per micro-step x {micro}")
-    if backward != l.num_layers * micro:
-        fail(f"flash_causal_attention_diff: {backward} backward launches, "
-             f"want {l.num_layers} x {micro}")
+    per_micro = train_launches_per_micro(cfg)
+    check_train_launches(launches, backward, cfg, micro, "training")
 
     step_s = [1.0 / r["steps_per_s"] for r in recs]
     # every sequence is padded to max_seq_len; the real (non-pad) positions
@@ -2000,6 +2013,38 @@ def train_7b(torch, flash, mods):
     torch.cuda.empty_cache()
     return {"launches": launches["flash_causal_attention_diff"],
             "backward_launches": backward, "steps": 3}
+
+
+def train_launches_per_micro(cfg) -> dict:
+    """Each kernel's launches a training micro-step on "fused" with
+    per-layer checkpointing: the training attention's forward twice a
+    layer (the pass and the recompute), the towers' kernels once."""
+    s, l, c = cfg.sam, cfg.llama, cfg.clip
+    n_global = len(s.encoder_global_attn_indexes)
+    return {"flash_causal_attention_diff": 2 * l.num_layers,
+            "fused_window_attn": s.encoder_depth - n_global,
+            "fused_mlp_stream": s.encoder_depth - n_global,
+            "fused_global_tail": n_global,
+            "layer_norm_fused": n_global,
+            "flash_attention_qkv": c.num_layers + c.select_layer + 1,
+            "flash_relpos_attention": 0, "rms_norm_fused": 0,
+            "flash_causal_attention": 0,
+            "flash_relpos_attention_qkv": 0, "fused_window_block": 0,
+            "int8_matmul": 0}
+
+
+def check_train_launches(launches: dict, backward: int, cfg, micro: int,
+                         what: str) -> None:
+    """Fail unless ``micro`` training micro-steps launched each kernel
+    train_launches_per_micro times, and the training attention's backward
+    once a layer."""
+    for name, n in train_launches_per_micro(cfg).items():
+        if launches[name] != n * micro:
+            fail(f"{what}: {name} {launches[name]} launches, want {n} per "
+                 f"micro-step x {micro}")
+    if backward != cfg.llama.num_layers * micro:
+        fail(f"{what}: flash_causal_attention_diff {backward} backward "
+             f"launches, want {cfg.llama.num_layers} x {micro}")
 
 
 # ---------------------------------------------------------------------------
@@ -5748,7 +5793,8 @@ def parallel_rank(rank, world, store, task, kw, q):
         from anyref_tpu_torch.parallel.mesh import init_process_group
         init_process_group(rank, world, f"file://{store}", "gloo",
                            timeout_s=PARALLEL_TIMEOUT_S)
-        fn = {"tiny": parallel_tiny_rank, "7b": parallel_7b_rank}[task]
+        fn = {"tiny": parallel_tiny_rank, "7b": parallel_7b_rank,
+              "train_tiny": train_tiny_rank, "train_7b": train_7b_rank}[task]
         q.put((rank, True, fn(torch, rank, **kw)))
     except BaseException:
         q.put((rank, False, traceback.format_exc()))
@@ -5821,12 +5867,12 @@ def params_7b(torch, mods, cfg):
 
 
 def record_seg_states(anyref) -> list:
-    """Wrap anyref.project_seg_hidden to keep each generate's [SEG] states
-    (fp32, on the host), in order."""
+    """Wrap anyref.project_seg_hidden to keep each generate's or training
+    forward's [SEG] states (fp32, on the host), in order."""
     inner, got = anyref.project_seg_hidden, []
 
     def project(params, hidden):
-        got.append(hidden.float().cpu().numpy())
+        got.append(hidden.detach().float().cpu().numpy())
         return inner(params, hidden)
 
     anyref.project_seg_hidden = project
@@ -6128,6 +6174,519 @@ def parallel_7b(torch, flash, mods) -> dict:
     return lead["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 12: multi-device LoRA training on torch.distributed
+# ---------------------------------------------------------------------------
+# one rank's training attention under a "model" axis of 2 at anyref_7b:
+# batch 2, 16 of LLaMA-7B's 32 heads, L = 512 + 255 padded to 768
+TRAIN_RANK_CAUSAL_SHAPE = (2, 16, 768, 128)
+# the CPU tests' limits (tests/test_torch_parallel_train.py): loss terms
+# relative, gradients of each leaf's largest magnitude. The decoder's
+# trainables (LoRA, embed_tokens, lm_head) are held to the second; the
+# mask path's (text_hidden_fcs, the mask decoder) to the larger of it and
+# PARALLEL_FLOOR_FACTOR x the bf16 floor measured in the same call (the
+# single process against itself with the decoder's inputs moved by one
+# bf16 ulp, phase 11's floor): at anyref_tiny's bf16 weights the mask
+# decoder's activations and gradient leaves are bf16 too, so two
+# arrangements of the same sums move its gradients by several % of a
+# leaf's largest (3.8% at (1, 2) and 5.9-10.2% at (2, 1) against one
+# process on an H100 80GB HBM3 at 700 W; 4.2% card against CPU in phase 3)
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-3, 2e-2
+# text_hidden_fcs units whose ReLU gate may differ between 2 ranks and one
+# process on a valid [SEG] slot, each within KINK_REL of the largest
+# pre-activation (the CPU tests' rule): at most 5% of the units
+KINK_UNITS, KINK_REL = 6, 1e-2
+# the ranks' losses, each the global batch's, computed apart on each rank
+RANK_LOSS_TOL = 1e-6
+# phase 12(a)'s synthetic samples: answers of different lengths, so the
+# data ranks hold different numbers of answer tokens
+TRAIN_TINY_TEXTS = ("the cat", "the small red mug on the left", "a dog",
+                    "the tall lamp near the open window", "a hat",
+                    "the blue car", "the striped towel on the rail",
+                    "a bowl")
+TRAIN_TINY_SIZES = IMAGE_SIZES * 2
+
+
+def train_config(mods, out: str, **kw):
+    """The TrainConfig of phase 12: batch 2 a data rank, 2 micro-steps,
+    remat, "fused", a line of metrics every step."""
+    return mods["TrainConfig"](
+        output_dir=out, per_device_batch_size=2, grad_accum_steps=2,
+        log_steps=1, resume=False, remat=True, encoder_path="fused", **kw)
+
+
+def rank_mods():
+    """The modules a spawned rank of phase 12 uses."""
+    from anyref_tpu_torch import params as tparams
+    from anyref_tpu_torch.config import anyref_7b, anyref_tiny
+    from anyref_tpu_torch.models import anyref
+    from anyref_tpu_torch.ops import flash
+    from anyref_tpu_torch.parallel import partition
+    from anyref_tpu_torch.parallel.mesh import make_mesh
+    from anyref_tpu_torch.train import lora, step
+    from anyref_tpu_torch.train.trainer import TrainConfig, Trainer
+    return {"tparams": tparams, "anyref_7b": anyref_7b,
+            "anyref_tiny": anyref_tiny, "anyref": anyref, "flash": flash,
+            "partition": partition, "make_mesh": make_mesh, "lora": lora,
+            "step": step, "TrainConfig": TrainConfig, "Trainer": Trainer}
+
+
+def to_numpy(torch, tree):
+    """A tree of tensors as fp32 numpy on the host (None kept)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: to_numpy(torch, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_numpy(torch, v) for v in tree]
+    return tree.detach().float().cpu().numpy()
+
+
+def first_grads(step) -> list:
+    """Wraps step.value_and_grad: the list gains the reduced gradient of
+    its first call."""
+    inner, got = step.value_and_grad, []
+
+    def value_and_grad(*a, **kw):
+        out = inner(*a, **kw)
+        if not got:
+            got.append(out[2])
+        return out
+    step.value_and_grad = value_and_grad
+    return got
+
+
+def train_tiny_rank(torch, rank, data, model, out, samples):
+    """Phase 12(a), one rank: anyref_tiny's seed-0 bf16 weights (made on
+    the CPU) on cuda:0 at mesh (data, model), the Trainer for 2 steps
+    (warmup 0, a checkpoint every step). Returns each step's batch and
+    metrics, the first step's reduced gradient gathered to whole leaves,
+    and whether this rank wrote the log."""
+    m = rank_mods()
+    cfg = m["anyref_tiny"]()
+    torch.cuda.set_device(0)
+    mesh = m["make_mesh"](data, model, device="cuda:0")
+    params = _to_device(m["tparams"].init(
+        cfg, torch.Generator().manual_seed(0), torch.bfloat16,
+        device="cpu"), "cuda:0")
+    tc = train_config(m, out, max_steps=2, warmup_steps=0, save_steps=1)
+    trainer = m["Trainer"](cfg, tc, params, dataset=samples, mesh=mesh)
+    grads = first_grads(m["step"])
+    steps = record_steps(trainer)
+    seg = record_seg_states(m["anyref"])
+    trainer.train()
+    g = grads[0]
+    whole = m["partition"].gather_tree(
+        list(g), m["partition"].trainable_spec(g), mesh)
+    return {"steps": steps, "writer": trainer.writer, "seg": seg[:2],
+            "grads": to_numpy(torch, whole) if rank == 0 else None}
+
+
+def global_batch(rank_batches: list) -> dict:
+    """The data ranks' [accum, B, ...] batches joined in data-rank order
+    along the batch axis."""
+    return {k: np.concatenate([b[k] for b in rank_batches], 1)
+            for k in rank_batches[0]}
+
+
+def single_step_grads(torch, mods, cfg, params, batch, accum: int,
+                      nudge: bool = False):
+    """A single process's value_and_grad on the card on ``batch``, from the
+    Trainer's initial state (seed 0): (metrics as floats, gradient, the
+    [SEG] states of each micro-step). ``nudge``: the decoder's input
+    embeddings moved by one bf16 ulp (``nudged``)."""
+    step, lora, anyref = mods["step"], mods["lora"], mods["anyref"]
+    lcfg = lora.LoraConfig()
+    state, frozen = step.init_state(torch.Generator().manual_seed(0), params,
+                                    lcfg, step.make_optimizer())
+    project, assemble = anyref.project_seg_hidden, anyref.assemble_embeds
+    seg = record_seg_states(anyref)
+    if nudge:
+        anyref.assemble_embeds = nudged(torch, assemble)
+    try:
+        _, metrics, grads = step.value_and_grad(
+            state.lora, state.dense, frozen, cfg, lcfg, batch,
+            encoder_path="fused", remat=True, grad_accum=accum)
+    finally:
+        anyref.project_seg_hidden = project
+        anyref.assemble_embeds = assemble
+    torch.cuda.synchronize()
+    return {k: float(v) for k, v in metrics.items()}, grads, seg
+
+
+def kink_units(seg, want_seg, valid, lin1, what: str) -> np.ndarray:
+    """The text_hidden_fcs units whose ReLU gate differs between two runs'
+    [SEG] states on a valid slot of some micro-step; fails unless each
+    sits at the kink (|pre-activation| within KINK_REL of the largest in
+    both runs) and there are at most KINK_UNITS."""
+    w, b = (t.detach().float().cpu().numpy() for t in lin1)
+    pre, want = (np.concatenate([(h @ w + b)[np.asarray(v, bool)]
+                                 for h, v in zip(x, valid)])
+                 for x in (seg, want_seg))
+    flip = (pre > 0) != (want > 0)
+    units = np.flatnonzero(flip.any(0))
+    if len(units) > KINK_UNITS or any(
+            not (np.abs(a)[flip] <= KINK_REL * np.abs(a).max()).all()
+            for a in (pre, want)):
+        fail(f"{what}: text_hidden_fcs gates {units.tolist()} differ from "
+             f"the single process's, not all at the kink")
+    return units
+
+
+def check_step_metrics(got: dict, want: dict, what: str) -> float:
+    worst = max(abs(got[k] - want[k]) / abs(want[k]) for k in want)
+    if not all(np.isfinite(v) for v in got.values()) or \
+            worst > TRAIN_LOSS_TOL:
+        fail(f"{what}: losses {got} against the single process's {want}")
+    return worst
+
+
+def train_parallel_tiny(torch, mods) -> None:
+    """Phase 12(a): anyref_tiny at (1, 2) and (2, 1), two ranks on cuda:0
+    over gloo, the Trainer for 2 steps of 2 micro-batches of 2 a data rank.
+    The first step's loss terms and reduced gradient (gathered) against a
+    single process on the card on the same global batch; metrics.jsonl
+    written once; the (1, 2) run's checkpoint-1 resumed by a single-process
+    Trainer."""
+    import tempfile
+    t0 = time.time()
+    cfg = mods["anyref_tiny"]()
+    samples = train_samples(cfg, mods, TRAIN_TINY_TEXTS, TRAIN_TINY_SIZES,
+                            seed=12)
+    tmp = tempfile.mkdtemp(prefix="anyref_train12_")
+    try:
+        for data, model in ((1, 2), (2, 1)):
+            out = os.path.join(tmp, f"run{data}{model}")
+            ranks = run_ranks("train_tiny", 2, data=data, model=model,
+                              out=out, samples=samples)
+            with open(os.path.join(out, "metrics.jsonl")) as f:
+                recs = [json.loads(line) for line in f]
+            if [r["step"] for r in recs] != [1, 2] or \
+                    [r["writer"] for r in ranks] != [True, False]:
+                fail(f"phase 12(a) at ({data}, {model}): metrics.jsonl "
+                     f"steps {[r['step'] for r in recs]}, writers "
+                     f"{[r['writer'] for r in ranks]}")
+            for rank, res in enumerate(ranks):
+                for i, (_, m) in enumerate(res["steps"]):
+                    rel = max(abs(m[k] - recs[i][k]) / abs(recs[i][k])
+                              for k in m)
+                    if rel > RANK_LOSS_TOL:
+                        fail(f"phase 12(a): rank {rank} step {i + 1} losses "
+                             f"{m}, rank 0 logged {recs[i]}")
+            firsts = [res["steps"][0][0] for res in ranks]
+            batch = global_batch(firsts[:data] if model == 1 else firsts[:1])
+            params = _to_device(mods["tparams"].init(
+                cfg, torch.Generator().manual_seed(0), torch.bfloat16,
+                device="cpu"), "cuda")
+            want_m, want_g, want_seg = single_step_grads(
+                torch, mods, cfg, params, batch, 2)
+            _, floor_g, _ = single_step_grads(torch, mods, cfg, params,
+                                              batch, 2, nudge=True)
+            what = f"phase 12(a) at ({data}, {model})"
+            worst = check_step_metrics(ranks[0]["steps"][0][1], want_m, what)
+            seg = [np.concatenate([ranks[d * model]["seg"][i]
+                                   for d in range(data)]) for i in range(2)]
+            kink = kink_units(seg, want_seg, batch["mask_valid"],
+                              (params["text_hidden_fcs"]["lin1"]["w"],
+                               params["text_hidden_fcs"]["lin1"]["b"]), what)
+            errs = []      # (side, path, err / scale, floor err / scale)
+            for (path, a, b), (_, n, _) in zip(
+                    tree_pairs(ranks[0]["grads"],
+                               to_numpy(torch, list(want_g))),
+                    tree_pairs(to_numpy(torch, list(floor_g)),
+                               to_numpy(torch, list(want_g)))):
+                if a is None:
+                    continue
+                if not np.isfinite(a).all():
+                    fail(f"{what}: non-finite gradient {path}")
+                if "/text_hidden_fcs/lin1/" in path:
+                    keep = np.setdiff1d(np.arange(a.shape[-1]), kink)
+                    a, b, n = a[..., keep], b[..., keep], n[..., keep]
+                scale = float(np.abs(b).max()) or 1.0
+                errs.append(("decoder" if path.startswith(("/0/",
+                                                           "/1/llama/"))
+                             else "mask path", path,
+                             float(np.abs(a - b).max()) / scale,
+                             float(np.abs(n - b).max()) / scale))
+            floor = max(max(f for side, p, _, f in errs
+                            if side == "mask path"
+                            and "/lin1/" not in p), 2.0 ** -8)
+            limits = {"decoder": TRAIN_GRAD_TOL, "mask path": max(
+                TRAIN_GRAD_TOL, PARALLEL_FLOOR_FACTOR * floor)}
+            worst_g = {side: max((e, p) for s_, p, e, _ in errs
+                                 if s_ == side) for side in limits}
+            log(f"[train-parallel-tiny] ({data}, {model}): step losses "
+                f"{[round(r['loss'], 5) for r in recs]}; step 1 against a "
+                f"single process on the card: worst loss-term rel err "
+                f"{worst:.3g} (limit {TRAIN_LOSS_TOL}); worst gradient err "
+                f"of a leaf's largest {json.dumps(worst_g)}, limits "
+                f"{json.dumps(limits)} (the mask path's bf16 floor "
+                f"{floor:.4g}: the single process with the decoder's inputs "
+                f"moved by one ulp); text_hidden_fcs units at the kink left "
+                f"out of lin1: {kink.tolist()}; metrics.jsonl written once "
+                f"by rank 0")
+            for side, path, e, _ in errs:
+                if e > limits[side]:
+                    fail(f"{what}: gradient {path} off by {e:.4g} of its "
+                         f"largest (limit {limits[side]:.4g})")
+            del params, want_g, floor_g
+        # the (1, 2) run's checkpoint resumed by one process
+        resume = os.path.join(tmp, "resume11")
+        shutil.copytree(os.path.join(tmp, "run12", "checkpoint-1"),
+                        os.path.join(resume, "checkpoint-1"))
+        saved = mods["checkpoint"].restore_train_state(
+            os.path.join(resume, "checkpoint-1"))
+        params = _to_device(mods["tparams"].init(
+            cfg, torch.Generator().manual_seed(0), torch.bfloat16,
+            device="cpu"), "cuda")
+        tc = train_config(mods, resume, max_steps=2, warmup_steps=0,
+                          save_steps=10 ** 9)
+        tc.resume = True
+        trainer = mods["Trainer"](cfg, tc, params, dataset=samples)
+        if trainer.state.step != 1:
+            fail(f"phase 12(a): resumed at step {trainer.state.step}")
+        check_same_tree(torch, to_cpu(trainer.state.lora), saved["lora"],
+                        "phase 12(a): the resumed LoRA weights")
+        state = trainer.train()
+        with open(os.path.join(resume, "metrics.jsonl")) as f:
+            rec = [json.loads(line) for line in f]
+        if state.step != 2 or not np.isfinite(rec[-1]["loss"]):
+            fail(f"phase 12(a): the resumed run {rec}")
+        del trainer, state, params
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"[phase 12] (a) anyref_tiny at (1, 2) and (2, 1) over gloo on "
+        f"cuda:0, the (1, 2) checkpoint resumed in one process, in "
+        f"{time.time() - t0:.1f} s")
+
+
+def to_cpu(tree):
+    """A tree of tensors detached on the CPU (None kept)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_cpu(v) for v in tree]
+    return tree.detach().cpu()
+
+
+class AxisMeter:
+    """Counts a rank's all-reduces by the mesh axis of their group
+    ("model", "data", else "other"), their bytes and the seconds they take
+    (the card synchronised before and after each), for the step named by
+    ``self.step`` (None: not counted)."""
+
+    def __init__(self, torch, dist, mesh):
+        self.step = None
+        self.calls, self.bytes, self.seconds = {}, {}, {}
+        axes = {id(mesh.group(a)): a for a in ("data", "model")
+                if mesh.group(a) is not None}
+        inner = dist.all_reduce
+
+        def all_reduce(t, *a, group=None, **kw):
+            if self.step is None:
+                return inner(t, *a, group=group, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner(t, *a, group=group, **kw)
+            torch.cuda.synchronize()
+            key = (self.step, axes.get(id(group), "other"))
+            self.seconds[key] = self.seconds.get(key, 0.0) + (
+                time.perf_counter() - t0)
+            self.calls[key] = self.calls.get(key, 0) + 1
+            self.bytes[key] = self.bytes.get(key, 0) + (
+                t.numel() * t.element_size())
+            return out
+        dist.all_reduce = all_reduce
+
+    def by_step(self, step: int) -> dict:
+        return {axis: {"calls": self.calls[k], "mib": self.bytes[k] / 2**20,
+                       "s": round(self.seconds[k], 4)}
+                for k in sorted(self.calls) if k[0] == step
+                for axis in (k[1],)}
+
+
+def train_7b_rank(torch, rank, data, model, out, samples, steps):
+    """Phase 12(b) and (c), one rank: anyref_7b's seed-0 bf16 weights made
+    on the card at mesh (data, model) (each rank makes the whole tree; at
+    model 2 the Trainer keeps its blocks), the Trainer for ``steps`` steps
+    of 2 micro-batches of 2 (warmup 1, remat, "fused"); the first step
+    warm, each later one metered. Returns each step's metrics and wall,
+    the all-reduces of the metered steps by axis, the training attention's
+    launch shapes, every kernel's launches, the frozen and LoRA checks and
+    the peak memory."""
+    import torch.distributed as dist
+    m = rank_mods()
+    cfg = m["anyref_7b"]()
+    torch.cuda.set_device(0)
+    mesh = m["make_mesh"](data, model, device="cuda:0")
+    t0 = time.time()
+    params = m["tparams"].init(
+        cfg, torch.Generator(device="cuda").manual_seed(0), torch.bfloat16)
+    tc = train_config(m, out, max_steps=steps, warmup_steps=1,
+                      save_steps=10 ** 9)
+    trainer = m["Trainer"](cfg, tc, params, dataset=samples, mesh=mesh)
+    del params
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 2**30
+    held = torch.cuda.memory_allocated() / 2**30
+    step = m["step"]
+    frozen = [fingerprint(t) for t in step.tree_leaves(trainer.frozen)[::7]]
+    lora0 = [t.detach().clone() for t in step.tree_leaves(trainer.state.lora)]
+    flash = m["flash"]
+    shapes = {}     # the training attention's forward launches by shape
+    inner_fwd = flash.causal_attention_diff_fwd
+
+    def causal_fwd(q, *a, **kw):
+        n0 = flash.flash_causal_attention_diff.launches
+        out = inner_fwd(q, *a, **kw)
+        n = flash.flash_causal_attention_diff.launches - n0
+        if n:
+            shapes[tuple(q.shape)] = shapes.get(tuple(q.shape), 0) + n
+        return out
+    flash.causal_attention_diff_fwd = causal_fwd
+    meter = AxisMeter(torch, dist, mesh)
+    walls, metrics = [], []
+    inner_step = trainer.step_fn
+
+    def step_fn(state, frozen_, batch):
+        meter.step = len(walls) + 1 if walls else None
+        torch.cuda.synchronize()
+        t = time.time()
+        state, mt = inner_step(state, frozen_, batch)
+        torch.cuda.synchronize()
+        walls.append(time.time() - t)
+        metrics.append({k: float(v) for k, v in mt.items()})
+        meter.step = None
+        return state, mt
+    trainer.step_fn = step_fn
+    for kernel in flash.KERNELS:
+        kernel.launches = 0
+    flash.flash_causal_attention_diff.backward_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.train()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    moved = not all(torch.equal(a.detach(), b) for a, b in
+                    zip(step.tree_leaves(state.lora), lora0))
+    untouched = frozen == [fingerprint(t) for t in
+                           step.tree_leaves(trainer.frozen)[::7]]
+    return {"metrics": metrics, "walls": walls,
+            "collectives": {s: meter.by_step(s) for s in
+                            range(2, steps + 1)},
+            "causal_shapes": shapes,
+            "launches": {k.__name__: k.launches for k in flash.KERNELS},
+            "backward": flash.flash_causal_attention_diff.backward_launches,
+            "lora_moved": moved, "frozen_untouched": untouched,
+            "build_s": build_s, "init_peak_gib": init_peak,
+            "held_gib": held, "peak_gib": peak,
+            "trainable_values": sum(t.numel() for t in step.tree_leaves(
+                (state.lora, state.dense))),
+            "writer": trainer.writer}
+
+
+TRAIN_7B_STEPS = 3   # the first warm, the other two metered
+
+
+def first_step_batch(mods, cfg, samples, data: int) -> dict:
+    """The global batch of the Trainer's first step at ``data`` data
+    ranks: each rank's first 2 batches of 2 from its shard (the loader's
+    seeded shuffle), stacked, joined in data-rank order."""
+    from anyref_tpu_torch.data.loader import DataLoader
+    col = mods["Collator"](mods["AnyRefTokenizer"](), cfg, train=True)
+    ranks = []
+    for d in range(data):
+        it = iter(DataLoader(samples, col, batch_size=2, shuffle=True,
+                             num_workers=0, seed=0, drop_last=True,
+                             process_index=d, process_count=data))
+        ranks.append(mods["step"].stack_microbatches([next(it), next(it)]))
+    return global_batch(ranks)
+
+
+def train_parallel_7b(torch, mods, data: int, model: int) -> dict:
+    """Phase 12(b) (data 1, model 2) and (c) (data 2, model 1): the single
+    process's first step on the same global batch first (its weights freed
+    before the ranks start), then two ranks on cuda:0 over gloo. Finite
+    losses equal on both ranks, step 1's within TRAIN_LOSS_TOL of the
+    single process's, LoRA moved, frozen weights untouched, every kernel's
+    launches those of phase 5 a micro-step, the training attention at the
+    rank's heads only."""
+    import tempfile
+    t_phase = time.time()
+    what = f"phase 12({'b' if model == 2 else 'c'})"
+    cfg = mods["anyref_7b"]()
+    samples = train_samples(cfg, mods, TEXTS * 2, IMAGE_SIZES * 2, seed=0)
+    params = mods["tparams"].init(
+        cfg, torch.Generator(device="cuda").manual_seed(0), torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    want, grads, _ = single_step_grads(torch, mods, cfg, params,
+                                       first_step_batch(mods, cfg, samples,
+                                                        data), 2)
+    single_s = time.time() - t0
+    single_peak = torch.cuda.max_memory_allocated() / 2**30
+    del params, grads
+    torch.cuda.empty_cache()
+    out = tempfile.mkdtemp(prefix="anyref_train7b_")
+    try:
+        t0 = time.time()
+        ranks = run_ranks("train_7b", 2, data=data, model=model, out=out,
+                          samples=samples, steps=TRAIN_7B_STEPS)
+        spawn_s = time.time() - t0
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    lcfg = cfg.llama
+    want_shape = (2, lcfg.num_heads // model, -(-cfg.max_seq_len // 128) * 128,
+                  lcfg.head_dim)
+    micro = TRAIN_7B_STEPS * 2
+    for rank, res in enumerate(ranks):
+        log(f"[train-parallel-7b] ({data}, {model}) rank {rank}: weights "
+            f"made in {res['build_s']:.2f} s (peak "
+            f"{res['init_peak_gib']:.2f} GiB, {res['held_gib']:.2f} GiB "
+            f"held by the Trainer), {res['trainable_values']} trainable "
+            f"values; step walls {[round(w, 3) for w in res['walls']]} s "
+            f"(the first warm); losses "
+            f"{[round(x['loss'], 5) for x in res['metrics']]}; all-reduces "
+            f"a metered step by axis (card synchronised around each) "
+            f"{json.dumps(res['collectives'])}; peak memory "
+            f"{res['peak_gib']:.2f} GiB; flash_causal_attention_diff "
+            f"{json.dumps({str(list(k)): v for k, v in res['causal_shapes'].items()})}"
+            f", backward {res['backward']}")
+    worst = check_step_metrics(ranks[0]["metrics"][0], want,
+                               f"{what}, step 1")
+    for rank, res in enumerate(ranks):
+        for i, (a, b) in enumerate(zip(res["metrics"],
+                                       ranks[0]["metrics"])):
+            rel = max(abs(a[k] - b[k]) / abs(b[k]) for k in b)
+            if not all(np.isfinite(v) for v in a.values()) or \
+                    rel > RANK_LOSS_TOL:
+                fail(f"{what}: rank {rank} step {i + 1} losses {a}, rank 0 "
+                     f"{b}")
+        if not res["lora_moved"] or not res["frozen_untouched"]:
+            fail(f"{what}: rank {rank} LoRA moved {res['lora_moved']}, "
+                 f"frozen untouched {res['frozen_untouched']}")
+        check_train_launches(res["launches"], res["backward"], cfg, micro,
+                             f"{what}, rank {rank}")
+        if res["causal_shapes"] != {want_shape: 2 * lcfg.num_layers * micro}:
+            fail(f"{what}: rank {rank} training attention shapes "
+                 f"{res['causal_shapes']}, want {want_shape}")
+    log(f"[train-parallel-7b] ({data}, {model}): step 1 against the single "
+        f"process on the same global batch ({2 * data} rows x 2 "
+        f"micro-steps; {single_s:.2f} s, peak {single_peak:.2f} GiB): worst "
+        f"loss-term rel err {worst:.3g} (limit {TRAIN_LOSS_TOL}); "
+        f"{mods['card']}; gloo reduces each CUDA all-reduce through the "
+        f"host: these are no NCCL figures")
+    log(f"[phase 12] ({'b' if model == 2 else 'c'}) anyref_7b at ({data}, "
+        f"{model}), two ranks on cuda:0 over gloo, in "
+        f"{time.time() - t_phase:.1f} s (ranks {spawn_s:.1f} s)")
+    return {"walls": [r["walls"] for r in ranks],
+            "collectives": [r["collectives"] for r in ranks],
+            "peak_gib": [r["peak_gib"] for r in ranks]}
+
+
 def tensor_bytes(tree) -> int:
     """Bytes of the tensors in a tree."""
     if isinstance(tree, dict):
@@ -6308,8 +6867,12 @@ def main() -> int:
     parallel_tiny(torch, mods)
     launches["parallel"] = parallel_7b(torch, flash, mods)
     torch.cuda.empty_cache()
+    # phase 12: training on two ranks of the one card
+    train_parallel_tiny(torch, mods)
+    phase12 = {f"({d}, {m})": train_parallel_7b(torch, mods, d, m)
+               for d, m in ((1, 2), (2, 1))}
 
-    # phase 12
+    # phase 13
     meta = {
         "layer_norm_fused": ("anyref_tpu_torch/csrc/norms.cu",
                              "anyref_tpu/ops/flash.py:615"),
@@ -6413,6 +6976,7 @@ def main() -> int:
             "other_shapes": rows[1:],
         })
     log(f"[phase 10] (b) {json.dumps(phase10)}")
+    log(f"[phase 12] {json.dumps(phase12)}")
     log(f"[card] {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,13 +5,15 @@ ranks run the port alone; the test process holds the JAX reference).
 ``run_ranks(task, world, tmp, **kw)`` starts ``world`` processes (spawn),
 each joining a process group through a FileStore of its own in a new
 directory under ``tmp`` with a collective timeout of ``collective_s``
-(60 s), runs ``TASKS[task](rank, **kw)`` and returns the results in rank
-order; a rank that fails, or a run past ``timeout`` seconds, fails the
-caller and kills every rank still alive.
+(60 s), runs ``TASKS[task](rank, **kw)`` (or, for a task named
+"module:function", that function of that module) and returns the results
+in rank order; a rank that fails, or a run past ``timeout`` seconds, fails
+the caller and kills every rank still alive.
 """
 
 from __future__ import annotations
 
+import importlib
 import multiprocessing as mp
 import os
 import queue
@@ -27,8 +29,8 @@ def run_ranks(task: str, world: int, tmp, timeout: float = 300.0,
               collective_s: float = COLLECTIVE_TIMEOUT_S, **kw):
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
-    store = os.path.join(tempfile.mkdtemp(prefix=f"{task}-{world}-",
-                                          dir=str(tmp)), "store")
+    store = os.path.join(tempfile.mkdtemp(
+        prefix=f"{task.rsplit(':', 1)[-1]}-{world}-", dir=str(tmp)), "store")
     procs = [ctx.Process(target=_rank_main,
                          args=(r, world, store, collective_s, task, kw, q),
                          daemon=True)
@@ -68,7 +70,12 @@ def _rank_main(rank, world, store, collective_s, task, kw, q):
     try:
         init_process_group(rank, world, f"file://{store}", "gloo",
                            timeout_s=collective_s)
-        out = TASKS[task](rank, **kw)
+        if ":" in task:
+            module, name = task.split(":")
+            fn = getattr(importlib.import_module(module), name)
+        else:
+            fn = TASKS[task]
+        out = fn(rank, **kw)
         q.put((rank, True, out))
     except BaseException:
         q.put((rank, False, traceback.format_exc()))
