@@ -11,6 +11,24 @@ padded canvas, resize to each image's size) runs on the host. A speculative
 Predictor first converts the caller's decoder tree to the serving layout
 (models/llama.py fuse_for_serving), in place.
 
+On a CUDA device, each shape key ``(bucket, batch bucket, sorted (name,
+dtype))`` is one compiled program, as the reference's ``jax.jit`` of its
+``run`` is: at the key's first use the program runs once eagerly (its
+results are that call's; the kernels load), then ``_capture`` records it
+into one CUDA graph whose inputs and outputs are static buffers: the
+device normalisation and generate's prefix, the decode loop as a WHILE
+conditional node whose body is one captured decoder pass and whose
+predicate a kernel of csrc/graph_loop.cu sets on the device, and the
+suffix with the meta / low-res packing. Every later call of the key stages
+the batch in pinned memory, copies it into the static inputs, replays the
+graph and clones the outputs, all on the stream, with no read from the
+device, and returns: the Server's device loop (serve.py) then collates and
+dispatches the next batch while this one runs. All keys of a Predictor
+share one memory pool, which holds its memory for as long as the Predictor
+lives. A failed capture or replay raises. On the CPU, and on a mesh of
+several ranks (gloo's collectives cannot be captured), the program runs
+eagerly with the decode loop on the host.
+
 On a mesh of several ranks (parallel/mesh.py; the tree of
 parallel/partition.py ``shard_params``), every rank calls the same
 Predictor methods on the same batch, in the same order: the batch bucket is
@@ -24,7 +42,10 @@ included.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+import ctypes
+import time
+import weakref
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -33,26 +54,42 @@ import torch.distributed as dist
 from ..config import (SAM_PIXEL_MEAN, SAM_PIXEL_STD, AnyRefConfig,
                       check_encoder_path)
 from ..models import anyref, clip_vit, llama
+from ..ops import flash
+from ..ops.common import device_constant
 from ..ops.quant import is_quantized
 from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
 from ..parallel.partition import shard_batch
 from ..ops.resize import postprocess_low_res_np
 from ..params import resolve_device
 
-
 def _sam_normalize_device(x_u8, resized_sizes):
     """Normalize uint8 SAM canvases and re-zero the pad beyond each row's
     resized extent (the host pipeline's normalize-then-pad order)."""
     S = x_u8.shape[-1]
     dev = x_u8.device
-    mean = torch.tensor(SAM_PIXEL_MEAN, device=dev).reshape(1, 3, 1, 1)
-    std = torch.tensor(SAM_PIXEL_STD, device=dev).reshape(1, 3, 1, 1)
+    mean = device_constant(SAM_PIXEL_MEAN, torch.float32, dev).reshape(
+        1, 3, 1, 1)
+    std = device_constant(SAM_PIXEL_STD, torch.float32, dev).reshape(
+        1, 3, 1, 1)
     x = (x_u8.float() - mean) / std
     nh = resized_sizes[:, 0].reshape(-1, 1, 1, 1)
     nw = resized_sizes[:, 1].reshape(-1, 1, 1, 1)
     row = torch.arange(S, device=dev).reshape(1, 1, S, 1)
     col = torch.arange(S, device=dev).reshape(1, 1, 1, S)
     return torch.where((row < nh) & (col < nw), x, 0.0)
+
+
+class GraphProgram(NamedTuple):
+    """One key's captured program: its static input buffers, its static
+    outputs (meta, low-res), the captured graphs (prefix, loop body,
+    suffix: PyTorch's, which hold the pool), the instantiated program
+    (a cudaGraphExec_t of csrc/graph_loop.cu) and the seconds the capture
+    took."""
+    inputs: dict
+    outputs: tuple
+    graphs: tuple
+    exec: int
+    capture_s: float
 
 
 class Predictor:
@@ -116,6 +153,11 @@ class Predictor:
         # host by complete (the serving benchmark's wire cost per query)
         self.h2d_bytes_total = 0
         self.d2h_bytes_total = 0
+        # the compiled programs (CUDA, no mesh of several ranks): key ->
+        # GraphProgram, all in one graph memory pool
+        self.programs: Dict[tuple, GraphProgram] = {}
+        self._pool = None
+        self._capture_stream = None
 
     def _bucket(self, n: int) -> int:
         for b in self.buckets:
@@ -129,8 +171,39 @@ class Predictor:
         return self.complete(self.predict_async(batch))
 
     def predict_async(self, batch: Dict[str, np.ndarray]):
-        """Upload and run the device program; returns a handle whose results
-        still live on the device, for complete()."""
+        """Upload and dispatch the device program; returns a handle whose
+        results still live on the device, for complete(). On a CUDA device,
+        unless the mesh has several ranks, a key's later calls only stage,
+        copy, replay and clone: nothing is read back before this
+        returns."""
+        host, key, B = self._inputs(batch)
+        if key in self.programs:
+            self.h2d_bytes_total += sum(v.nbytes for v in host.values())
+            return self._replay(self.programs[key], host, batch, B)
+        if self.mesh is not None:
+            dev = shard_batch(host, self.mesh)     # this rank's rows
+        else:
+            dev = {k: torch.from_numpy(v).to(self.device)
+                   for k, v in host.items()}
+        self.h2d_bytes_total += sum(t.numel() * t.element_size()
+                                    for t in dev.values())
+        with torch.inference_mode():
+            loop, finish = self._program(dev)
+            meta, low = finish(anyref.run_loop(loop))
+        if self.device.type == "cuda" and (self.mesh is None
+                                           or self.mesh.size == 1):
+            # the eager run above was the key's warm-up: its results are
+            # this call's, and its inputs become the program's buffers
+            self.programs[key] = self._capture(dev)
+        if self.mesh is not None and self.mesh.shape[DATA_AXIS] > 1:
+            meta, low = self._gather_rows(meta, low)
+        return (meta, low), batch, B
+
+    def _inputs(self, batch: Dict[str, np.ndarray]):
+        """The program's inputs on the host (the prompts left-padded into
+        their bucket, the rows padded to the batch bucket with copies of
+        row 0), their key (bucket, batch bucket, sorted (name, dtype)) and
+        the batch's real rows."""
         bucket = self._bucket(int(batch["prompt_lens"].max()))
         ids = batch["input_ids"]
         B = ids.shape[0]
@@ -160,36 +233,106 @@ class Predictor:
         if batch["sam_images"].dtype == np.uint8:
             host["sam_resized_sizes"] = pad_rows(
                 np.asarray(batch["sam_resized_sizes"], np.int32))
-        if self.mesh is not None:
-            dev = shard_batch(host, self.mesh)
-        else:
-            dev = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
-                self.device) for k, v in host.items()}
-        self.h2d_bytes_total += sum(t.numel() * t.element_size()
-                                    for t in dev.values())
+        host = {k: np.ascontiguousarray(v) for k, v in host.items()}
+        key = (bucket, BB, tuple(sorted((k, str(v.dtype))
+                                        for k, v in host.items())))
+        return host, key, B
+
+    def _program(self, dev: dict):
+        """The reference's ``run`` up to its decode loop: the device
+        normalisation of uint8 images, then generate's prefix. Returns
+        (DecodeLoop, finish), finish(carry) -> (meta, low-res masks) packed
+        as the reference packs them: ids, [SEG] validity and the pass count
+        in one int32 array, the fetched mask slots in the fetch dtype."""
+        dev = dict(dev)
         if dev["sam_images"].dtype == torch.uint8:
             dev["sam_images"] = _sam_normalize_device(
                 dev["sam_images"], dev.pop("sam_resized_sizes"))
         for k in ("clip_images", "ref_images"):
             if k in dev and dev[k].dtype == torch.uint8:
                 dev[k] = clip_vit.normalize_pixels(dev[k].float())
-        out = anyref.generate(self.params, self.cfg, dev,
-                              max_new_tokens=self.mnt,
-                              speculative=self.speculative,
-                              device=self.device,
-                              encoder_path=self.encoder_path,
-                              mesh=self.mesh, **self.gen_kw)
-        low = out.low_res_masks
-        if self.fetch_segs is not None:
-            low = low[:, :self.fetch_segs]
-        meta = torch.cat([
-            out.output_ids.int(), out.seg_valid.int(),
-            torch.full((out.output_ids.shape[0], 1), out.decode_passes,
-                       dtype=torch.int32, device=self.device)], 1)
-        low = low.to(self.mask_fetch_dtype)
-        if n_data > 1:
-            meta, low = self._gather_rows(meta, low)
-        return (meta, low), batch, B
+        loop, generated = anyref.generate_program(
+            self.params, self.cfg, dev, max_new_tokens=self.mnt,
+            speculative=self.speculative, device=self.device,
+            encoder_path=self.encoder_path, mesh=self.mesh, **self.gen_kw)
+
+        def finish(carry):
+            out = generated(carry)
+            low = out.low_res_masks
+            if self.fetch_segs is not None:
+                low = low[:, :self.fetch_segs]
+            B = out.output_ids.shape[0]
+            meta = torch.cat([
+                out.output_ids.int(), out.seg_valid.int(),
+                out.decode_passes.int().reshape(1, 1).expand(B, 1)], 1)
+            return meta, low.to(self.mask_fetch_dtype)
+
+        return loop, finish
+
+    def _capture(self, inputs: dict) -> GraphProgram:
+        """Capture the program on ``inputs`` (device tensors, which become
+        its static inputs) into three graphs in the Predictor's pool and
+        stitch them into one with the loop as a WHILE node
+        (csrc/graph_loop.cu). A capture records kernels and their launch
+        counts and runs none; each replay counts what it runs, on the
+        device."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._capture_stream = torch.cuda.Stream(self.device)
+        t0 = time.perf_counter()
+        graphs = []
+
+        def capture(fn):
+            g = torch.cuda.CUDAGraph(keep_graph=True)
+            with torch.cuda.graph(g, pool=self._pool,
+                                  stream=self._capture_stream,
+                                  capture_error_mode="thread_local"):
+                out = fn()
+            graphs.append(g)
+            return out
+
+        with torch.inference_mode():
+            loop, finish = capture(lambda: self._program(inputs))
+            capture(lambda: loop.body(loop.carry))
+            outputs = capture(lambda: finish(loop.carry))
+        handle = ctypes.c_void_p()
+        flash._launch("anyref_graph_program",
+                      *(g.raw_cuda_graph() for g in graphs),
+                      loop.carry["i"].data_ptr(),
+                      loop.carry["done"].data_ptr(),
+                      loop.carry["done"].numel(), self.mnt,
+                      flash.launch_counter("loop_condition",
+                                           self.device).data_ptr(),
+                      ctypes.byref(handle))
+        program = GraphProgram(inputs, outputs, tuple(graphs), handle.value,
+                               time.perf_counter() - t0)
+        weakref.finalize(program.graphs[0], flash._library().
+                         anyref_graph_destroy, handle.value)
+        return program
+
+    def _replay(self, program: GraphProgram, host: dict, batch, B: int):
+        """Stage, copy, replay, clone: nothing waits for the device. A
+        pinned buffer may be dropped as soon as its copy is queued: the
+        pinned allocator reuses it only once the copy's event completed."""
+        for k, v in host.items():
+            dst = program.inputs[k]
+            if tuple(dst.shape) != v.shape:
+                raise ValueError(f"{k}: {v.shape} for a program of "
+                                 f"{tuple(dst.shape)}")
+            dst.copy_(torch.from_numpy(v).pin_memory(), non_blocking=True)
+        flash._launch("anyref_graph_launch", program.exec,
+                      torch.cuda.current_stream(self.device).cuda_stream)
+        return tuple(t.clone() for t in program.outputs), batch, B
+
+    def graph_pool_bytes(self) -> int:
+        """Device bytes the programs' memory pool holds (0 before the first
+        capture)."""
+        if self._pool is None:
+            return 0
+        pool = tuple(self._pool)
+        return sum(seg["total_size"]
+                   for seg in torch.cuda.memory._snapshot()["segments"]
+                   if tuple(seg["segment_pool_id"]) == pool)
 
     def _gather_rows(self, meta, low):
         """Every data rank's rows, in rank order, on the host: each rank
@@ -214,7 +357,8 @@ class Predictor:
         output_ids = meta_np[:B, :self.mnt]
         seg_valid = meta_np[:B, self.mnt:-1]
         # the most a data rank took (each data rank decodes its own rows)
-        self.decode_passes_total += int(meta_np[:, -1].max())
+        passes = int(meta_np[:, -1].max())
+        self.decode_passes_total += passes
         self.completed_batches += 1
         masks: List[Optional[np.ndarray]] = []
         for b in range(low.shape[0]):

@@ -3,9 +3,12 @@ train_forward and what they call).
 
 A LLaVA-style LLaMA emits [SEG] tokens; their post-norm hidden states project
 (text_hidden_fcs) into SAM's prompt space and SAM's mask decoder turns them
-into masks. Prompts arrive left-padded; the decode loop runs on the host
-with early exit (greedy) or as batched prompt-lookup speculative decoding
-whose output equals the greedy stream. ``train_forward`` is the training
+into masks. Prompts arrive left-padded; the decode loop, greedy with early
+exit or batched prompt-lookup speculative decoding whose output equals the
+greedy stream, has the reference's ``lax.while_loop`` form: a predicate
+and a body over a carry of device tensors (``DecodeLoop``), run as a host
+loop here (``run_loop``) and as a conditional node of the Predictor's CUDA
+graph on the card (eval/runner.py). ``train_forward`` is the training
 forward: LM loss plus mask BCE and DICE on the SAM canvas, with the frozen
 towers under ``torch.no_grad``, and with ``cfg.use_loc_tokens`` the loc
 tokens of a batch that carries ``loc_boxes``. With ``cfg.rephrase_weight``
@@ -31,7 +34,7 @@ rows. ``train_forward``'s losses are the global batch's means over
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -195,14 +198,16 @@ def project_seg_hidden(params: dict, hidden):
     return linear(params["text_hidden_fcs"]["lin2"], h)
 
 
-def _prompt_lookup_draft(seq, cur_len: int, ngram: int, draft_len: int):
+def _prompt_lookup_draft(seq, cur_len, ngram: int, draft_len: int):
     """Per row of seq [B, LT]: draft the next ``draft_len`` tokens by
     copying what followed the latest earlier occurrence of the current
     ``ngram``-suffix, with periodic wrap inside the known region (falls back
-    to repeating the last token)."""
+    to repeating the last token). ``cur_len``: the known length, a 0-d int
+    tensor (the decode loop's) or an int."""
     B, LT = seq.shape
     dev = seq.device
-    gram = seq[:, cur_len - ngram:cur_len]
+    gram = torch.gather(seq, 1, (cur_len - ngram + torch.arange(
+        ngram, device=dev)).expand(B, ngram))
     idx = torch.arange(LT, device=dev)
     eq = torch.ones((B, LT), dtype=torch.bool, device=dev)
     for t in range(ngram):
@@ -210,51 +215,90 @@ def _prompt_lookup_draft(seq, cur_len: int, ngram: int, draft_len: int):
     valid = idx + ngram <= cur_len - 1
     score = torch.where(eq & valid, idx, -1)
     j = score.max(1).values
-    start = torch.where(j >= 0, j + ngram, torch.full_like(j, cur_len - 1))
+    start = torch.where(j >= 0, j + ngram, cur_len - 1)
     period = (cur_len - start).clamp_min(1)
     offs = torch.arange(draft_len, device=dev)[None, :] % period[:, None]
     return torch.gather(seq, 1, (start[:, None] + offs).clamp(0, LT - 1))
 
 
-def _speculative_decode(params, cfg, exp_ids, pad_len, cache, first_tok,
-                        Lp: int, mnt: int, G: int, ngram: int, dtype,
-                        max_accept: Optional[int] = None,
-                        force_accept: bool = False, lastin: bool = False,
-                        group=None):
+class DecodeLoop(NamedTuple):
+    """A decode loop in the reference's ``lax.while_loop`` form: ``cond(
+    carry)`` is a 0-d bool tensor, ``body(carry)`` one decoder pass that
+    writes the next carry into the carry's own tensors (``copy_``,
+    ``index_copy_``; the KV cache in place) and returns it. Neither reads
+    anything back from the device, so the loop runs as a host loop
+    (``run_loop``) or, captured, as a device-side conditional node
+    (eval/runner.py); ``finish(carry)`` is what follows the loop."""
+    cond: Callable
+    body: Callable
+    carry: dict
+
+
+def run_loop(loop: DecodeLoop, fixed_steps: Optional[int] = None) -> dict:
+    """The host loop: ``body`` while ``cond`` holds, one read of the
+    predicate a pass; or, with ``fixed_steps``, that many bodies and no
+    read at all."""
+    c = loop.carry
+    if fixed_steps is not None:
+        for _ in range(fixed_steps):
+            c = loop.body(c)
+        return c
+    while bool(loop.cond(c)):
+        c = loop.body(c)
+    return c
+
+
+def _loop_cond(mnt: int):
+    def cond(c):
+        return (c["i"] < mnt) & ~c["done"].all()
+    return cond
+
+
+def _speculative_loop(params, cfg, exp_ids, pad_len, cache, first_tok,
+                      Lp: int, mnt: int, G: int, ngram: int, dtype,
+                      max_accept: Optional[int] = None,
+                      force_accept: bool = False, lastin: bool = False,
+                      group=None):
     """Batched prompt-lookup speculative decode, lockstep-min acceptance:
     each pass verifies the pending token plus G per-row drafts in one chunk;
     all rows advance by the minimum accepted length over unfinished rows.
     ``max_accept`` caps tokens accepted per pass; ``force_accept``
     (benchmark only) accepts exactly max_accept drafts regardless of
-    verification. Returns (ids [B, mnt], hidden [B, mnt, D], the final
-    layer's input of each position [B, mnt, D] or None without ``lastin``,
-    passes)."""
+    verification. Returns (DecodeLoop, finish) with finish(carry) -> (ids
+    [B, mnt], hidden [B, mnt, D], the final layer's input of each position
+    [B, mnt, D] or None without ``lastin``, passes as a 0-d int32
+    tensor). The carry is the reference's (anyref.py _speculative_decode):
+    the position ``i`` and the pass count ``n_pass`` as int32 tensors."""
     eos = EOS_ID
     B = exp_ids.shape[0]
     dev = exp_ids.device
     D = params["llama"]["final_norm"]["scale"].shape[0]
     ext = mnt + G + 1
-    toks = torch.full((B, ext), eos, dtype=torch.long, device=dev)
-    hids = torch.zeros((B, ext, D), dtype=dtype, device=dev)
-    lins = torch.zeros((B, ext, D), dtype=dtype, device=dev) if lastin \
-        else None
-    all_ids = torch.cat([exp_ids, torch.full((B, ext), eos, dtype=torch.long,
-                                             device=dev)], 1)
+    carry = {
+        "i": torch.zeros((), dtype=torch.int32, device=dev),
+        "n_pass": torch.zeros((), dtype=torch.int32, device=dev),
+        "tok": first_tok.clone(),
+        "done": torch.zeros(B, dtype=torch.bool, device=dev),
+        "toks": torch.full((B, ext), eos, dtype=torch.long, device=dev),
+        "hids": torch.zeros((B, ext, D), dtype=dtype, device=dev),
+        "all_ids": torch.cat([exp_ids, torch.full(
+            (B, ext), eos, dtype=torch.long, device=dev)], 1)}
+    if lastin:
+        carry["lins"] = torch.zeros((B, ext, D), dtype=dtype, device=dev)
     arange_g = torch.arange(G + 1, device=dev)
     ones = torch.ones((B, 1), dtype=torch.long, device=dev)
-    i, n_pass = 0, 0
-    tok = first_tok
-    done = torch.zeros(B, dtype=torch.bool, device=dev)
-    while i < mnt and not bool(done.all()):
-        all_ids[:, Lp + i] = tok
+
+    def body(c):
+        i, tok, done, all_ids = c["i"], c["tok"], c["done"], c["all_ids"]
+        all_ids.index_copy_(1, (Lp + i).long().reshape(1), tok[:, None])
         draft = _prompt_lookup_draft(all_ids, Lp + i + 1, ngram, G)
         feed = torch.cat([tok[:, None], draft], 1)
         feed = torch.where(done[:, None], eos, feed)
         emb = llama.embed(params["llama"], feed, dtype=dtype, group=group)
-        h, cache, *lin = llama.decode_chunk(params["llama"], cfg.llama, emb,
-                                            Lp + i, cache, pad_len=pad_len,
-                                            return_last_input=lastin,
-                                            group=group)
+        h, _, *lin = llama.decode_chunk(params["llama"], cfg.llama, emb,
+                                        Lp + i, cache, pad_len=pad_len,
+                                        return_last_input=lastin,
+                                        group=group)
         nxt = llama.logits(params["llama"], h, group).argmax(-1)  # [B, G+1]
 
         match = torch.cumprod((feed[:, 1:] == nxt[:, :G]).long(), 1)
@@ -268,66 +312,82 @@ def _speculative_decode(params, cfg, exp_ids, pad_len, cache, first_tok,
             ok = ok * (arange_g < max_accept).long()[None]
         n_emit_row = ok.sum(1)
         # finished rows must not throttle the batch
-        n_emit = int(torch.where(done, G + 1, n_emit_row).min())
-        n_emit = max(n_emit, 1)
+        n_emit = torch.where(done, G + 1, n_emit_row).min().clamp_min(1)
         # EOS only counts as emitted inside the accepted prefix
         ok_eff = ok * (arange_g[None] < n_emit).long()
         done_next = done | ((feed == eos) & (ok_eff == 1)).any(1)
 
-        toks[:, i:i + G + 1] = feed
-        hids[:, i:i + G + 1] = h
+        at = i.long() + arange_g
+        c["toks"].index_copy_(1, at, feed)
+        c["hids"].index_copy_(1, at, h)
         if lastin:
-            lins[:, i:i + G + 1] = lin[0]
-        all_ids[:, Lp + i:Lp + i + G + 1] = feed
-        next_tok = nxt[:, min(max(n_emit - 1, 0), G)]
-        tok = torch.where(done_next, eos, next_tok)
-        done = done_next
-        i += n_emit
-        n_pass += 1
-    live = torch.arange(ext, device=dev)[None, :] < i
-    toks = torch.where(live, toks, eos)
-    hids = torch.where(live[:, :, None], hids, 0)
-    return (toks[:, :mnt], hids[:, :mnt],
-            lins[:, :mnt] if lastin else None, n_pass)
+            c["lins"].index_copy_(1, at, lin[0])
+        all_ids.index_copy_(1, Lp + at, feed)
+        next_tok = torch.gather(nxt, 1, (n_emit - 1).clamp(0, G)
+                                .expand(B, 1))[:, 0]
+        tok.copy_(torch.where(done_next, eos, next_tok))
+        done.copy_(done_next)
+        i.add_(n_emit.to(i.dtype))
+        c["n_pass"].add_(1)
+        return c
+
+    def finish(c):
+        live = torch.arange(ext, device=dev)[None, :] < c["i"]
+        toks = torch.where(live, c["toks"], eos)
+        hids = torch.where(live[:, :, None], c["hids"], 0)
+        return (toks[:, :mnt], hids[:, :mnt],
+                c["lins"][:, :mnt] if lastin else None, c["n_pass"])
+
+    return DecodeLoop(_loop_cond(mnt), body, carry), finish
 
 
-def _greedy_decode(params, cfg, pad_len, cache, first_tok, Lp: int, mnt: int,
-                   dtype, lastin: bool = False, fixed_steps: bool = False,
-                   group=None):
-    """Greedy decode with early exit once every row has emitted EOS, or,
-    with ``fixed_steps``, all ``mnt`` steps with no branch on the data (a
-    program torch.export can trace): finished rows write EOS and zero states
-    either way (the reference's comment at its decode loop: running every
-    step gives the same ids). Returns (ids [B, mnt], hidden [B, mnt, D],
-    final-layer inputs [B, mnt, D] or None, steps)."""
+def _greedy_loop(params, cfg, pad_len, cache, first_tok, Lp: int, mnt: int,
+                 dtype, lastin: bool = False, group=None):
+    """Greedy decode, a pass a token, until every row has emitted EOS or
+    ``mnt`` steps ran; run for all ``mnt`` steps (``run_loop``'s
+    ``fixed_steps``) it gives the same outputs: finished rows write EOS and
+    zero states either way (the reference's comment at its decode loop).
+    Returns (DecodeLoop, finish) with finish(carry) -> (ids [B, mnt], hidden
+    [B, mnt, D], final-layer inputs [B, mnt, D] or None, steps as a 0-d
+    int32 tensor)."""
     eos = EOS_ID
     B = first_tok.shape[0]
     dev = first_tok.device
     D = params["llama"]["final_norm"]["scale"].shape[0]
-    toks = torch.full((B, mnt), eos, dtype=torch.long, device=dev)
-    hids = torch.zeros((B, mnt, D), dtype=dtype, device=dev)
-    lins = torch.zeros((B, mnt, D), dtype=dtype, device=dev) if lastin \
-        else None
-    tok = first_tok
-    done = torch.zeros(B, dtype=torch.bool, device=dev)
-    i = 0
-    while i < mnt and (fixed_steps or not bool(done.all())):
+    carry = {
+        "i": torch.zeros((), dtype=torch.int32, device=dev),
+        "tok": first_tok.clone(),
+        "done": torch.zeros(B, dtype=torch.bool, device=dev),
+        "toks": torch.full((B, mnt), eos, dtype=torch.long, device=dev),
+        "hids": torch.zeros((B, mnt, D), dtype=dtype, device=dev)}
+    if lastin:
+        carry["lins"] = torch.zeros((B, mnt, D), dtype=dtype, device=dev)
+
+    def body(c):
+        i, tok, done = c["i"], c["tok"], c["done"]
         emb = llama.embed(params["llama"], tok[:, None], dtype=dtype,
                           group=group)
-        h, cache, *lin = llama.decode_step(params["llama"], cfg.llama, emb,
-                                           Lp + i, cache, pad_len=pad_len,
-                                           return_last_input=lastin,
-                                           group=group)
+        h, _, *lin = llama.decode_step(params["llama"], cfg.llama, emb,
+                                       Lp + i, cache, pad_len=pad_len,
+                                       return_last_input=lastin,
+                                       group=group)
         nxt = llama.logits(params["llama"], h[:, 0], group).argmax(-1)
         done_next = done | (tok == eos)
-        toks[:, i] = torch.where(done, eos, tok)
-        hids[:, i] = h[:, 0]
+        at = i.long().reshape(1)
+        c["toks"].index_copy_(1, at, torch.where(done, eos, tok)[:, None])
+        c["hids"].index_copy_(1, at, h)
         if lastin:
-            lins[:, i] = lin[0][:, 0]
-        tok = torch.where(done_next, eos, nxt)
-        done = done_next
-        i += 1
-    return toks, hids, lins, i
+            c["lins"].index_copy_(1, at, lin[0])
+        tok.copy_(torch.where(done_next, eos, nxt))
+        done.copy_(done_next)
+        i.add_(1)
+        return c
+
+    def finish(c):
+        return (c["toks"], c["hids"], c["lins"] if lastin else None,
+                c["i"])
+
+    return DecodeLoop(_loop_cond(mnt), body, carry), finish
 
 
 class TrainOutput(NamedTuple):
@@ -503,8 +563,9 @@ class GenerateOutput(NamedTuple):
     low_res_masks: torch.Tensor   # [B, S, 4g, 4g] logits (SAM low-res grid)
     seg_valid: torch.Tensor       # [B, S]
     seg_embeddings: torch.Tensor  # [B, S, out_dim]
-    decode_passes: int            # decode weight streams (tokens/pass =
-                                  # num_generated / decode_passes)
+    decode_passes: torch.Tensor   # 0-d int32: decode weight streams
+                                  # (tokens/pass = num_generated /
+                                  # decode_passes)
 
 
 @torch.inference_mode()
@@ -524,15 +585,43 @@ def generate(params: dict, cfg: AnyRefConfig, batch: dict,
     already live on ``device``. ``encoder_path`` selects the towers' path
     (config.ENCODER_PATHS). An int8 decoder tree (ops.quant.quantize_llama)
     runs greedy and speculative decode alike; so does either layout of the
-    decoder (llama.fuse_for_serving). ``fixed_steps`` is the form
-    export.export_generate traces: greedy, all ``max_new_tokens`` steps
-    with no branch on the data; its outputs are those of the early
-    exit. ``mesh`` (parallel/mesh.py): the batch holds this rank's rows
-    (parallel/partition.py ``shard_batch``) and the params its blocks
-    (``shard_params``); the outputs are this rank's rows."""
-    check_encoder_path(encoder_path)
+    decoder (llama.fuse_for_serving). The decode loop runs on the host, one
+    read of its predicate a pass (``generate_program`` gives its parts).
+    ``fixed_steps`` is the form export.export_generate traces: greedy, all
+    ``max_new_tokens`` steps with no read at all; its outputs are those of
+    the early exit. ``mesh`` (parallel/mesh.py): the batch holds this
+    rank's rows (parallel/partition.py ``shard_batch``) and the params its
+    blocks (``shard_params``); the outputs are this rank's rows."""
     if fixed_steps and speculative:
         raise ValueError("fixed_steps is the greedy decode's traced form")
+    loop, finish = generate_program(
+        params, cfg, batch, max_new_tokens=max_new_tokens,
+        speculative=speculative, draft_len=draft_len,
+        lookup_ngram=lookup_ngram, max_accept=max_accept,
+        force_accept=force_accept, device=device, encoder_path=encoder_path,
+        mesh=mesh)
+    mnt = max_new_tokens or cfg.max_new_tokens
+    return finish(run_loop(loop, mnt if fixed_steps else None))
+
+
+def generate_program(params: dict, cfg: AnyRefConfig, batch: dict,
+                     max_new_tokens: Optional[int] = None,
+                     speculative: bool = False, draft_len: int = 31,
+                     lookup_ngram: int = 2,
+                     max_accept: Optional[int] = None,
+                     force_accept: bool = False, device="cuda",
+                     encoder_path: str = "fused", mesh=None):
+    """generate in the reference's program form (its generate under
+    jax.jit, the loop a lax.while_loop): runs the prefix (the towers,
+    prefill, the first token) and returns (DecodeLoop, finish), where
+    ``finish(carry)`` runs the suffix (the [SEG] gather, rephrase pooling,
+    text_hidden_fcs, SAM's prompt encoder and mask decoder) and returns the
+    GenerateOutput. Prefix, loop body, loop predicate and suffix read
+    nothing back from the device, so the whole program can be captured
+    into one CUDA graph with the loop as a conditional node
+    (eval/runner.py). Arguments as ``generate``'s; call it under
+    ``torch.inference_mode``."""
+    check_encoder_path(encoder_path)
     dev = resolve_device(device)
     # embed_tokens: a leaf of both the float and the int8 decoder tree
     p_dev = params["llama"]["embed_tokens"].device
@@ -579,45 +668,50 @@ def generate(params: dict, cfg: AnyRefConfig, batch: dict,
                              group).argmax(-1)
 
     if speculative:
-        output_ids, gen_hidden, gen_lastin, decode_passes = \
-            _speculative_decode(params, cfg, exp_ids, pad_len, cache,
-                                first_tok, Lp, mnt, draft_len, lookup_ngram,
-                                embeds.dtype, max_accept=max_accept,
-                                force_accept=force_accept, lastin=lastin,
-                                group=group)
+        loop, decoded = _speculative_loop(
+            params, cfg, exp_ids, pad_len, cache, first_tok, Lp, mnt,
+            draft_len, lookup_ngram, embeds.dtype, max_accept=max_accept,
+            force_accept=force_accept, lastin=lastin, group=group)
     else:
-        output_ids, gen_hidden, gen_lastin, decode_passes = _greedy_decode(
-            params, cfg, pad_len, cache, first_tok, Lp, mnt, embeds.dtype,
-            lastin=lastin, fixed_steps=fixed_steps, group=group)
-    num_generated = (output_ids != EOS_ID).sum(1)
+        loop, decoded = _greedy_loop(params, cfg, pad_len, cache, first_tok,
+                                     Lp, mnt, embeds.dtype, lastin=lastin,
+                                     group=group)
 
-    # the hidden state that EMITS [SEG] at output k is gen_hidden[k-1], or
-    # the last prefill state for k = 0
-    S = cfg.max_seg_per_sample
-    pos, seg_valid = _seg_slots(output_ids, tk.seg, S)
-    all_hidden = torch.cat([hidden[:, -1:], gen_hidden], 1)
-    seg_hidden = torch.gather(all_hidden, 1, pos[:, :, None].expand(-1, -1, D))
-    if lastin:
-        # the state emitting the first [SEG] at output k sits at cache slot
-        # Lp + k - 1; all_hidden[j] at slot Lp - 1 + j, so the span is
-        # all_hidden[0:k] (reference anyref.py:710-733)
-        k_pos = pos[:, 0]
-        q_slot = Lp + k_pos - 1
-        all_lastin = torch.cat([pf_lastin[0][:, -1:], gen_lastin], 1)
-        q_in = all_lastin[torch.arange(B, device=dev), k_pos]
-        row = _last_layer_attn_row(params, cfg, q_in, cache.k[-1],
-                                   q_slot - pad_len, q_slot, kv_start=pad_len,
-                                   group=group)
-        span = torch.arange(mnt + 1, device=dev)[None, :] < k_pos[:, None]
-        pooled = _span_pool(row[:, Lp - 1:Lp + mnt], all_hidden, span)
-        seg_hidden = seg_hidden + (cfg.rephrase_weight
-                                   * pooled[:, None]).to(seg_hidden.dtype)
-    pred_emb = project_seg_hidden(params, seg_hidden)            # [B, S, out]
-    img_index = torch.arange(B, device=dev)[:, None].expand(B, S).reshape(-1)
-    low_res, _ = sam_mod.decode_text_prompts(
-        params["sam"], cfg.sam, sam_embeddings, pred_emb.reshape(B * S, -1),
-        img_index)
-    g4 = 4 * cfg.sam.embedding_size
-    return GenerateOutput(output_ids, num_generated,
-                          low_res.reshape(B, S, g4, g4), seg_valid, pred_emb,
-                          decode_passes)
+    def finish(carry) -> GenerateOutput:
+        output_ids, gen_hidden, gen_lastin, decode_passes = decoded(carry)
+        num_generated = (output_ids != EOS_ID).sum(1)
+        # the hidden state that EMITS [SEG] at output k is gen_hidden[k-1],
+        # or the last prefill state for k = 0
+        S = cfg.max_seg_per_sample
+        pos, seg_valid = _seg_slots(output_ids, tk.seg, S)
+        all_hidden = torch.cat([hidden[:, -1:], gen_hidden], 1)
+        seg_hidden = torch.gather(all_hidden, 1,
+                                  pos[:, :, None].expand(-1, -1, D))
+        if lastin:
+            # the state emitting the first [SEG] at output k sits at cache
+            # slot Lp + k - 1; all_hidden[j] at slot Lp - 1 + j, so the span
+            # is all_hidden[0:k] (reference anyref.py:710-733)
+            k_pos = pos[:, 0]
+            q_slot = Lp + k_pos - 1
+            all_lastin = torch.cat([pf_lastin[0][:, -1:], gen_lastin], 1)
+            q_in = torch.gather(all_lastin, 1, k_pos[:, None, None].expand(
+                -1, 1, D))[:, 0]
+            row = _last_layer_attn_row(params, cfg, q_in, cache.k[-1],
+                                       q_slot - pad_len, q_slot,
+                                       kv_start=pad_len, group=group)
+            span = torch.arange(mnt + 1, device=dev)[None, :] < k_pos[:, None]
+            pooled = _span_pool(row[:, Lp - 1:Lp + mnt], all_hidden, span)
+            seg_hidden = seg_hidden + (cfg.rephrase_weight
+                                       * pooled[:, None]).to(seg_hidden.dtype)
+        pred_emb = project_seg_hidden(params, seg_hidden)        # [B, S, out]
+        img_index = torch.arange(B, device=dev)[:, None].expand(
+            B, S).reshape(-1)
+        low_res, _ = sam_mod.decode_text_prompts(
+            params["sam"], cfg.sam, sam_embeddings,
+            pred_emb.reshape(B * S, -1), img_index)
+        g4 = 4 * cfg.sam.embedding_size
+        return GenerateOutput(output_ids, num_generated,
+                              low_res.reshape(B, S, g4, g4), seg_valid,
+                              pred_emb, decode_passes)
+
+    return loop, finish

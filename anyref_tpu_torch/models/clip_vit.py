@@ -13,7 +13,7 @@ import torch
 
 from ..config import ClipVisionConfig, check_encoder_path
 from ..ops.attention import mha_qkv
-from ..ops.common import layer_norm, linear, quick_gelu
+from ..ops.common import device_constant, layer_norm, linear, quick_gelu
 
 CLIP_PIXEL_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_PIXEL_STD = (0.26862954, 0.26130258, 0.27577711)
@@ -58,8 +58,7 @@ def apply_patch_features(params: dict, pixels, cfg: ClipVisionConfig,
 
 def normalize_pixels(x):
     """RGB uint8-range [..., 3, H, W] -> CLIP-normalized."""
-    mean = torch.tensor(CLIP_PIXEL_MEAN, dtype=x.dtype,
-                        device=x.device).reshape(-1, 1, 1)
-    std = torch.tensor(CLIP_PIXEL_STD, dtype=x.dtype,
-                       device=x.device).reshape(-1, 1, 1)
+    mean = device_constant(CLIP_PIXEL_MEAN, x.dtype,
+                           x.device).reshape(-1, 1, 1)
+    std = device_constant(CLIP_PIXEL_STD, x.dtype, x.device).reshape(-1, 1, 1)
     return (x / 255.0 - mean) / std

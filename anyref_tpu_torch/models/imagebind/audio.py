@@ -35,7 +35,7 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact GELU spelled 0.5 x erfc(-x sqrt(1/2)) op by op with the
     constant in x's dtype, as jax.nn.gelu(approximate=False) is, so bf16
     rounds after each step where the reference's does."""
-    sqrt_half = torch.tensor(0.5 ** 0.5, dtype=x.dtype, device=x.device)
+    sqrt_half = torch.full((), 0.5 ** 0.5, dtype=x.dtype, device=x.device)
     return (0.5 * x) * torch.special.erfc(-x * sqrt_half)
 
 

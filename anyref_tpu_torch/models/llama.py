@@ -16,7 +16,12 @@ head_dim] tensors (the reference stacks them [layers, ...]); each layer
 writes its fresh k/v into its own tensor IN PLACE at ``write_pos`` (the
 reference returns an updated copy; in place saves the copy, and a traced
 program whose writes are made functional copies one layer's cache a write,
-not all of them). Prefill runs
+not all of them). A decode step's or verify chunk's slot ``pos`` is a 0-d
+int tensor on the batch's device, as the reference's traced ``Lp + i``:
+the write goes by index (``index_copy_``, the counterpart of its
+``dynamic_update_slice``) and the rope positions and the causal bound are
+computed from it, so the decode loop reads nothing back from the device
+(models/anyref.py). Prefill runs
 the causal CUDA kernel and the fused RMSNorm kernel; decode steps and
 speculative verify chunks run plain attention and plain norms, as the
 reference does. ``forward`` (training) writes no cache and runs the
@@ -206,11 +211,12 @@ def _merge_heads(x):
     return x.transpose(1, 2).reshape(B, L, n * hd)
 
 
-def _layer(p, cfg: LlamaConfig, x, mode: str, cache, write_pos: int,
+def _layer(p, cfg: LlamaConfig, x, mode: str, cache, write_pos,
            layer_idx: int, rope_tables, kv_start=None, kv_len=None,
            fused_norms: bool = False, group=None):
-    """mode "prefill" attends over the fresh prompt keys (causal kernel);
-    "decode" attends over the whole cache after writing the new keys;
+    """mode "prefill" attends over the fresh prompt keys (causal kernel),
+    written at slot 0; "decode" attends over the whole cache after writing
+    the new keys at ``write_pos`` (a 0-d int tensor);
     "full" (training) writes no cache and takes the differentiable causal
     kernel (``cache`` is None there). With a "model" ``group``, the
     attention and the MLP whose weights are blocks sum over it."""
@@ -234,11 +240,14 @@ def _layer(p, cfg: LlamaConfig, x, mode: str, cache, write_pos: int,
     q = _rope(q, rope_tables)
     k = _rope(k, rope_tables)
 
-    if mode != "full":
+    if mode == "prefill":
         L = k.shape[2]
-        cache.k[layer_idx][:, :, write_pos:write_pos + L] = k
-        cache.v[layer_idx][:, :, write_pos:write_pos + L] = v
-    if mode == "decode":
+        cache.k[layer_idx][:, :, :L] = k
+        cache.v[layer_idx][:, :, :L] = v
+    elif mode == "decode":
+        slots = write_pos + torch.arange(k.shape[2], device=k.device)
+        cache.k[layer_idx].index_copy_(2, slots, k)
+        cache.v[layer_idx].index_copy_(2, slots, v)
         k, v = cache.k[layer_idx], cache.v[layer_idx]
     rep = q.shape[1] // k.shape[1]
     if rep > 1:
@@ -339,13 +348,14 @@ def prefill(params: dict, cfg: LlamaConfig, embeds, cache: KVCache,
                 True, return_last_input, group)
 
 
-def decode_chunk(params: dict, cfg: LlamaConfig, embeds, pos: int,
+def decode_chunk(params: dict, cfg: LlamaConfig, embeds, pos,
                  cache: KVCache, pad_len=None,
                  return_last_input: bool = False, group=None):
     """G consecutive tokens [B, G, D] at cache slots pos .. pos+G-1 (a
-    speculative verify chunk; G = 1 is a decode step); outputs as
-    ``prefill``'s. Rejected draft entries left in the cache are rewritten
-    before any query attends them."""
+    speculative verify chunk; G = 1 is a decode step), ``pos`` a 0-d int
+    tensor on the batch's device; outputs as ``prefill``'s. Rejected draft
+    entries left in the cache are rewritten before any query attends
+    them."""
     B, G, _ = embeds.shape
     positions = pos + torch.arange(G, device=embeds.device)[None, :]
     if pad_len is not None:
@@ -354,10 +364,11 @@ def decode_chunk(params: dict, cfg: LlamaConfig, embeds, pos: int,
                 False, return_last_input, group)
 
 
-def decode_step(params: dict, cfg: LlamaConfig, embeds, pos: int,
+def decode_step(params: dict, cfg: LlamaConfig, embeds, pos,
                 cache: KVCache, pad_len=None,
                 return_last_input: bool = False, group=None):
-    """One decode step, embeds [B, 1, D] at cache slot ``pos``."""
+    """One decode step, embeds [B, 1, D] at cache slot ``pos`` (a 0-d int
+    tensor)."""
     return decode_chunk(params, cfg, embeds, pos, cache, pad_len,
                         return_last_input, group)
 

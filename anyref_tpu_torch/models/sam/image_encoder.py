@@ -25,7 +25,6 @@ Four paths (config.ENCODER_PATHS), chosen by the caller:
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -36,9 +35,11 @@ from ...ops.common import conv2d, gelu, layer_norm, layer_norm_2d, linear
 
 
 def _get_rel_pos_table(size: int, rel_pos):
-    """[2*size-1, hd] table -> [q, k, hd] gathered bias factors."""
-    coords = np.arange(size)[:, None] - np.arange(size)[None, :] + size - 1
-    return rel_pos[torch.as_tensor(coords, device=rel_pos.device)]
+    """[2*size-1, hd] table -> [q, k, hd] gathered bias factors (the
+    indices made on the table's device: a CUDA graph capture holds no copy
+    from the host)."""
+    ar = torch.arange(size, device=rel_pos.device)
+    return rel_pos[ar[:, None] - ar[None, :] + size - 1]
 
 
 def _attn_block(p, x, num_heads: int, size_hw: tuple[int, int],

@@ -18,6 +18,17 @@ from . import flash
 from .quant import quant_linear
 
 
+def device_constant(values, dtype, device) -> torch.Tensor:
+    """A small constant vector filled on ``device`` element by element,
+    with no copy from the host: a CUDA graph capture (eval/runner.py) holds
+    no copy from pageable memory. Each value is rounded to ``dtype`` as
+    ``torch.tensor(values, dtype=dtype)`` rounds it."""
+    out = torch.empty(len(values), dtype=dtype, device=device)
+    for j, v in enumerate(values):
+        out[j].fill_(v)
+    return out
+
+
 def linear(p, x: torch.Tensor) -> torch.Tensor:
     """x [..., in] @ w [in, out] (+ b) in x's dtype: the weight is rounded
     to x's dtype and the product accumulates in fp32, as the reference's

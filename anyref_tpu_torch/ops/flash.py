@@ -60,19 +60,29 @@ shape, dtype and strides, so ``torch.export`` traces a program through the
 kernels (``export.export_generate``). A wrapper checks its inputs (CPU
 tensors, or bf16 CUDA tensors; any other device or dtype raises) and calls
 its op: the dispatcher takes the plain version only for CPU tensors, and a
-CUDA tensor launches the kernel or raises. There is no fallback. Each
-wrapper carries ``.launches``, a plain int its CUDA implementation raises by
-one per call that launched its kernel (or chain), so a run can show which
-kernels its path went through; ``flash_causal_attention_diff`` counts
-forward calls in ``.launches`` (recomputation under checkpointing included)
-and backward calls in ``.backward_launches``.
+CUDA tensor launches the kernel or raises. There is no fallback. A
+run shows which kernels its path went through by counts kept on the device:
+where a CUDA implementation launches its kernel (or chain), it launches the
+one-thread kernel of ``csrc/launch_count.cu`` after it on the same stream,
+which adds one to the wrapper's slot of an int64 tensor on that device
+(``launch_counts``, ``reset_launch_counts``). A CUDA graph that captures a
+call records its count beside its kernel, so every replay, and every pass of
+a loop inside a graph, counts what it launches, and a capture counts
+nothing. ``flash_causal_attention_diff`` counts forward calls under its name
+(recomputation under checkpointing included) and backward calls under
+``flash_causal_attention_diff_backward``; the Predictor's loop condition
+kernel counts its own runs under ``loop_condition``.
 
 Build: at first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a``
 (one process per source, all started together) and links them into one
 shared library under ``anyref_tpu_torch/build/``, named after a hash of the
 sources, under a file lock (ranks that start together build it once; the
-rest wait and load it); the library is loaded with ``ctypes`` and each C
-entry returns ``cudaGetLastError()``.
+rest wait and load it); the library is loaded with ``ctypes.PyDLL`` (a
+call keeps the GIL) and each C entry returns ``cudaGetLastError()``. The
+library also carries
+``csrc/graph_loop.cu`` (the decode loop's condition kernel and the
+assembly of the Predictor's CUDA graph program, eval/runner.py) and
+``csrc/launch_count.cu`` (the counter kernel), which port no Pallas kernel.
 """
 
 from __future__ import annotations
@@ -96,7 +106,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = ("norms.cu", "relpos_global.cu", "causal_attention.cu",
            "causal_attention_bwd.cu", "fused_layers.cu", "int8_matmul.cu",
-           "window_attention.cu")
+           "window_attention.cu", "graph_loop.cu", "launch_count.cu")
 HEADERS = ("common.cuh", "gemm.cuh", "wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -165,7 +175,11 @@ def _library():
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+            # PyDLL: a call keeps the GIL. Each entry only enqueues work
+            # and returns; a call that released the GIL would wait for any
+            # busy Python thread (a Server's) to hand it back, far longer
+            # than the launch takes
+            lib = ctypes.PyDLL(str(build()))
             P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             sigs = {
                 "anyref_layer_norm": [P, P, P, I, P, I, I, F, I, P],
@@ -185,6 +199,15 @@ def _library():
                                                    I, I, I, I, I, I, I, I, I,
                                                    F, I, P],
             }
+            # the Predictor's graph program (csrc/graph_loop.cu) and the
+            # launch counter (csrc/launch_count.cu)
+            sigs.update({
+                "anyref_graph_program": [P, P, P, P, P, I, I, P,
+                                         ctypes.POINTER(P)],
+                "anyref_graph_launch": [P, P],
+                "anyref_graph_destroy": [P],
+                "anyref_count_launch": [P, P],
+            })
             for name, args in sigs.items():
                 fn = getattr(lib, name)
                 fn.argtypes = args
@@ -288,7 +311,7 @@ def _layer_norm_cuda(x, scale, bias, eps: float):
         _launch("anyref_layer_norm", xc.data_ptr(), s.data_ptr(),
                 b.data_ptr(), int(s.dtype == torch.float32), y.data_ptr(), N,
                 C, float(eps), vec, _stream(x))
-    layer_norm_fused.launches += 1
+    _count("layer_norm_fused", x)
     return y
 
 
@@ -314,12 +337,8 @@ def _rms_norm_cuda(x, scale, eps: float):
         _launch("anyref_rms_norm", xc.data_ptr(), s.data_ptr(),
                 int(s.dtype == torch.float32), y.data_ptr(), N, C, float(eps),
                 vec, _stream(x))
-    rms_norm_fused.launches += 1
+    _count("rms_norm_fused", x)
     return y
-
-
-layer_norm_fused.launches = 0
-rms_norm_fused.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -492,11 +511,8 @@ def _relpos_attention_cuda(q, k, v, rel_h_table, rel_w_table, size_hw):
             _window_relpos(q, k, v, rel_h_table, rel_w_table, size_hw, out)
         else:
             _global_relpos(q, k, v, rel_h_table, rel_w_table, size_hw, out)
-    flash_relpos_attention.launches += 1
+    _count("flash_relpos_attention", q)
     return out
-
-
-flash_relpos_attention.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -587,7 +603,7 @@ def _causal_forward(wrapper, q, k, v, kv_start, with_lse: bool):
                 v.data_ptr(), None if ks is None else ks.data_ptr(),
                 out.data_ptr(), None if lse is None else lse.data_ptr(),
                 B, nh, L, hd8, hd ** -0.5, _stream(q))
-    wrapper.launches += 1
+    _count(wrapper.__name__, q)
     return _narrow(out, hd), lse
 
 
@@ -607,9 +623,6 @@ def _causal_attention_cuda(q, k, v, kv_start):
     _on_card("flash_causal_attention", q, k, v)
     return _causal_forward(flash_causal_attention, q, k, v, kv_start,
                            with_lse=False)[0]
-
-
-flash_causal_attention.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -698,7 +711,7 @@ def _causal_diff_bwd_cuda(q, k, v, do, lse, delta, kv_start):
                     None if ks is None else ks.data_ptr(), dq.data_ptr(),
                     dk.data_ptr(), dv.data_ptr(), B, nh, L, hd8, hd ** -0.5,
                     _stream(q))
-        flash_causal_attention_diff.backward_launches += 1
+        _count("flash_causal_attention_diff_backward", q)
     return tuple(_narrow(t, hd) for t in (dq, dk, dv))
 
 
@@ -729,10 +742,6 @@ def flash_causal_attention_diff(q, k, v, kv_start=None):
     path), kv_start [B] int or None. Neither direction materialises the
     [B, nh, L, L] scores on the card."""
     return _CausalAttentionDiff.apply(q, k, v, kv_start)
-
-
-flash_causal_attention_diff.launches = 0
-flash_causal_attention_diff.backward_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1100,7 +1109,7 @@ def _fused_window_attn_cuda(xw, ln1, qkv_p, tht, twt, proj_p, size_hw,
         attn = _window_attention(x2, ln1, qkv_p, tht, twt, NW, L, num_heads,
                                  ws, grid_hw, nwc, eps)
         out = _gemm(attn, proj_p["w"], proj_p["b"], _E_RES, res=x2)
-    fused_window_attn.launches += 1
+    _count("fused_window_attn", xw)
     return out.view(NW, L, C)
 
 
@@ -1137,7 +1146,7 @@ def _fused_window_block_cuda(xw, ln1, qkv_p, tht, twt, proj_p, ln2, mlp1_p,
         x1 = _gemm(attn, proj_p["w"], proj_p["b"], _E_RES, res=x2,
                    out_dtype=torch.float32)
         out = _mlp_residual(x1, ln2, mlp1_p, mlp2_p, eps)
-    fused_window_block.launches += 1
+    _count("fused_window_block", xw)
     return out.view(NW, L, C)
 
 
@@ -1156,7 +1165,7 @@ def _fused_mlp_stream_cuda(x, ln2, mlp1_p, mlp2_p, eps: float):
     _gemm_operands("fused_mlp_stream", xc, mlp1_p["w"], mlp2_p["w"])
     with torch.cuda.device(x.device):
         out = _mlp_residual(xc, ln2, mlp1_p, mlp2_p, eps)
-    fused_mlp_stream.launches += 1
+    _count("fused_mlp_stream", x)
     return out
 
 
@@ -1192,7 +1201,7 @@ def _fused_global_tail_cuda(x, qkv, tht, twt, proj_p, ln2, mlp1_p, mlp2_p,
         x1 = _gemm(attn.view(B * L, C), proj_p["w"], proj_p["b"], _E_RES,
                    res=x2, out_dtype=torch.float32)
         out = _mlp_residual(x1, ln2, mlp1_p, mlp2_p, eps)
-    fused_global_tail.launches += 1
+    _count("fused_global_tail", x)
     return out.view(B, L, C)
 
 
@@ -1224,7 +1233,7 @@ def _relpos_attention_qkv_cuda(qkv, rel_h_table, rel_w_table, size_hw,
         else:
             out = _relpos_qkv_attention(qc, rel_h_table, rel_w_table,
                                         size_hw, num_heads)
-    flash_relpos_attention_qkv.launches += 1
+    _count("flash_relpos_attention_qkv", qkv)
     return out
 
 
@@ -1259,7 +1268,7 @@ def _attention_qkv_cuda(qkv, num_heads: int, scale=None):
                 hd ** -0.5 if scale is None else float(scale), _stream(qkv))
     if o is not heads:
         heads.copy_(o[..., :hd])
-    flash_attention_qkv.launches += 1
+    _count("flash_attention_qkv", qkv)
     return out
 
 
@@ -1367,23 +1376,76 @@ def _int8_matmul_cuda(x, w_q, scale):
             _launch("anyref_int8_matmul", x2.data_ptr(), w_q.data_ptr(),
                     sc.data_ptr(), out.data_ptr(), M, N, K, plan.tn,
                     plan.splits, plan.bk, _stream(x))
-        int8_matmul.launches += 1
+        _count("int8_matmul", x)
     return out.reshape(*x.shape[:-1], N)
 
-
-fused_window_attn.launches = 0
-fused_window_block.launches = 0
-fused_mlp_stream.launches = 0
-fused_global_tail.launches = 0
-flash_relpos_attention_qkv.launches = 0
-flash_attention_qkv.launches = 0
-int8_matmul.launches = 0
 
 KERNELS = (layer_norm_fused, rms_norm_fused, flash_relpos_attention,
            flash_causal_attention, fused_window_attn, fused_mlp_stream,
            fused_global_tail, flash_attention_qkv,
            flash_causal_attention_diff, flash_relpos_attention_qkv,
            fused_window_block, int8_matmul)
+
+# the launch counters: one int64 a wrapper of KERNELS, then the training
+# attention's backward and the Predictor's loop condition kernel, in one
+# tensor a device, made at the device's first count (never inside a CUDA
+# graph capture, which would record its zero fill into the graph)
+COUNTED = tuple(k.__name__ for k in KERNELS) + (
+    "flash_causal_attention_diff_backward", "loop_condition")
+_SLOT = {name: i for i, name in enumerate(COUNTED)}
+_counters = {}
+_counters_lock = threading.Lock()
+
+
+def launch_counter(name: str, device) -> torch.Tensor:
+    """The 0-d int64 counter of ``name`` (one of COUNTED) on ``device``."""
+    device = torch.device(device)
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    return _device_counters(index)[_SLOT[name]]
+
+
+def _device_counters(index: int) -> torch.Tensor:
+    with _counters_lock:
+        counts = _counters.get(index)
+        if counts is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    f"the launch counters of cuda:{index} are made at its "
+                    "first eager kernel launch, not inside a graph capture")
+            with torch.inference_mode(False):   # reset_launch_counts
+                counts = torch.zeros(len(COUNTED), dtype=torch.int64,
+                                     device=f"cuda:{index}")
+            _counters[index] = counts
+    return counts
+
+
+def _count(name: str, t: torch.Tensor) -> None:
+    """Add one to ``name``'s counter on t's device, on t's stream, after
+    the kernel the caller launched there."""
+    index = t.device.index
+    ptr = _device_counters(index).data_ptr() + 8 * _SLOT[name]
+    with torch.cuda.device(index):
+        _launch("anyref_count_launch", ptr, _stream(t))
+
+
+def launch_counts() -> dict:
+    """{name: launches} of every counter of COUNTED, summed over the
+    devices that launched a kernel (a read: it waits for each device)."""
+    total = dict.fromkeys(COUNTED, 0)
+    for index, counts in sorted(_counters.items()):
+        torch.cuda.synchronize(index)
+        for name, n in zip(COUNTED, counts.tolist()):
+            total[name] += n
+    return total
+
+
+def reset_launch_counts() -> None:
+    """Set every device's counters to 0, once the work queued is done."""
+    for index, counts in sorted(_counters.items()):
+        torch.cuda.synchronize(index)
+        counts.zero_()
+        torch.cuda.synchronize(index)
 
 
 # ---------------------------------------------------------------------------

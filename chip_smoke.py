@@ -226,7 +226,34 @@ Phases (any failure exits non-zero before the result line):
      all-reduces a step and their bytes by axis, the seconds in them (the
      card synchronised around each) and its peak memory. Phase 2 also
      holds the training attention at [2, 16, 768, 128];
- 13. print {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+ 13. the Predictor's compiled request program (one CUDA graph a shape key,
+     the decode loop a WHILE conditional node whose predicate the kernel of
+     csrc/graph_loop.cu sets on the device): (a) at anyref_tiny, seed-0 bf16
+     weights on the card and on the CPU, a Predictor greedy on "unfused"
+     with text, crop, box and audio keys in one graph pool (the pool after
+     each capture against each key's pool alone), speculative on "fused"
+     at the 512-pixel SAM with force_accept and max_accept and without
+     (text and crop keys), and greedy on the int8 decoder: each key's first
+     call (eager, then the capture) and second call (a replay, under
+     set_sync_debug_mode("error"), capturing nothing, raising each
+     wrapper's count as the eager run did), the replay's ids, [SEG] slots
+     and decode passes equal to the CPU Predictor's host loop, its masks
+     within SLICE_REL_TOL, capture seconds and graph nodes printed; (b),
+     run in phase 4 on its anyref_7b weights (speculative, "fused") and on
+     its int8 decoder (greedy): one batch through the serving Predictor
+     against the same Predictor code on a 1 x 1 mesh (eager): ids, [SEG]
+     slots and decode passes equal, low-res logits bit-equal or within
+     PARALLEL_FLOOR_FACTOR x the bf16 floor measured in the same call,
+     the wrappers' launches phase 4's a batch, the replay's device
+     records of the port's kernels the eager run's and the condition
+     kernel once a pass and once more; predict_async's return time
+     against the batch's device time, capture seconds, nodes and pool
+     bytes; then the 4 requests through a speculative Server of
+     pipeline_depth 3 beside one on a 1 x 1 mesh: the first round's ids
+     equal, GRAPH_ROUNDS_7B rounds at once warm (eager, graph, graph,
+     eager), the batches in flight at a dispatch, wall, q/s and, under
+     torch.profiler, the device's idle share;
+ 14. print {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -299,6 +326,8 @@ PROFILED_STEPS = 3
 COUNT_SESSIONS = 3
 MARKER = "spin_kernel"
 MARKER_CYCLES = 1000
+# the launch counter's kernel (csrc/launch_count.cu)
+COUNTER_KERNEL = "anyref_count_kernel"
 # rel-pos attention cases of phase 2, (B, H, W, heads, head width): SAM-H's
 # windows and global layers, the window kernel's upper edge (16 x 16), a
 # grid past it (20 x 20, the global kernel, W not dividing 128), an odd head
@@ -939,14 +968,15 @@ def check_causal_diff_wrapper(torch, F, flash, attention, rnd, compare):
                   for _ in range(3)]
         q, k, v = (t.transpose(1, 2) for t in leaves)
         do = r(B, nh, L, hd)
-        n0, b0 = diff.launches, diff.backward_launches
+        zero_launches(flash)
         o = attention.causal_attention(q, k, v, differentiable=True)
         o.backward(do)
-        if (diff.launches - n0, diff.backward_launches - b0) != (1, 1):
-            fail(f"causal_attention(differentiable=True): "
-                 f"{diff.launches - n0} forward and "
-                 f"{diff.backward_launches - b0} backward launches, want 1 "
-                 "each")
+        counts = flash.launch_counts()
+        fwd_bwd = (counts[diff.__name__],
+                   counts["flash_causal_attention_diff_backward"])
+        if fwd_bwd != (1, 1):
+            fail(f"causal_attention(differentiable=True): {fwd_bwd[0]} "
+                 f"forward and {fwd_bwd[1]} backward launches, want 1 each")
         with torch.no_grad():
             qp, kp, vp, dop = (F.pad(t.detach(), (0, 0, 0, Lp - L))
                                for t in (q, k, v, do))
@@ -1380,7 +1410,9 @@ def profiled_counts(torch, cases: dict, calls: int):
     device's own order. No device timestamp is compared with a host one
     (matched to host ranges by time, one run counted no kernel for calls
     that each ran one) and no launch needs the profiler's link to a host
-    op (the port's kernels, launched from its C library, have none)."""
+    op (the port's kernels, launched from its C library, have none). The
+    launch counter's kernel (csrc/launch_count.cu, one after each
+    wrapper's launch) is bookkeeping, not the call's work: not counted."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1391,7 +1423,8 @@ def profiled_counts(torch, cases: dict, calls: int):
         torch.cuda._sleep(MARKER_CYCLES)
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    records = sorted((e for e in prof.events() if e.device_type == cuda),
+    records = sorted((e for e in prof.events() if e.device_type == cuda
+                      and COUNTER_KERNEL not in e.name),
                      key=lambda e: e.time_range.start)
     marks = [i for i, e in enumerate(records) if MARKER in e.name]
     if len(marks) != len(cases) + 1:
@@ -1637,7 +1670,7 @@ def check_tiny_slice(torch, cfg, encoder_path, tparams, anyref_mod,
                          torch.bfloat16, device="cpu")
     if quant is not None:
         p_cpu["llama"] = quant.quantize_llama(p_cpu["llama"])
-        n0 = flash.int8_matmul.launches
+        n0 = read_launches(flash)["int8_matmul"]
     p_gpu = _to_device(p_cpu, "cuda")
     batch = tiny_batch(cfg)
     want = anyref_mod.generate(p_cpu, cfg, batch, max_new_tokens=4,
@@ -1656,7 +1689,7 @@ def check_tiny_slice(torch, cfg, encoder_path, tparams, anyref_mod,
         f"windows of {cfg.sam.window_size}, {decoder}, card vs CPU: mask max "
         f"rel err {rel:.4g} (limit {SLICE_REL_TOL}), ids equal {same}/"
         f"{want.output_ids.numel()}")
-    if quant is not None and flash.int8_matmul.launches == n0:
+    if quant is not None and read_launches(flash)["int8_matmul"] == n0:
         fail("tiny slice, int8 decoder: int8_matmul was never launched")
     if rel > SLICE_REL_TOL:
         fail(f"tiny slice ({encoder_path}) on the card disagrees with the "
@@ -1930,17 +1963,15 @@ def train_7b(torch, flash, mods):
     trainer = mods["Trainer"](cfg, tc, params, dataset=samples)
     frozen = [t.cpu() for t in step.tree_leaves(trainer.frozen)]
     lora0 = [t.detach().clone() for t in step.tree_leaves(trainer.state.lora)]
-    for kernel in flash.KERNELS:
-        kernel.launches = 0
-    flash.flash_causal_attention_diff.backward_launches = 0
+    zero_launches(flash)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     state = trainer.train()
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {k.__name__: k.launches for k in flash.KERNELS}
-    backward = flash.flash_causal_attention_diff.backward_launches
+    launches = read_launches(flash)
+    backward = flash.launch_counts()["flash_causal_attention_diff_backward"]
     peak = torch.cuda.max_memory_allocated()
 
     with open(os.path.join(TRAIN_DIR, "metrics.jsonl")) as f:
@@ -2057,7 +2088,8 @@ def serve_7b(torch, flash, mods):
     """The four encoder paths at anyref_7b on one set of weights, then the
     int8 decoder quantised from the same weights; returns the launch counts
     of each counted run ("int8" for the last), serve_int8's step numbers
-    and phase 10(b)'s. The decoder is quantised, and phase 10(b) compares
+    phase 10(b)'s and phase 13(b)'s. The decoder is quantised, and phase
+    10(b) compares
     the two layouts, before the first Server: its speculative Predictor
     converts the tree to the serving layout in place, so every run after
     it (the Servers, eval, the inverse eval, serve_int8's bf16 step) is on
@@ -2113,6 +2145,9 @@ def serve_7b(torch, flash, mods):
     serve_references(torch, flash, mods, params, cfg, per_batch["fused"])
     serve_rephrase(torch, flash, mods, params, cfg, images,
                    per_batch["fused"], seg_col)
+    # phase 13(b) on these weights (the serving layout by now)
+    phase13 = {"speculative": graph_7b(torch, flash, mods, params, cfg,
+                                       per_batch["fused"])}
     # phase 7(b) on these weights, before the int8 decoder replaces the bf16
     launches["eval"] = eval_7b(torch, flash, mods, params, cfg, seg_col,
                                per_batch["fused"])
@@ -2121,10 +2156,10 @@ def serve_7b(torch, flash, mods):
                                           seg_col, per_batch["fused"])
     # phase 9(b), SAM alone, on the same SAM weights
     launches.update(sam_alone_7b(torch, flash, mods, params, cfg))
-    launches["int8"], int8_step = serve_int8(
+    launches["int8"], int8_step, phase13["int8"] = serve_int8(
         torch, flash, mods, params, cfg, images, dict(per_batch["fused"]),
         int8_llama, quantize_s)
-    return launches, int8_step, phase10
+    return launches, int8_step, phase10, phase13
 
 
 def launches_per_batch(flash, cfg) -> dict:
@@ -2184,12 +2219,15 @@ def serve_references(torch, flash, mods, params, cfg, per_batch):
     qkv = flash.flash_attention_qkv
     per_call = []
     run = server.predictor.predict_async
+    bracketed_calls, call_brackets = [], []
 
     def counted(batch):
-        n0 = qkv.launches
+        n0, b0 = launch_mark(flash, qkv.__name__), len(bracketed_calls)
         out = run(batch)
         per_call.append(("ref_images" in batch, "roi_boxes" in batch,
-                         "audio_mels" in batch, qkv.launches - n0))
+                         "audio_mels" in batch,
+                         (n0, launch_mark(flash, qkv.__name__))))
+        call_brackets.append(bracketed_calls[b0:])
         return out
     server.predictor.predict_async = counted
     fired = {}
@@ -2211,26 +2249,31 @@ def serve_references(torch, flash, mods, params, cfg, per_batch):
 
     encoders = {"encode_audio": anyref.encode_audio,
                 "encode_ref_images": anyref.encode_ref_images}
+    # the encoders between marker kernels from the first round on: each
+    # key's first call runs them eagerly and its capture records them, so
+    # the warm round's replays run the markers where its eager run did
+    for name, fn in encoders.items():
+        def bracketed(*a, _fn=fn, _name=name, **k):
+            bracketed_calls.append(_name)
+            torch.cuda._sleep(MARKER_CYCLES)
+            out = _fn(*a, **k)
+            torch.cuda._sleep(MARKER_CYCLES)
+            return out
+        setattr(anyref, name, bracketed)
     try:
-        for kernel in flash.KERNELS:
-            kernel.launches = 0
+        zero_launches(flash)
         t0 = time.time()
         results = round_("counted")
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches = {k.__name__: k.launches for k in flash.KERNELS}
+        launches = read_launches(flash)
         stats = dict(server.stats)
-        counted_calls = list(per_call)
+        counted_calls = [(*c[:3], int(c[3][1] - c[3][0])) for c in per_call]
         server.reset_stats()
-        bracketed_calls = []
-        for name, fn in encoders.items():
-            def bracketed(*a, _fn=fn, _name=name, **k):
-                bracketed_calls.append(_name)
-                torch.cuda._sleep(MARKER_CYCLES)
-                out = _fn(*a, **k)
-                torch.cuda._sleep(MARKER_CYCLES)
-                return out
-            setattr(anyref, name, bracketed)
+        # a key's first call ran them in its eager run, then in the same
+        # order in its capture
+        eager_calls = [c for calls in call_brackets[:len(counted_calls)]
+                       for c in calls[:len(calls) // 2]]
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t1 = time.time()
@@ -2286,8 +2329,8 @@ def serve_references(torch, flash, mods, params, cfg, per_batch):
                      key=lambda e: e.time_range.start)
     marks = [i for i, e in enumerate(records) if MARKER in e.name]
     ranges = {}
-    if len(marks) == 2 * len(bracketed_calls):
-        for n, name in enumerate(bracketed_calls):
+    if len(marks) == 2 * len(eager_calls):
+        for n, name in enumerate(eager_calls):
             inside = records[marks[2 * n] + 1:marks[2 * n + 1]]
             ms, k = ranges.get(name, (0.0, 0))
             ranges[name] = (ms + sum(e.device_time_total
@@ -2295,7 +2338,7 @@ def serve_references(torch, flash, mods, params, cfg, per_batch):
                             k + len(inside))
     else:
         log(f"[slice-warm refs] {len(marks)} marker kernels for the calls "
-            f"{bracketed_calls}: the ranges are not read")
+            f"{eager_calls}: the ranges are not read")
     by_name = {}
     for e in records:
         if MARKER not in e.name:
@@ -2520,11 +2563,10 @@ def serve_rephrase_run(torch, flash, mods, params, cfg, images, per_batch):
         return [r.result(timeout=600) for r in reqs]
 
     try:
-        for kernel in flash.KERNELS:
-            kernel.launches = 0
+        zero_launches(flash)
         results = round_("warm-up")
         torch.cuda.synchronize()
-        launches = {k.__name__: k.launches for k in flash.KERNELS}
+        launches = read_launches(flash)
         n_batches = server.stats["batches"]
         server.reset_stats()
         p = server.predictor
@@ -2767,9 +2809,11 @@ def decode_step_ms(torch, llama, lp, cfg):
     emb = (torch.randn(B, 1, cfg.llama.hidden_size, generator=g,
                        device="cuda") * 0.02).to(torch.bfloat16)
     pad = torch.tensor([0, 200], device="cuda")
+    slot = torch.tensor(L, device="cuda")
 
     def step():
-        h, _ = llama.decode_step(lp, cfg.llama, emb, L, cache, pad_len=pad)
+        h, _ = llama.decode_step(lp, cfg.llama, emb, slot, cache,
+                                 pad_len=pad)
         return llama.logits(lp, h[:, 0]).argmax(-1)
 
     with torch.inference_mode():
@@ -2817,16 +2861,17 @@ def serve_int8(torch, flash, mods, params, cfg, images, per_batch,
     same int8 step was seen with 2392 and with 2381 kernels), so a profile
     can undercount but never overcount. The step's kernel time is printed
     against the bytes bound of the decoder's int8 weights and scales.
-    Returns (launch counts, that step's int8 numbers)."""
+    Then phase 13(b)'s one int8 greedy batch (graph_vs_eager). Returns
+    (launch counts, that step's int8 numbers, phase 13(b)'s)."""
     llama = mods["llama"]
     steps = {"bf16 (serving layout)": decode_step_ms(torch, llama,
                                                      params["llama"], cfg)}
     params["llama"] = int8_llama
     q_s = quantize_s
     torch.cuda.empty_cache()
-    flash.int8_matmul.launches = 0
+    zero_launches(flash)
     steps["int8"] = decode_step_ms(torch, llama, params["llama"], cfg)
-    launched = flash.int8_matmul.launches
+    launched = read_launches(flash)["int8_matmul"]
     log(f"[slice int8] quantize_llama(anyref_7b decoder) on the card "
         f"{q_s:.2f} s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
         f"allocated after freeing the bf16 decoder")
@@ -2866,7 +2911,12 @@ def serve_int8(torch, flash, mods, params, cfg, images, per_batch,
                           per_batch, int8_per_pass=per_pass)
     log(f"[slice int8] peak memory allocated while serving "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches, step
+    # phase 13(b) on the int8 decoder: one greedy batch
+    batch = graph_batches(cfg, mods, ("text",))["text"]
+    graph = graph_vs_eager(torch, flash, mods, params, cfg, batch,
+                           "fused, int8 greedy", per_batch,
+                           speculative=False, int8_per_pass=per_pass)
+    return launches, step, graph
 
 
 def int8_bytes(tree) -> int:
@@ -2886,18 +2936,17 @@ def serve_path(torch, flash, mods, server, path, images, per_batch,
     every kernel's launch count checked), then a warm run under the
     profiler. ``int8_per_pass``: int8_matmul launches per decoder pass
     (prefill or decode step), whose count follows the passes."""
-    for kernel in flash.KERNELS:
-        kernel.launches = 0
+    zero_launches(flash)
     t0 = time.time()
     reqs = [server.submit(mods["Request"](image=im, text=t))
             for im, t in zip(images, TEXTS)]
     results = [r.result(timeout=600) for r in reqs]
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {k.__name__: k.launches for k in flash.KERNELS}
+    launches = read_launches(flash)
     stats = dict(server.stats)
     passes = server.predictor.decode_passes_total
-    warm = profile_warm_round(torch, server, mods["Request"], images)
+    warm = profile_warm_round(torch, flash, server, mods["Request"], images)
     server.shutdown()
 
     for i, (r, (h, w)) in enumerate(zip(results, IMAGE_SIZES)):
@@ -2934,23 +2983,65 @@ def serve_path(torch, flash, mods, server, path, images, per_batch,
     log(f"[slice {path}] kernel launches {json.dumps(launches)} (want "
         f"{json.dumps(want)})")
     log(f"[slice {path}] Server.stats {json.dumps(stats)}")
+    busy = (f"{warm['lost']} (the profile holds {warm['busy_ms']:.1f} ms); "
+            f"the batches' device spans (CUDA events) {warm['span_s']:.4f} "
+            f"s -> device idle at least "
+            f"{100 * (1 - warm['span_s'] / warm['wall_s']):.1f}%"
+            if warm["lost"] else
+            f"{warm['busy_ms']:.1f} ms -> device idle "
+            f"{100 * (1 - warm['busy_ms'] / 1e3 / warm['wall_s']):.1f}% of "
+            f"the wall")
     log(f"[slice-warm {path}] the same 4 requests again under torch.profiler: "
         f"{warm['wall_s']:.3f} s wall -> {len(TEXTS) / warm['wall_s']:.3f} q/s; "
-        f"kernels busy {warm['busy_ms']:.1f} ms -> device idle "
-        f"{100 * (1 - warm['busy_ms'] / 1e3 / warm['wall_s']):.1f}% of the wall")
+        f"kernels busy {busy}")
     for name, ms in warm["top"]:
         log(f"[slice-warm {path}]   {ms:9.3f} ms  {name}")
     return launches
 
 
-def profile_warm_round(torch, server, Request, images):
+class DispatchSpans:
+    """While open, each predict_async of ``pred`` is bracketed by two CUDA
+    events on its stream; ``seconds()`` (after a synchronize) sums the
+    spans: the device time from each batch's first op to its last, gaps
+    inside a batch included, so at least its busy time."""
+
+    def __init__(self, torch, pred):
+        self.torch, self.pred, self.spans = torch, pred, []
+
+    def __enter__(self):
+        inner = self.pred.predict_async
+
+        def predict_async(batch):
+            e0 = self.torch.cuda.Event(enable_timing=True)
+            e1 = self.torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = inner(batch)
+            e1.record()
+            self.spans.append((e0, e1))
+            return out
+        self.inner = inner
+        self.pred.predict_async = predict_async
+        return self
+
+    def __exit__(self, *exc):
+        self.pred.predict_async = self.inner
+
+    def seconds(self) -> float:
+        return sum(a.elapsed_time(b) for a, b in self.spans) / 1e3
+
+
+def profile_warm_round(torch, flash, server, Request, images):
     """Serve the same requests a second time, warm, under torch.profiler:
-    wall time, summed kernel time (one stream, so the device's busy time)
-    and the kernels that take most of it. Runs after the launch counts of
-    the main path were read."""
+    wall time, summed kernel time (one stream, so the device's busy time;
+    with "lost" the reason it is not measured, where the profile lost
+    records of a compiled loop: loop_records_lost), the batches' device
+    spans (DispatchSpans) and the kernels that take most of it. Runs after
+    the launch counts of the main path were read."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    mark = launch_mark(flash, "loop_condition")
+    with DispatchSpans(torch, server.predictor) as spans, \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         reqs = [server.submit(Request(image=im, text=t))
                 for im, t in zip(images, TEXTS)]
@@ -2966,6 +3057,8 @@ def profile_warm_round(torch, server, Request, images):
     busy_ms = sum(by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return {"wall_s": wall, "busy_ms": busy_ms,
+            "lost": loop_records_lost(torch, flash, prof, mark),
+            "span_s": spans.seconds(),
             "top": [(n[:90], us / 1e3) for n, us in top]}
 
 
@@ -3284,8 +3377,7 @@ def checkpoint_phase(torch, flash, mods) -> dict:
     server = mods["Server"](tree, rcfg, tokenizer=tok, max_batch=2,
                             speculative=True, max_new_tokens=8,
                             encoder_path="fused")
-    for kernel in flash.KERNELS:
-        kernel.launches = 0
+    zero_launches(flash)
     try:
         reqs = [server.submit(mods["Request"](image=im, text=t))
                 for im, t in zip(request_images(), TEXTS)]
@@ -3304,7 +3396,7 @@ def checkpoint_phase(torch, flash, mods) -> dict:
                  f"logits {None if ml is None else ml.shape}")
         log(f"[ckpt] request {i}: {r['text']!r} ids "
             f"{r['output_ids'].tolist()}")
-    launches = {k.__name__: k.launches for k in flash.KERNELS}
+    launches = read_launches(flash)
     want = {k: v * n_batches
             for k, v in launches_per_batch(flash, cfg)["fused"].items()}
     if launches != want:
@@ -3718,11 +3810,10 @@ def eval_harnesses(make, tok, data: str, out_root: str, flash=None) -> dict:
     out = {}
     for name, run in runs.items():
         predictor = make(EVAL_REPHRASE[name])
-        for kernel in flash.KERNELS if flash else ():
-            kernel.launches = 0
+        if flash:
+            zero_launches(flash)
         result = run(predictor)
-        launches = {k.__name__: k.launches
-                    for k in (flash.KERNELS if flash else ())}
+        launches = read_launches(flash) if flash else {}
         out[name] = (result, predictor.calls, launches)
     return out
 
@@ -3828,18 +3919,23 @@ def eval_cli(checkpoint, params, data: str, tmp: str, want: dict) -> None:
 SPAN_PAD_KERNELS = 256
 
 
-def profiled_span(torch, fn):
+def profiled_span(torch, fn, flash=None):
     """(fn's wall s, device records, their device ms, the s from the end of
     the session to the records read) of one call of fn under
     torch.profiler, the records read between the marker kernels
     before and after it (profiled_counts' rule); None where a session lost
     a marker COUNT_SESSIONS times. The records are read from the
     profiler's raw results: building its event objects for the ~10^6
-    records of a pass of 8 decode steps a ref takes minutes."""
+    records of a pass of 8 decode steps a ref takes minutes. With
+    ``flash``, the device ms are None (and the reason logged) where the
+    span's records of the loop's condition kernel are not the card's
+    count of its runs (loop_records_lost's rule)."""
     from torch.profiler import ProfilerActivity, profile
     cuda = torch.autograd.DeviceType.CUDA
     for _ in range(COUNT_SESSIONS):
         pad = torch.zeros(1, device="cuda")
+        mark = None if flash is None else launch_mark(flash,
+                                                      "loop_condition")
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(SPAN_PAD_KERNELS):
@@ -3864,6 +3960,15 @@ def profiled_span(torch, fn):
         if len(marks) == 2:
             span = records[marks[0] + 1:marks[1]]
             busy = sum(e.duration_ns() for e in span) / 1e6
+            if mark is not None:
+                ran = int(launch_mark(flash, "loop_condition") - mark)
+                kept = sum(1 for e in span
+                           if "anyref_loop_condition" in e.name())
+                if kept != ran:
+                    log(f"[profiler] busy not measured: the span holds "
+                        f"{kept} records of the loop's condition kernel, "
+                        f"the card counted {ran} runs")
+                    busy = None
             return wall, len(span), busy, time.time() - t_end
         log(f"[profiler] a session kept {len(records)} device records and "
             f"{len(marks)} of its 2 marker kernels, at {marks}; the first "
@@ -3911,13 +4016,12 @@ def eval_7b(torch, flash, mods, params, cfg, seg_col, per_batch) -> dict:
                                     timings=timings)["refcoco_val"]
             return res, pred, timings
 
-        for kernel in flash.KERNELS:
-            kernel.launches = 0
+        zero_launches(flash)
         t0 = time.time()
         res, pred, timings = run("counted")
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches = {k.__name__: k.launches for k in flash.KERNELS}
+        launches = read_launches(flash)
         nonempty, refs = mask_stats(pred.calls)
         want = {k: n * len(pred.calls) for k, n in per_batch.items()}
         result_txt = os.path.join(tmp, "counted", "refcoco", "val",
@@ -3947,17 +4051,19 @@ def eval_7b(torch, flash, mods, params, cfg, seg_col, per_batch) -> dict:
 
         warm = {}
         span = profiled_span(torch, lambda: warm.update(zip(
-            ("res", "pred", "timings"), run("profiled"))))
+            ("res", "pred", "timings"), run("profiled"))), flash)
         if span is None:
             fail("eval at anyref_7b: the profiler lost a marker kernel "
                  f"{COUNT_SESSIONS} times")
         pwall, n_kernels, busy, read_s = span
+        busy_s = ("not measured" if busy is None else
+                  f"{busy:.3f} ms -> device idle "
+                  f"{100 * (1 - busy / 1e3 / pwall):.1f}%")
         t = warm["timings"]
         log(f"[eval-7b] the same pass warm under torch.profiler: "
             f"{pwall:.3f} s wall -> {n_refs / pwall:.3f} refs/s (loader wait"
             f" {t['loader_s']:.3f} s, predict {t['predict_s']:.3f} s, host "
-            f"scoring {t['score_s']:.3f} s); kernels busy {busy:.3f} ms -> "
-            f"device idle {100 * (1 - busy / 1e3 / pwall):.1f}%; "
+            f"scoring {t['score_s']:.3f} s); kernels busy {busy_s}; "
             f"{n_kernels} device records between the markers, "
             f"{n_kernels / n_refs:.1f} a ref, read {read_s:.1f} s after the "
             f"session; {warm['res']}")
@@ -4137,12 +4243,11 @@ def inverse_tiny(torch, flash, mods, cfg, data: str, tmp: str) -> None:
     for roi in (False, True):
         card = RecordingPredictor(Predictor(
             p_gpu, rcfg, max_new_tokens=EVAL_MNT, encoder_path="unfused"))
-        for kernel in flash.KERNELS:
-            kernel.launches = 0
+        zero_launches(flash)
         got = evaluate_refer_inverse(card, tok, data, "refcoco", "val",
                                      roi=roi, out_root=os.path.join(
                                          tmp, "inv-cuda"))
-        launches = {k.__name__: k.launches for k in flash.KERNELS}
+        launches = read_launches(flash)
         follow = FollowIds(torch, llama.logits)
         cpu = RecordingPredictor(Predictor(
             p_cpu, rcfg, max_new_tokens=EVAL_MNT, device="cpu",
@@ -4307,17 +4412,16 @@ def train_7b_from_disk(torch, flash, mods) -> dict:
         lora0 = [t.detach().clone()
                  for t in step.tree_leaves(trainer.state.lora)]
         steps = record_steps(trainer)
-        for kernel in flash.KERNELS:
-            kernel.launches = 0
-        flash.flash_causal_attention_diff.backward_launches = 0
+        zero_launches(flash)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
         state = trainer.train()
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches = {k.__name__: k.launches for k in flash.KERNELS}
-        backward = flash.flash_causal_attention_diff.backward_launches
+        launches = read_launches(flash)
+        backward = flash.launch_counts()[
+            "flash_causal_attention_diff_backward"]
         peak = torch.cuda.max_memory_allocated()
         with open(os.path.join(out, "metrics.jsonl")) as f:
             recs = [json.loads(line) for line in f]
@@ -4408,8 +4512,7 @@ def eval_inverse_7b(torch, flash, mods, params, cfg, seg_col,
         for roi in (False, True):
             pred = RecordingPredictor(Predictor(
                 params, rcfg, max_new_tokens=INV_MNT, encoder_path="fused"))
-            for kernel in flash.KERNELS:
-                kernel.launches = 0
+            zero_launches(flash)
             timings = {}
             t0 = time.time()
             res = evaluate_refer_inverse(pred, tok, data, "refcoco", "val",
@@ -4417,7 +4520,7 @@ def eval_inverse_7b(torch, flash, mods, params, cfg, seg_col,
                                          limit=INV_REFS, timings=timings)
             torch.cuda.synchronize()
             wall = time.time() - t0
-            launches = {k.__name__: k.launches for k in flash.KERNELS}
+            launches = read_launches(flash)
             kind = "boxes" if roi else "crops"
             want = {k: n * len(pred.calls) * (
                 2 if k == "flash_attention_qkv" and not roi else 1)
@@ -4493,12 +4596,30 @@ SAM_REPEATS = 5
 
 
 def zero_launches(flash) -> None:
-    for kernel in flash.KERNELS:
-        kernel.launches = 0
+    flash.reset_launch_counts()
 
 
 def read_launches(flash) -> dict:
-    return {k.__name__: k.launches for k in flash.KERNELS}
+    """{kernel: launches}, read from the card's counters (it waits)."""
+    counts = flash.launch_counts()
+    return {k.__name__: counts[k.__name__] for k in flash.KERNELS}
+
+
+def launch_mark(flash, name: str):
+    """A copy of ``name``'s launch counter, queued on the card without
+    waiting: the launches between two marks are ``int(later - earlier)``,
+    read once the card got there."""
+    return flash.launch_counter(name, "cuda").clone()
+
+
+def by_shape(marks) -> dict:
+    """{shape: launches} of (shape, mark before, mark after) triples."""
+    shapes = {}
+    for shape, n0, n1 in marks:
+        n = int(n1 - n0)
+        if n:
+            shapes[shape] = shapes.get(shape, 0) + n
+    return shapes
 
 
 def sam_encode_launches(flash, cfg, path: str) -> dict:
@@ -5362,8 +5483,10 @@ def layout_numbers(torch, mods, params, cfg, batch) -> dict:
             return llama.prefill(lp, lc, embeds, cache, pad_len=pad)[0]
         chunk = embeds[:, -32:].contiguous()
 
+        slot = torch.tensor(L, device="cuda")
+
         def verify():
-            return llama.decode_chunk(lp, lc, chunk, L, cache,
+            return llama.decode_chunk(lp, lc, chunk, slot, cache,
                                       pad_len=pad)[0]
         hidden = prefill()
         verify()
@@ -5382,7 +5505,7 @@ def layout_numbers(torch, mods, params, cfg, batch) -> dict:
             llama.linear = linear
     gemms = sum(n for name, (n, _) in kernels.items()
                 if any(g in name.lower() for g in GEMM_NAMES))
-    return {"ids": out.output_ids.cpu(), "passes": out.decode_passes,
+    return {"ids": out.output_ids.cpu(), "passes": int(out.decode_passes),
             "wall_s": wall, "busy_ms": busy,
             "idle": 1 - busy / 1e3 / wall,
             "products_per_layer": calls[0] / lc.num_layers,
@@ -5451,11 +5574,12 @@ def layout_turns(torch, mods, lp, cfg, numbers) -> dict:
            for name in trees}
     with torch.inference_mode():
         cache = llama.init_cache(lc, B, L + 48)
+        slot = torch.tensor(L, device="cuda")
         calls = {name: {
             "prefill": lambda t=t: llama.prefill(t, lc, embeds, cache,
                                                  pad_len=pad),
-            "chunk": lambda t=t: llama.decode_chunk(t, lc, chunk, L, cache,
-                                                    pad_len=pad)}
+            "chunk": lambda t=t: llama.decode_chunk(t, lc, chunk, slot,
+                                                    cache, pad_len=pad)}
             for name, t in trees.items()}
         for fns in calls.values():
             for fn in fns.values():
@@ -5602,21 +5726,28 @@ def layouts_7b(torch, mods, params, cfg, images) -> dict:
 
 def cache_write_bytes(program) -> dict:
     """The bytes the exported graph's writes move: the destinations of its
-    in-place copies, and the whole outputs of any functional scatter (a
-    write made functional copies its whole buffer)."""
+    in-place copies (an in-place index_copy_, a decode slot's cache write,
+    its source), and the whole outputs of any functional scatter or
+    index_copy (a write made functional copies its whole buffer)."""
     total = {"copy_": 0, "scatter": 0}
     for node in program.graph.nodes:
         if node.op != "call_function":
             continue
         name = str(node.target)
-        val = (node.args[0].meta.get("val") if "copy_" in name
-               else node.meta.get("val"))
+        in_place = name.endswith("copy_.default")
+        if "index_copy" in name:
+            val = (node.args[3] if in_place else node).meta.get("val")
+        elif "copy_" in name:
+            val = node.args[0].meta.get("val")
+        else:
+            val = node.meta.get("val")
         if val is None or not hasattr(val, "numel"):
             continue
         nbytes = val.numel() * val.element_size()
-        if "copy_" in name:
+        if "copy_" in name and in_place:
             total["copy_"] += nbytes
-        elif "scatter" in name or "index_put" in name:
+        elif "scatter" in name or "index_put" in name or \
+                "index_copy" in name:
             total["scatter"] += nbytes
     return total
 
@@ -5702,7 +5833,7 @@ def export_7b(torch, flash, mods, params, cfg, images) -> dict:
             rows.append({"ids": got[0].tolist(),
                          "eager_wall_s": e_wall, "eager_busy_ms": e_busy,
                          "program_wall_s": p_wall, "program_busy_ms": p_busy,
-                         "eager_decode_passes": want.decode_passes})
+                         "eager_decode_passes": int(want.decode_passes)})
             log(f"[export-7b] request {r}: ids {got[0].tolist()}, [SEG] "
                 f"slots and masks bit-equal to eager generate, launches as "
                 f"eager "
@@ -5710,7 +5841,7 @@ def export_7b(torch, flash, mods, params, cfg, images) -> dict:
                 f"warm under the profiler: program {p_wall:.3f} s wall, "
                 f"{p_busy:.1f} ms of kernels ({EXPORT_MNT_7B} steps); eager "
                 f"{e_wall:.3f} s wall, {e_busy:.1f} ms of kernels "
-                f"({want.decode_passes} steps, early exit)")
+                f"({int(want.decode_passes)} steps, early exit)")
         del module
     steps = EXPORT_MNT_7B
     log(f"[export-7b] export_generate(anyref_7b cut to {n} layers, "
@@ -5722,6 +5853,520 @@ def export_7b(torch, flash, mods, params, cfg, images) -> dict:
     log(f"[phase 10] (b) export in {time.time() - t_phase:.1f} s")
     return {"layers": n, "export_s": export_s, "bytes": size,
             "load_s": load_s, "writes": writes, "rows": rows}
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the Predictor's compiled request program (one CUDA graph a key)
+# ---------------------------------------------------------------------------
+# (a): anyref_tiny's decode budget; the speculative case's acceptance cap
+GRAPH_MNT_TINY = 4
+GRAPH_MAX_ACCEPT = 3
+# (b): the 4 requests served this many times through each steady Server
+GRAPH_ROUNDS_7B = 3
+GRAPH_PIPELINE_DEPTH = 3
+
+
+def graph_batches(cfg, mods, kinds) -> dict:
+    """{kind: the Server's collation (uint8 images) of two requests}:
+    "text" (TEXTS[0:2] on request_images()[0:2]), "crop", "box" and
+    "audio" (a crop, a box or an audio request beside a text one, on
+    request_images()[3])."""
+    images = request_images()
+    image = images[3]
+    h, w = image.shape[:2]
+    ds = mods["SegDataset"](cfg, uint8_images=True)
+    tok = mods["AnyRefTokenizer"]()
+    q_img = mods["img_ref_question"]()
+
+    def text(i, im=None):
+        return ds.make_sample(images[i] if im is None else im,
+                              mods["seg_question"](TEXTS[i]), None, None)
+    rows = {
+        "text": lambda: [text(0), text(1)],
+        "crop": lambda: [ds.make_sample(image, q_img, None, None,
+                                        ref_image=mods["crop_box_np"](
+                                            image, np.asarray(REF_CROP_XYXY))),
+                         text(3)],
+        "box": lambda: [ds.make_sample(
+            image, q_img, None, None,
+            ref_bbox=np.asarray(REF_ROI_XYXY, np.float32)
+            / np.asarray([w, h, w, h], np.float32)), text(3)],
+        "audio": lambda: [text(3), ds.make_sample(
+            image, mods["audio_ref_question"](), None, None,
+            audio_mels=mods["mel"].audio_to_mel_clips(
+                reference_waveform(), device="cpu").numpy())]}
+    return {k: mods["Collator"](tok, cfg, roi=k == "box")(rows[k]())
+            for k in kinds}
+
+
+def fetched(pred, handle) -> dict:
+    """A handle's fetched results (ids, [SEG] slots, decode passes, the
+    real rows' low-res logits in fp32), then complete()."""
+    (meta, low), _, B = handle
+    m = meta.cpu().numpy()
+    out = {"ids": m[:B, :pred.mnt], "seg": m[:B, pred.mnt:-1],
+           "passes": int(m[:, -1].max()),
+           "low": low[:B].float().cpu().numpy()}
+    pred.complete(handle)
+    return out
+
+
+def same_tokens(a: dict, b: dict) -> bool:
+    return (np.array_equal(a["ids"], b["ids"])
+            and np.array_equal(a["seg"], b["seg"])
+            and a["passes"] == b["passes"])
+
+
+def mask_rel(a: dict, b: dict) -> float:
+    """Largest |a - b| over b's largest magnitude (the slice's measure)."""
+    return float(np.abs(a["low"] - b["low"]).max()
+                 / max(np.abs(b["low"]).max(), 1e-30))
+
+
+def graph_key(torch, flash, pred, batch, what: str) -> dict:
+    """A key's first call on the card Predictor (the eager run that
+    warms it, then the capture) and its second (a replay): the replay
+    makes no read from the device (set_sync_debug_mode("error")), captures
+    nothing, launches every kernel as many times as the eager run did, and
+    runs the loop's condition kernel once before the loop and once after
+    each pass: all counted on the card (ops/flash.py launch_counts)."""
+    zero_launches(flash)
+    n_keys = len(pred.programs)
+    first = fetched(pred, pred.predict_async(batch))
+    eager_launches = read_launches(flash)
+    if len(pred.programs) != n_keys + 1:
+        fail(f"{what}: the first call of a key captured "
+             f"{len(pred.programs) - n_keys} programs, want 1")
+    programs = dict(pred.programs)
+    zero_launches(flash)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handle = pred.predict_async(batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    again = fetched(pred, handle)
+    graph_launches = read_launches(flash)
+    cond = flash.launch_counts()["loop_condition"]
+    if pred.programs != programs or any(
+            pred.programs[k] is not programs[k] for k in programs):
+        fail(f"{what}: the second call of a key captured again")
+    if graph_launches != eager_launches:
+        fail(f"{what}: the replay launched {graph_launches}, the eager run "
+             f"{eager_launches}")
+    if cond != again["passes"] + 1:
+        fail(f"{what}: the replay ran the loop's condition kernel {cond} "
+             f"times for {again['passes']} passes, want passes + 1")
+    if not same_tokens(again, first):
+        fail(f"{what}: the replay gave ids {again['ids'].tolist()}, [SEG] "
+             f"{again['seg'].tolist()}, {again['passes']} passes; the eager "
+             f"run {first['ids'].tolist()}, {first['seg'].tolist()}, "
+             f"{first['passes']}")
+    return {"eager": first, "graph": again, "launches": graph_launches,
+            "conditions": cond}
+
+
+def following(torch, mods, pred, batch, ids, speculative: bool):
+    """``pred``'s results on ``batch`` with its greedy picks lifted to the
+    card's ``ids`` (FollowIds; on a speculative Predictor only the first
+    token, which the prefill's logits choose, the verify chunks' picks its
+    own), and each lifted step's logit gap (FollowIds.gaps)."""
+    llama = mods["llama"]
+    follow = FollowIds(torch, llama.logits)
+    follow.start(ids)
+
+    def first_only(params, hidden, group=None):
+        if hidden.dim() == 2:
+            return follow(params, hidden, group)
+        return follow.real(params, hidden, group)
+    llama.logits = first_only if speculative else follow
+    try:
+        return fetched(pred, pred.predict_async(batch)), follow.gaps
+    finally:
+        llama.logits = follow.real
+
+
+def graph_tiny_case(torch, flash, mods, cfg, what: str, kinds, quant=None,
+                    **kw) -> None:
+    """One Predictor on the card (seed-0 bf16 weights, or their int8
+    decoder with ``quant``) against a Predictor of the same weights on the
+    CPU, whose decode loop is the host loop, key by key (graph_key): ids,
+    [SEG] slots and decode passes equal, masks within SLICE_REL_TOL. Where
+    the ids differ, the CPU runs again with its picks lifted to the card's
+    (``following``), and each pick it did not make itself must lie within
+    INV_LOGIT_TOL of its top logit (a near tie, which the two devices' bf16
+    roundings break apart), as phase 8 holds the inverse eval. Prints each
+    key's capture seconds, and the pool's bytes after each capture against
+    each key's pool alone."""
+    def tree(device):
+        p = mods["tparams"].init(cfg, torch.Generator().manual_seed(0),
+                                 torch.bfloat16, device="cpu")
+        if quant is not None:
+            p["llama"] = quant.quantize_llama(p["llama"])
+        return p if device == "cpu" else _to_device(p, device)
+
+    def predictor(params, device):
+        return mods["Predictor"](params, cfg, max_new_tokens=GRAPH_MNT_TINY,
+                                 device=device, **kw)
+    card, cpu = predictor(tree("cuda"), "cuda"), predictor(tree("cpu"), "cpu")
+    batches = graph_batches(cfg, mods, kinds)
+    pools, bad = [], []
+    for kind, batch in batches.items():
+        res = graph_key(torch, flash, card, batch, f"{what}, {kind}")
+        want = fetched(cpu, cpu.predict_async(batch))
+        got = res["graph"]
+        ties = ""
+        if not np.array_equal(got["ids"], want["ids"]):
+            own = want["ids"].tolist()
+            want, gaps = following(torch, mods, cpu, batch, got["ids"],
+                                   kw.get("speculative", False))
+            ties = (f" (the CPU's own ids {own}; following the card's, its "
+                    f"largest logit gap at a lifted pick {max(gaps):.4g}, "
+                    f"limit {INV_LOGIT_TOL})")
+            if max(gaps) > INV_LOGIT_TOL:
+                bad.append(f"{kind}: the card's ids {got['ids'].tolist()} "
+                           f"differ from the CPU's {own} at a logit gap of "
+                           f"{max(gaps)}, not a near tie")
+        rel = mask_rel(got, want)
+        bits = np.array_equal(got["low"], res["eager"]["low"])
+        pools.append(card.graph_pool_bytes())
+        prog = list(card.programs.values())[-1]
+        log(f"[graph-tiny] {what}, {kind}: ids {got['ids'].tolist()}, [SEG] "
+            f"{got['seg'].tolist()}, {got['passes']} decode passes, equal to "
+            f"the CPU host loop's: {same_tokens(got, want)}{ties}; masks "
+            f"against the CPU max rel err {rel:.4g} (limit "
+            f"{SLICE_REL_TOL}), against the eager run on the card bit-equal "
+            f"{bits}; launches {sum(res['launches'].values())} (the eager "
+            f"run's), condition kernel {res['conditions']} runs; capture "
+            f"{prog.capture_s:.3f} s, pool {pools[-1]} bytes")
+        if not same_tokens(got, want):
+            bad.append(f"{kind}: ids {got['ids'].tolist()} / "
+                       f"{want['ids'].tolist()}, [SEG] {got['seg'].tolist()}"
+                       f" / {want['seg'].tolist()}, passes {got['passes']} / "
+                       f"{want['passes']}")
+        if rel > SLICE_REL_TOL or not np.isfinite(got["low"]).all():
+            bad.append(f"{kind}: mask max rel err {rel}")
+    if bad:
+        fail(f"graph program ({what}) on the card against the CPU: {bad}")
+    # one more replay under torch.profiler: did the profile keep every run
+    # of the loop's condition kernel the card counted (printed, not held)
+    from torch.profiler import ProfilerActivity, profile
+    mark = launch_mark(flash, "loop_condition")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fetched(card, card.predict_async(next(iter(batches.values()))))
+        torch.cuda.synchronize()
+    lost = loop_records_lost(torch, flash, prof, mark)
+    log(f"[graph-tiny] {what}: one replay under torch.profiler, busy "
+        f"{lost or 'measured: it kept every condition kernel run'}")
+    if len(batches) > 1:
+        alone = []
+        for kind, batch in batches.items():
+            p = predictor(tree("cuda"), "cuda")
+            fetched(p, p.predict_async(batch))
+            alone.append(p.graph_pool_bytes())
+            del p
+        log(f"[graph-tiny] {what}: one pool for {len(batches)} keys, "
+            f"{pools} bytes after each capture; each key's pool alone "
+            f"{alone} (largest {max(alone)}, sum {sum(alone)})")
+        if pools[-1] >= sum(alone):
+            fail(f"{what}: the shared pool holds {pools[-1]} bytes, the "
+                 f"keys' pools alone {alone}: not shared")
+
+
+def graph_tiny(torch, flash, mods, tiny, tiny512) -> None:
+    """Phase 13(a): the compiled program at anyref_tiny, greedy on
+    "unfused" (text, crop, box and audio keys in one Predictor), speculative
+    with force_accept and max_accept on "fused" at the 512-pixel SAM, and
+    greedy on the int8 decoder."""
+    t0 = time.time()
+    graph_tiny_case(torch, flash, mods, tiny, "unfused, greedy",
+                    ("text", "crop", "box", "audio"),
+                    encoder_path="unfused")
+    graph_tiny_case(torch, flash, mods, tiny512,
+                    "fused, speculative, force_accept",
+                    ("text",), encoder_path="fused", speculative=True,
+                    max_accept=GRAPH_MAX_ACCEPT, force_accept=True)
+    graph_tiny_case(torch, flash, mods, tiny512, "fused, speculative",
+                    ("text", "crop"), encoder_path="fused", speculative=True)
+    graph_tiny_case(torch, flash, mods, tiny, "fused, int8 greedy",
+                    ("text",), quant=mods["quant"], encoder_path="fused")
+    log(f"[phase 13] (a) in {time.time() - t0:.1f} s")
+
+
+def eager_generate(torch, mods, pred, batch):
+    """``pred``'s program on ``batch`` run eagerly, as a key's first call
+    runs it before its capture: the same upload, anyref.generate's prefix
+    (generate_program, through the Predictor's device normalisation), its
+    host loop (run_loop) and its suffix with the Predictor's packing.
+    Returns a handle for pred.complete(); captures nothing."""
+    host, _, B = pred._inputs(batch)
+    dev = {k: torch.from_numpy(v).to(pred.device) for k, v in host.items()}
+    with torch.inference_mode():
+        loop, finish = pred._program(dev)
+        return finish(mods["anyref"].run_loop(loop)), batch, B
+
+
+def eager_server(torch, mods, server):
+    """``server`` with its Predictor running eager_generate on every batch:
+    the same Server, batches and Predictor code without the compiled
+    program, so host hooks inside generate run on every batch."""
+    pred = server.predictor
+    pred.predict_async = lambda batch: eager_generate(torch, mods, pred,
+                                                      batch)
+    return server
+
+
+def loop_records_lost(torch, flash, prof, mark):
+    """None where the profile ``prof`` holds one record for each run of
+    the loop's condition kernel since ``mark`` (launch_mark of
+    "loop_condition", taken before the profile began), else why its busy
+    time is not measured: torch.profiler can lose or repeat the records of
+    a compiled program's loop (a CUDA graph's conditional node), and the
+    card's count of the condition kernel shows it."""
+    ran = int(launch_mark(flash, "loop_condition") - mark)
+    kept = sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "anyref_loop_condition" in e.name)
+    if kept == ran:
+        return None
+    return (f"not measured: the profile holds {kept} records of the "
+            f"loop's condition kernel, the card counted {ran} runs, so its "
+            f"records of the compiled loop are not the card's")
+
+
+def timed_dispatch(torch, pred, batch, dispatch) -> tuple:
+    """(s for ``dispatch(batch)`` to return, ms of the batch's device work
+    from the dispatch's first to its last op on the stream: CUDA
+    events)."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    t0 = time.perf_counter()
+    handle = dispatch(batch)
+    ret = time.perf_counter() - t0
+    e1.record()
+    torch.cuda.synchronize()
+    fetched(pred, handle)
+    return ret, e0.elapsed_time(e1)
+
+
+def serve_rounds(torch, flash, server, Request, images, rounds: int,
+                 profiled: bool = False) -> dict:
+    """The 4 requests submitted ``rounds`` times at once: wall, q/s, the
+    batches' device spans (DispatchSpans: "span_s", and the idle share
+    they leave at least, "idle_min") and, under torch.profiler, the
+    device's busy and idle share (None, with the reason in "lost", where
+    the profile lost records of a compiled loop: loop_records_lost)."""
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+        if profiled else None
+    mark = launch_mark(flash, "loop_condition")
+    if prof is not None:
+        prof.__enter__()
+    try:
+        with DispatchSpans(torch, server.predictor) as spans:
+            t0 = time.time()
+            reqs = [server.submit(Request(image=im, text=t))
+                    for _ in range(rounds) for im, t in zip(images, TEXTS)]
+            results = [r.result(timeout=600) for r in reqs]
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+    finally:
+        if prof is not None:
+            prof.__exit__(None, None, None)
+    if not all(r and "error" not in r for r in results):
+        fail(f"graph serving: a request failed: "
+             f"{[r.get('error') for r in results if r and 'error' in r]}")
+    out = {"wall_s": wall, "qps": len(reqs) / wall, "results": results,
+           "span_s": spans.seconds(), "idle_min": 1 - spans.seconds() / wall}
+    if prof is not None:
+        busy = sum(e.device_time_total for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+        lost = loop_records_lost(torch, flash, prof, mark)
+        out.update(busy_s=None if lost else busy,
+                   idle=None if lost else 1 - busy / wall, lost=lost)
+    return out
+
+
+def graph_vs_eager(torch, flash, mods, params, cfg, batch, what: str,
+                   per_batch, speculative: bool, int8_per_pass=None) -> dict:
+    """One batch at anyref_7b through a serving Predictor on "fused": its
+    compiled program (graph_key) against eager generate on the same tree
+    (eager_generate): ids, [SEG] slots and decode passes equal; the
+    low-res logits bit-equal, or within PARALLEL_FLOOR_FACTOR x the bf16
+    floor (eager generate with the decoder's inputs moved by one ulp)
+    measured here; the replay's launches, counted on the card, those of
+    phase 4 a batch (int8_matmul int8_per_pass a decoder pass: the prefill
+    and each pass of the loop). Prints predict_async's return time against
+    the batch's device time, beside eager generate's, the capture seconds
+    and the pool's bytes."""
+    kw = dict(max_batch=2, speculative=speculative, max_new_tokens=8,
+              encoder_path="fused")
+    pred = mods["serving_predictor"](params, cfg, **kw)
+    res = graph_key(torch, flash, pred, batch, what)
+    got = res["graph"]
+    prog = next(iter(pred.programs.values()))
+
+    def eager(b):
+        return eager_generate(torch, mods, pred, b)
+    want = fetched(pred, eager(batch))
+    if not same_tokens(got, want):
+        fail(f"{what}: the program gave ids {got['ids'].tolist()}, [SEG] "
+             f"{got['seg'].tolist()}, {got['passes']} passes; eager "
+             f"generate {want['ids'].tolist()}, {want['seg'].tolist()}, "
+             f"{want['passes']}")
+    bits = np.array_equal(got["low"], want["low"])
+    rel = rel_l2(got["low"], want["low"])
+    floor = None
+    if not bits:
+        inner = mods["anyref"].assemble_embeds
+        mods["anyref"].assemble_embeds = nudged(torch, inner)
+        try:
+            moved = fetched(pred, eager(batch))
+        finally:
+            mods["anyref"].assemble_embeds = inner
+        floor = max(rel_l2(moved["low"], want["low"]), 2.0 ** -8)
+        if rel > PARALLEL_FLOOR_FACTOR * floor:
+            fail(f"{what}: the program's low-res logits are {rel} from "
+                 f"eager, past {PARALLEL_FLOOR_FACTOR} x the floor {floor}")
+    want_launches = dict(per_batch)
+    if int8_per_pass is not None:
+        want_launches["int8_matmul"] = int8_per_pass * (1 + got["passes"])
+    if res["launches"] != want_launches:
+        fail(f"{what}: the replay launched {res['launches']} a batch, want "
+             f"{want_launches}")
+    g_ret, g_dev = timed_dispatch(torch, pred, batch, pred.predict_async)
+    e_ret, e_dev = timed_dispatch(torch, pred, batch, eager)
+    out = {"ids": got["ids"].tolist(), "passes": got["passes"],
+           "masks_bit_equal": bits, "mask_rel_l2": rel, "floor": floor,
+           "capture_s": prog.capture_s,
+           "pool_bytes": pred.graph_pool_bytes(),
+           "return_s": g_ret, "device_ms": g_dev,
+           "eager_return_s": e_ret, "eager_device_ms": e_dev,
+           "launches": sum(res["launches"].values()),
+           "conditions": res["conditions"]}
+    by_pass = " (int8_matmul by decoder pass)" if int8_per_pass else ""
+    log(f"[graph-7b] {what}: ids {out['ids']} and [SEG] slots equal to "
+        f"eager generate, {got['passes']} decode passes in both; low-res "
+        f"logits bit-equal {bits} (rel L2 {rel:.4g}"
+        f"{'' if floor is None else f', floor {floor:.4g}'}); the replay "
+        f"launched those of phase 4 a batch{by_pass}, {out['launches']} "
+        f"launches of the port's kernels, the condition kernel "
+        f"{res['conditions']} times (card counts); "
+        f"predict_async returns in {1e3 * g_ret:.3f} ms against "
+        f"{g_dev:.3f} ms of device work (eager generate: "
+        f"{1e3 * e_ret:.3f} ms, {e_dev:.3f} ms); capture "
+        f"{prog.capture_s:.3f} s, pool "
+        f"{out['pool_bytes'] / 2**30:.3f} GiB; {mods['card']}")
+    del pred
+    torch.cuda.empty_cache()
+    return out
+
+
+def graph_7b(torch, flash, mods, params, cfg, per_batch) -> dict:
+    """Phase 13(b), run in phase 4 on its weights (speculative, "fused",
+    the serving layout): graph_vs_eager on the first two requests, then
+    the 4 requests through a Server of pipeline_depth 3: a first round
+    (each key's eager run and capture), ids equal to eager, then
+    GRAPH_ROUNDS_7B rounds at once, warm, beside the same rounds through
+    a Server whose Predictor runs eager generate (eager_server): wall, q/s,
+    the batches in flight at each dispatch, then both again under
+    torch.profiler for the device's idle share."""
+    t_phase = time.time()
+    Server, Request = mods["Server"], mods["Request"]
+    images = request_images()
+    batch = graph_batches(cfg, mods, ("text",))["text"]
+    one = graph_vs_eager(torch, flash, mods, params, cfg, batch,
+                         "fused, speculative", per_batch, speculative=True)
+    kw = dict(max_batch=2, speculative=True, max_new_tokens=8,
+              encoder_path="fused", pipeline_depth=GRAPH_PIPELINE_DEPTH)
+    servers = {"graph": Server(params, cfg, **kw),
+               "eager": eager_server(torch, mods, Server(params, cfg, **kw))}
+    flight = {"dispatched": 0, "completed": 0, "most": 0, "queued": 0}
+    pred = servers["graph"].predictor
+    inner_pa, inner_c = pred.predict_async, pred.complete
+
+    def predict_async(b):
+        out = inner_pa(b)
+        flight["dispatched"] += 1
+        flight["most"] = max(flight["most"],
+                             flight["dispatched"] - flight["completed"])
+        flight["queued"] = max(flight["queued"],
+                               servers["graph"]._fin_q.qsize())
+        return out
+
+    def complete(handle):
+        out = inner_c(handle)
+        flight["completed"] += 1
+        return out
+    pred.predict_async, pred.complete = predict_async, complete
+    runs, idle_min = {}, {}
+    try:
+        first = {k: serve_rounds(torch, flash, s, Request, images, 1)
+                 for k, s in servers.items()}
+        for i, (a, b) in enumerate(zip(first["graph"]["results"],
+                                       first["eager"]["results"])):
+            if not np.array_equal(a["output_ids"], b["output_ids"]) or \
+                    (a["mask_logits"] is None) != (b["mask_logits"] is None):
+                fail(f"graph Server, request {i}: ids "
+                     f"{a['output_ids'].tolist()}, eager "
+                     f"{b['output_ids'].tolist()}")
+        for k, s in servers.items():
+            s.reset_stats()
+        flight.update(dispatched=0, completed=0, most=0, queued=0)
+        for k in ("eager", "graph", "graph", "eager"):
+            r = serve_rounds(torch, flash, servers[k], Request, images,
+                             GRAPH_ROUNDS_7B)
+            runs.setdefault(k, []).append(r["wall_s"])
+            idle_min.setdefault(k, []).append(r["idle_min"])
+        stats = {k: dict(s.stats) for k, s in servers.items()}
+        prof = {k: serve_rounds(torch, flash, s, Request, images,
+                                GRAPH_ROUNDS_7B, profiled=True)
+                for k, s in servers.items()}
+    finally:
+        for s in servers.values():
+            s.shutdown()
+    n = GRAPH_ROUNDS_7B * len(TEXTS)
+    out = {"one_batch": one, "in_flight_most": flight["most"],
+           "queued_most": flight["queued"],
+           "first_round_s": {k: v["wall_s"] for k, v in first.items()}}
+    for k in servers:
+        out[k] = {"wall_s": runs[k], "qps": [n / w for w in runs[k]],
+                  "profiled_wall_s": prof[k]["wall_s"],
+                  "busy_s": prof[k]["busy_s"], "idle": prof[k]["idle"],
+                  "profile_lost": prof[k]["lost"],
+                  "idle_min": idle_min[k],
+                  "dispatch_ms": stats[k]["dispatch_ms"] / stats[k]["batches"],
+                  "fetch_ms": stats[k]["fetch_ms"] / stats[k]["batches"]}
+        busy = (prof[k]["lost"] if prof[k]["lost"] else
+                 f"{prof[k]['busy_s']:.3f} s -> device idle "
+                 f"{100 * prof[k]['idle']:.1f}%")
+        log(f"[graph-7b] {k} Server (pipeline_depth "
+            f"{GRAPH_PIPELINE_DEPTH}), {n} requests a round, "
+            f"{stats[k]['rows']} rows in {stats[k]['batches']} batches over "
+            f"its two rounds, warm: walls {[round(w, 3) for w in runs[k]]} "
+            f"s -> "
+            f"{[round(q, 3) for q in out[k]['qps']]} q/s, device idle at "
+            f"least {[round(100 * x, 1) for x in idle_min[k]]}% (the "
+            f"batches' CUDA-event spans); dispatch "
+            f"{out[k]['dispatch_ms']:.2f} ms a batch, fetch "
+            f"{out[k]['fetch_ms']:.2f} ms; under torch.profiler "
+            f"{prof[k]['wall_s']:.3f} s wall, kernels busy {busy}; "
+            f"{mods['card']}")
+    log(f"[graph-7b] the graph Server's batches in flight at a dispatch: "
+        f"at most {flight['most']} (dispatched, not yet completed), the "
+        f"completion queue holding at most {flight['queued']} of them "
+        f"(pipeline_depth {GRAPH_PIPELINE_DEPTH}); first round (eager "
+        f"warm-up and capture "
+        f"of the key) {first['graph']['wall_s']:.2f} s, eager Server "
+        f"{first['eager']['wall_s']:.2f} s")
+    if flight["most"] < 2:
+        fail(f"graph Server: at most {flight['most']} batch in flight at a "
+             f"dispatch: predict_async did not return before its batch ran")
+    log(f"[phase 13] (b) in {time.time() - t_phase:.1f} s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5936,7 +6581,7 @@ class CollectiveMeter:
         self.calls, self.bytes, self.seconds = {}, {}, {}
         self.host_calls = 0
         inner_ar, inner_bc = dist.all_reduce, dist.broadcast_object_list
-        inner_pf, inner_sd = llama.prefill, anyref._speculative_decode
+        inner_pf, inner_loop = llama.prefill, anyref.run_loop
 
         def all_reduce(t, *a, **kw):
             torch.cuda.synchronize()
@@ -5966,7 +6611,7 @@ class CollectiveMeter:
         dist.all_reduce = all_reduce
         dist.broadcast_object_list = broadcast_object_list
         llama.prefill = within("prefill", inner_pf)
-        anyref._speculative_decode = within("decode", inner_sd)
+        anyref.run_loop = within("decode", inner_loop)
 
 
 def parallel_7b_rank(torch, rank, images):
@@ -5995,32 +6640,30 @@ def parallel_7b_rank(torch, rank, images):
     build_s = time.time() - t0
     torch.cuda.reset_peak_memory_stats()
     meter = CollectiveMeter(torch, dist, llama, anyref)
-    shapes = {}
+    causal_marks = []
     inner_causal = llama.causal_attention
 
     def causal(q, *a, **kw):
-        n0 = flash.flash_causal_attention.launches
+        n0 = launch_mark(flash, "flash_causal_attention")
         out = inner_causal(q, *a, **kw)
-        n = flash.flash_causal_attention.launches - n0
-        if n:
-            shapes[tuple(q.shape)] = shapes.get(tuple(q.shape), 0) + n
+        causal_marks.append((tuple(q.shape), n0,
+                             launch_mark(flash, "flash_causal_attention")))
         return out
 
     llama.causal_attention = causal
     seg_states = record_seg_states(anyref)
     passes = []
-    inner_gen = anyref.generate
+    inner_loop = anyref.run_loop
 
-    def generate(*a, **kw):
-        out = inner_gen(*a, **kw)
-        passes.append(out.decode_passes)
-        return out
+    def run_loop(loop, *a, **kw):
+        carry = inner_loop(loop, *a, **kw)
+        passes.append(int(carry["n_pass"]))
+        return carry
 
-    anyref.generate = generate
+    anyref.run_loop = run_loop
     kw = dict(max_batch=2, speculative=True, max_new_tokens=PARALLEL_MNT,
               encoder_path="fused", mesh=mesh)
-    for kernel in flash.KERNELS:
-        kernel.launches = 0
+    zero_launches(flash)
     t0 = time.time()
     if rank == 0:
         server = Server(sp, cfg, **kw)
@@ -6035,9 +6678,9 @@ def parallel_7b_rank(torch, rank, images):
         answers, lows = None, None
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {k.__name__: k.launches for k in flash.KERNELS}
+    launches = read_launches(flash)
     return {"answers": answers, "low_res": lows, "batches": batches,
-            "launches": launches, "causal_shapes": shapes,
+            "launches": launches, "causal_shapes": by_shape(causal_marks),
             "passes": passes, "wall_s": wall, "build_s": build_s,
             "init_peak_gib": init_peak / 2**30, "held_gib": held / 2**30,
             "serve_peak_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -6069,9 +6712,13 @@ def parallel_7b(torch, flash, mods) -> dict:
     params = params_7b(torch, mods, cfg)
     inner_project = mods["anyref"].project_seg_hidden
     segs = record_seg_states(mods["anyref"])
+    # the single process through eager generate (eager_server), as the
+    # ranks run: the recorded [SEG] states and the nudged embeddings are
+    # host hooks inside generate, which a captured program would bypass
     t0 = time.time()
-    server = Server(params, cfg, max_batch=2, speculative=True,
-                    max_new_tokens=PARALLEL_MNT, encoder_path="fused")
+    server = eager_server(torch, mods, Server(
+        params, cfg, max_batch=2, speculative=True,
+        max_new_tokens=PARALLEL_MNT, encoder_path="fused"))
     lows2 = record_low_res(server)
     single = serve_in_pairs(server, Request, images)
     server.shutdown()
@@ -6082,8 +6729,9 @@ def parallel_7b(torch, flash, mods) -> dict:
     # moved by one bf16 ulp (up or down, drawn from a seed)
     inner_assemble = mods["anyref"].assemble_embeds
     mods["anyref"].assemble_embeds = nudged(torch, inner_assemble)
-    server = Server(params, cfg, max_batch=2, speculative=True,
-                    max_new_tokens=PARALLEL_MNT, encoder_path="fused")
+    server = eager_server(torch, mods, Server(
+        params, cfg, max_batch=2, speculative=True,
+        max_new_tokens=PARALLEL_MNT, encoder_path="fused"))
     lows1 = record_low_res(server)
     alone = serve_in_pairs(server, Request, images)
     server.shutdown()
@@ -6537,15 +7185,14 @@ def train_7b_rank(torch, rank, data, model, out, samples, steps):
     frozen = [fingerprint(t) for t in step.tree_leaves(trainer.frozen)[::7]]
     lora0 = [t.detach().clone() for t in step.tree_leaves(trainer.state.lora)]
     flash = m["flash"]
-    shapes = {}     # the training attention's forward launches by shape
+    causal_marks = []   # the training attention's forward calls
     inner_fwd = flash.causal_attention_diff_fwd
 
     def causal_fwd(q, *a, **kw):
-        n0 = flash.flash_causal_attention_diff.launches
+        n0 = launch_mark(flash, "flash_causal_attention_diff")
         out = inner_fwd(q, *a, **kw)
-        n = flash.flash_causal_attention_diff.launches - n0
-        if n:
-            shapes[tuple(q.shape)] = shapes.get(tuple(q.shape), 0) + n
+        causal_marks.append((tuple(q.shape), n0, launch_mark(
+            flash, "flash_causal_attention_diff")))
         return out
     flash.causal_attention_diff_fwd = causal_fwd
     meter = AxisMeter(torch, dist, mesh)
@@ -6563,9 +7210,7 @@ def train_7b_rank(torch, rank, data, model, out, samples, steps):
         meter.step = None
         return state, mt
     trainer.step_fn = step_fn
-    for kernel in flash.KERNELS:
-        kernel.launches = 0
-    flash.flash_causal_attention_diff.backward_launches = 0
+    zero_launches(flash)
     torch.cuda.reset_peak_memory_stats()
     state = trainer.train()
     torch.cuda.synchronize()
@@ -6577,9 +7222,10 @@ def train_7b_rank(torch, rank, data, model, out, samples, steps):
     return {"metrics": metrics, "walls": walls,
             "collectives": {s: meter.by_step(s) for s in
                             range(2, steps + 1)},
-            "causal_shapes": shapes,
-            "launches": {k.__name__: k.launches for k in flash.KERNELS},
-            "backward": flash.flash_causal_attention_diff.backward_launches,
+            "causal_shapes": by_shape(causal_marks),
+            "launches": read_launches(flash),
+            "backward": flash.launch_counts()[
+                "flash_causal_attention_diff_backward"],
             "lora_moved": moved, "frozen_untouched": untouched,
             "build_s": build_s, "init_peak_gib": init_peak,
             "held_gib": held, "peak_gib": peak,
@@ -6774,7 +7420,7 @@ def main() -> int:
         from anyref_tpu_torch.models.sam.amg import SamAutomaticMaskGenerator
         from anyref_tpu_torch.models.sam.predictor import SamPredictor
         from anyref_tpu_torch.ops import attention, common, flash, mel, quant
-        from anyref_tpu_torch.serve import Request, Server
+        from anyref_tpu_torch.serve import Request, Server, serving_predictor
         from anyref_tpu_torch.tokenizer import (AnyRefTokenizer,
                                                 audio_ref_question,
                                                 img_ref_question, seg_answer,
@@ -6828,6 +7474,7 @@ def main() -> int:
             "sam": sam, "SamPredictor": SamPredictor,
             "SamAutomaticMaskGenerator": SamAutomaticMaskGenerator,
             "export": export, "Predictor": Predictor,
+            "serving_predictor": serving_predictor,
             "checkpoint": checkpoint}
     # phase 3: "unfused" and "unfused_qkv" at anyref_tiny, "fused" and
     # "fused_block" where both fused SAM gates open (64 <= ws^2 and a 32 x
@@ -6846,7 +7493,7 @@ def main() -> int:
     check_tiny_references(torch, tiny512, "fused", mods)
     check_tiny_train(torch, tiny, mods)
     # phase 4
-    launches, int8_step, phase10 = serve_7b(torch, flash, mods)
+    launches, int8_step, phase10, phase13 = serve_7b(torch, flash, mods)
     torch.cuda.empty_cache()
     # phase 5
     trained = train_7b(torch, flash, mods)
@@ -6863,6 +7510,8 @@ def main() -> int:
     sam_alone_tiny(torch, flash, mods, tiny, tiny512)
     # phase 10(a); (b) ran in phase 4, on its weights before its first Server
     serving_tiny(torch, flash, mods, tiny, tiny512)
+    # phase 13(a); (b) ran in phase 4, on its weights
+    graph_tiny(torch, flash, mods, tiny, tiny512)
     # phase 11: two ranks on the one card
     parallel_tiny(torch, mods)
     launches["parallel"] = parallel_7b(torch, flash, mods)
@@ -6872,7 +7521,7 @@ def main() -> int:
     phase12 = {f"({d}, {m})": train_parallel_7b(torch, mods, d, m)
                for d, m in ((1, 2), (2, 1))}
 
-    # phase 13
+    # phase 14
     meta = {
         "layer_norm_fused": ("anyref_tpu_torch/csrc/norms.cu",
                              "anyref_tpu/ops/flash.py:615"),
@@ -6977,6 +7626,7 @@ def main() -> int:
         })
     log(f"[phase 10] (b) {json.dumps(phase10)}")
     log(f"[phase 12] {json.dumps(phase12)}")
+    log(f"[phase 13] (b) {json.dumps(phase13)}")
     log(f"[card] {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -113,10 +113,10 @@ def test_relpos_attention_qkv_plain_matches_pallas(ws, nh, hd, dtype):
     tw = jenc._get_rel_pos_table(ws, jnp.asarray(rel_w))
     want = jflash.flash_relpos_attention_qkv(jnp.asarray(qkv), th, tw,
                                              (ws, ws), nh, interpret=True)
-    n0 = tflash.flash_relpos_attention_qkv.launches
+    n0 = tflash.launch_counts()
     got = tflash.flash_relpos_attention_qkv(_t(qkv), _t(th), _t(tw),
                                             (ws, ws), nh)
-    assert tflash.flash_relpos_attention_qkv.launches == n0
+    assert tflash.launch_counts() == n0
     assert got.dtype == getattr(torch, dtype) and got.shape == (B, ws * ws, C)
     _close(got, want, DTYPES[dtype])
 

@@ -248,7 +248,7 @@ def test_flash_attention_qkv_matches_pallas(dtype, B, L, nh, hd):
 def test_new_wrappers_take_plain_only_for_cpu_tensors():
     """On any other device than the CPU a wrapper launches its kernels or
     raises; a plain run launches nothing."""
-    before = [f.launches for f in tflash.KERNELS]
+    before = tflash.launch_counts()
     C, meta = 64, torch.device("meta")
     lin = {"w": torch.ones(C, C, device=meta), "b": torch.zeros(C)}
     ln = {"scale": torch.ones(C), "bias": torch.zeros(C)}
@@ -265,7 +265,7 @@ def test_new_wrappers_take_plain_only_for_cpu_tensors():
     with pytest.raises(ValueError):
         tflash.flash_attention_qkv(torch.ones(1, 9, 3 * C, device=meta), 2)
     tflash.flash_attention_qkv(torch.ones(1, 9, 3 * C), 2)
-    assert [f.launches for f in tflash.KERNELS] == before
+    assert tflash.launch_counts() == before
 
 
 # ---------------------------------------------------------------------------

@@ -122,7 +122,8 @@ def ranks(tree_file, batch):
             "generate", data * model, tree_file.parent, data=data,
             model=model, tree=str(tree_file), batch=batch, mnt=MNT,
             int8=(data, model) == (1, 2), meter=(data, model) == (1, 2),
-            seg_scale=SEG_SCALE if model > 1 else None)
+            seg_scale=SEG_SCALE if model > 1 else None,
+            staged=(data, model) == (2, 1))
     return out
 
 
@@ -292,6 +293,13 @@ def test_parallel_generate_matches_jax_single_device(ranks, jax_single,
     assert all(tuple(r["local_heads"]) == (CFG.llama.hidden_size, heads)
                for r in res)
     _assert_matches_jax(res, jax_single, data, what)
+
+
+def test_mesh_predictor_counts_each_ranks_staged_bytes(ranks, batch):
+    """At (2, 1) each rank uploads its own row of the batch of two, and
+    its Predictor's h2d_bytes_total counts those bytes, half the batch's."""
+    whole = sum(np.asarray(v).nbytes for v in batch.values())
+    assert [r["h2d_bytes"] for r in ranks[(2, 1)]] == [whole // 2] * 2
 
 
 def test_jax_reference_reduces_row_parallel_in_f32(jp):

@@ -196,13 +196,13 @@ def test_causal_diff_wrapper_plain_only_on_cpu():
     """A CUDA-less device gets an error, never the plain math; a plain run
     counts no launch in either direction."""
     f = tflash.flash_causal_attention_diff
-    before = (f.launches, f.backward_launches)
+    before = tflash.launch_counts()
     with pytest.raises(ValueError):
         f(*(torch.ones(1, 1, 128, 32, device="meta") for _ in range(3)))
     q = torch.randn(1, 2, 128, 32, requires_grad=True)
     f(q, q.detach(), q.detach()).sum().backward()
     assert q.grad is not None and torch.isfinite(q.grad).all()
-    assert (f.launches, f.backward_launches) == before
+    assert tflash.launch_counts() == before
     assert f in tflash.KERNELS
 
 

@@ -99,16 +99,18 @@ def _generate(params, cfg, batch, mesh, mnt, **kw):
             "seg_valid": out.seg_valid.numpy(),
             "low_res": out.low_res_masks.numpy(),
             "seg_emb": out.seg_embeddings.numpy(),
-            "passes": out.decode_passes}
+            "passes": int(out.decode_passes)}
 
 
 def generate_task(rank, data, model, tree, batch, mnt, int8=False,
-                  meter=False, seg_scale=None):
+                  meter=False, seg_scale=None, staged=False):
     """Greedy and speculative generate of this rank's rows on the sharded
     tree; with ``int8`` also greedy and speculative on the sharded int8
     tree quantised from it; with ``meter`` an AverageMeter's all_reduce;
     with ``seg_scale`` greedy and speculative at rephrase_weight 0.1 on the
-    tree whose lm_head [SEG] column is scaled by it."""
+    tree whose lm_head [SEG] column is scaled by it; with ``staged`` the
+    bytes a mesh Predictor counts as uploaded for the batch
+    (``h2d_bytes_total``: this rank's rows)."""
     import torch
     from anyref_tpu_torch.ops.quant import quantize_llama
     from anyref_tpu_torch.parallel.mesh import make_mesh
@@ -136,6 +138,15 @@ def generate_task(rank, data, model, tree, batch, mnt, int8=False,
         out["rephrase_greedy"] = _generate(sr, cfg_r, batch, mesh, mnt)
         out["rephrase_speculative"] = _generate(
             sr, cfg_r, batch, mesh, mnt, speculative=True, draft_len=3)
+    if staged:
+        import numpy as np
+        from anyref_tpu_torch.eval.runner import Predictor
+        pred = Predictor(sp, cfg, max_new_tokens=mnt, device="cpu",
+                         encoder_path="unfused", mesh=mesh)
+        ids = batch["input_ids"]
+        pred.predict_async(dict(batch, prompt_lens=np.full(
+            len(ids), ids.shape[1], np.int32)))
+        out["h2d_bytes"] = pred.h2d_bytes_total
     if meter:
         import numpy as np
         from anyref_tpu_torch.eval.metrics import AverageMeter
@@ -188,17 +199,18 @@ def serve_task(rank, tree, images, texts, idle_s=0.0, fail_at=None):
 
 
 def _fail_generate_at(index):
-    """Make anyref.generate raise on its call of ``index`` (from 0)."""
+    """Make anyref.generate_program (the Predictor's program) raise on its
+    call of ``index`` (from 0)."""
     from anyref_tpu_torch.models import anyref
-    inner, calls = anyref.generate, []
+    inner, calls = anyref.generate_program, []
 
-    def generate(*a, **kw):
+    def generate_program(*a, **kw):
         calls.append(None)
         if len(calls) == index + 1:
             raise RuntimeError("injected failure of a follower's step")
         return inner(*a, **kw)
 
-    anyref.generate = generate
+    anyref.generate_program = generate_program
 
 
 def serve_pairs(server, images, texts, idle_s=0.0, times=False):
