@@ -66,8 +66,11 @@ def save_train_state(ckpt_dir: str, step: int, state, keep: int = 3) -> None:
     ckpt_dir = os.path.abspath(ckpt_dir)
     path = os.path.join(ckpt_dir, f"checkpoint-{step}")
     os.makedirs(path, exist_ok=True)
+    opt = state.opt_state
+    if isinstance(getattr(opt, "count", None), torch.Tensor):
+        opt = opt._replace(count=int(opt.count))   # saved as an int
     _save(_plain({"step": step, "lora": state.lora, "dense": state.dense,
-                  "opt_state": state.opt_state}),
+                  "opt_state": opt}),
           os.path.join(path, STATE_FILE))
     for old in _steps(ckpt_dir)[:-keep]:
         shutil.rmtree(os.path.join(ckpt_dir, f"checkpoint-{old}"),
@@ -87,7 +90,8 @@ def _rebuild_by_name(template, restored, where="state"):
     """``restored`` in the container types of ``template``, children matched
     by name (dict keys, named-tuple fields) or index, never by flatten
     order; each tensor checked for shape and moved to the template leaf's
-    device and dtype."""
+    device and dtype, a number made a 0-d tensor where the template has
+    one."""
     if template is None:
         return None
     if isinstance(template, tuple) and hasattr(template, "_fields"):
@@ -111,6 +115,10 @@ def _rebuild_by_name(template, restored, where="state"):
             _rebuild_by_name(t, r, f"{where}[{i}]")
             for i, (t, r) in enumerate(zip(template, restored)))
     if isinstance(template, torch.Tensor):
+        if isinstance(restored, (int, float)) and template.dim() == 0:
+            # a count saved as a number (train/step.py OptState)
+            return torch.full((), restored, dtype=template.dtype,
+                              device=template.device)
         if tuple(restored.shape) != tuple(template.shape):
             raise ValueError(f"checkpoint shape {tuple(restored.shape)} != "
                              f"{tuple(template.shape)} at {where}")

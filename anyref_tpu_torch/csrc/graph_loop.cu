@@ -1,8 +1,10 @@
-// The Predictor's compiled request program (anyref_tpu_torch/eval/runner.py):
-// one CUDA graph per shape key, with the decode loop as a WHILE conditional
-// node, the port's counterpart of the reference's jax.jit of its run() with
-// the decode loop a lax.while_loop (anyref_tpu/eval/runner.py _fn,
-// anyref_tpu/models/anyref.py generate and _speculative_decode).
+// CUDA graph programs (anyref_tpu_torch/utils/graphs.py): one CUDA graph
+// with a loop as a WHILE conditional node, the port's counterpart of a
+// jax.jit whose loop stays on the device. The Predictor's request program
+// (eval/runner.py) loops decoder passes as the reference's lax.while_loop
+// (anyref_tpu/eval/runner.py _fn, anyref_tpu/models/anyref.py generate and
+// _speculative_decode); the Trainer's step (train/trainer.py) loops its
+// micro-steps as the reference's lax.scan (anyref_tpu/train/step.py).
 //
 // It ports no Pallas kernel. PyTorch captures three graphs into one memory
 // pool (the program up to the loop, one loop body, the program after it);
@@ -12,12 +14,13 @@
 //
 // each captured graph a child-graph node, and instantiates it. The
 // condition kernel reads the loop's carry on the device (the position i,
-// int32, and the rows' done flags, bool) and sets the node's condition to
-// i < mnt && !all(done), as the reference's cond(); so the host never
-// reads the carry and one launch runs the whole request. It is one warp of
-// one block, bound by its launch (a few bytes read): it runs once before
-// the loop and once after each pass, and adds one to its launch counter
-// (ops/flash.py launch_counts, "loop_condition") each time.
+// int32, and the rows' done flags, bool, where there are any) and sets the
+// node's condition to i < mnt && !all(done), as the reference's cond(); a
+// carry without flags (n = 0, the micro-step loop) runs mnt passes. So the
+// host never reads the carry and one launch runs the whole program. It is
+// one warp of one block, bound by its launch (a few bytes read): it runs
+// once before the loop and once after each pass, and adds one to its
+// launch counter (ops/flash.py launch_counts, "loop_condition") each time.
 //
 // WHILE nodes need CUDA 12.3 or later, in the runtime and in the kernel module.
 #include "common.cuh"
@@ -25,7 +28,7 @@
 __global__ void anyref_loop_condition(cudaGraphConditionalHandle handle,
                                       const int* i, const bool* done, int n,
                                       int mnt, unsigned long long* count) {
-  int open = 0;  // some row has not finished
+  int open = n == 0;  // no flags, or some row has not finished
   for (int r = threadIdx.x; r < n; r += blockDim.x) open |= done[r] ? 0 : 1;
   open = __any_sync(0xffffffffu, open);
   if (threadIdx.x == 0) {
@@ -69,7 +72,8 @@ static cudaError_t add_while(cudaGraphNode_t* node, cudaGraph_t graph,
 
 // prefix, body, suffix: the captured graphs (cudaGraph_t), cloned into the
 // program, so the caller may destroy them; i: the carry's int32 position;
-// done: its n bool flags; mnt: the loop's bound; count: the condition
+// done: its n bool flags (n = 0: none, done may be null); mnt: the loop's
+// bound; count: the condition
 // kernel's launch counter (int64). On success *exec_out is the instantiated
 // program.
 ANYREF_API int anyref_graph_program(void* prefix, void* body, void* suffix,

@@ -42,10 +42,8 @@ included.
 
 from __future__ import annotations
 
-import ctypes
 import time
-import weakref
-from typing import Dict, List, NamedTuple, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -54,13 +52,13 @@ import torch.distributed as dist
 from ..config import (SAM_PIXEL_MEAN, SAM_PIXEL_STD, AnyRefConfig,
                       check_encoder_path)
 from ..models import anyref, clip_vit, llama
-from ..ops import flash
 from ..ops.common import device_constant
 from ..ops.quant import is_quantized
 from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
 from ..parallel.partition import shard_batch
 from ..ops.resize import postprocess_low_res_np
 from ..params import resolve_device
+from ..utils.graphs import GraphPool, GraphProgram, stage
 
 def _sam_normalize_device(x_u8, resized_sizes):
     """Normalize uint8 SAM canvases and re-zero the pad beyond each row's
@@ -77,19 +75,6 @@ def _sam_normalize_device(x_u8, resized_sizes):
     row = torch.arange(S, device=dev).reshape(1, 1, S, 1)
     col = torch.arange(S, device=dev).reshape(1, 1, 1, S)
     return torch.where((row < nh) & (col < nw), x, 0.0)
-
-
-class GraphProgram(NamedTuple):
-    """One key's captured program: its static input buffers, its static
-    outputs (meta, low-res), the captured graphs (prefix, loop body,
-    suffix: PyTorch's, which hold the pool), the instantiated program
-    (a cudaGraphExec_t of csrc/graph_loop.cu) and the seconds the capture
-    took."""
-    inputs: dict
-    outputs: tuple
-    graphs: tuple
-    exec: int
-    capture_s: float
 
 
 class Predictor:
@@ -156,8 +141,7 @@ class Predictor:
         # the compiled programs (CUDA, no mesh of several ranks): key ->
         # GraphProgram, all in one graph memory pool
         self.programs: Dict[tuple, GraphProgram] = {}
-        self._pool = None
-        self._capture_stream = None
+        self.graphs = GraphPool(self.device)
 
     def _bucket(self, n: int) -> int:
         for b in self.buckets:
@@ -273,66 +257,31 @@ class Predictor:
         """Capture the program on ``inputs`` (device tensors, which become
         its static inputs) into three graphs in the Predictor's pool and
         stitch them into one with the loop as a WHILE node
-        (csrc/graph_loop.cu). A capture records kernels and their launch
+        (utils/graphs.py). A capture records kernels and their launch
         counts and runs none; each replay counts what it runs, on the
         device."""
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-            self._capture_stream = torch.cuda.Stream(self.device)
         t0 = time.perf_counter()
-        graphs = []
-
-        def capture(fn):
-            g = torch.cuda.CUDAGraph(keep_graph=True)
-            with torch.cuda.graph(g, pool=self._pool,
-                                  stream=self._capture_stream,
-                                  capture_error_mode="thread_local"):
-                out = fn()
-            graphs.append(g)
-            return out
-
         with torch.inference_mode():
-            loop, finish = capture(lambda: self._program(inputs))
-            capture(lambda: loop.body(loop.carry))
-            outputs = capture(lambda: finish(loop.carry))
-        handle = ctypes.c_void_p()
-        flash._launch("anyref_graph_program",
-                      *(g.raw_cuda_graph() for g in graphs),
-                      loop.carry["i"].data_ptr(),
-                      loop.carry["done"].data_ptr(),
-                      loop.carry["done"].numel(), self.mnt,
-                      flash.launch_counter("loop_condition",
-                                           self.device).data_ptr(),
-                      ctypes.byref(handle))
-        program = GraphProgram(inputs, outputs, tuple(graphs), handle.value,
-                               time.perf_counter() - t0)
-        weakref.finalize(program.graphs[0], flash._library().
-                         anyref_graph_destroy, handle.value)
-        return program
+            g0, (loop, finish) = self.graphs.capture(
+                lambda: self._program(inputs))
+            g1, _ = self.graphs.capture(lambda: loop.body(loop.carry))
+            g2, outputs = self.graphs.capture(lambda: finish(loop.carry))
+        graphs = (g0, g1, g2)
+        exec_ = self.graphs.program(graphs, loop.carry["i"],
+                                    loop.carry["done"], self.mnt)
+        return GraphProgram(inputs, outputs, graphs, exec_,
+                            time.perf_counter() - t0)
 
     def _replay(self, program: GraphProgram, host: dict, batch, B: int):
-        """Stage, copy, replay, clone: nothing waits for the device. A
-        pinned buffer may be dropped as soon as its copy is queued: the
-        pinned allocator reuses it only once the copy's event completed."""
-        for k, v in host.items():
-            dst = program.inputs[k]
-            if tuple(dst.shape) != v.shape:
-                raise ValueError(f"{k}: {v.shape} for a program of "
-                                 f"{tuple(dst.shape)}")
-            dst.copy_(torch.from_numpy(v).pin_memory(), non_blocking=True)
-        flash._launch("anyref_graph_launch", program.exec,
-                      torch.cuda.current_stream(self.device).cuda_stream)
+        """Stage, copy, replay, clone: nothing waits for the device."""
+        stage(program.inputs, host)
+        self.graphs.launch(program.exec)
         return tuple(t.clone() for t in program.outputs), batch, B
 
     def graph_pool_bytes(self) -> int:
         """Device bytes the programs' memory pool holds (0 before the first
         capture)."""
-        if self._pool is None:
-            return 0
-        pool = tuple(self._pool)
-        return sum(seg["total_size"]
-                   for seg in torch.cuda.memory._snapshot()["segments"]
-                   if tuple(seg["segment_pool_id"]) == pool)
+        return self.graphs.bytes()
 
     def _gather_rows(self, meta, low):
         """Every data rank's rows, in rank order, on the host: each rank

@@ -489,7 +489,10 @@ def train_forward(params: dict, cfg: AnyRefConfig, batch: dict,
     under ``torch.no_grad`` (frozen towers; the reference's
     stop_gradient). ``remat`` checkpoints each decoder layer. ``mesh``
     (parallel/mesh.py): the batch holds this rank's rows and the params its
-    blocks (``shard_params``); the loss terms are the global batch's."""
+    blocks (``shard_params``); the loss terms are the global batch's. The
+    step program (train/step.py) passes device tensors, a captured step's
+    static inputs, so nothing is uploaded here; numpy arrays are uploaded
+    where an eager caller passes them."""
     check_encoder_path(encoder_path)
     tk = cfg.tokens
     dev = params["llama"]["embed_tokens"].device

@@ -287,9 +287,11 @@ def forward(params: dict, cfg: LlamaConfig, embeds, positions=None,
     (``torch.utils.checkpoint``, non-reentrant): only the layer inputs stay
     alive between the passes and the backward recomputes each layer, the
     attention kernel's forward and the layer's collectives included (every
-    rank recomputes in the same order). ``group``: the "model" group of a
-    tree from ``shard_params`` (the attention then runs on the rank's
-    heads)."""
+    rank recomputes in the same order). A layer draws no random numbers, so
+    the checkpoint saves no generator state, a read of the CUDA
+    generator that a CUDA graph capture may refuse (train/trainer.py).
+    ``group``: the "model" group of a tree from ``shard_params`` (the
+    attention then runs on the rank's heads)."""
     B, L, _ = embeds.shape
     if positions is None:
         positions = torch.arange(L, device=embeds.device)
@@ -301,7 +303,8 @@ def forward(params: dict, cfg: LlamaConfig, embeds, positions=None,
             last_in = x
         args = (p, cfg, x, "full", None, 0, i, rt, None, kv_len, False,
                 group)
-        x = (checkpoint(_layer, *args, use_reentrant=False) if remat
+        x = (checkpoint(_layer, *args, use_reentrant=False,
+                        preserve_rng_state=False) if remat
              else _layer(*args))
     out = rms_norm(params["final_norm"], x, eps=cfg.rms_norm_eps)
     if return_last_input:

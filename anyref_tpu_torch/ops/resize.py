@@ -15,34 +15,34 @@ import numpy as np
 import torch
 
 
-@functools.lru_cache(maxsize=512)
-def _bilinear_weight_matrix(in_size: int, out_size: int) -> np.ndarray:
-    """[out, in] fp32, at most two nonzeros per row: pytorch's
-    area_pixel_compute_source_index with align_corners=False,
-    src = max(0, scale * (dst + 0.5) - 0.5), in fp32 coordinates."""
+def _bilinear_weight_matrix(in_size: int, out_size: int,
+                            device) -> torch.Tensor:
+    """[out, in] fp32 on ``device``, at most two nonzeros per row:
+    pytorch's area_pixel_compute_source_index with align_corners=False,
+    src = max(0, scale * (dst + 0.5) - 0.5), in fp32 coordinates, the two
+    weights summed in fp64 and rounded once (an edge row's taps coincide).
+    Built on the device from its shape alone: no host data, so a CUDA graph
+    capture of the training step holds it."""
     if in_size == out_size:
-        return np.eye(in_size, dtype=np.float32)
-    scale = np.float32(in_size) / np.float32(out_size)
-    dst = np.arange(out_size, dtype=np.float32)
-    src = np.maximum(scale * (dst + np.float32(0.5)) - np.float32(0.5),
-                     np.float32(0.0))
-    x0 = np.floor(src).astype(np.int64)
-    x0 = np.minimum(x0, in_size - 1)
-    x1 = np.minimum(x0 + 1, in_size - 1)
-    lam = (src - x0.astype(np.float32)).astype(np.float64)
-    w = np.zeros((out_size, in_size), dtype=np.float64)
-    rows = np.arange(out_size)
-    np.add.at(w, (rows, x0), 1.0 - lam)
-    np.add.at(w, (rows, x1), lam)
-    return w.astype(np.float32)
+        return torch.eye(in_size, dtype=torch.float32, device=device)
+    scale = float(np.float32(in_size) / np.float32(out_size))
+    dst = torch.arange(out_size, dtype=torch.float32, device=device)
+    src = torch.clamp_min((dst + 0.5) * scale - 0.5, 0.0)
+    x0 = torch.floor(src).long().clamp_max(in_size - 1)
+    x1 = (x0 + 1).clamp_max(in_size - 1)
+    lam = (src - x0.float()).double()
+    w = torch.zeros((out_size, in_size), dtype=torch.float64, device=device)
+    w.scatter_add_(1, x0[:, None], (1.0 - lam)[:, None])
+    w.scatter_add_(1, x1[:, None], lam[:, None])
+    return w.float()
 
 
 def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """Resize the last two dims of ``x`` [..., H, W] in fp32 (full fp32
     products, as the reference's HIGHEST precision), back in x's dtype."""
     h, w = x.shape[-2], x.shape[-1]
-    wh = torch.from_numpy(_bilinear_weight_matrix(h, out_h)).to(x.device)
-    ww = torch.from_numpy(_bilinear_weight_matrix(w, out_w)).to(x.device)
+    wh = _bilinear_weight_matrix(h, out_h, x.device)
+    ww = _bilinear_weight_matrix(w, out_w, x.device)
     y = torch.einsum("...hw,vw->...hv", x.float(), ww)
     y = torch.einsum("...hv,uh->...uv", y, wh)
     return y.to(x.dtype)

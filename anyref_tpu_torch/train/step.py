@@ -5,12 +5,25 @@ then a linear decay to zero, computed as optax computes
 ``chain(clip_by_global_norm(1.0), adamw(schedule))``: the schedule is read
 at the step count *before* it is raised (so the first update uses lr(0),
 which is 0), and a clipped gradient is ``g / norm * max_norm`` (no epsilon
-in the norm, unlike ``torch.nn.utils.clip_grad_norm_``). Trainables: the
-LoRA adapters and the dense ``modules_to_save`` set (train/lora.py); they
-are updated in place. ``remat`` checkpoints each decoder layer where the
-reference checkpoints its whole loss with a policy that keeps the matmul
-outputs: here only the layer inputs are kept and each layer is recomputed
-in the backward.
+in the norm, unlike ``torch.nn.utils.clip_grad_norm_``). The count is a
+0-d int32 tensor beside the trainables; the schedule and the bias
+corrections are computed from it on the device, in fp32, so an update reads
+nothing back. Trainables: the LoRA adapters and the dense
+``modules_to_save`` set (train/lora.py). ``remat`` checkpoints each decoder
+layer where the reference checkpoints its whole loss with a policy that
+keeps the matmul outputs: here only the layer inputs are kept and each
+layer is recomputed in the backward.
+
+A step is a program in the form of the reference's jitted step, whose
+micro-steps are one ``lax.scan`` body (``StepProgram``): a prefix that
+zeroes the fp32 gradient and metric sums of a carry, a body that runs
+micro-step ``i`` of the stacked batch (picked on the device by the carry's
+``i``) and adds into the carry, and a suffix that averages, clips, runs the
+optimizer and writes the trainables and the optimizer state in place (the
+counterpart of the reference's donated state). None of it reads the device
+or uploads host data, so the same program runs from the host
+(``make_train_step``) or, on a CUDA device, captured into one CUDA graph
+with the body a WHILE node (train/trainer.py).
 
 On a mesh (parallel/mesh.py; one process a rank) a step computes what the
 reference's single-device step computes on the global batch, the union of
@@ -30,7 +43,7 @@ sharded leaves' squares over "model" and counts the replicated ones once.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -85,9 +98,9 @@ def sharded_leaves(tree, spec) -> list:
 
 
 class OptState(NamedTuple):
-    count: int      # updates made so far
-    mu: tuple       # first moments, a (lora, dense) tree
-    nu: tuple       # second moments
+    count: torch.Tensor     # updates made so far: 0-d int32 on the device
+    mu: tuple               # first moments, a (lora, dense) tree
+    nu: tuple               # second moments
 
 
 class TrainState(NamedTuple):
@@ -108,15 +121,19 @@ class AdamW:
         self.grad_clip = grad_clip
 
     def init(self, params) -> OptState:
-        zeros = tree_map(torch.zeros_like, params)
-        return OptState(0, zeros, tree_map(torch.zeros_like, params))
+        leaves = tree_leaves(params)
+        count = torch.zeros((), dtype=torch.int32,
+                            device=leaves[0].device if leaves else None)
+        return OptState(count, tree_map(torch.zeros_like, params),
+                        tree_map(torch.zeros_like, params))
 
     @torch.no_grad()
     def update(self, grads, state: OptState, params, mesh=None):
         """(updates, new state); updates are added to params by the caller.
-        All on the device the tensors live on, no host sync. ``mesh``: the
-        trees are a (lora, dense) pair of this rank's blocks, and the
-        clipping norm is the whole tree's."""
+        All on the device the tensors live on, the count's arithmetic
+        included: nothing is read back. ``mesh``: the trees are a (lora,
+        dense) pair of this rank's blocks, and the clipping norm is the
+        whole tree's."""
         if self.grad_clip:
             squares = [(g.float() * g.float()).sum()
                        for g in tree_leaves(grads)]
@@ -133,35 +150,48 @@ class AdamW:
             grads = tree_map(lambda g: torch.where(
                 keep, g, g / norm.to(g.dtype) * self.grad_clip), grads)
         count = state.count + 1
-        # bias corrections in fp32, as optax computes them
-        bc1 = float(1 - np.float32(B1) ** count)
-        bc2 = float(1 - np.float32(B2) ** count)
+        bc1 = 1 - _decay_power(B1, count)
+        bc2 = 1 - _decay_power(B2, count)
         mu = tree_map(lambda g, m: (1 - B1) * g + B1 * m, grads, state.mu)
         nu = tree_map(lambda g, v: (1 - B2) * (g * g) + B2 * v, grads,
                       state.nu)
-        lr = float(self.schedule(state.count))
+        step_size = -self.schedule(state.count)
 
         def upd(m, v, p):
-            u = (m / bc1) / (torch.sqrt(v / bc2) + EPS)
+            # optax divides by the corrections, and scales by the step
+            # size, in the moment's dtype
+            u = (m / bc1.to(m.dtype)) / (torch.sqrt(v / bc2.to(v.dtype))
+                                         + EPS)
             if self.weight_decay:
                 u = u + self.weight_decay * p
-            return u * -lr
+            return u * step_size.to(u.dtype)
         return tree_map(upd, mu, nu, params), OptState(count, mu, nu)
+
+
+def _decay_power(decay: float, count: torch.Tensor) -> torch.Tensor:
+    """optax's ``decay ** count`` (an fp32 decay, an int32 count) in fp32:
+    the power taken in fp64 and rounded once; XLA's fp32 power, which
+    optax runs, is within an ulp of it."""
+    return torch.pow(float(np.float32(decay)), count.double()).float()
 
 
 def warmup_decay_schedule(lr: float, warmup: int, total_steps: int):
     """optax join_schedules of linear_schedule(0, lr, warmup) and
-    linear_schedule(lr, 0, total_steps - warmup) at ``warmup``."""
+    linear_schedule(lr, 0, total_steps - warmup) at ``warmup``, of a count
+    (a 0-d int32 tensor, or an int): a 0-d fp32 tensor on the count's
+    device, computed as optax computes it."""
     def linear(init, end, steps, count):
         if steps <= 0:
-            return init
-        frac = 1 - min(max(count, 0), steps) / steps
-        return (init - end) * frac + end
+            return torch.full((), init, dtype=torch.float32,
+                              device=count.device)
+        frac = 1 - torch.clamp(count, 0, steps) / steps
+        return frac * (init - end) + end
 
-    def schedule(count: int) -> float:
-        if count < warmup:
-            return linear(0.0, lr, warmup, count)
-        return linear(lr, 0.0, total_steps - warmup, count - warmup)
+    def schedule(count) -> torch.Tensor:
+        count = torch.as_tensor(count, dtype=torch.int32)
+        return torch.where(count < warmup, linear(0.0, lr, warmup, count),
+                           linear(lr, 0.0, total_steps - warmup,
+                                  count - warmup))
     return schedule
 
 
@@ -230,6 +260,58 @@ def reduce_grads(grads: list, trainables, mesh, scale: float = 1.0) -> list:
     return all_reduce_grads(grads, mesh.group(DATA_AXIS), scale)
 
 
+def _grad_program(lora_params: dict, dense: dict, frozen: dict,
+                  cfg: AnyRefConfig, lora_cfg: lora_mod.LoraConfig,
+                  batch: dict, encoder_path: str, remat: bool, mesh,
+                  grad_accum: int):
+    """(prefix, body, average): the gradient part of a step's program.
+    ``prefix()`` makes the carry {"i": 0-d int32 micro-step index,
+    "grads": fp32 zeros like each trainable leaf, "metrics": fp32 zeros
+    [len(METRICS)]}; ``body(carry)`` runs micro-step ``i`` (the batch
+    itself where ``grad_accum`` is 1), adds its gradients and metrics into
+    the carry's tensors and raises ``i``; ``average(carry)`` -> (metrics
+    [len(METRICS)], gradient leaves): the sums over ``grad_accum``, the
+    gradients made the global batch's (``reduce_grads``) in fp32 and
+    rounded once to each leaf's dtype. The batch's arrays become tensors
+    on the trainables' device here, once."""
+    _check_mesh(dense["llama"], cfg, mesh)
+    params = (lora_params, dense)
+    leaves = tree_leaves(params)
+    dev = leaves[0].device
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+    def prefix() -> dict:
+        return {"i": torch.zeros((), dtype=torch.int32, device=dev),
+                "grads": [torch.zeros_like(p, dtype=torch.float32)
+                          for p in leaves],
+                "metrics": torch.zeros(len(METRICS), dtype=torch.float32,
+                                       device=dev)}
+
+    def body(c: dict) -> dict:
+        if grad_accum == 1:
+            micro = batch
+        else:
+            i = c["i"].reshape(1)
+            micro = {k: v.index_select(0, i)[0] for k, v in batch.items()}
+        loss, m = loss_fn(lora_params, dense, frozen, cfg, lora_cfg, micro,
+                          encoder_path, remat, mesh)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with torch.no_grad():
+            for acc, g in zip(c["grads"], grads):
+                if g is not None:
+                    acc.add_(g)
+            c["metrics"].add_(torch.stack([m[k].float() for k in METRICS]))
+            c["i"].add_(1)
+        return c
+
+    def average(c: dict):
+        grads = reduce_grads(c["grads"], params, mesh, 1.0 / grad_accum)
+        return (c["metrics"] / grad_accum,
+                [g.to(p.dtype) for g, p in zip(grads, leaves)])
+
+    return prefix, body, average
+
+
 def value_and_grad(lora_params: dict, dense: dict, frozen: dict,
                    cfg: AnyRefConfig, lora_cfg: lora_mod.LoraConfig,
                    batch: dict, encoder_path: str = "fused",
@@ -237,59 +319,95 @@ def value_and_grad(lora_params: dict, dense: dict, frozen: dict,
     """(loss, metrics, grads) with grads a (lora, dense) tree; a trainable
     the loss does not reach gets a zero gradient. With ``grad_accum`` > 1
     the batch carries a leading micro-step axis ([accum, B, ...],
-    stack_microbatches): the gradients are summed over micro-steps and
-    divided by ``grad_accum``, the loss and metrics averaged. On a
+    stack_microbatches): the gradients are summed over micro-steps in fp32
+    and divided by ``grad_accum``, the loss and metrics averaged. On a
     ``mesh`` the batch holds this rank's rows and the trees its blocks; the
     loss and metrics are the global batch's and the gradient of each of
-    this rank's leaves the global one (``reduce_grads``)."""
-    _check_mesh(dense["llama"], cfg, mesh)
-    params = (lora_params, dense)
-    leaves = tree_leaves(params)
-    total = metrics = loss_sum = None
-    for i in range(grad_accum):
-        micro = batch if grad_accum == 1 else {k: v[i]
-                                               for k, v in batch.items()}
-        loss, m = loss_fn(lora_params, dense, frozen, cfg, lora_cfg, micro,
-                          encoder_path, remat, mesh)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
-            leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
-        if total is None:
-            total, metrics, loss_sum = grads, m, loss.detach()
-        else:
-            total = [a + b for a, b in zip(total, grads)]
-            metrics = {k: metrics[k] + m[k] for k in m}
-            loss_sum = loss_sum + loss.detach()
-    if grad_accum > 1:
-        metrics = {k: v / grad_accum for k, v in metrics.items()}
-    grads = iter(reduce_grads(total, params, mesh, 1.0 / grad_accum))
-    return (loss_sum / grad_accum, metrics,
-            tree_map(lambda _: next(grads), params))
+    this rank's leaves the global one (``reduce_grads``). The step
+    program's prefix and body, run from the host."""
+    prefix, body, average = _grad_program(
+        lora_params, dense, frozen, cfg, lora_cfg, batch, encoder_path,
+        remat, mesh, grad_accum)
+    carry = prefix()
+    for _ in range(grad_accum):
+        carry = body(carry)
+    metrics, grads = average(carry)
+    metrics = dict(zip(METRICS, metrics.unbind()))
+    grads = iter(grads)
+    return (metrics["loss"], metrics,
+            tree_map(lambda _: next(grads), (lora_params, dense)))
+
+
+class StepProgram(NamedTuple):
+    """One optimizer step in the form of the reference's jitted step with
+    its micro-steps in a ``lax.scan``: ``prefix()`` -> the carry (zeroed
+    sums, ``carry["i"]`` the 0-d int32 micro-step index), ``body(carry)``
+    one micro-step into the carry, run ``accum`` times (while ``i <
+    accum``), ``suffix(carry)`` -> the step's metrics [len(METRICS)] fp32,
+    the trainables and the optimizer state updated in place. ``run()``
+    runs it from the host; train/trainer.py captures the three parts."""
+    prefix: Callable
+    body: Callable
+    suffix: Callable
+    accum: int
+
+    def run(self) -> torch.Tensor:
+        carry = self.prefix()
+        for _ in range(self.accum):
+            carry = self.body(carry)
+        return self.suffix(carry)
+
+
+def step_program(cfg: AnyRefConfig, lora_cfg: lora_mod.LoraConfig,
+                 optimizer: AdamW, state: TrainState, frozen: dict,
+                 batch: dict, remat: bool = True, grad_accum: int = 1,
+                 encoder_path: str = "fused", mesh=None) -> StepProgram:
+    """The step of ``make_train_step`` on ``state`` and ``batch`` as a
+    StepProgram. The suffix adds the updates to the trainables and copies
+    the optimizer's new state into ``state.opt_state``'s tensors, so a
+    captured program keeps writing the tensors it was captured on."""
+    params = (state.lora, state.dense)
+    prefix, body, average = _grad_program(
+        state.lora, state.dense, frozen, cfg, lora_cfg, batch, encoder_path,
+        remat, mesh, grad_accum)
+
+    def suffix(c: dict) -> torch.Tensor:
+        metrics, grads = average(c)
+        grads = iter(grads)
+        # the mesh only where there is one: on one device any object with
+        # init and update (grads, state, params) serves as the optimizer
+        updates, opt_state = optimizer.update(
+            tree_map(lambda _: next(grads), params), state.opt_state, params,
+            *(() if mesh is None else (mesh,)))
+        with torch.no_grad():
+            for p, u in zip(tree_leaves(params), tree_leaves(updates)):
+                p.add_(u)
+            for old, new in zip(tree_leaves(state.opt_state),
+                                tree_leaves(opt_state)):
+                if new is not old:
+                    old.copy_(new)
+        return metrics
+
+    return StepProgram(prefix, body, suffix, grad_accum)
 
 
 def make_train_step(cfg: AnyRefConfig, lora_cfg: lora_mod.LoraConfig,
                     optimizer: AdamW, remat: bool = True, grad_accum: int = 1,
                     encoder_path: str = "fused", mesh=None):
-    """One optimizer step: ``train_step(state, frozen, batch) -> (state,
-    metrics)``. With ``grad_accum`` > 1 the batch carries a leading
-    micro-step axis ([accum, B, ...], stack_microbatches); gradients are
-    summed over micro-steps and divided by ``grad_accum`` before the single
-    update, and the metrics are averaged. ``mesh``: the state holds this
-    rank's blocks and the batch its rows (value_and_grad)."""
+    """One optimizer step from the host: ``train_step(state, frozen,
+    batch) -> (state, metrics)``, the step_program run on the host, the
+    returned state holding ``state``'s tensors, updated in place. With
+    ``grad_accum`` > 1 the batch carries a leading micro-step axis ([accum,
+    B, ...], stack_microbatches); gradients are summed over micro-steps and
+    divided by ``grad_accum`` before the single update, and the metrics are
+    averaged. ``mesh``: the state holds this rank's blocks and the batch
+    its rows (value_and_grad)."""
     def train_step(state: TrainState, frozen: dict, batch: dict):
-        _, metrics, grads = value_and_grad(
-            state.lora, state.dense, frozen, cfg, lora_cfg, batch,
-            encoder_path, remat, mesh, grad_accum)
-        params = (state.lora, state.dense)
-        # the mesh only where there is one: on one device any object with
-        # init and update (grads, state, params) serves as the optimizer
-        updates, opt_state = optimizer.update(
-            grads, state.opt_state, params,
-            *(() if mesh is None else (mesh,)))
-        with torch.no_grad():
-            for p, u in zip(tree_leaves(params), tree_leaves(updates)):
-                p.add_(u)
-        return TrainState(state.step + 1, state.lora, state.dense,
-                          opt_state), metrics
+        metrics = step_program(cfg, lora_cfg, optimizer, state, frozen,
+                               batch, remat, grad_accum, encoder_path,
+                               mesh).run()
+        return (state._replace(step=state.step + 1),
+                dict(zip(METRICS, metrics.unbind())))
 
     return train_step
 

@@ -19,6 +19,23 @@ step of train/step.py on the mesh. Rank 0 alone writes ``metrics.jsonl``
 and the console line; a checkpoint gathers the blocks and rank 0 writes
 one file of the single-device format, so a run saved on one mesh resumes
 on another (every rank reads it and cuts its blocks).
+
+On a CUDA device, unless the mesh has several ranks, ``step_fn`` is the
+compiled step, the counterpart of the reference's ``jax.jit`` of its step
+with the state donated: each batch key ``(grad_accum, sorted (name, shape,
+dtype))`` is one CUDA graph program (utils/graphs.py) whose replay is one
+optimizer step, the micro-steps one captured body run ``grad_accum`` times
+by a WHILE node (train/step.py ``step_program``), the trainables, the
+moments and the count updated in place. A key's first step runs the
+program from the host (its results are that step's), then ``_capture``
+records it on a side stream; every later step of the key stages the batch
+in pinned memory, copies it into the program's static inputs, replays and
+returns, reading nothing back; ``train()`` reads the metrics at
+``log_steps``. All keys share one graph memory pool, held for the
+Trainer's life. A failed capture or replay raises. On the CPU, and on a
+mesh of several ranks (gloo's collectives cannot be captured), the same
+program runs from the host. Python code inside the step (a monkeypatched
+function) runs at a key's first step and its capture only.
 """
 
 from __future__ import annotations
@@ -27,8 +44,9 @@ import json
 import os
 import time
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -40,6 +58,7 @@ from ..params import resolve_device
 from ..parallel import partition
 from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh
 from ..tokenizer import AnyRefTokenizer
+from ..utils.graphs import GraphPool, GraphProgram, stage
 from . import lora as lora_mod
 from . import step as step_mod
 
@@ -91,6 +110,7 @@ class Trainer:
         self.cfg = cfg
         self.tc = tc
         self.mesh = mesh
+        self.device = dev
         self.tokenizer = tokenizer or AnyRefTokenizer()
         self.lora_cfg = lora_mod.LoraConfig()
         self.optimizer = step_mod.make_optimizer(
@@ -101,10 +121,17 @@ class Trainer:
         self.state, self.frozen = step_mod.init_state(
             torch.Generator().manual_seed(tc.seed), params, self.lora_cfg,
             self.optimizer)
-        self.step_fn = step_mod.make_train_step(
+        self._host_step = step_mod.make_train_step(
             cfg, self.lora_cfg, self.optimizer, remat=tc.remat,
             grad_accum=tc.grad_accum_steps, encoder_path=tc.encoder_path,
             mesh=mesh)
+        # the compiled programs (CUDA, no mesh of several ranks): key ->
+        # GraphProgram (outputs: the metrics), all in one graph memory pool
+        self.programs: Dict[tuple, GraphProgram] = {}
+        compiled = dev.type == "cuda" and (mesh is None or mesh.size == 1)
+        self.graphs = GraphPool(dev) if compiled else None
+        self._replay_stream = None
+        self.step_fn = self._compiled_step if compiled else self._host_step
         if dataset is None:
             from ..data.registry import build_train_datasets
             dataset = build_train_datasets(
@@ -128,12 +155,17 @@ class Trainer:
                 restored = ckpt.restore_train_state(
                     latest, {"step": 0, "lora": s.lora, "dense": s.dense,
                              "opt_state": s.opt_state}, cut=self._cut)
-                self.state = step_mod.TrainState(
-                    int(restored["step"]), restored["lora"],
-                    restored["dense"], restored["opt_state"])
-                for t in step_mod.tree_leaves((self.state.lora,
-                                               self.state.dense)):
-                    t.requires_grad_(True)
+                # into the state's own tensors, which a compiled step's
+                # graphs hold
+                with torch.no_grad():
+                    for dst, src in zip(
+                            step_mod.tree_leaves((s.lora, s.dense,
+                                                  s.opt_state)),
+                            step_mod.tree_leaves((restored["lora"],
+                                                  restored["dense"],
+                                                  restored["opt_state"]))):
+                        dst.copy_(src)
+                self.state = s._replace(step=int(restored["step"]))
                 if self.writer:
                     print(f"resumed from {latest}")
 
@@ -153,9 +185,75 @@ class Trainer:
             **opt, "mu": partition.shard_tree(opt["mu"], spec, self.mesh),
             "nu": partition.shard_tree(opt["nu"], spec, self.mesh)}}
 
+    def _compiled_step(self, state: step_mod.TrainState, frozen: dict,
+                       batch: dict):
+        """``step_fn`` on a CUDA device (no mesh of several ranks): the
+        batch key's program, captured after the key's first step, which
+        runs from the host; later steps stage, copy, replay and return
+        with the metrics on the device. The programs write the Trainer's
+        own state, so ``state`` and ``frozen`` must be its own."""
+        own = self.state
+        if (state.lora is not own.lora or state.dense is not own.dense
+                or state.opt_state is not own.opt_state
+                or frozen is not self.frozen):
+            raise ValueError("the compiled step runs on the Trainer's own "
+                             "state and frozen params")
+        host = {k: np.ascontiguousarray(v) for k, v in batch.items()}
+        key = (self.tc.grad_accum_steps, tuple(sorted(
+            (k, v.shape, str(v.dtype)) for k, v in host.items())))
+        program = self.programs.get(key)
+        if program is None:
+            inputs = {k: torch.from_numpy(v).to(self.device)
+                      for k, v in host.items()}
+            out = self._host_step(state, frozen, inputs)
+            # the step above was the key's warm-up: its results are this
+            # step's, and its inputs become the program's buffers
+            self.programs[key] = self._capture(inputs)
+            return out
+        stage(program.inputs, host)
+        self._replay_stream = self.graphs.launch(program.exec)
+        metrics = program.outputs[0].clone()
+        return (state._replace(step=state.step + 1),
+                dict(zip(step_mod.METRICS, metrics.unbind())))
+
+    def _capture(self, inputs: dict) -> GraphProgram:
+        """Capture the step program on ``inputs`` (device tensors, which
+        become its static inputs) into three graphs in the Trainer's pool
+        and stitch them into one, the body a WHILE node over the carry's
+        micro-step index (utils/graphs.py). A capture records kernels and
+        their launch counts and runs none; each replay counts what it
+        runs, on the device."""
+        tc = self.tc
+        t0 = time.perf_counter()
+        program = step_mod.step_program(
+            self.cfg, self.lora_cfg, self.optimizer, self.state,
+            self.frozen, inputs, tc.remat, tc.grad_accum_steps,
+            tc.encoder_path, self.mesh)
+        g0, carry = self.graphs.capture(program.prefix)
+        g1, _ = self.graphs.capture(lambda: program.body(carry))
+        g2, metrics = self.graphs.capture(lambda: program.suffix(carry))
+        graphs = (g0, g1, g2)
+        exec_ = self.graphs.program(graphs, carry["i"], None,
+                                    tc.grad_accum_steps)
+        return GraphProgram(inputs, (metrics,), graphs, exec_,
+                            time.perf_counter() - t0)
+
+    def graph_pool_bytes(self) -> int:
+        """Device bytes the compiled steps' memory pool holds (0 before the
+        first capture, and off CUDA)."""
+        return 0 if self.graphs is None else self.graphs.bytes()
+
+    def _wait_replays(self) -> None:
+        """Make the current stream wait for the last replay's stream, so
+        that a read of the state sees every step dispatched."""
+        if self._replay_stream is not None:
+            torch.cuda.current_stream(self.device).wait_stream(
+                self._replay_stream)
+
     def gathered_state(self) -> step_mod.TrainState:
         """The train state with whole leaves (collective over "model" on a
-        mesh; the state itself elsewhere)."""
+        mesh; the state itself elsewhere), after every step dispatched."""
+        self._wait_replays()
         s = self.state
         if self.mesh is None:
             return s
@@ -197,7 +295,10 @@ class Trainer:
 
     def _stop_profiler(self, step: int):
         """Stop after ``step`` and write its chrome trace; the events stay
-        readable on ``self.profiler``."""
+        readable on ``self.profiler``. Of a replayed step the trace may
+        lose, or repeat, the records of the micro-step loop (a CUDA graph's
+        conditional node): the card's count of the loop's condition kernel
+        (ops/flash.py launch_counts) says whether it did."""
         if torch.cuda.is_available():
             torch.cuda.synchronize()
         self.profiler.__exit__(None, None, None)

@@ -81,10 +81,21 @@ Phases (any failure exits non-zero before the result line):
      product (the decode body, no second launch), its kernel time a step
      printed beside the bytes bound of the int8 weights;
   5. train LoRA at anyref_7b (random bf16 weights from a seed) with the
-     Trainer: 8 synthetic samples, batch 2, 2 micro-steps per step, 3
-     steps, per-layer checkpointing, the fused encoder path; check the
+     Trainer, whose step on the card is compiled (one CUDA graph a batch
+     key, the micro-steps a WHILE node): 8 synthetic samples, batch 2, 2
+     micro-steps per step, 4 steps (the first eager, then its capture, then
+     3 replays), per-layer checkpointing, the fused encoder path; check the
      losses, the moved LoRA weights, the untouched frozen weights and each
-     kernel's launch count; then one more step under torch.profiler;
+     kernel's launch count (the loop's condition kernel 3 times a replay);
+     then one more replay under torch.profiler (busy time "not measured"
+     where the profile lost the loop's records; CUDA events bound idle);
+     then make_train_step's step from the host on the recorded batches,
+     twice from the same seed: each step's losses, trainables and Adam
+     moments of the compiled run bit-equal to the first eager run's where
+     the two eager runs are, else within twice their spread; print
+     step_fn's return time against the step's device time, the step wall
+     eager against compiled, the idle bound, the capture seconds, the
+     graph pool's bytes and the working memory of both;
   6. write the reference's artifacts at anyref_7b width (LLaMA cut to 2
      layers) to a temporary directory: a merged LLaVA .safetensors shard, a
      PEFT adapter, a SAM .pth; assemble_pretrained on the card and on the
@@ -1939,10 +1950,92 @@ def _to_device(tree, *to):
 TRAIN_DIR = os.path.join(ROOT, "anyref_tpu_torch", "build", "train_smoke")
 
 
+# phase 5: replays of the compiled step after the key's first step (eager,
+# then its capture), before one more under the profiler
+TRAIN_REPLAYS_7B = 3
+
+
+class MelThread:
+    """While open, and until ``done()``, another thread runs the mel front
+    end on the card (ops/mel.py, as the AVS readers do in the Trainer's
+    loader threads) on its own stream, and counts its calls: a capture on
+    the Trainer's side stream, in thread_local mode, must hold."""
+
+    def __init__(self, torch, mods, done):
+        import threading
+        self.calls, self.error = 0, None
+        wav = reference_waveform()
+
+        def run():
+            try:
+                while not done() and not self.stop.is_set():
+                    mods["mel"].audio_to_mel_clips(
+                        wav, device="cuda").cpu().numpy()
+                    self.calls += 1
+            except Exception as e:   # reported by __exit__
+                self.error = e
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=run, daemon=True)
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join(timeout=60)
+        if self.thread.is_alive() or self.error is not None:
+            fail(f"the mel thread: {self.error or 'did not stop'}")
+
+
+class StepRecorder:
+    """Wraps ``trainer.step_fn``; for each step, in ``steps``: a host copy
+    of its batch, the seconds step_fn took to return, the device span from
+    just before the call to just after it on the Trainer's stream (CUDA
+    events), the wall from the call to the card's synchronize, its metrics,
+    the launches the card counted in it (every counter of flash.COUNTED)
+    and a host copy of every trainable leaf and Adam moment after it (the
+    count included), taken after the wall was read. The card is
+    synchronised before each step, so each is timed alone."""
+
+    def __init__(self, torch, flash, step, trainer):
+        self.steps = []
+        inner = trainer.step_fn
+
+        def step_fn(state, frozen, batch):
+            kept = {k: np.array(v, copy=True) for k, v in batch.items()}
+            before = flash.launch_counts()
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            t0 = time.perf_counter()
+            state, metrics = inner(state, frozen, batch)
+            ret = time.perf_counter() - t0
+            e1.record()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            after = flash.launch_counts()
+            self.steps.append({
+                "batch": kept, "return_s": ret, "wall_s": wall,
+                "device_ms": e0.elapsed_time(e1),
+                "launches": {k: after[k] - before[k] for k in after},
+                "metrics": {k: float(v) for k, v in metrics.items()},
+                "state": [t.detach().cpu() for t in step.tree_leaves(
+                    (state.lora, state.dense, state.opt_state))]})
+            return state, metrics
+        trainer.step_fn = step_fn
+
+
 def train_7b(torch, flash, mods):
-    """The Trainer at anyref_7b on random bf16 weights: 3 optimizer steps
-    of 2 micro-steps of batch 2 (warmup 1, so steps 2 and 3 move the
-    weights). Returns the training attention's launch counts."""
+    """The Trainer at anyref_7b on random bf16 weights, its step compiled:
+    1 + TRAIN_REPLAYS_7B optimizer steps of 2 micro-steps of batch 2
+    (warmup 1, so steps 2 on move the weights), the first run from the
+    host and captured, the rest replays; one more replay under the
+    profiler; then train_eager_reference on the recorded batches. Returns
+    the training attention's launch counts over the counted steps and the
+    compiled step's figures."""
+    t_phase = time.time()
     cfg = mods["anyref_7b"]()
     step = mods["step"]
     params = mods["tparams"].init(
@@ -1955,35 +2048,42 @@ def train_7b(torch, flash, mods):
     if max(lens) > cfg.max_text_len:
         fail(f"conversations of {lens} tokens > max_text_len")
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    n_steps = 1 + TRAIN_REPLAYS_7B
     tc = mods["TrainConfig"](
         output_dir=TRAIN_DIR, per_device_batch_size=2, grad_accum_steps=2,
-        max_steps=3, warmup_steps=1, save_steps=10 ** 9, log_steps=1,
+        max_steps=n_steps, warmup_steps=1, save_steps=10 ** 9, log_steps=1,
         resume=False, remat=True, encoder_path="fused",
         profile_dir=os.path.join(TRAIN_DIR, "profile"))
     trainer = mods["Trainer"](cfg, tc, params, dataset=samples)
+    if trainer.step_fn != trainer._compiled_step:
+        fail("the Trainer on the card does not compile its step")
     frozen = [t.cpu() for t in step.tree_leaves(trainer.frozen)]
     lora0 = [t.detach().clone() for t in step.tree_leaves(trainer.state.lora)]
+    rec = StepRecorder(torch, flash, step, trainer)
     zero_launches(flash)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    state = trainer.train()
+    with MelThread(torch, mods, lambda: len(rec.steps) > 0) as mel:
+        state = trainer.train()
     torch.cuda.synchronize()
     wall = time.time() - t0
+    counts = flash.launch_counts()
     launches = read_launches(flash)
-    backward = flash.launch_counts()["flash_causal_attention_diff_backward"]
+    backward = counts["flash_causal_attention_diff_backward"]
     peak = torch.cuda.max_memory_allocated()
 
     with open(os.path.join(TRAIN_DIR, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
-    if state.step != 3 or [r["step"] for r in recs] != [1, 2, 3]:
+    if state.step != n_steps or [r["step"] for r in recs] != list(
+            range(1, n_steps + 1)):
         fail(f"trainer ended at step {state.step}, logged "
              f"{[r['step'] for r in recs]}")
     if not all(np.isfinite(r[k]) for r in recs for k in step.METRICS):
         fail(f"non-finite losses {recs}")
     bs = [layer[t]["b"] for layer in state.lora["layers"] for t in layer]
     if not all(bool(b.detach().abs().max() > 0) for b in bs):
-        fail("a LoRA B is still zero after 3 steps")
+        fail(f"a LoRA B is still zero after {n_steps} steps")
     if all(torch.equal(a.detach(), b) for a, b in
            zip(step.tree_leaves(state.lora), lora0)):
         fail("the LoRA weights did not move")
@@ -1991,59 +2091,247 @@ def train_7b(torch, flash, mods):
                zip(step.tree_leaves(trainer.frozen), frozen)):
         fail("a frozen weight changed")
     del frozen, lora0
+    if len(trainer.programs) != 1:
+        fail(f"{len(trainer.programs)} compiled programs for one batch key")
+    program = next(iter(trainer.programs.values()))
 
     micro = tc.max_steps * tc.grad_accum_steps
     per_micro = train_launches_per_micro(cfg)
     check_train_launches(launches, backward, cfg, micro, "training")
+    conditions = counts["loop_condition"]
+    if conditions != TRAIN_REPLAYS_7B * (tc.grad_accum_steps + 1):
+        fail(f"the loop's condition kernel ran {conditions} times over "
+             f"{TRAIN_REPLAYS_7B} replays of {tc.grad_accum_steps} "
+             f"micro-steps, want {tc.grad_accum_steps + 1} a replay")
 
-    step_s = [1.0 / r["steps_per_s"] for r in recs]
     # every sequence is padded to max_seq_len; the real (non-pad) positions
     # of a sample are its text tokens plus the image's expansion
     per_step = tc.per_device_batch_size * tc.grad_accum_steps
     padded = per_step * cfg.max_seq_len
     real = per_step * float(np.mean(lens)) + per_step * (
         cfg.max_seq_len - cfg.max_text_len)
-    med = float(np.median(step_s[1:]))
-    log(f"[train] anyref_7b LoRA, batch {tc.per_device_batch_size} x "
-        f"{tc.grad_accum_steps} micro-steps, L {cfg.max_seq_len}, remat, "
-        f"fused encoder path: {tc.max_steps} steps in {wall:.2f} s; losses "
+    replays = rec.steps[1:]
+    med = float(np.median([r["wall_s"] for r in replays]))
+    log(f"[train] anyref_7b LoRA, compiled step, batch "
+        f"{tc.per_device_batch_size} x {tc.grad_accum_steps} micro-steps, L "
+        f"{cfg.max_seq_len}, remat, fused encoder path: {n_steps} steps in "
+        f"{wall:.2f} s (the first from the host, then its capture in "
+        f"{program.capture_s:.3f} s); losses "
         + "; ".join(f"step {r['step']}: loss {r['loss']:.4f} lm "
                     f"{r['lm_loss']:.4f} bce {r['bce_loss']:.4f} dice "
                     f"{r['dice_loss']:.4f}" for r in recs))
-    log(f"[train] step wall {[round(t, 4) for t in step_s]} s; median of "
-        f"steps 2-3 {med:.4f} s -> {padded / med:.1f} padded positions/s "
+    log(f"[train] step walls {[round(r['wall_s'], 4) for r in rec.steps]} "
+        f"s (first: host run and capture); median of the {len(replays)} "
+        f"replays {med:.4f} s -> {padded / med:.1f} padded positions/s "
         f"({padded} per step), {real / med:.1f} real tokens/s ({real:.1f} "
         f"real positions per step on average: text tokens {lens} per sample "
         f"plus {cfg.max_seq_len - cfg.max_text_len} image positions); peak "
-        f"memory allocated {peak / 2**30:.2f} GiB")
+        f"memory allocated {peak / 2**30:.2f} GiB (the first step and the "
+        f"capture included)")
     log(f"[train] kernel launches over {micro} micro-steps "
         f"{json.dumps(launches)}, flash_causal_attention_diff backward "
-        f"{backward} (per micro-step {json.dumps(per_micro)})")
+        f"{backward}, the loop's condition kernel {conditions} (card counts; "
+        f"per micro-step {json.dumps(per_micro)})")
 
-    # one more step under the profiler (after the counts were read)
-    tc.max_steps, tc.profile_steps = 4, (3, 3)
+    # one more replay under the profiler (after the counts were read)
+    tc.max_steps, tc.profile_steps = n_steps + 1, (n_steps, n_steps)
+    mark = launch_mark(flash, "loop_condition")
     t0 = time.time()
     trainer.train()
     torch.cuda.synchronize()
     pwall = time.time() - t0
+    lost = loop_records_lost(torch, flash, trainer.profiler, mark)
     by_name = {}
     for e in trainer.profiler.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
     busy_ms = sum(by_name.values()) / 1e3
-    log(f"[train-profile] step 4 under torch.profiler: {pwall:.3f} s wall, "
-        f"kernels busy {busy_ms:.1f} ms -> device idle "
-        f"{100 * (1 - busy_ms / 1e3 / pwall):.1f}% of the wall; the "
-        f"profiler's host cost stretches the wall. Estimate from two "
-        f"different steps: this step's busy time over the median unprofiled "
-        f"step's wall ({med:.4f} s) leaves "
-        f"{100 * (1 - busy_ms / 1e3 / med):.1f}% idle")
+    busy = (lost if lost else
+            f"kernels busy {busy_ms:.1f} ms -> device idle "
+            f"{100 * (1 - busy_ms / 1e3 / pwall):.1f}% of the wall; the "
+            f"profiler's host cost stretches the wall")
+    log(f"[train-profile] step {n_steps + 1}, a replay, under "
+        f"torch.profiler: {pwall:.3f} s wall, {busy} (the trace is kept "
+        f"in {tc.profile_dir})")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         log(f"[train-profile]   {us / 1e3:9.3f} ms  {name[:90]}")
-    del trainer, state, params
+    # each replay's card counts: the first (eager) step's, and the loop's
+    # condition kernel once before the loop and once after each micro-step
+    first = rec.steps[0]["launches"]
+    if first["loop_condition"] != 0:
+        fail(f"the first (eager) step ran the loop's condition kernel "
+             f"{first['loop_condition']} times")
+    want = {**first, "loop_condition": tc.grad_accum_steps + 1}
+    for i, r in enumerate(rec.steps[1:], 2):
+        if r["launches"] != want:
+            fail(f"step {i}, a replay, launched {r['launches']} on the card, "
+                 f"want the eager step's {want}")
+    # the program alone: CUDA events just around the launch of a replay,
+    # its batch staged before (more optimizer steps, after every check of
+    # the Trainer's state)
+    from anyref_tpu_torch.utils.graphs import stage
+    spans = []
+    for _ in range(3):
+        stage(program.inputs, rec.steps[-1]["batch"])
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        trainer.graphs.launch(program.exec)
+        e1.record()
+        torch.cuda.synchronize()
+        spans.append(e0.elapsed_time(e1))
+    program_s = float(np.median(spans)) / 1e3
+    compiled = {
+        "program_ms": spans, "mel_calls_during_first_step": mel.calls,
+        "capture_s": program.capture_s,
+        "pool_bytes": trainer.graph_pool_bytes(),
+        "return_s": [r["return_s"] for r in replays],
+        "device_ms": [r["device_ms"] for r in replays],
+        "wall_s": [r["wall_s"] for r in replays],
+        "idle_min": [1 - program_s / r["wall_s"] for r in replays],
+        "peak_gib": peak / 2**30, "profile_lost": lost,
+        "profiled_busy_ms": None if lost else busy_ms}
+    eager = train_eager_reference(torch, mods, cfg, tc, params, rec, n_steps)
+    # the eager step runs the program's kernels (the card counts of each
+    # replay are the eager step's), so the program's span bounds their
+    # busy time from above, and an eager step's idle share from below
+    eager["idle_min"] = [1 - program_s / w for w in eager["wall_s"]]
+    log(f"[train-graph] step_fn returns in "
+        f"{[round(1e3 * t, 2) for t in compiled['return_s']]} ms against "
+        f"{[round(t, 1) for t in compiled['device_ms']]} ms of device work "
+        f"a replay (the CUDA-event span of the call, the batch's staging "
+        f"included; eager step_fn returns after "
+        f"{[round(1e3 * t, 1) for t in eager['return_s']]} ms); the program "
+        f"alone spans {[round(t, 1) for t in spans]} ms on the card; step "
+        f"wall, median: compiled {med:.4f} s, eager "
+        f"{float(np.median(eager['wall_s'])):.4f} s (walls "
+        f"{[round(t, 4) for t in compiled['wall_s']]} against "
+        f"{[round(t, 4) for t in eager['wall_s']]}); device idle at least "
+        f"{[round(100 * x, 1) for x in compiled['idle_min']]}% of a replay's "
+        f"wall, at least {[round(100 * x, 1) for x in eager['idle_min']]}% "
+        f"of an eager step's (the program's span over the wall: CUDA "
+        f"events); capture {program.capture_s:.3f} s, the mel front end "
+        f"run {mel.calls} times on the card by another thread meanwhile; "
+        f"graph pool {compiled['pool_bytes'] / 2**30:.3f} GiB against an "
+        f"eager step's working memory (its peak over what was allocated "
+        f"before it) {eager['work_gib']:.3f} GiB; peak allocated over the "
+        f"compiled run {peak / 2**30:.2f} GiB; {mods['card']}")
+    if mel.calls < 1:
+        fail("the mel thread ran no call during the first step and its "
+             "capture")
+    del trainer, state, params, rec
     torch.cuda.empty_cache()
+    log(f"[phase 5] in {time.time() - t_phase:.1f} s")
     return {"launches": launches["flash_causal_attention_diff"],
-            "backward_launches": backward, "steps": 3}
+            "backward_launches": backward, "steps": n_steps,
+            "compiled": compiled, "eager": eager}
+
+
+def _state_diff(torch, a: list, b: list) -> list:
+    """For each pair of tensors (a's on b's device), None where bit-equal,
+    else the largest absolute difference over b's largest magnitude."""
+    out = []
+    for x, y in zip(a, b):
+        x = x.to(y.device)
+        if torch.equal(x, y):
+            out.append(None)
+            continue
+        d = (x.float() - y.float()).abs().max().item()
+        scale = y.float().abs().max().item()
+        out.append(d / scale if scale else d)
+    return out
+
+
+def train_eager_reference(torch, mods, cfg, tc, params, rec,
+                          total_steps: int) -> dict:
+    """make_train_step's step run from the host, twice from the state the
+    Trainer started from (the same seed; the LoRA draw is made on the CPU),
+    in lockstep on the first ``total_steps`` batches the compiled Trainer
+    recorded (its optimizer's length, the Trainer's max_steps when it was
+    built): after each
+    step, each loss term and every trainable leaf and Adam moment (the
+    count included) of the compiled run against the first eager run's, and
+    the first eager run's against the second's (the spread of two eager
+    steps in this call). Fails unless each is bit-equal where the two eager
+    runs are, and otherwise within twice their spread (the compiled run and
+    the second eager run are two draws about the first). Returns the first
+    eager run's step walls, return times, idle bounds (CUDA events) and
+    the working memory of its second step."""
+    step, lora = mods["step"], mods["lora"]
+    lcfg = lora.LoraConfig()
+    runs = []
+    for _ in range(2):
+        opt = step.make_optimizer(lr=tc.learning_rate, warmup=tc.warmup_steps,
+                                  total_steps=total_steps)
+        state, frozen = step.init_state(torch.Generator().manual_seed(tc.seed),
+                                        params, lcfg, opt)
+        fn = step.make_train_step(cfg, lcfg, opt, remat=tc.remat,
+                                  grad_accum=tc.grad_accum_steps,
+                                  encoder_path=tc.encoder_path)
+        runs.append([state, frozen, fn])
+    out = {"wall_s": [], "return_s": [], "idle_min": [], "work_gib": None}
+    worst = {"compiled": 0.0, "spread": 0.0}
+    bits = {"compiled": 0, "spread": 0, "items": 0}
+    bad = []
+    for k, recorded in enumerate(rec.steps[:total_steps]):
+        got = []
+        for j, run in enumerate(runs):
+            state, frozen, fn = run
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            t0 = time.perf_counter()
+            state, metrics = fn(state, frozen, recorded["batch"])
+            ret = time.perf_counter() - t0
+            e1.record()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            run[0] = state
+            if j == 0:
+                out["wall_s"].append(wall)
+                out["return_s"].append(ret)
+                out["idle_min"].append(1 - e0.elapsed_time(e1) / 1e3 / wall)
+                if k == 1:
+                    out["work_gib"] = (torch.cuda.max_memory_allocated()
+                                       - before) / 2**30
+            loss = torch.stack([metrics[m].float() for m in step.METRICS])
+            got.append([loss, *[t.detach() for t in step.tree_leaves(
+                (state.lora, state.dense, state.opt_state))]])
+        want = torch.tensor([recorded["metrics"][m] for m in step.METRICS],
+                            dtype=torch.float32, device="cuda")
+        # the compiled run's losses came back as floats: compare them as
+        # the fp32 values they were
+        compiled = [want, *recorded["state"]]
+        spread = _state_diff(torch, got[1], got[0])
+        diff = _state_diff(torch, compiled, got[0])
+        for i, (sp, d) in enumerate(zip(spread, diff)):
+            bits["items"] += 1
+            bits["spread"] += sp is None
+            bits["compiled"] += d is None
+            worst["spread"] = max(worst["spread"], sp or 0.0)
+            worst["compiled"] = max(worst["compiled"], d or 0.0)
+            if d is not None and (sp is None or d > 2 * sp):
+                what = "losses" if i == 0 else f"state item {i - 1}"
+                bad.append(f"step {k + 1} {what}: compiled {d:.4g} from the "
+                           f"first eager run, the eager runs "
+                           f"{'bit-equal' if sp is None else f'{sp:.4g}'}")
+    log(f"[train-graph] the compiled Trainer's first {total_steps} steps "
+        f"against make_train_step's step from the host (twice, from the "
+        f"same seed, on the recorded batches): of {bits['items']} items "
+        f"(each step's loss terms, each trainable leaf, Adam moment and the "
+        f"count), bit-equal compiled vs eager {bits['compiled']}, eager vs "
+        f"eager {bits['spread']}; largest difference (over the item's "
+        f"largest magnitude) compiled {worst['compiled']:.4g}, eager spread "
+        f"{worst['spread']:.4g}")
+    if bad:
+        fail(f"the compiled step disagrees with the eager step: {bad[:8]}")
+    del runs
+    torch.cuda.empty_cache()
+    return {**out, "bit_equal": bits, "worst": worst}
 
 
 def train_launches_per_micro(cfg) -> dict:
@@ -6891,16 +7179,16 @@ def to_numpy(torch, tree):
 
 
 def first_grads(step) -> list:
-    """Wraps step.value_and_grad: the list gains the reduced gradient of
-    its first call."""
-    inner, got = step.value_and_grad, []
+    """Wraps step.AdamW.update: the list gains the gradient tree its first
+    call is given, the first step's reduced gradient (a (lora, dense)
+    pair of this rank's blocks, before the clip)."""
+    inner, got = step.AdamW.update, []
 
-    def value_and_grad(*a, **kw):
-        out = inner(*a, **kw)
+    def update(self, grads, *a, **kw):
         if not got:
-            got.append(out[2])
-        return out
-    step.value_and_grad = value_and_grad
+            got.append(grads)
+        return inner(self, grads, *a, **kw)
+    step.AdamW.update = update
     return got
 
 
@@ -7234,7 +7522,7 @@ def train_7b_rank(torch, rank, data, model, out, samples, steps):
             "writer": trainer.writer}
 
 
-TRAIN_7B_STEPS = 3   # the first warm, the other two metered
+TRAIN_7B_STEPS = 2   # the first warm, the other metered
 
 
 def first_step_batch(mods, cfg, samples, data: int) -> dict:
@@ -7624,6 +7912,7 @@ def main() -> int:
             "dispatch_us": dispatch[name],
             "other_shapes": rows[1:],
         })
+    log(f"[phase 5] {json.dumps({k: trained[k] for k in ('compiled', 'eager')})}")
     log(f"[phase 10] (b) {json.dumps(phase10)}")
     log(f"[phase 12] {json.dumps(phase12)}")
     log(f"[phase 13] (b) {json.dumps(phase13)}")
