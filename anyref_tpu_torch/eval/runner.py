@@ -25,19 +25,24 @@ graph and clones the outputs, all on the stream, with no read from the
 device, and returns: the Server's device loop (serve.py) then collates and
 dispatches the next batch while this one runs. All keys of a Predictor
 share one memory pool, which holds its memory for as long as the Predictor
-lives. A failed capture or replay raises. On the CPU, and on a mesh of
-several ranks (gloo's collectives cannot be captured), the program runs
-eagerly with the decode loop on the host.
+lives. A failed capture or replay raises. On the CPU the program runs
+eagerly with the decode loop on the host; so it does on a mesh with a
+"model" axis above 1, whose decoder layers hold collectives.
 
 On a mesh of several ranks (parallel/mesh.py; the tree of
 parallel/partition.py ``shard_params``), every rank calls the same
 Predictor methods on the same batch, in the same order: the batch bucket is
-a multiple of the "data" size, each rank runs its rows, and with more than
-one data rank the rows are gathered over the host group before
-``predict_async`` returns, so every rank's results are the whole batch's.
-A sharded tree keeps its layout, as the reference's does: speculative
-decode runs on the [in, out] (or transposed) layout, an int8 tree
-included.
+a multiple of the "data" size and each rank stages and runs its rows (its
+data coordinate's block of the padded batch, the host-side counterpart of
+``shard_batch``); the key stays the whole batch's, so every rank captures
+the same keys in the same order. On a mesh without a "model" axis the
+program is local to the rank and is captured as on one device. A handle
+holds the rank's rows on the device; ``complete`` (and ``fetch``, a
+serving follower's part of it) reads them back and, with more than one
+data rank, gathers every data rank's rows over the host group in batch
+order, so every rank's results are the whole batch's. A sharded tree keeps
+its layout, as the reference's does: speculative decode runs on the [in,
+out] (or transposed) layout, an int8 tree included.
 """
 
 from __future__ import annotations
@@ -54,8 +59,8 @@ from ..config import (SAM_PIXEL_MEAN, SAM_PIXEL_STD, AnyRefConfig,
 from ..models import anyref, clip_vit, llama
 from ..ops.common import device_constant
 from ..ops.quant import is_quantized
-from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
-from ..parallel.partition import shard_batch
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, model_parallel
+from ..parallel.partition import batch_spec, local_block
 from ..ops.resize import postprocess_low_res_np
 from ..params import resolve_device
 from ..utils.graphs import GraphPool, GraphProgram, stage
@@ -135,10 +140,11 @@ class Predictor:
         self.decode_passes_total = 0
         self.completed_batches = 0
         # bytes staged host -> device by predict_async and fetched device ->
-        # host by complete (the serving benchmark's wire cost per query)
+        # host by complete (the serving benchmark's wire cost per query;
+        # on a mesh, both this rank's rows only)
         self.h2d_bytes_total = 0
         self.d2h_bytes_total = 0
-        # the compiled programs (CUDA, no mesh of several ranks): key ->
+        # the compiled programs (CUDA, no "model" axis): key ->
         # GraphProgram, all in one graph memory pool
         self.programs: Dict[tuple, GraphProgram] = {}
         self.graphs = GraphPool(self.device)
@@ -156,31 +162,28 @@ class Predictor:
 
     def predict_async(self, batch: Dict[str, np.ndarray]):
         """Upload and dispatch the device program; returns a handle whose
-        results still live on the device, for complete(). On a CUDA device,
-        unless the mesh has several ranks, a key's later calls only stage,
-        copy, replay and clone: nothing is read back before this
-        returns."""
+        results (this rank's rows) still live on the device, for
+        complete(). On a CUDA device, unless the mesh has a "model" axis
+        above 1, a key's later calls only stage, copy, replay and clone:
+        nothing is read back before this returns."""
         host, key, B = self._inputs(batch)
-        if key in self.programs:
-            self.h2d_bytes_total += sum(v.nbytes for v in host.values())
-            return self._replay(self.programs[key], host, batch, B)
         if self.mesh is not None:
-            dev = shard_batch(host, self.mesh)     # this rank's rows
-        else:
-            dev = {k: torch.from_numpy(v).to(self.device)
-                   for k, v in host.items()}
-        self.h2d_bytes_total += sum(t.numel() * t.element_size()
-                                    for t in dev.values())
+            spec = batch_spec(host)     # this rank's rows
+            host = {k: np.ascontiguousarray(local_block(v, spec[k],
+                                                        self.mesh))
+                    for k, v in host.items()}
+        self.h2d_bytes_total += sum(v.nbytes for v in host.values())
+        if key in self.programs:
+            return self._replay(self.programs[key], host, batch, B)
+        dev = {k: torch.from_numpy(v).to(self.device)
+               for k, v in host.items()}
         with torch.inference_mode():
             loop, finish = self._program(dev)
             meta, low = finish(anyref.run_loop(loop))
-        if self.device.type == "cuda" and (self.mesh is None
-                                           or self.mesh.size == 1):
+        if self.device.type == "cuda" and not model_parallel(self.mesh):
             # the eager run above was the key's warm-up: its results are
             # this call's, and its inputs become the program's buffers
             self.programs[key] = self._capture(dev)
-        if self.mesh is not None and self.mesh.shape[DATA_AXIS] > 1:
-            meta, low = self._gather_rows(meta, low)
         return (meta, low), batch, B
 
     def _inputs(self, batch: Dict[str, np.ndarray]):
@@ -275,7 +278,7 @@ class Predictor:
     def _replay(self, program: GraphProgram, host: dict, batch, B: int):
         """Stage, copy, replay, clone: nothing waits for the device."""
         stage(program.inputs, host)
-        self.graphs.launch(program.exec)
+        program.run(self.graphs)
         return tuple(t.clone() for t in program.outputs), batch, B
 
     def graph_pool_bytes(self) -> int:
@@ -290,19 +293,31 @@ class Predictor:
         rank hold the same rows)."""
         mesh = self.mesh
         parts = [None] * mesh.size
-        dist.all_gather_object(parts, (meta.cpu(), low.cpu()),
-                               group=mesh.host_group)
+        dist.all_gather_object(parts, (meta, low), group=mesh.host_group)
         keep = parts[::mesh.shape[MODEL_AXIS]]
         return (torch.cat([m for m, _ in keep]),
                 torch.cat([lo for _, lo in keep]))
 
+    def fetch(self, handle):
+        """(meta, low-res masks) of a predict_async handle on the host, the
+        whole batch's: this rank's rows read back, then, on a mesh of
+        several data ranks, every data rank's gathered in batch order
+        (collective: every rank fetches each handle, in dispatch
+        order)."""
+        (meta, low), _, _ = handle
+        self.d2h_bytes_total += sum(t.numel() * t.element_size()
+                                    for t in (meta, low))
+        meta, low = meta.cpu(), low.cpu()
+        if self.mesh is not None and self.mesh.shape[DATA_AXIS] > 1:
+            meta, low = self._gather_rows(meta, low)
+        return meta, low
+
     def complete(self, handle):
         """Fetch + host postprocess for a predict_async handle."""
-        (meta, low_res), batch, B = handle
-        self.d2h_bytes_total += sum(t.numel() * t.element_size()
-                                    for t in (meta, low_res))
-        meta_np = meta.cpu().numpy()
-        low = low_res.float().cpu().numpy()[:B]
+        _, batch, B = handle
+        meta, low_res = self.fetch(handle)
+        meta_np = meta.numpy()
+        low = low_res.float().numpy()[:B]
         output_ids = meta_np[:B, :self.mnt]
         seg_valid = meta_np[:B, self.mnt:-1]
         # the most a data rank took (each data rank decodes its own rows)

@@ -29,13 +29,16 @@ parallel/partition.py ``shard_params``, their collectives over the mesh's
 "model" group (models/llama.py); the [SEG] states are whole after the last
 one, so the towers, text_hidden_fcs and SAM run replicated on the rank's
 rows. ``train_forward``'s losses are the global batch's means over
-"data" (ops/losses.py).
+"data" (ops/losses.py); given the batch's global ``loss_counts`` (summed
+over the ranks by the host, ``loss_counts``) each is this rank's share of
+that mean, with no collective.
 """
 
 from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..config import (IGNORE_INDEX, IMG_REF_NUM, NUM_IMAGE_TOKENS,
@@ -390,6 +393,31 @@ def _greedy_loop(params, cfg, pad_len, cache, first_tok, Lp: int, mnt: int,
     return DecodeLoop(_loop_cond(mnt), body, carry), finish
 
 
+# the columns of a batch's "loss_counts": the LM targets that are not
+# IGNORE_INDEX, and the valid masks (BCE and DICE)
+LOSS_COUNTS = ("lm_targets", "masks")
+
+
+def loss_counts(cfg: AnyRefConfig, batch: dict) -> np.ndarray:
+    """The counts train_forward's losses divide by, from the host arrays of
+    ``batch`` (input_ids, labels [..., B, T], mask_valid [..., B, S]):
+    [..., len(LOSS_COUNTS)] fp32, summed over the batch rows. The LM
+    targets are the expanded labels shifted by one: every label but the
+    first and the <image> token's, which the splice replaces by
+    IGNORE_INDEX; a mask is valid where its slot holds one of the row's
+    first max_seg_per_sample [SEG] tokens and ``mask_valid`` is set."""
+    ids = np.asarray(batch["input_ids"])
+    labels = np.asarray(batch["labels"])
+    img = np.argmax(ids == cfg.tokens.image, -1)[..., None]
+    pos = np.arange(ids.shape[-1])
+    targets = (labels != IGNORE_INDEX) & (pos > 0) & (pos != img)
+    mask_valid = np.asarray(batch["mask_valid"]).astype(bool)
+    n_seg = (ids == cfg.tokens.seg).sum(-1)[..., None]
+    masks = mask_valid & (np.arange(mask_valid.shape[-1]) < n_seg)
+    return np.stack([targets.sum((-2, -1)), masks.sum((-2, -1))],
+                    -1).astype(np.float32)
+
+
 class TrainOutput(NamedTuple):
     loss: torch.Tensor
     lm_loss: torch.Tensor
@@ -489,7 +517,10 @@ def train_forward(params: dict, cfg: AnyRefConfig, batch: dict,
     under ``torch.no_grad`` (frozen towers; the reference's
     stop_gradient). ``remat`` checkpoints each decoder layer. ``mesh``
     (parallel/mesh.py): the batch holds this rank's rows and the params its
-    blocks (``shard_params``); the loss terms are the global batch's. The
+    blocks (``shard_params``); the loss terms are the global batch's, or,
+    where the batch carries the global ``loss_counts`` [len(LOSS_COUNTS)],
+    this rank's shares of them (summing to the global batch's over
+    "data"), computed without a collective. The
     step program (train/step.py) passes device tensors, a captured step's
     static inputs, so nothing is uploaded here; numpy arrays are uploaded
     where an eager caller passes them."""
@@ -499,6 +530,9 @@ def train_forward(params: dict, cfg: AnyRefConfig, batch: dict,
     group = data = None
     if mesh is not None:
         group, data = mesh.group(MODEL_AXIS), mesh.group(DATA_AXIS)
+    counts = (None, None)
+    if "loss_counts" in batch:
+        counts = torch.as_tensor(batch["loss_counts"], device=dev).unbind(-1)
 
     def t(key, dtype=None):
         x = torch.as_tensor(batch[key], device=dev)
@@ -519,7 +553,8 @@ def train_forward(params: dict, cfg: AnyRefConfig, batch: dict,
                                     return_last_input=True, remat=remat,
                                     group=group)
     lm_loss = lm_cross_entropy(llama.logits(params["llama"], hidden, group),
-                               exp_labels, IGNORE_INDEX, group=data)
+                               exp_labels, IGNORE_INDEX, group=data,
+                               count=counts[0])
 
     seg_pos, seg_valid = _seg_slots(exp_ids, tk.seg, cfg.max_seg_per_sample)
     B, S = seg_pos.shape
@@ -553,8 +588,10 @@ def train_forward(params: dict, cfg: AnyRefConfig, batch: dict,
     flat_pred = canvas.reshape(B * S, g, g)
     flat_gt = t("gt_masks", torch.float32).reshape(B * S, g, g)
     flat_valid = valid.reshape(B * S)
-    bce = sigmoid_ce_loss(flat_pred, flat_gt, flat_valid, pixel_mask, data)
-    dce = dice_loss(flat_pred, flat_gt, flat_valid, pixel_mask, data)
+    bce = sigmoid_ce_loss(flat_pred, flat_gt, flat_valid, pixel_mask, data,
+                          counts[1])
+    dce = dice_loss(flat_pred, flat_gt, flat_valid, pixel_mask, data,
+                    counts[1])
     loss = (cfg.ce_loss_weight * lm_loss + cfg.bce_loss_weight * bce
             + cfg.dice_loss_weight * dce)
     return TrainOutput(loss, lm_loss, bce, dce, canvas, valid)
@@ -569,6 +606,12 @@ class GenerateOutput(NamedTuple):
     decode_passes: torch.Tensor   # 0-d int32: decode weight streams
                                   # (tokens/pass = num_generated /
                                   # decode_passes)
+
+    @property
+    def mask_canvas(self):
+        """The reference's compatibility name of ``low_res_masks``: callers
+        upsample on the host (ops/resize.py postprocess_low_res_np)."""
+        return self.low_res_masks
 
 
 @torch.inference_mode()

@@ -11,7 +11,11 @@ Each loss divides a sum by a count (valid masks, valid tokens). With a
 over the group first, so the loss is the global batch's mean, and each
 rank's backward gives its rows' share of the global gradient
 (parallel/collectives.py ``reduce_from_group``); without one the result is
-unchanged.
+unchanged. Given the global ``count`` instead (a 0-d tensor the host
+summed over the ranks before the step: models/anyref.py ``loss_counts``),
+a loss is this rank's sum over the global count, its share of the global
+mean, with no collective: the backward of ``reduce_from_group`` passes its
+gradient unchanged, so each rank's gradient is the same bit for bit.
 """
 
 from __future__ import annotations
@@ -21,19 +25,23 @@ import torch
 from ..parallel.collectives import reduce_from_group
 
 
-def _mean(total, count, group):
+def _mean(total, count, group, global_count=None):
     """(total, count) summed over ``group`` in one all-reduce; the count
-    carries no gradient."""
+    carries no gradient. With ``global_count``: (total, global_count), no
+    collective."""
+    if global_count is not None:
+        return total, global_count
     if group is None:
         return total, count
     both = reduce_from_group(torch.stack([total, count.detach()]), group)
     return both[0], both[1]
 
 
-def dice_loss(pred_logits, targets, valid, pixel_mask=None, group=None):
+def dice_loss(pred_logits, targets, valid, pixel_mask=None, group=None,
+              count=None):
     """Per mask 1 - (2 sum(p t) + 1) / (sum(p) + sum(t) + 1),
     p = sigmoid(logits), mean over valid masks (of the "data" ``group``'s
-    rows)."""
+    rows, or over the global ``count`` of valid masks)."""
     p = torch.sigmoid(pred_logits.float())
     t = targets.float()
     if pixel_mask is not None:
@@ -44,14 +52,15 @@ def dice_loss(pred_logits, targets, valid, pixel_mask=None, group=None):
     den = p.sum((-2, -1)) + t.sum((-2, -1))
     per_mask = 1.0 - (num + 1.0) / (den + 1.0)
     v = valid.float()
-    total, count = _mean((per_mask * v).sum(), v.sum(), group)
+    total, count = _mean((per_mask * v).sum(), v.sum(), group, count)
     return total / (count + 1e-8)
 
 
 def sigmoid_ce_loss(pred_logits, targets, valid, pixel_mask=None,
-                    group=None):
+                    group=None, count=None):
     """Per-pixel BCE with logits, mean per mask over in-image pixels, mean
-    over valid masks (of the "data" ``group``'s rows)."""
+    over valid masks (of the "data" ``group``'s rows, or over the global
+    ``count`` of valid masks)."""
     x = pred_logits.float()
     t = targets.float()
     per_px = x.clamp_min(0.0) - x * t + torch.log1p(torch.exp(-x.abs()))
@@ -61,14 +70,16 @@ def sigmoid_ce_loss(pred_logits, targets, valid, pixel_mask=None,
     else:
         per_mask = per_px.mean((-2, -1))
     v = valid.float()
-    total, count = _mean((per_mask * v).sum(), v.sum(), group)
+    total, count = _mean((per_mask * v).sum(), v.sum(), group, count)
     return total / (count + 1e-8)
 
 
-def lm_cross_entropy(logits, labels, ignore_index: int = -100, group=None):
+def lm_cross_entropy(logits, labels, ignore_index: int = -100, group=None,
+                     count=None):
     """Causal-LM loss: shift-by-one cross entropy averaged over the targets
-    that are not ``ignore_index`` (of the "data" ``group``'s rows), in fp32.
-    logits [B, L, V], labels [B, L] aligned to the input positions."""
+    that are not ``ignore_index`` (of the "data" ``group``'s rows, or over
+    the global ``count`` of them), in fp32. logits [B, L, V], labels [B, L]
+    aligned to the input positions."""
     logits = logits[:, :-1].float()
     targets = labels[:, 1:]
     valid = targets != ignore_index
@@ -76,5 +87,5 @@ def lm_cross_entropy(logits, labels, ignore_index: int = -100, group=None):
     logz = torch.logsumexp(logits, -1)
     tok = torch.gather(logits, -1, safe[..., None])[..., 0]
     nll = (logz - tok) * valid.float()
-    total, count = _mean(nll.sum(), valid.float().sum(), group)
+    total, count = _mean(nll.sum(), valid.float().sum(), group, count)
     return total / count.clamp_min(1.0)

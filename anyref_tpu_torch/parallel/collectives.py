@@ -16,7 +16,8 @@ Over "data", ``reduce_from_group`` sums a loss's numerator and its count
 (ops/losses.py), so that the loss is the global batch's mean and each
 rank's backward gives its rows' share of the global gradient;
 ``all_reduce_grads`` then sums the gradients, in fp32, rounding once to
-each leaf's dtype.
+each leaf's dtype (the compiled step of a data mesh sums the same buckets
+of its fp32 gradient buffer in place between two graphs: train/step.py).
 
 With autograd off (serving under ``torch.inference_mode``, the frozen
 towers under ``torch.no_grad``) ``reduce_from_group`` all-reduces in place
@@ -78,6 +79,21 @@ def reduce_from_group(x, group):
     return _ReduceFromGroup.apply(x, group)
 
 
+def buckets(sizes: list) -> list:
+    """(first, end) index ranges of consecutive tensors of ``sizes``
+    elements, each summing to at most BUCKET_ELEMENTS (a larger tensor
+    alone): the buckets of ``all_reduce_grads``."""
+    out, first, size = [], 0, 0
+    for i, n in enumerate(sizes):
+        if i > first and size + n > BUCKET_ELEMENTS:
+            out.append((first, i))
+            first, size = i, 0
+        size += n
+    if first < len(sizes):
+        out.append((first, len(sizes)))
+    return out
+
+
 @torch.no_grad()
 def all_reduce_grads(grads: list, group, scale: float = 1.0) -> list:
     """Each tensor of ``grads`` summed over ``group`` and multiplied by
@@ -87,17 +103,9 @@ def all_reduce_grads(grads: list, group, scale: float = 1.0) -> list:
     group is None and the scale 1)."""
     if group is None and scale == 1.0:
         return list(grads)
-    buckets, size = [[]], 0
-    for g in grads:
-        if buckets[-1] and size + g.numel() > BUCKET_ELEMENTS:
-            buckets.append([])
-            size = 0
-        buckets[-1].append(g)
-        size += g.numel()
     out = []
-    for bucket in buckets:
-        if not bucket:
-            continue
+    for a, b in buckets([g.numel() for g in grads]):
+        bucket = grads[a:b]
         flat = torch.cat([g.reshape(-1).float() for g in bucket])
         if group is not None:
             dist.all_reduce(flat, group=group)

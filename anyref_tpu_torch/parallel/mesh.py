@@ -65,6 +65,15 @@ class Mesh:
         return self.groups.get(axis) if self.shape[axis] > 1 else None
 
 
+def model_parallel(mesh: Optional[Mesh]) -> bool:
+    """Whether ``mesh`` has a "model" axis above 1. Such a mesh's programs
+    hold the axis's collectives in every decoder layer, which gloo cannot
+    capture, so they run from the host; every other mesh's programs hold
+    none and are captured on every rank (eval/runner.py,
+    train/trainer.py)."""
+    return mesh is not None and mesh.shape[MODEL_AXIS] > 1
+
+
 def init_process_group(rank: int, world_size: int, init_method: str,
                        backend: str = "gloo",
                        timeout_s: float = 300.0) -> None:

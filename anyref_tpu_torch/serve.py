@@ -25,13 +25,20 @@ objects, a timeout of a year, so an idle Server loses no follower) the
 leader sends its Predictor's arguments once, then each collated batch
 before its own Predictor step, and a None when it stops; a follower builds
 its Predictor from those arguments, runs the same step on each batch and
-returns on the None. Only the leader's device loop issues collectives on
-rank 0, so every rank issues them in one order. A step that fails on one
-rank leaves the ranks' collectives out of step, so neither side goes on:
-the exception ends ``follow`` (the rank's process exits with it, which
-fails the leader's pending collective at once), and on the leader a step
-that fails after its batch went out answers that batch with the error and
-shuts the Server down; the ranks are restarted together.
+returns on the None. With several data ranks each batch's rows are also
+gathered over the host group (eval/runner.py ``Predictor.fetch``): on the
+leader by the completion thread, in ``complete``, on a follower by a
+fetch thread of its own, both in dispatch order, so a rank's card runs
+the next batch while the last is fetched. Only the leader's device loop
+issues the other collectives on rank 0, so every rank issues each group's
+collectives in one order; the leader fetches every batch that went out
+before its completion thread stops. A step that fails on one rank leaves
+the ranks' collectives out of step, so neither side goes on: the
+exception ends ``follow`` (the rank's process exits with it, which fails
+the leader's pending collective at once), and on the leader a step that
+fails after its batch went out answers that batch with the error and
+shuts the Server down, as a failed completion does where the batches are
+gathered; the ranks are restarted together.
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ from .data.base import SegDataset
 from .data.collator import Collator
 from .eval.runner import Predictor, binary_mask
 from .ops.mel import audio_to_mel_clips
+from .parallel.mesh import DATA_AXIS
 from .tokenizer import (EOS_ID, AnyRefTokenizer, audio_ref_question,
                         img_ref_question, seg_question)
 
@@ -102,6 +110,9 @@ class Server:
         mesh = self.predictor.mesh
         # the group over which the batches go to the followers
         self._followers = None
+        # whether the followers fetch each batch with the leader (several
+        # data ranks): then every batch that went out must be fetched
+        self._gathered = mesh is not None and mesh.shape[DATA_AXIS] > 1
         if mesh is not None and mesh.size > 1:
             if mesh.rank != 0:
                 raise ValueError(f"rank {mesh.rank} runs serve.follow; the "
@@ -136,11 +147,14 @@ class Server:
         # orders submit's stop-check-then-enqueue against shutdown's
         # stop-set-then-drain
         self._submit_lock = threading.Lock()
+        self._device_thread = threading.Thread(target=self._device_loop,
+                                               daemon=True)
+        self._complete_thread = threading.Thread(target=self._complete_loop,
+                                                 daemon=True)
         self._threads = [
             threading.Thread(target=self._preprocess_loop, daemon=True)
             for _ in range(preprocess_workers)
-        ] + [threading.Thread(target=self._device_loop, daemon=True),
-             threading.Thread(target=self._complete_loop, daemon=True)]
+        ] + [self._device_thread, self._complete_thread]
         for t in self._threads:
             t.start()
 
@@ -194,7 +208,11 @@ class Server:
             return self._pending
 
     def _drain(self) -> None:
-        for q in (self._pre_q, self._run_q, self._fin_q):
+        queues = [self._pre_q, self._run_q]
+        if not (self._gathered and self._complete_thread.is_alive()):
+            # a gathering Server's completion thread fetches what went out
+            queues.append(self._fin_q)
+        for q in queues:
             while True:
                 try:
                     item = q.get_nowait()
@@ -343,7 +361,9 @@ class Server:
                 threading.Thread(target=self.shutdown, daemon=True).start()
                 break
             item = (reqs, samples, handle)
-            while not self._stop.is_set():
+            # a batch the followers fetch is fetched here too, stopping or
+            # not
+            while self._gathered or not self._stop.is_set():
                 try:
                     self._fin_q.put(item, timeout=0.1)
                     break
@@ -359,7 +379,11 @@ class Server:
             dist.broadcast_object_list([None], src=0, group=self._followers)
 
     def _complete_loop(self):
-        while not self._stop.is_set():
+        # a gathering Server fetches every batch that went out, until its
+        # device loop has ended
+        while not self._stop.is_set() or (
+                self._gathered and (self._device_thread.is_alive()
+                                    or not self._fin_q.empty())):
             try:
                 reqs, samples, handle = self._fin_q.get(timeout=0.1)
             except queue.Empty:
@@ -384,6 +408,14 @@ class Server:
             except Exception as e:
                 for req in reqs:
                     self._finish(req, {"error": repr(e)})
+                if self._gathered and self._followers is not None:
+                    # the ranks' gathers may be out of step: stop serving
+                    logging.getLogger(__name__).exception(
+                        "a batch's completion failed across ranks; "
+                        "shutting the Server down")
+                    self._gathered = False
+                    threading.Thread(target=self.shutdown,
+                                     daemon=True).start()
 
 
 def serving_predictor(params, cfg: AnyRefConfig, max_batch: int = 2,
@@ -419,11 +451,53 @@ def follow(params, cfg: AnyRefConfig, mesh=None) -> int:
     box = [None]
     dist.broadcast_object_list(box, src=0, group=mesh.serve_group)
     predictor = serving_predictor(params, cfg, mesh=mesh, **box[0])
+    fetcher = _Fetcher(predictor) if mesh.shape[DATA_AXIS] > 1 else None
     n = 0
-    while True:
-        box = [None]
-        dist.broadcast_object_list(box, src=0, group=mesh.serve_group)
-        if box[0] is None:
-            return n
-        predictor.predict_async(box[0])
-        n += 1
+    try:
+        while True:
+            box = [None]
+            dist.broadcast_object_list(box, src=0, group=mesh.serve_group)
+            if box[0] is None:
+                return n
+            handle = predictor.predict_async(box[0])
+            n += 1
+            if fetcher is not None:
+                fetcher.put(handle)
+    finally:
+        if fetcher is not None:
+            fetcher.close()
+
+
+class _Fetcher:
+    """A follower's part of each batch's gather (Predictor.fetch), on a
+    thread of its own, in dispatch order, as the leader's completion
+    thread fetches: the follower's card runs the next batch meanwhile.
+    ``close`` fetches what was put, then raises the first error."""
+
+    def __init__(self, predictor: Predictor):
+        self.predictor = predictor
+        self.queue: "queue.Queue" = queue.Queue()
+        self.error: Optional[BaseException] = None
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def put(self, handle) -> None:
+        if self.error is not None:
+            raise self.error
+        self.queue.put(handle)
+
+    def _run(self) -> None:
+        while True:
+            handle = self.queue.get()
+            if handle is None or self.error is not None:
+                return
+            try:
+                self.predictor.fetch(handle)
+            except BaseException as e:
+                self.error = e
+
+    def close(self) -> None:
+        self.queue.put(None)
+        self.thread.join()
+        if self.error is not None:
+            raise self.error

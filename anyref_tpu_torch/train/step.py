@@ -39,19 +39,27 @@ those whose gradient reaches them through the whole residual stream
 (roi_embed, audio_projector) already hold the whole gradient on every model
 rank. The Adam moments live on the blocks, and the clipping norm sums the
 sharded leaves' squares over "model" and counts the replicated ones once.
+On a mesh of several "data" ranks and no "model" axis the micro-steps hold
+no collective: the host stages each micro-step's global loss counts with
+the batch, each rank's loss terms are its shares of the global means (the
+same gradients bit for bit), and the data sum of the gradients and the
+metrics runs between the gradient part and the update, issued by the host,
+so that each part is captured as a graph on every rank.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import AnyRefConfig
 from ..models import anyref
-from ..parallel.collectives import all_reduce_grads, reduce_from_group
-from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
+from ..parallel.collectives import (all_reduce_grads, buckets,
+                                   reduce_from_group)
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, model_parallel
 from ..parallel.partition import trainable_spec
 from . import lora as lora_mod
 
@@ -260,30 +268,61 @@ def reduce_grads(grads: list, trainables, mesh, scale: float = 1.0) -> list:
     return all_reduce_grads(grads, mesh.group(DATA_AXIS), scale)
 
 
+def stage_loss_counts(batch: dict, cfg: AnyRefConfig, mesh) -> dict:
+    """``batch`` (this rank's rows, arrays or tensors; [B, ...] or [accum,
+    B, ...]) with "loss_counts": each micro-step's global counts
+    (models/anyref.py ``loss_counts``, [len(LOSS_COUNTS)] or [accum,
+    len(LOSS_COUNTS)] fp32), summed over ``mesh.host_group`` on the host.
+    Collective: every rank stages its rows of the same step."""
+    host = {k: np.asarray(v.cpu() if torch.is_tensor(v) else v)
+            for k, v in batch.items()
+            if k in ("input_ids", "labels", "mask_valid")}
+    counts = torch.from_numpy(anyref.loss_counts(cfg, host))
+    dist.all_reduce(counts, group=mesh.host_group)
+    return {**batch, "loss_counts": counts.numpy()}
+
+
 def _grad_program(lora_params: dict, dense: dict, frozen: dict,
                   cfg: AnyRefConfig, lora_cfg: lora_mod.LoraConfig,
                   batch: dict, encoder_path: str, remat: bool, mesh,
                   grad_accum: int):
-    """(prefix, body, average): the gradient part of a step's program.
-    ``prefix()`` makes the carry {"i": 0-d int32 micro-step index,
-    "grads": fp32 zeros like each trainable leaf, "metrics": fp32 zeros
-    [len(METRICS)]}; ``body(carry)`` runs micro-step ``i`` (the batch
-    itself where ``grad_accum`` is 1), adds its gradients and metrics into
-    the carry's tensors and raises ``i``; ``average(carry)`` -> (metrics
-    [len(METRICS)], gradient leaves): the sums over ``grad_accum``, the
-    gradients made the global batch's (``reduce_grads``) in fp32 and
-    rounded once to each leaf's dtype. The batch's arrays become tensors
-    on the trainables' device here, once."""
+    """(prefix, body, average, reduce, rounded, batch): the gradient part
+    of a step's program. ``prefix()`` makes the carry {"i": 0-d int32
+    micro-step index, "flat": one fp32 buffer of zeros for every trainable
+    leaf's gradient sum, "grads": its views shaped as the leaves,
+    "metrics": fp32 zeros [len(METRICS)]}; ``body(carry)`` runs micro-step
+    ``i`` (the batch itself where ``grad_accum`` is 1), adds its gradients
+    and metrics into the carry's tensors and raises ``i``;
+    ``average(carry)`` -> the metrics summed over ``grad_accum``
+    micro-steps, over ``grad_accum``; ``reduce(carry, metrics)``, on a mesh
+    of several "data" ranks and no "model" axis, sums ``carry["flat"]`` (in
+    all_reduce_grads' buckets) and the ranks' shares of ``metrics`` over
+    "data" in place (issued by the host; None elsewhere);
+    ``rounded(carry)`` -> the gradient leaves made the global batch's
+    (``reduce_grads`` on a "model" axis, else the sum as it is) over
+    ``grad_accum`` in fp32 and rounded once to each leaf's dtype. ``batch``
+    is the batch as the program reads it: tensors on the trainables'
+    device, made here once, on a mesh with ``reduce`` staged with its
+    global loss counts first (``stage_loss_counts``), so that the
+    micro-steps hold no collective."""
     _check_mesh(dense["llama"], cfg, mesh)
     params = (lora_params, dense)
     leaves = tree_leaves(params)
     dev = leaves[0].device
+    data = None if mesh is None else mesh.group(DATA_AXIS)
+    split = data is not None and not model_parallel(mesh)
+    if split:
+        batch = stage_loss_counts(batch, cfg, mesh)
     batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    sizes = [p.numel() for p in leaves]
+    starts = np.cumsum([0] + sizes).tolist()
 
     def prefix() -> dict:
+        flat = torch.zeros(sum(sizes), dtype=torch.float32, device=dev)
         return {"i": torch.zeros((), dtype=torch.int32, device=dev),
-                "grads": [torch.zeros_like(p, dtype=torch.float32)
-                          for p in leaves],
+                "flat": flat,
+                "grads": [part.view(p.shape) for part, p in
+                          zip(flat.split(sizes), leaves)],
                 "metrics": torch.zeros(len(METRICS), dtype=torch.float32,
                                        device=dev)}
 
@@ -304,12 +343,27 @@ def _grad_program(lora_params: dict, dense: dict, frozen: dict,
             c["i"].add_(1)
         return c
 
-    def average(c: dict):
-        grads = reduce_grads(c["grads"], params, mesh, 1.0 / grad_accum)
-        return (c["metrics"] / grad_accum,
-                [g.to(p.dtype) for g, p in zip(grads, leaves)])
+    def average(c: dict) -> torch.Tensor:
+        return c["metrics"] / grad_accum
 
-    return prefix, body, average
+    @torch.no_grad()
+    def reduce(c: dict, metrics: torch.Tensor) -> None:
+        for a, b in buckets(sizes):
+            dist.all_reduce(c["flat"][starts[a]:starts[b]], group=data)
+        dist.all_reduce(metrics, group=data)
+
+    @torch.no_grad()
+    def rounded(c: dict) -> list:
+        if model_parallel(mesh):
+            grads = reduce_grads(c["grads"], params, mesh, 1.0 / grad_accum)
+        else:
+            # all_reduce_grads' arithmetic, in place on the sum
+            if grad_accum != 1:
+                c["flat"].mul_(1.0 / grad_accum)
+            grads = c["grads"]
+        return [g.to(p.dtype) for g, p in zip(grads, leaves)]
+
+    return prefix, body, average, reduce if split else None, rounded, batch
 
 
 def value_and_grad(lora_params: dict, dense: dict, frozen: dict,
@@ -323,17 +377,19 @@ def value_and_grad(lora_params: dict, dense: dict, frozen: dict,
     and divided by ``grad_accum``, the loss and metrics averaged. On a
     ``mesh`` the batch holds this rank's rows and the trees its blocks; the
     loss and metrics are the global batch's and the gradient of each of
-    this rank's leaves the global one (``reduce_grads``). The step
-    program's prefix and body, run from the host."""
-    prefix, body, average = _grad_program(
+    this rank's leaves the global one. The step program's prefix, body and
+    reduce, run from the host."""
+    prefix, body, average, reduce, rounded, _ = _grad_program(
         lora_params, dense, frozen, cfg, lora_cfg, batch, encoder_path,
         remat, mesh, grad_accum)
     carry = prefix()
     for _ in range(grad_accum):
         carry = body(carry)
-    metrics, grads = average(carry)
+    metrics = average(carry)
+    if reduce is not None:
+        reduce(carry, metrics)
+    grads = iter(rounded(carry))
     metrics = dict(zip(METRICS, metrics.unbind()))
-    grads = iter(grads)
     return (metrics["loss"], metrics,
             tree_map(lambda _: next(grads), (lora_params, dense)))
 
@@ -343,19 +399,40 @@ class StepProgram(NamedTuple):
     its micro-steps in a ``lax.scan``: ``prefix()`` -> the carry (zeroed
     sums, ``carry["i"]`` the 0-d int32 micro-step index), ``body(carry)``
     one micro-step into the carry, run ``accum`` times (while ``i <
-    accum``), ``suffix(carry)`` -> the step's metrics [len(METRICS)] fp32,
-    the trainables and the optimizer state updated in place. ``run()``
-    runs it from the host; train/trainer.py captures the three parts."""
+    accum``), ``average(carry)`` -> the step's metrics [len(METRICS)] fp32;
+    then ``reduce(carry, metrics)``, where it is not None, the data sum of
+    the gradients and the metrics issued by the host (a mesh of several
+    "data" ranks and no "model" axis), and ``update(carry)``, which rounds
+    the gradients, clips and updates the trainables and the optimizer
+    state in place. ``batch``: the device tensors the program reads.
+    ``run()`` runs it from the host; train/trainer.py captures it as one
+    graph program (prefix, body, ``suffix``) where ``reduce`` is None,
+    else as a program (prefix, body, average) and a graph of ``update``,
+    ``reduce`` between them."""
     prefix: Callable
     body: Callable
-    suffix: Callable
+    average: Callable
+    reduce: Optional[Callable]
+    update: Callable
     accum: int
+    batch: dict
+
+    def suffix(self, carry: dict) -> torch.Tensor:
+        """``average`` then ``update``: the tail of a step without
+        ``reduce``."""
+        metrics = self.average(carry)
+        self.update(carry)
+        return metrics
 
     def run(self) -> torch.Tensor:
         carry = self.prefix()
         for _ in range(self.accum):
             carry = self.body(carry)
-        return self.suffix(carry)
+        metrics = self.average(carry)
+        if self.reduce is not None:
+            self.reduce(carry, metrics)
+        self.update(carry)
+        return metrics
 
 
 def step_program(cfg: AnyRefConfig, lora_cfg: lora_mod.LoraConfig,
@@ -363,17 +440,16 @@ def step_program(cfg: AnyRefConfig, lora_cfg: lora_mod.LoraConfig,
                  batch: dict, remat: bool = True, grad_accum: int = 1,
                  encoder_path: str = "fused", mesh=None) -> StepProgram:
     """The step of ``make_train_step`` on ``state`` and ``batch`` as a
-    StepProgram. The suffix adds the updates to the trainables and copies
+    StepProgram. ``update`` adds the updates to the trainables and copies
     the optimizer's new state into ``state.opt_state``'s tensors, so a
     captured program keeps writing the tensors it was captured on."""
     params = (state.lora, state.dense)
-    prefix, body, average = _grad_program(
+    prefix, body, average, reduce, rounded, batch = _grad_program(
         state.lora, state.dense, frozen, cfg, lora_cfg, batch, encoder_path,
         remat, mesh, grad_accum)
 
-    def suffix(c: dict) -> torch.Tensor:
-        metrics, grads = average(c)
-        grads = iter(grads)
+    def update(c: dict) -> None:
+        grads = iter(rounded(c))
         # the mesh only where there is one: on one device any object with
         # init and update (grads, state, params) serves as the optimizer
         updates, opt_state = optimizer.update(
@@ -386,9 +462,9 @@ def step_program(cfg: AnyRefConfig, lora_cfg: lora_mod.LoraConfig,
                                 tree_leaves(opt_state)):
                 if new is not old:
                     old.copy_(new)
-        return metrics
 
-    return StepProgram(prefix, body, suffix, grad_accum)
+    return StepProgram(prefix, body, average, reduce, update, grad_accum,
+                       batch)
 
 
 def make_train_step(cfg: AnyRefConfig, lora_cfg: lora_mod.LoraConfig,

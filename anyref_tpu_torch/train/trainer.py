@@ -20,22 +20,27 @@ and the console line; a checkpoint gathers the blocks and rank 0 writes
 one file of the single-device format, so a run saved on one mesh resumes
 on another (every rank reads it and cuts its blocks).
 
-On a CUDA device, unless the mesh has several ranks, ``step_fn`` is the
-compiled step, the counterpart of the reference's ``jax.jit`` of its step
-with the state donated: each batch key ``(grad_accum, sorted (name, shape,
-dtype))`` is one CUDA graph program (utils/graphs.py) whose replay is one
-optimizer step, the micro-steps one captured body run ``grad_accum`` times
-by a WHILE node (train/step.py ``step_program``), the trainables, the
-moments and the count updated in place. A key's first step runs the
-program from the host (its results are that step's), then ``_capture``
-records it on a side stream; every later step of the key stages the batch
-in pinned memory, copies it into the program's static inputs, replays and
-returns, reading nothing back; ``train()`` reads the metrics at
-``log_steps``. All keys share one graph memory pool, held for the
-Trainer's life. A failed capture or replay raises. On the CPU, and on a
-mesh of several ranks (gloo's collectives cannot be captured), the same
-program runs from the host. Python code inside the step (a monkeypatched
-function) runs at a key's first step and its capture only.
+On a CUDA device, unless the mesh has a "model" axis above 1, ``step_fn``
+is the compiled step, the counterpart of the reference's ``jax.jit`` of
+its step with the state donated: each batch key ``(grad_accum, sorted
+(name, shape, dtype))`` is one CUDA graph program (utils/graphs.py) whose
+replay is one optimizer step, the micro-steps one captured body run
+``grad_accum`` times by a WHILE node (train/step.py ``step_program``), the
+trainables, the moments and the count updated in place. A key's first
+step runs the program from the host (its results are that step's), then
+``_capture`` records it on a side stream; every later step of the key
+stages the batch in pinned memory, copies it into the program's static
+inputs, replays and returns; ``train()`` reads the metrics at
+``log_steps``. On a mesh of several data ranks (and no "model" axis) the
+step is two graphs on every rank: the micro-steps, which hold no
+collective (the host stages each micro-step's global loss counts with the
+batch), then the data sum of the gradients and the metrics issued by the
+host, then the clip and AdamW. All keys share one graph memory pool, held
+for the Trainer's life. A failed capture or replay raises. On the CPU, and
+on a mesh with a "model" axis (whose micro-steps hold collectives:
+parallel/mesh.py ``model_parallel``), the same program runs from the host.
+Python code inside the step (a monkeypatched function) runs at a key's
+first step and its capture only.
 """
 
 from __future__ import annotations
@@ -56,7 +61,7 @@ from ..data.collator import Collator
 from ..data.loader import DataLoader
 from ..params import resolve_device
 from ..parallel import partition
-from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh
+from ..parallel.mesh import DATA_AXIS, make_mesh, model_parallel
 from ..tokenizer import AnyRefTokenizer
 from ..utils.graphs import GraphPool, GraphProgram, stage
 from . import lora as lora_mod
@@ -101,7 +106,7 @@ class Trainer:
         if mesh is None and dist.is_available() and dist.is_initialized():
             mesh = make_mesh(model=tc.mesh_model_axis, device=device)
         dev = resolve_device(device) if mesh is None else mesh.device
-        if mesh is not None and mesh.shape[MODEL_AXIS] > 1:
+        if model_parallel(mesh):
             params = partition.shard_params(params, mesh, cfg)
         p_dev = params["llama"]["embed_tokens"].device
         if p_dev.type != dev.type:
@@ -125,10 +130,10 @@ class Trainer:
             cfg, self.lora_cfg, self.optimizer, remat=tc.remat,
             grad_accum=tc.grad_accum_steps, encoder_path=tc.encoder_path,
             mesh=mesh)
-        # the compiled programs (CUDA, no mesh of several ranks): key ->
+        # the compiled programs (CUDA, no "model" axis): key ->
         # GraphProgram (outputs: the metrics), all in one graph memory pool
         self.programs: Dict[tuple, GraphProgram] = {}
-        compiled = dev.type == "cuda" and (mesh is None or mesh.size == 1)
+        compiled = dev.type == "cuda" and not model_parallel(mesh)
         self.graphs = GraphPool(dev) if compiled else None
         self._replay_stream = None
         self.step_fn = self._compiled_step if compiled else self._host_step
@@ -187,11 +192,14 @@ class Trainer:
 
     def _compiled_step(self, state: step_mod.TrainState, frozen: dict,
                        batch: dict):
-        """``step_fn`` on a CUDA device (no mesh of several ranks): the
-        batch key's program, captured after the key's first step, which
-        runs from the host; later steps stage, copy, replay and return
-        with the metrics on the device. The programs write the Trainer's
-        own state, so ``state`` and ``frozen`` must be its own."""
+        """``step_fn`` on a CUDA device (no "model" axis): the batch key's
+        program, captured after the key's first step, which runs from the
+        host; later steps stage, copy, replay and return with the metrics
+        on the device. On a data mesh the batch is this rank's rows, its
+        global loss counts are staged with it (by the program at a key's
+        first step), and the data sum runs between the program's two
+        graphs. The programs write the Trainer's own state, so ``state``
+        and ``frozen`` must be its own."""
         own = self.state
         if (state.lora is not own.lora or state.dense is not own.dense
                 or state.opt_state is not own.opt_state
@@ -203,40 +211,49 @@ class Trainer:
             (k, v.shape, str(v.dtype)) for k, v in host.items())))
         program = self.programs.get(key)
         if program is None:
-            inputs = {k: torch.from_numpy(v).to(self.device)
-                      for k, v in host.items()}
-            out = self._host_step(state, frozen, inputs)
-            # the step above was the key's warm-up: its results are this
+            tc = self.tc
+            step = step_mod.step_program(
+                self.cfg, self.lora_cfg, self.optimizer, state, frozen,
+                {k: torch.from_numpy(v).to(self.device)
+                 for k, v in host.items()},
+                tc.remat, tc.grad_accum_steps, tc.encoder_path, self.mesh)
+            # the key's warm-up, from the host: its results are this
             # step's, and its inputs become the program's buffers
-            self.programs[key] = self._capture(inputs)
-            return out
-        stage(program.inputs, host)
-        self._replay_stream = self.graphs.launch(program.exec)
-        metrics = program.outputs[0].clone()
+            metrics = step.run()
+            self.programs[key] = self._capture(step)
+        else:
+            if "loss_counts" in program.inputs:
+                host = step_mod.stage_loss_counts(host, self.cfg, self.mesh)
+            stage(program.inputs, host)
+            self._replay_stream = program.run(self.graphs)
+            metrics = program.outputs[0].clone()
         return (state._replace(step=state.step + 1),
                 dict(zip(step_mod.METRICS, metrics.unbind())))
 
-    def _capture(self, inputs: dict) -> GraphProgram:
-        """Capture the step program on ``inputs`` (device tensors, which
-        become its static inputs) into three graphs in the Trainer's pool
+    def _capture(self, step: step_mod.StepProgram) -> GraphProgram:
+        """Capture ``step`` (a key's step program, whose device inputs
+        become the static inputs) into three graphs in the Trainer's pool
         and stitch them into one, the body a WHILE node over the carry's
-        micro-step index (utils/graphs.py). A capture records kernels and
-        their launch counts and runs none; each replay counts what it
+        micro-step index (utils/graphs.py). On a data mesh the third graph
+        averages the metrics only, and the update (the gradients' rounding,
+        the clip and AdamW) is a fourth graph, replayed after the host's
+        data sum on the carry and the metrics. A capture records kernels
+        and their launch counts and runs none; each replay counts what it
         runs, on the device."""
-        tc = self.tc
         t0 = time.perf_counter()
-        program = step_mod.step_program(
-            self.cfg, self.lora_cfg, self.optimizer, self.state,
-            self.frozen, inputs, tc.remat, tc.grad_accum_steps,
-            tc.encoder_path, self.mesh)
-        g0, carry = self.graphs.capture(program.prefix)
-        g1, _ = self.graphs.capture(lambda: program.body(carry))
-        g2, metrics = self.graphs.capture(lambda: program.suffix(carry))
+        g0, carry = self.graphs.capture(step.prefix)
+        g1, _ = self.graphs.capture(lambda: step.body(carry))
+        g2, metrics = self.graphs.capture(lambda: (
+            step.suffix if step.reduce is None else step.average)(carry))
         graphs = (g0, g1, g2)
-        exec_ = self.graphs.program(graphs, carry["i"], None,
-                                    tc.grad_accum_steps)
-        return GraphProgram(inputs, (metrics,), graphs, exec_,
-                            time.perf_counter() - t0)
+        exec_ = self.graphs.program(graphs, carry["i"], None, step.accum)
+        if step.reduce is None:
+            return GraphProgram(step.batch, (metrics,), graphs, exec_,
+                                time.perf_counter() - t0)
+        then, _ = self.graphs.graph(lambda: step.update(carry))
+        return GraphProgram(step.batch, (metrics,), graphs, exec_,
+                            time.perf_counter() - t0,
+                            lambda: step.reduce(carry, metrics), then)
 
     def graph_pool_bytes(self) -> int:
         """Device bytes the compiled steps' memory pool holds (0 before the

@@ -34,12 +34,27 @@ class GraphProgram(NamedTuple):
     csrc/graph_loop.cu) and the seconds the capture took. The carry lives
     in the pool only while the program runs: each run's prefix writes it
     before the loop reads it, so later captures in the pool may reuse its
-    memory."""
+    memory. A program in two parts (train/trainer.py on a data mesh) also
+    has ``between``, the host's work after ``exec`` (the data sum of the
+    gradients and the metrics, in place on the carry, which it keeps, and
+    on the outputs), and ``then``, one more graph of the pool replayed
+    after it; a run is ``run``."""
     inputs: dict
     outputs: tuple
     graphs: tuple
     exec: int
     capture_s: float
+    between: Optional[Callable] = None
+    then: Optional[torch.cuda.CUDAGraph] = None
+
+    def run(self, pool: "GraphPool") -> torch.cuda.Stream:
+        """One run on the current stream, which it returns: the program,
+        then ``between`` and ``then`` where there are."""
+        stream = pool.launch(self.exec)
+        if self.between is not None:
+            self.between()
+            self.then.replay()
+        return stream
 
 
 class GraphPool:
@@ -62,6 +77,13 @@ class GraphPool:
         with torch.cuda.graph(g, pool=self.pool, stream=self.stream,
                               capture_error_mode="thread_local"):
             out = fn()
+        return g, out
+
+    def graph(self, fn: Callable):
+        """(graph, fn's result): ``fn`` captured alone into an instantiated
+        graph in the pool, replayed with its ``replay``."""
+        g, out = self.capture(fn)
+        g.instantiate()
         return g, out
 
     def program(self, graphs: tuple, i: torch.Tensor,

@@ -52,6 +52,7 @@ from anyref_tpu_torch.models import anyref as tanyref
 from anyref_tpu_torch.ops.quant import is_quantized
 from anyref_tpu_torch.tokenizer import EOS_ID, AnyRefTokenizer, seg_question
 from anyref_tpu_torch.tools import export as texport_cli
+from tests.torch_one_thread import one_thread  # noqa: F401
 
 SAM = anyref_tiny().sam
 TOL = 1e-5

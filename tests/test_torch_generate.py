@@ -150,6 +150,22 @@ def test_seg_slots_match_jax():
         np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
 
 
+def test_generate_output_mask_canvas_matches_jax():
+    """GenerateOutput.mask_canvas, the JAX package's compatibility name of
+    low_res_masks, on both sides of one set of outputs."""
+    rng = np.random.default_rng(9)
+    arrays = [rng.integers(0, 300, (2, 4)), rng.integers(0, 4, (2,)),
+              rng.standard_normal((2, 3, 8, 8)).astype(np.float32),
+              rng.integers(0, 2, (2, 3)).astype(bool),
+              rng.standard_normal((2, 3, 5)).astype(np.float32),
+              np.asarray(4, np.int32)]
+    want = janyref.GenerateOutput(*map(jnp.asarray, arrays))
+    got = tanyref.GenerateOutput(*map(torch.from_numpy, arrays))
+    assert got.mask_canvas is got.low_res_masks
+    np.testing.assert_array_equal(got.mask_canvas.numpy(),
+                                  np.asarray(want.mask_canvas))
+
+
 def test_predictor_matches_generate(tp, port_greedy, float_batch):
     pred = Predictor(tp, CFG, max_new_tokens=MNT, prompt_buckets=(BUCKET,),
                      batch_buckets=(2,), device="cpu", encoder_path="unfused")

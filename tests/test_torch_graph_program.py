@@ -16,7 +16,6 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 import jax
 import jax.numpy as jnp
@@ -35,44 +34,14 @@ from anyref_tpu_torch.ops.mel import audio_to_mel_clips
 from anyref_tpu_torch.ops.quant import quantize_llama
 from anyref_tpu_torch.tokenizer import (AnyRefTokenizer, audio_ref_question,
                                         img_ref_question, seg_question)
+from tests.torch_dispatch_modes import NoDeviceReads
+from tests.torch_one_thread import one_thread  # noqa: F401
 
 CFG = anyref_tiny()
 MNT = 6
 SLICE_SWITCHES = ("ANYREF_FUSED_WINDOW_BLOCK", "ANYREF_FUSED_GLOBAL_BLOCK",
                   "ANYREF_QKV_WINDOW_KERNEL", "ANYREF_QKV_MHA_KERNEL")
 TEXTS = ("the cat", "the red cat on the red mat near the open door")
-# ops whose output a read of the device decides (a value on the host, or a
-# shape that depends on the data), and lift_fresh, which brings host data
-# (torch.tensor, from_numpy, a Python value written by index) into the
-# program: a CUDA graph capture holds neither
-HOST_READS = {torch.ops.aten._local_scalar_dense.default,
-              torch.ops.aten.is_nonzero.default,
-              torch.ops.aten.nonzero.default,
-              torch.ops.aten.repeat_interleave.self_Tensor,
-              torch.ops.aten.lift_fresh.default}
-
-
-def _reads(func, args) -> bool:
-    if func in (torch.ops.aten.index.Tensor, torch.ops.aten.index_put.default,
-                torch.ops.aten.index_put_.default):
-        # integer indices gather on the device; a boolean mask is nonzero
-        return any(i is not None and i.dtype in (torch.bool, torch.uint8)
-                   for i in args[1])
-    return (func in HOST_READS
-            or torch.Tag.data_dependent_output in func.tags
-            or torch.Tag.dynamic_output_shape in func.tags)
-
-
-class NoDeviceReads(TorchDispatchMode):
-    """Raises on any op that would read the device back to the host or
-    copy host data into the program."""
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if _reads(func, args):
-            raise AssertionError(f"{func} reads the device")
-        return func(*args, **(kwargs or {}))
-
-
 @pytest.fixture(autouse=True)
 def slice_config(monkeypatch):
     for name in SLICE_SWITCHES:

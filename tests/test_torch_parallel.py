@@ -45,6 +45,7 @@ from anyref_tpu_torch.serve import Server
 from anyref_tpu_torch.tokenizer import AnyRefTokenizer, seg_question
 from anyref_tpu_torch.train import lora as tlora
 from tests import torch_parallel_worker as W
+from tests.torch_one_thread import one_thread  # noqa: F401
 
 CFG = anyref_tiny()
 MNT = 6

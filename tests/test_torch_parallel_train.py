@@ -54,6 +54,7 @@ Tolerances, each with its reason:
   one).
 """
 
+import concurrent.futures
 import contextlib
 import json
 import os
@@ -85,6 +86,7 @@ from anyref_tpu_torch.train import step as tstep
 from anyref_tpu_torch.train.trainer import TrainConfig, Trainer
 from tests import torch_parallel_train_worker as TW
 from tests import torch_parallel_worker as W
+from tests.torch_one_thread import one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = anyref_tiny()
@@ -217,39 +219,62 @@ def adamw_grads(tree_file, lora_np):
         for scale in (1e-2, 1e-5)]
 
 
+class _Background:
+    """A fixture's value made by a thread, so that the test process computes
+    its references meanwhile: the first lookup waits for it (and raises
+    what it raised)."""
+
+    def __init__(self, fn):
+        self._pool = concurrent.futures.ThreadPoolExecutor(1)
+        self._future = self._pool.submit(fn)
+        self._pool.shutdown(wait=False)
+
+    def __getitem__(self, key):
+        return self._future.result()[key]
+
+
 @pytest.fixture(scope="module")
 def runs(tree_file, lora_np, batches, samples, adamw_grads,
          tmp_path_factory):
-    """{(data, model): every rank's mesh_task result}. (1, 2) first: its
-    Trainer's checkpoint-1 is what (2, 1) and (1, 1) resume from."""
+    """{(data, model): every rank's mesh_task result}, spawned from a
+    thread while the JAX and single-device references are computed. (1,
+    2) first: its Trainer's checkpoint-1 is what (2, 1) and (1, 1) resume
+    from."""
     tmp = tmp_path_factory.mktemp("ranks")
     flat = samples[0]
     common = dict(tree=str(tree_file), lora=lora_np, batches=batches)
-    out = {}
-    out[(1, 2)] = W.run_ranks(
-        TW.TASK, 2, tmp, timeout=RUN_LIMIT_S, data=1, model=2,
-        grad_cases=GRAD_CASES + REPHRASE_CASE,
-        adamw=adamw_grads, mlp=True,
-        trainers=[("trainer", dict(
-            samples=flat, out=str(tmp / "run12"), own_mesh=True,
-            mesh_model_axis=2, per_device_batch_size=4, max_steps=2,
-            resume=False))], **common)
-    resume = tmp / "resume21"
-    shutil.copytree(tmp / "run12" / "checkpoint-1",
-                    resume / "checkpoint-1")
-    out[(2, 1)] = W.run_ranks(
-        TW.TASK, 2, tmp, timeout=RUN_LIMIT_S, data=2, model=1,
-        grad_cases=GRAD_CASES,
-        trainers=[("trainer", dict(samples=flat, out=str(tmp / "run21"),
-                                   per_device_batch_size=2, max_steps=1,
-                                   resume=False)),
-                  ("resumed", dict(samples=flat, out=str(resume),
-                                   per_device_batch_size=2, max_steps=2))],
-        **common)
-    out[(2, 2)] = W.run_ranks(TW.TASK, 4, tmp, timeout=RUN_LIMIT_S, data=2,
-                              model=2, grad_cases=GRAD_CASES, **common)
-    out["tmp"] = tmp
-    return out
+
+    def spawn():
+        out = {}
+        out[(1, 2)] = W.run_ranks(
+            TW.TASK, 2, tmp, timeout=RUN_LIMIT_S, data=1, model=2,
+            grad_cases=GRAD_CASES + REPHRASE_CASE,
+            adamw=adamw_grads, mlp=True,
+            trainers=[("trainer", dict(
+                samples=flat, out=str(tmp / "run12"), own_mesh=True,
+                mesh_model_axis=2, per_device_batch_size=4, max_steps=2,
+                resume=False))], **common)
+        resume = tmp / "resume21"
+        shutil.copytree(tmp / "run12" / "checkpoint-1",
+                        resume / "checkpoint-1")
+        out[(2, 1)] = W.run_ranks(
+            TW.TASK, 2, tmp, timeout=RUN_LIMIT_S, data=2, model=1,
+            grad_cases=GRAD_CASES,
+            trainers=[("trainer", dict(samples=flat,
+                                       out=str(tmp / "run21"),
+                                       per_device_batch_size=2, max_steps=1,
+                                       resume=False)),
+                      ("resumed", dict(samples=flat, out=str(resume),
+                                       per_device_batch_size=2,
+                                       max_steps=2))],
+            **common)
+        out[(2, 2)] = W.run_ranks(TW.TASK, 4, tmp, timeout=RUN_LIMIT_S,
+                                  data=2, model=2, grad_cases=GRAD_CASES,
+                                  **common)
+        out["tmp"] = tmp
+        return out
+
+    return _Background(spawn)
 
 
 def _pairs(got, want, path=""):

@@ -69,6 +69,7 @@ from anyref_tpu_torch.models.imagebind import audio as taudio
 from anyref_tpu_torch.ops import mel as tmel
 from anyref_tpu_torch.train import lora as tlora
 from anyref_tpu_torch.train import step as tstep
+from tests.torch_one_thread import one_thread  # noqa: F401
 
 TINY = anyref_tiny()
 FUSED_CFG = dataclasses.replace(TINY, sam=dataclasses.replace(

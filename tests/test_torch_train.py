@@ -61,6 +61,7 @@ from anyref_tpu_torch.tokenizer import (AnyRefTokenizer, seg_answer,
 from anyref_tpu_torch.train import lora as tlora
 from anyref_tpu_torch.train import step as tstep
 from anyref_tpu_torch.train.trainer import TrainConfig, Trainer
+from tests.torch_one_thread import one_thread  # noqa: F401
 
 CFG = anyref_tiny()
 SLICE_ENV = {"ANYREF_FUSED_WINDOW_BLOCK": "1", "ANYREF_FUSED_GLOBAL_BLOCK": "1",
@@ -503,9 +504,9 @@ def test_train_forward_rephrase_grads_match_jax(jp, tp, jlora_params):
     lora_p, dense, frozen = _port_state(tp, jlora_params)
     _, metrics, (g_lora, g_dense) = tstep.value_and_grad(
         lora_p, dense, frozen, cfg, TCFG, batch, encoder_path="fused")
-    _, plain, _ = tstep.value_and_grad(
-        *_port_state(tp, jlora_params), CFG, TCFG, batch,
-        encoder_path="fused")
+    with torch.no_grad():
+        _, plain = tstep.loss_fn(*_port_state(tp, jlora_params), CFG, TCFG,
+                                 batch, "fused")
     for k in tstep.METRICS:
         np.testing.assert_allclose(metrics[k].item(), float(jmetrics[k]),
                                    rtol=1e-3, err_msg=k)

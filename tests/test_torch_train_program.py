@@ -42,6 +42,7 @@ generator.
 
 import contextlib
 import json
+import shutil
 
 import numpy as np
 import pytest
@@ -70,7 +71,8 @@ from anyref_tpu_torch.train import lora as tlora
 from anyref_tpu_torch.train import step as tstep
 from anyref_tpu_torch.train.trainer import TrainConfig, Trainer
 
-from tests.test_torch_graph_program import NoDeviceReads
+from tests.torch_dispatch_modes import NoDeviceReads
+from tests.torch_one_thread import one_thread  # noqa: F401
 
 CFG = anyref_tiny()
 # the fused configuration of tests/test_torch_train.py
@@ -196,12 +198,10 @@ def _run_program(program: tstep.StepProgram, check=contextlib.nullcontext):
 # ---------------------------------------------------------------------------
 # (a) the program reads nothing from the device and uploads nothing
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("accum", [1, 2])
-@pytest.mark.parametrize("kind", ["text", "crop", "box", "audio"])
-def test_step_program_reads_nothing_from_the_device(kind, accum, tree):
-    """Prefix, body and suffix under NoHostData, on the batch as tensors
-    (the program's static inputs); the body runs ``accum`` times, the step
-    moves the trainables and the count, and its metrics are finite."""
+def _program_step(tree, kind: str, accum: int, check=NoHostData):
+    """One step of the program on a one-row batch of ``kind`` (as tensors,
+    the program's static inputs) from the seed-1 state, each part inside
+    ``check``: (state, the dense leaves before, metrics, passes)."""
     opt = tstep.make_optimizer(lr=LR, warmup=0, total_steps=10)
     state, frozen = tstep.init_state(torch.Generator().manual_seed(1), tree,
                                      tlora.LoraConfig(), opt)
@@ -215,7 +215,29 @@ def test_step_program_reads_nothing_from_the_device(kind, accum, tree):
     program = tstep.step_program(CFG, tlora.LoraConfig(), opt, state, frozen,
                                  batch, remat=True, grad_accum=accum,
                                  encoder_path="fused")
-    metrics, passes = _run_program(program, NoHostData)
+    metrics, passes = _run_program(program, check)
+    return state, before, metrics, passes
+
+
+@pytest.fixture(scope="module")
+def text_step(tree):
+    """_program_step on text at grad_accum 2, shared by the no-read case
+    of that key and test_host_step_is_the_program."""
+    return _program_step(tree, "text", 2)
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+@pytest.mark.parametrize("kind", ["text", "crop", "box", "audio"])
+def test_step_program_reads_nothing_from_the_device(kind, accum, tree,
+                                                    request):
+    """Prefix, body and suffix under NoHostData, on the batch as tensors
+    (the program's static inputs); the body runs ``accum`` times, the step
+    moves the trainables and the count, and its metrics are finite."""
+    if (kind, accum) == ("text", 2):
+        state, before, metrics, passes = request.getfixturevalue(
+            "text_step")
+    else:
+        state, before, metrics, passes = _program_step(tree, kind, accum)
     assert passes == accum
     assert metrics.shape == (len(tstep.METRICS),)
     assert bool(torch.isfinite(metrics).all())
@@ -225,37 +247,28 @@ def test_step_program_reads_nothing_from_the_device(kind, accum, tree):
                zip(tstep.tree_leaves(state.dense), before))
 
 
-def test_host_step_is_the_program(tree):
+def test_host_step_is_the_program(tree, text_step):
     """make_train_step's step (the host's, the Trainer's on the CPU) runs
-    the program: the same metrics and trainables as the parts run by hand,
-    bit for bit, and the state's tensors updated in place."""
-    batch = _batch("text", 2, rows=1)
-    out = []
-    for by_hand in (False, True):
-        opt = tstep.make_optimizer(lr=LR, warmup=0, total_steps=10)
-        state, frozen = tstep.init_state(torch.Generator().manual_seed(1),
-                                         tree, tlora.LoraConfig(), opt)
-        leaves = tstep.tree_leaves((state.lora, state.dense,
-                                    state.opt_state))
-        if by_hand:
-            program = tstep.step_program(
-                CFG, tlora.LoraConfig(), opt, state, frozen, batch,
-                grad_accum=2)
-            metrics = dict(zip(tstep.METRICS, _run_program(program)[0]))
-            new = state
-        else:
-            new, metrics = tstep.make_train_step(
-                CFG, tlora.LoraConfig(), opt, grad_accum=2)(state, frozen,
-                                                            batch)
-            assert new.step == 1
-            assert all(a is b for a, b in zip(
-                leaves, tstep.tree_leaves((new.lora, new.dense,
-                                           new.opt_state))))
-        out.append((metrics, [t.detach().clone() for t in leaves]))
-    (ma, la), (mb, lb) = out
+    the program: the same metrics and trainables as the parts run by hand
+    (the text step of the no-read case, whose mode passes every op
+    through), bit for bit, and the state's tensors updated in place."""
+    opt = tstep.make_optimizer(lr=LR, warmup=0, total_steps=10)
+    state, frozen = tstep.init_state(torch.Generator().manual_seed(1), tree,
+                                     tlora.LoraConfig(), opt)
+    leaves = tstep.tree_leaves((state.lora, state.dense, state.opt_state))
+    new, ma = tstep.make_train_step(CFG, tlora.LoraConfig(), opt,
+                                    grad_accum=2)(state, frozen,
+                                                  _batch("text", 2, rows=1))
+    assert new.step == 1
+    assert all(a is b for a, b in zip(
+        leaves, tstep.tree_leaves((new.lora, new.dense, new.opt_state))))
+    by_hand, _, mb, _ = text_step
+    mb = dict(zip(tstep.METRICS, mb))
     for k in tstep.METRICS:
         assert torch.equal(ma[k], mb[k]), k
-    assert all(torch.equal(a, b) for a, b in zip(la, lb))
+    assert all(torch.equal(a.detach(), b.detach()) for a, b in zip(
+        leaves, tstep.tree_leaves((by_hand.lora, by_hand.dense,
+                                   by_hand.opt_state))))
 
 
 # ---------------------------------------------------------------------------
@@ -390,27 +403,28 @@ class _Same:
 
 
 def test_resumed_trainer_matches_uninterrupted(tmp_path, tree):
-    """Three steps in one run against two, a checkpoint, and a third step
-    in a resumed Trainer: the trainables, the moments, the count and the
-    third step's losses equal bit for bit. The resumed Trainer keeps its
-    own tensors (the restored leaves are copied into them)."""
+    """Three steps in one run that saves after its second, against that
+    checkpoint and a third step in a resumed Trainer: the trainables, the
+    moments, the count and the third step's losses equal bit for bit. The
+    resumed Trainer keeps its own tensors (the restored leaves are copied
+    into them)."""
     def config(out, steps, save):
         return TrainConfig(output_dir=str(out), per_device_batch_size=1,
                            grad_accum_steps=2, max_steps=steps,
                            warmup_steps=1, save_steps=save, log_steps=1,
                            learning_rate=LR, resume=True, remat=True)
 
-    whole = Trainer(CFG, config(tmp_path / "a", 3, 100), tree,
+    whole = Trainer(CFG, config(tmp_path / "a", 3, 2), tree,
                     dataset=_Same(), device="cpu")
     assert whole.step_fn == whole._host_step and whole.programs == {}
     end = whole.train()
-    first = Trainer(CFG, config(tmp_path / "b", 2, 2), tree,
-                    dataset=_Same(), device="cpu")
-    first.train()
     # the checkpoint keeps its format: the count saved as an int
-    saved = tckpt.restore_train_state(str(tmp_path / "b" / "checkpoint-2"))
+    saved = tckpt.restore_train_state(str(tmp_path / "a" / "checkpoint-2"))
     assert type(saved["opt_state"]["count"]) is int
     assert saved["opt_state"]["count"] == 2
+    (tmp_path / "b").mkdir()
+    shutil.copytree(tmp_path / "a" / "checkpoint-2",
+                    tmp_path / "b" / "checkpoint-2")
     resumed = Trainer(CFG, config(tmp_path / "b", 3, 100), tree,
                       dataset=_Same(), device="cpu")
     assert resumed.state.step == 2
