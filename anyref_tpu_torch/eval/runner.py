@@ -26,8 +26,7 @@ device, and returns: the Server's device loop (serve.py) then collates and
 dispatches the next batch while this one runs. All keys of a Predictor
 share one memory pool, which holds its memory for as long as the Predictor
 lives. A failed capture or replay raises. On the CPU the program runs
-eagerly with the decode loop on the host; so it does on a mesh with a
-"model" axis above 1, whose decoder layers hold collectives.
+eagerly with the decode loop on the host.
 
 On a mesh of several ranks (parallel/mesh.py; the tree of
 parallel/partition.py ``shard_params``), every rank calls the same
@@ -35,8 +34,10 @@ Predictor methods on the same batch, in the same order: the batch bucket is
 a multiple of the "data" size and each rank stages and runs its rows (its
 data coordinate's block of the padded batch, the host-side counterpart of
 ``shard_batch``); the key stays the whole batch's, so every rank captures
-the same keys in the same order. On a mesh without a "model" axis the
-program is local to the rank and is captured as on one device. A handle
+the same keys in the same order. The program is captured as on one
+device; on a "model" axis above 1 its decoder layers' sums over the axis
+are launches of the all-reduce kernel (parallel/collectives.py), which the
+graph holds, and every model rank replays it in step with the others. A handle
 holds the rank's rows on the device; ``complete`` (and ``fetch``, a
 serving follower's part of it) reads them back and, with more than one
 data rank, gathers every data rank's rows over the host group in batch
@@ -59,7 +60,7 @@ from ..config import (SAM_PIXEL_MEAN, SAM_PIXEL_STD, AnyRefConfig,
 from ..models import anyref, clip_vit, llama
 from ..ops.common import device_constant
 from ..ops.quant import is_quantized
-from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, model_parallel
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
 from ..parallel.partition import batch_spec, local_block
 from ..ops.resize import postprocess_low_res_np
 from ..params import resolve_device
@@ -144,8 +145,8 @@ class Predictor:
         # on a mesh, both this rank's rows only)
         self.h2d_bytes_total = 0
         self.d2h_bytes_total = 0
-        # the compiled programs (CUDA, no "model" axis): key ->
-        # GraphProgram, all in one graph memory pool
+        # the compiled programs (CUDA): key -> GraphProgram, all in one
+        # graph memory pool
         self.programs: Dict[tuple, GraphProgram] = {}
         self.graphs = GraphPool(self.device)
 
@@ -163,9 +164,8 @@ class Predictor:
     def predict_async(self, batch: Dict[str, np.ndarray]):
         """Upload and dispatch the device program; returns a handle whose
         results (this rank's rows) still live on the device, for
-        complete(). On a CUDA device, unless the mesh has a "model" axis
-        above 1, a key's later calls only stage, copy, replay and clone:
-        nothing is read back before this returns."""
+        complete(). On a CUDA device a key's later calls only stage, copy,
+        replay and clone: nothing is read back before this returns."""
         host, key, B = self._inputs(batch)
         if self.mesh is not None:
             spec = batch_spec(host)     # this rank's rows
@@ -180,7 +180,7 @@ class Predictor:
         with torch.inference_mode():
             loop, finish = self._program(dev)
             meta, low = finish(anyref.run_loop(loop))
-        if self.device.type == "cuda" and not model_parallel(self.mesh):
+        if self.device.type == "cuda":
             # the eager run above was the key's warm-up: its results are
             # this call's, and its inputs become the program's buffers
             self.programs[key] = self._capture(dev)

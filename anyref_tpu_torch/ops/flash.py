@@ -71,7 +71,8 @@ a loop inside a graph, counts what it launches, and a capture counts
 nothing. ``flash_causal_attention_diff`` counts forward calls under its name
 (recomputation under checkpointing included) and backward calls under
 ``flash_causal_attention_diff_backward``; the Predictor's loop condition
-kernel counts its own runs under ``loop_condition``.
+kernel counts its own runs under ``loop_condition``, the all-reduce its
+launches under ``all_reduce``.
 
 Build: at first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a``
 (one process per source, all started together) and links them into one
@@ -81,8 +82,11 @@ rest wait and load it); the library is loaded with ``ctypes.PyDLL`` (a
 call keeps the GIL) and each C entry returns ``cudaGetLastError()``. The
 library also carries
 ``csrc/graph_loop.cu`` (the decode loop's condition kernel and the
-assembly of the Predictor's CUDA graph program, eval/runner.py) and
-``csrc/launch_count.cu`` (the counter kernel), which port no Pallas kernel.
+assembly of the Predictor's CUDA graph program, eval/runner.py),
+``csrc/launch_count.cu`` (the counter kernel) and ``csrc/all_reduce.cu``
+(``all_reduce``: the sum over a "model" group of ranks through exchange
+areas they share by CUDA IPC, parallel/collectives.py), which port no
+Pallas kernel.
 """
 
 from __future__ import annotations
@@ -90,14 +94,16 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import itertools
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..utils.locks import file_lock
 
@@ -106,7 +112,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = ("norms.cu", "relpos_global.cu", "causal_attention.cu",
            "causal_attention_bwd.cu", "fused_layers.cu", "int8_matmul.cu",
-           "window_attention.cu", "graph_loop.cu", "launch_count.cu")
+           "window_attention.cu", "graph_loop.cu", "launch_count.cu",
+           "all_reduce.cu")
 HEADERS = ("common.cuh", "gemm.cuh", "wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -207,6 +214,16 @@ def _library():
                 "anyref_graph_launch": [P, P],
                 "anyref_graph_destroy": [P],
                 "anyref_count_launch": [P, P],
+            })
+            # the all-reduce over a "model" group (csrc/all_reduce.cu)
+            sigs.update({
+                "anyref_exchange_create": [I, I, ctypes.c_longlong,
+                                           ctypes.c_double,
+                                           ctypes.POINTER(P), P],
+                "anyref_exchange_open": [P, ctypes.c_char_p],
+                "anyref_exchange_destroy": [P],
+                "anyref_exchange_held": [ctypes.POINTER(ctypes.c_longlong)],
+                "anyref_all_reduce": [P, P, P, ctypes.c_longlong, I, P],
             })
             for name, args in sigs.items():
                 fn = getattr(lib, name)
@@ -1380,6 +1397,151 @@ def _int8_matmul_cuda(x, w_q, scale):
     return out.reshape(*x.shape[:-1], N)
 
 
+# ---------------------------------------------------------------------------
+# the all-reduce over a "model" group (parallel/collectives.py)
+# ---------------------------------------------------------------------------
+# data bytes of each rank's exchange buffer, two halves: a sum of up to
+# half of it (an anyref_7b prefill's or training step's hidden rows in
+# fp32) is one chunk a block, one barrier; a launch walks a larger tensor
+# (the training logits) through it in chunks
+EXCHANGE_BYTES = 64 << 20
+_EXCHANGE_HEADER = 1 << 16      # csrc/all_reduce.cu kHeader
+_IPC_HANDLE_BYTES = 64          # sizeof(cudaIpcMemHandle_t)
+
+
+class DeviceExchange:
+    """This rank's side of a group's device exchange (csrc/all_reduce.cu):
+    its exchange area on ``device`` (flags, call counts and a buffer of
+    EXCHANGE_BYTES), made by the library, not by PyTorch's allocator, and
+    exported as ``handle`` (a cudaIpcMemHandle_t) for the other ranks;
+    ``open`` maps theirs, ``close`` frees it. A kernel barrier that waits
+    longer than ``timeout_s`` traps."""
+
+    def __init__(self, rank: int, size: int, device, timeout_s: float):
+        self.rank, self.size = rank, size
+        device = torch.device(device)
+        self.device = torch.device("cuda", device.index if device.index
+                                   is not None else
+                                   torch.cuda.current_device())
+        state = ctypes.c_void_p()
+        handle = ctypes.create_string_buffer(_IPC_HANDLE_BYTES)
+        with torch.cuda.device(self.device):
+            _launch("anyref_exchange_create", rank, size, EXCHANGE_BYTES,
+                    float(timeout_s), ctypes.byref(state),
+                    ctypes.cast(handle, ctypes.c_void_p))
+        self.state = state.value
+        self.handle = handle.raw
+
+    def open(self, handles: list) -> None:
+        """Map every other rank's area: ``handles`` holds each rank's
+        ``handle`` in group rank order. Raises with CUDA's error where a
+        peer cannot be mapped."""
+        if len(handles) != self.size:
+            raise ValueError(f"{len(handles)} handles for {self.size} ranks")
+        with torch.cuda.device(self.device):
+            _launch("anyref_exchange_open", self.state, b"".join(handles))
+
+    def close(self) -> None:
+        """Unmap the other ranks' areas and free this rank's; a second call
+        does nothing. Until a peer's last all-reduce ends, that peer may
+        read this area: the caller has synchronised its card and met every
+        rank of the group first (parallel/mesh.py Mesh.close)."""
+        if self.state is None:
+            return
+        state, self.state = self.state, None
+        with torch.cuda.device(self.device):
+            _launch("anyref_exchange_destroy", state)
+
+    @property
+    def held_bytes(self) -> int:
+        """Device bytes this rank's area holds."""
+        return _EXCHANGE_HEADER + EXCHANGE_BYTES
+
+
+def exchange_held_bytes() -> int:
+    """Device bytes of this process's exchange areas not yet closed, as
+    the library counts them."""
+    held = ctypes.c_longlong()
+    _launch("anyref_exchange_held", ctypes.byref(held))
+    return held.value
+
+
+class _Group(NamedTuple):
+    group: object                       # a torch.distributed process group
+    exchange: Optional[DeviceExchange]  # None for ranks off the card
+
+
+_GROUPS: dict = {}          # the op's key -> _Group
+_KEYS = itertools.count()   # a key is never given twice
+
+
+def register_group(group, exchange: Optional[DeviceExchange] = None) -> int:
+    """Make ``group`` (a "model" group, parallel/mesh.py) one the
+    all-reduce op sums over, with its device exchange where its ranks run
+    on the card; returns the op's key of the group."""
+    key = next(_KEYS)
+    _GROUPS[key] = _Group(group, exchange)
+    return key
+
+
+def unregister_group(group) -> None:
+    """``group`` no longer one the op sums over: a later call with its key
+    raises."""
+    key = group_key(group)
+    if key is not None:
+        del _GROUPS[key]
+
+
+def group_key(group) -> Optional[int]:
+    """The all-reduce op's key of ``group``, None for a group it does not
+    sum over."""
+    for key, g in _GROUPS.items():
+        if g.group is group:
+            return key
+    return None
+
+
+def all_reduce(x, key: int):
+    """``x`` summed over the ranks of the group of ``key``
+    (register_group): a new contiguous tensor in x's dtype, the same bits
+    on every rank. On the card one launch of csrc/all_reduce.cu over the
+    group's device exchange (fp32 or bf16, summed in fp32 in rank order);
+    on the CPU its plain version, torch.distributed's all_reduce over the
+    group. Every rank of the group calls it in the same order."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"all_reduce: no kernel for device {x.device}")
+    if key not in _GROUPS:
+        raise ValueError(f"all_reduce: no group of key {key} (its mesh was "
+                         "closed, or it was never registered)")
+    return torch.ops.anyref.all_reduce(x, key)
+
+
+def all_reduce_plain(x, key: int):
+    total = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(total, group=_GROUPS[key].group)
+    return total
+
+
+def _all_reduce_cuda(x, key: int):
+    ex = _GROUPS[key].exchange
+    if ex is None or ex.state is None or ex.device.index != x.device.index:
+        raise RuntimeError(
+            f"all_reduce: the group has no device exchange on {x.device} "
+            "(parallel/mesh.py make_mesh sets one up on a CUDA device)")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"all_reduce: the CUDA kernel takes float32 or "
+                        f"bfloat16, got {x.dtype}")
+    xc = x.contiguous()
+    out = torch.empty_like(xc)
+    if xc.numel():
+        with torch.cuda.device(x.device):
+            _launch("anyref_all_reduce", ex.state, xc.data_ptr(),
+                    out.data_ptr(), xc.numel(),
+                    int(x.dtype == torch.bfloat16), _stream(x))
+        _count("all_reduce", x)
+    return out
+
+
 KERNELS = (layer_norm_fused, rms_norm_fused, flash_relpos_attention,
            flash_causal_attention, fused_window_attn, fused_mlp_stream,
            fused_global_tail, flash_attention_qkv,
@@ -1387,11 +1549,12 @@ KERNELS = (layer_norm_fused, rms_norm_fused, flash_relpos_attention,
            fused_window_block, int8_matmul)
 
 # the launch counters: one int64 a wrapper of KERNELS, then the training
-# attention's backward and the Predictor's loop condition kernel, in one
+# attention's backward, the graph programs' loop condition kernel and the
+# all-reduce over a "model" group, in one
 # tensor a device, made at the device's first count (never inside a CUDA
 # graph capture, which would record its zero fill into the graph)
 COUNTED = tuple(k.__name__ for k in KERNELS) + (
-    "flash_causal_attention_diff_backward", "loop_condition")
+    "flash_causal_attention_diff_backward", "loop_condition", "all_reduce")
 _SLOT = {name: i for i, name in enumerate(COUNTED)}
 _counters = {}
 _counters_lock = threading.Lock()
@@ -1453,6 +1616,8 @@ def reset_launch_counts() -> None:
 # ---------------------------------------------------------------------------
 _LIB = torch.library.Library("anyref", "DEF")
 OPS = {}   # op name -> its CUDA implementation, on the op's own arguments
+# the ops over a group of ranks: every rank of the group calls them together
+GROUP_OPS = ("all_reduce",)
 
 
 def _contiguous(out):
@@ -1576,3 +1741,5 @@ _register("flash_attention_qkv",
 _register("int8_matmul", "(Tensor x, Tensor w_q, Tensor scale) -> Tensor",
           _int8_matmul_cuda, "int8_matmul_plain",
           lambda x, w_q, _: x.new_empty((*x.shape[:-1], w_q.shape[1])))
+_register("all_reduce", "(Tensor x, int group) -> Tensor", _all_reduce_cuda,
+          "all_reduce_plain", _like)

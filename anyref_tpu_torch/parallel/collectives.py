@@ -23,6 +23,12 @@ With autograd off (serving under ``torch.inference_mode``, the frozen
 towers under ``torch.no_grad``) ``reduce_from_group`` all-reduces in place
 and ``copy_to_group`` returns its input, as the serving path always did.
 A None group is the axis of size 1: both return their input.
+
+Every sum over a "model" group (one that parallel/mesh.py ``make_mesh``
+registered with the all-reduce op) goes through ops/flash.py
+``all_reduce``: on the card the kernel of csrc/all_reduce.cu, which a CUDA
+graph captures, on the CPU its plain version over the group. Sums over
+"data" go through torch.distributed.
 """
 
 from __future__ import annotations
@@ -30,8 +36,21 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from ..ops import flash
+
 # elements an all_reduce_grads call sums at once (256 MiB of fp32)
 BUCKET_ELEMENTS = 1 << 26
+
+
+def _sum(x, group):
+    """``x`` summed over ``group``, a new contiguous tensor: the
+    all-reduce op for a "model" group, torch.distributed for any other."""
+    key = flash.group_key(group)
+    if key is not None:
+        return flash.all_reduce(x, key)
+    total = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(total, group=group)
+    return total
 
 
 class _CopyToGroup(torch.autograd.Function):
@@ -42,18 +61,15 @@ class _CopyToGroup(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        total = grad.to(torch.promote_types(grad.dtype, torch.float32),
-                        memory_format=torch.contiguous_format, copy=True)
-        dist.all_reduce(total, group=ctx.group)
+        total = _sum(grad.to(torch.promote_types(grad.dtype, torch.float32)),
+                     ctx.group)
         return total.to(grad.dtype), None
 
 
 class _ReduceFromGroup(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
-        total = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(total, group=group)
-        return total
+        return _sum(x, group)
 
     @staticmethod
     def backward(ctx, grad):
@@ -74,8 +90,7 @@ def reduce_from_group(x, group):
     if group is None:
         return x
     if not torch.is_grad_enabled():
-        dist.all_reduce(x, group=group)
-        return x
+        return x.copy_(_sum(x, group))
     return _ReduceFromGroup.apply(x, group)
 
 
@@ -108,7 +123,7 @@ def all_reduce_grads(grads: list, group, scale: float = 1.0) -> list:
         bucket = grads[a:b]
         flat = torch.cat([g.reshape(-1).float() for g in bucket])
         if group is not None:
-            dist.all_reduce(flat, group=group)
+            flat = _sum(flat, group)
         if scale != 1.0:
             flat.mul_(scale)
         out.extend(part.view(g.shape).to(g.dtype) for g, part in

@@ -38,7 +38,10 @@ exception ends ``follow`` (the rank's process exits with it, which fails
 the leader's pending collective at once), and on the leader a step that
 fails after its batch went out answers that batch with the error and
 shuts the Server down, as a failed completion does where the batches are
-gathered; the ranks are restarted together.
+gathered; the ranks are restarted together. Once the Server has stopped
+and ``follow`` has returned, every rank closes the mesh
+(parallel/mesh.py ``Mesh.close``) before it exits: a rank's card may read
+the others' all-reduce exchange areas until its last batch ends.
 """
 
 from __future__ import annotations

@@ -131,6 +131,8 @@ def _train(args, device: str):
     if trainer.mesh is not None and trainer.mesh.host_group is not None:
         import torch.distributed as dist
         dist.barrier(group=trainer.mesh.host_group)
+    if trainer.mesh is not None:
+        trainer.mesh.close()
     return out
 
 

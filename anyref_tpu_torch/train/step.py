@@ -39,12 +39,15 @@ those whose gradient reaches them through the whole residual stream
 (roi_embed, audio_projector) already hold the whole gradient on every model
 rank. The Adam moments live on the blocks, and the clipping norm sums the
 sharded leaves' squares over "model" and counts the replicated ones once.
-On a mesh of several "data" ranks and no "model" axis the micro-steps hold
-no collective: the host stages each micro-step's global loss counts with
-the batch, each rank's loss terms are its shares of the global means (the
+On a mesh of several "data" ranks the micro-steps hold no collective over
+"data": the host stages each micro-step's global loss counts with the
+batch, each rank's loss terms are its shares of the global means (the
 same gradients bit for bit), and the data sum of the gradients and the
 metrics runs between the gradient part and the update, issued by the host,
-so that each part is captured as a graph on every rank.
+so that each part is captured as a graph on every rank. The sums over
+"model" (the decoder's and its backward's, LoRA's a, the clipping norm)
+stay inside the parts: on the card they are launches of the all-reduce
+kernel (parallel/collectives.py), which a graph holds.
 """
 
 from __future__ import annotations
@@ -59,7 +62,7 @@ from ..config import AnyRefConfig
 from ..models import anyref
 from ..parallel.collectives import (all_reduce_grads, buckets,
                                    reduce_from_group)
-from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, model_parallel
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
 from ..parallel.partition import trainable_spec
 from . import lora as lora_mod
 
@@ -248,36 +251,37 @@ def loss_fn(lora_params: dict, dense: dict, frozen: dict, cfg: AnyRefConfig,
     return out.loss, metrics
 
 
-def reduce_grads(grads: list, trainables, mesh, scale: float = 1.0) -> list:
-    """The gradient leaves of this rank's (lora, dense) ``trainables`` made
-    the global batch's: LoRA's replicated leaves (a) summed over "model",
-    then every leaf over "data", in fp32 with one rounding to the leaf's
-    dtype, times ``scale``."""
-    if mesh is None:
-        return all_reduce_grads(grads, None, scale)
+def sum_replicated(grads: list, trainables, mesh) -> None:
+    """Sum the gradients of LoRA's replicated leaves (a) among ``grads``
+    (fp32, in the order of this rank's (lora, dense) ``trainables``) over
+    "model", in place: each model rank's gradient of a comes from its
+    block of the adapted columns. No-op without a "model" axis."""
+    group = None if mesh is None else mesh.group(MODEL_AXIS)
+    if group is None:
+        return
     n_lora = len(tree_leaves(trainables[0]))
     partial = [i for i, sharded in enumerate(
         sharded_leaves(trainables, trainable_spec(trainables)))
         if i < n_lora and not sharded]
-    grads = list(grads)
-    if mesh.group(MODEL_AXIS) is not None and partial:
-        summed = all_reduce_grads([grads[i] for i in partial],
-                                  mesh.group(MODEL_AXIS))
+    if partial:
+        summed = all_reduce_grads([grads[i] for i in partial], group)
         for i, g in zip(partial, summed):
-            grads[i] = g
-    return all_reduce_grads(grads, mesh.group(DATA_AXIS), scale)
+            grads[i].copy_(g)
 
 
 def stage_loss_counts(batch: dict, cfg: AnyRefConfig, mesh) -> dict:
     """``batch`` (this rank's rows, arrays or tensors; [B, ...] or [accum,
     B, ...]) with "loss_counts": each micro-step's global counts
     (models/anyref.py ``loss_counts``, [len(LOSS_COUNTS)] or [accum,
-    len(LOSS_COUNTS)] fp32), summed over ``mesh.host_group`` on the host.
-    Collective: every rank stages its rows of the same step."""
+    len(LOSS_COUNTS)] fp32), summed over ``mesh.host_group`` on the host
+    (each data rank's rows once: its model rank 0's counts). Collective:
+    every rank stages its rows of the same step."""
     host = {k: np.asarray(v.cpu() if torch.is_tensor(v) else v)
             for k, v in batch.items()
             if k in ("input_ids", "labels", "mask_valid")}
     counts = torch.from_numpy(anyref.loss_counts(cfg, host))
+    if mesh.coords[MODEL_AXIS] != 0:
+        counts.zero_()
     dist.all_reduce(counts, group=mesh.host_group)
     return {**batch, "loss_counts": counts.numpy()}
 
@@ -295,22 +299,22 @@ def _grad_program(lora_params: dict, dense: dict, frozen: dict,
     and metrics into the carry's tensors and raises ``i``;
     ``average(carry)`` -> the metrics summed over ``grad_accum``
     micro-steps, over ``grad_accum``; ``reduce(carry, metrics)``, on a mesh
-    of several "data" ranks and no "model" axis, sums ``carry["flat"]`` (in
-    all_reduce_grads' buckets) and the ranks' shares of ``metrics`` over
-    "data" in place (issued by the host; None elsewhere);
-    ``rounded(carry)`` -> the gradient leaves made the global batch's
-    (``reduce_grads`` on a "model" axis, else the sum as it is) over
-    ``grad_accum`` in fp32 and rounded once to each leaf's dtype. ``batch``
-    is the batch as the program reads it: tensors on the trainables'
-    device, made here once, on a mesh with ``reduce`` staged with its
-    global loss counts first (``stage_loss_counts``), so that the
-    micro-steps hold no collective."""
+    of several "data" ranks, sums ``carry["flat"]`` (in all_reduce_grads'
+    buckets) and the ranks' shares of ``metrics`` over "data" in place
+    (issued by the host; None elsewhere); ``rounded(carry)`` -> the
+    gradient leaves made the global batch's (LoRA's a summed over "model",
+    ``sum_replicated``) over ``grad_accum`` in fp32 and rounded once to
+    each leaf's dtype. ``batch`` is the batch as the program reads it:
+    tensors on the trainables' device, made here once, on a mesh with
+    ``reduce`` staged with its global loss counts first
+    (``stage_loss_counts``), so that the micro-steps hold no collective
+    over "data"."""
     _check_mesh(dense["llama"], cfg, mesh)
     params = (lora_params, dense)
     leaves = tree_leaves(params)
     dev = leaves[0].device
     data = None if mesh is None else mesh.group(DATA_AXIS)
-    split = data is not None and not model_parallel(mesh)
+    split = data is not None
     if split:
         batch = stage_loss_counts(batch, cfg, mesh)
     batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
@@ -354,14 +358,11 @@ def _grad_program(lora_params: dict, dense: dict, frozen: dict,
 
     @torch.no_grad()
     def rounded(c: dict) -> list:
-        if model_parallel(mesh):
-            grads = reduce_grads(c["grads"], params, mesh, 1.0 / grad_accum)
-        else:
-            # all_reduce_grads' arithmetic, in place on the sum
-            if grad_accum != 1:
-                c["flat"].mul_(1.0 / grad_accum)
-            grads = c["grads"]
-        return [g.to(p.dtype) for g, p in zip(grads, leaves)]
+        # all_reduce_grads' arithmetic, in place on the sum
+        sum_replicated(c["grads"], params, mesh)
+        if grad_accum != 1:
+            c["flat"].mul_(1.0 / grad_accum)
+        return [g.to(p.dtype) for g, p in zip(c["grads"], leaves)]
 
     return prefix, body, average, reduce if split else None, rounded, batch
 
@@ -402,9 +403,9 @@ class StepProgram(NamedTuple):
     accum``), ``average(carry)`` -> the step's metrics [len(METRICS)] fp32;
     then ``reduce(carry, metrics)``, where it is not None, the data sum of
     the gradients and the metrics issued by the host (a mesh of several
-    "data" ranks and no "model" axis), and ``update(carry)``, which rounds
-    the gradients, clips and updates the trainables and the optimizer
-    state in place. ``batch``: the device tensors the program reads.
+    "data" ranks), and ``update(carry)``, which rounds the gradients (LoRA's
+    a summed over "model"), clips and updates the trainables and the
+    optimizer state in place. ``batch``: the device tensors the program reads.
     ``run()`` runs it from the host; train/trainer.py captures it as one
     graph program (prefix, body, ``suffix``) where ``reduce`` is None,
     else as a program (prefix, body, average) and a graph of ``update``,

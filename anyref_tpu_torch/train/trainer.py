@@ -20,25 +20,25 @@ and the console line; a checkpoint gathers the blocks and rank 0 writes
 one file of the single-device format, so a run saved on one mesh resumes
 on another (every rank reads it and cuts its blocks).
 
-On a CUDA device, unless the mesh has a "model" axis above 1, ``step_fn``
-is the compiled step, the counterpart of the reference's ``jax.jit`` of
-its step with the state donated: each batch key ``(grad_accum, sorted
-(name, shape, dtype))`` is one CUDA graph program (utils/graphs.py) whose
-replay is one optimizer step, the micro-steps one captured body run
+On a CUDA device, on every mesh, ``step_fn`` is the compiled step, the
+counterpart of the reference's ``jax.jit`` of its step with the state
+donated: each batch key ``(grad_accum, sorted (name, shape, dtype))`` is
+one CUDA graph program (utils/graphs.py) whose replay is one optimizer
+step, the micro-steps one captured body run
 ``grad_accum`` times by a WHILE node (train/step.py ``step_program``), the
 trainables, the moments and the count updated in place. A key's first
 step runs the program from the host (its results are that step's), then
 ``_capture`` records it on a side stream; every later step of the key
 stages the batch in pinned memory, copies it into the program's static
 inputs, replays and returns; ``train()`` reads the metrics at
-``log_steps``. On a mesh of several data ranks (and no "model" axis) the
-step is two graphs on every rank: the micro-steps, which hold no
-collective (the host stages each micro-step's global loss counts with the
-batch), then the data sum of the gradients and the metrics issued by the
-host, then the clip and AdamW. All keys share one graph memory pool, held
-for the Trainer's life. A failed capture or replay raises. On the CPU, and
-on a mesh with a "model" axis (whose micro-steps hold collectives:
-parallel/mesh.py ``model_parallel``), the same program runs from the host.
+``log_steps``. On a mesh of several data ranks the step is two graphs on
+every rank: the micro-steps, which hold no collective over "data" (the
+host stages each micro-step's global loss counts with the batch), then
+the data sum of the gradients and the metrics issued by the host, then
+the clip and AdamW. The sums over a "model" axis stay inside the graphs,
+launches of the all-reduce kernel (parallel/collectives.py). All keys
+share one graph memory pool, held for the Trainer's life. A failed
+capture or replay raises. On the CPU the same program runs from the host.
 Python code inside the step (a monkeypatched function) runs at a key's
 first step and its capture only.
 """
@@ -61,7 +61,7 @@ from ..data.collator import Collator
 from ..data.loader import DataLoader
 from ..params import resolve_device
 from ..parallel import partition
-from ..parallel.mesh import DATA_AXIS, make_mesh, model_parallel
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh
 from ..tokenizer import AnyRefTokenizer
 from ..utils.graphs import GraphPool, GraphProgram, stage
 from . import lora as lora_mod
@@ -106,7 +106,7 @@ class Trainer:
         if mesh is None and dist.is_available() and dist.is_initialized():
             mesh = make_mesh(model=tc.mesh_model_axis, device=device)
         dev = resolve_device(device) if mesh is None else mesh.device
-        if model_parallel(mesh):
+        if mesh is not None and mesh.shape[MODEL_AXIS] > 1:
             params = partition.shard_params(params, mesh, cfg)
         p_dev = params["llama"]["embed_tokens"].device
         if p_dev.type != dev.type:
@@ -130,10 +130,10 @@ class Trainer:
             cfg, self.lora_cfg, self.optimizer, remat=tc.remat,
             grad_accum=tc.grad_accum_steps, encoder_path=tc.encoder_path,
             mesh=mesh)
-        # the compiled programs (CUDA, no "model" axis): key ->
-        # GraphProgram (outputs: the metrics), all in one graph memory pool
+        # the compiled programs (CUDA): key -> GraphProgram (outputs: the
+        # metrics), all in one graph memory pool
         self.programs: Dict[tuple, GraphProgram] = {}
-        compiled = dev.type == "cuda" and not model_parallel(mesh)
+        compiled = dev.type == "cuda"
         self.graphs = GraphPool(dev) if compiled else None
         self._replay_stream = None
         self.step_fn = self._compiled_step if compiled else self._host_step
@@ -192,7 +192,7 @@ class Trainer:
 
     def _compiled_step(self, state: step_mod.TrainState, frozen: dict,
                        batch: dict):
-        """``step_fn`` on a CUDA device (no "model" axis): the batch key's
+        """``step_fn`` on a CUDA device: the batch key's
         program, captured after the key's first step, which runs from the
         host; later steps stage, copy, replay and return with the metrics
         on the device. On a data mesh the batch is this rank's rows, its

@@ -36,7 +36,9 @@ Phases (any failure exits non-zero before the result line):
      (timed only), with both rates in TFLOP/s, and the LayerNorm row pass
      (csrc/norms.cu) on bf16 and fp32 rows, with and without the pad mask;
      torch.library.opcheck of each of the 13 anyref:: ops through which
-     every kernel launches (ops/flash.py OPS) on bf16 CUDA tensors, and
+     every kernel but the all-reduce launches (ops/flash.py OPS; the
+     all-reduce, an op over a group of ranks, in phase 11(0)) on bf16 CUDA
+     tensors, and
      each op's host cost a call against a direct call of its CUDA
      implementation (each call timed alone, the launch queue empty);
   3. check the slice on the card against the same weights and inputs on the
@@ -195,69 +197,86 @@ Phases (any failure exits non-zero before the result line):
      requests: ids, [SEG] slots and masks bit-equal, the same launches,
      wall and device time). Phase 2 also holds flash_causal_attention at
      one rank's heads under a "model" axis of 2 ([2, 16, 640, 128]);
- 11. multi-device serving on torch.distributed, two ranks on the one card
-     over gloo (spawned processes, a collective timeout, the kernels built
-     by this process first): (a) anyref_tiny's seed-0 bf16 weights sharded
-     at mesh (1, 2), greedy and speculative generate on "unfused" (ids
-     equal to the single-rank port's on the CPU, masks within
-     SLICE_REL_TOL); (b) anyref_7b at full width and depth, seed-0 bf16
-     weights made on the card with the [SEG] column x 1000: the 4 requests
-     in pinned pairs through a single-process Server (speculative,
-     "fused", max_batch 2), and again with the decoder's input embeddings
-     moved by one bf16 ulp (the bf16 floor of the low-res logits), then
-     two ranks at (1, 2), each making the same
-     weights and keeping its blocks (parallel/partition.py shard_params):
-     rank 0's leader Server and rank 1's follower serve the same pairs
-     (ids equal to the single process's, low-res logits within
-     PARALLEL_FLOOR_FACTOR x the floor, the plain layout kept, each
+ 11. multi-device serving on torch.distributed, ranks on the one card
+     (spawned processes, gloo for the host, a collective timeout, the
+     kernels built by this process first; the card time-slices the ranks'
+     contexts): (0) the all-reduce kernel over "model" (csrc/all_reduce.cu)
+     on two ranks at (1, 2): a 4-byte sum first, opcheck of its op, then
+     fp32 and bf16 sums from one element through the programs' shapes at
+     anyref_7b (a decode pass's, a verify chunk's, a prefill's and
+     training's hidden rows, the logits) bit-equal to gloo's all_reduce on
+     the CPU copies and the same bits on both ranks, one call captured
+     into a CUDA graph and replayed ALL_REDUCE_REPLAYS times (each equal,
+     each counted), the mesh closed and a second made, summed over and
+     closed (the library's exchange bytes back to 0 each time, the closed
+     key raising), and, in two new ranks, a run where rank 1 never
+     arrives (rank 0 must fail within the kernel's wait bound and a
+     margin); each rank's task closes its mesh before it returns (the
+     other phases' too); each case's time (CUDA
+     events) against its bytes bound, the plain version's and gloo's on
+     the card tensors; (a) anyref_tiny's seed-0 bf16 weights sharded at
+     (1, 2) and at (2, 2) (four ranks), greedy and speculative generate on
+     "unfused" (ids equal to the single-rank port's on the CPU, masks
+     within SLICE_REL_TOL), then the Predictor compiled on every rank on a
+     text and a crop key (the replay's ids and [SEG] slots the CPU
+     Predictor's, masks within SLICE_REL_TOL and bit-equal to the key's
+     eager first call, as many all-reduces launched; the model ranks of a
+     data coordinate the same bits); (b) anyref_7b at full width and
+     depth, seed-0 bf16 weights made on the card with the [SEG] column x
+     1000: the 4 requests in pinned pairs through a single-process Server
+     (speculative, "fused", max_batch 2), and again with the decoder's
+     input embeddings moved by one bf16 ulp (the bf16 floor of the low-res
+     logits), then (c)'s rounds and window through a compiled
+     single-process Server; then two ranks at (1, 2), each making the same
+     weights and keeping its blocks (parallel/partition.py shard_params),
+     each key compiled on both: rank 0's leader Server and rank 1's
+     follower serve a warm and a checked round of pinned pairs and a
+     window of 50 more (ids equal to the single process's, low-res logits
+     within PARALLEL_FLOOR_FACTOR x the floor, the plain layout kept, each
      kernel's launches as phase 4 counts them on "fused" on both ranks,
-     flash_causal_attention at [2, 16, 640, 128]), and each rank prints its
-     wall, its all-reduces and their bytes a prefill and a decode pass, the
-     seconds in them, its peak memory and the phase's seconds; (c) the same
-     weights at (2, 1), each rank's Predictor compiled (one row a rank of
-     each batch, the rows gathered in complete()): a warm and a checked
-     round of pinned pairs, 6 batches of one key, ids equal to the single
-     process's (eager, and a compiled single-process Server's on the same
-     rounds), low-res logits within PARALLEL_FLOOR_FACTOR x (b)'s floor,
-     each request's rows bit-equal across its batches, each replay's card
-     launches the eager batch's; each rank prints predict_async's return
-     time against its device span (CUDA events), the capture, the pool
-     and its peak memory; then a window of 50 more pairs, ids checked,
-     whose q/s is printed against the same window through the single
-     process's compiled Server;
- 12. multi-device LoRA training on torch.distributed, two ranks on the one
-     card over gloo (spawned as in phase 11, the parent holding no model
-     tensor while they run): (a) anyref_tiny's seed-0 bf16 weights at
-     mesh (1, 2) and at (2, 1), the Trainer for 2 steps of 2
-     micro-batches of 2 a data rank ("fused", remat, warmup 0, a
-     checkpoint every step): the first step's loss terms and reduced
-     gradient, gathered, within TRAIN_LOSS_TOL and TRAIN_GRAD_TOL (the
-     CPU tests' limits) of a single process on the card on the same
-     global batch, both ranks' losses equal the logged ones (at (2, 1)
-     compiled), metrics.jsonl written once,
-     and the (1, 2) run's checkpoint-1 resumed by a single-process
-     Trainer; (b) anyref_7b at full width and depth at (1, 2), seed-0 bf16
-     weights made on the card by each rank, which keeps its blocks, and
-     the Trainer for TRAIN_7B_STEPS steps of 2 micro-batches of 2 (the
-     first warm), remat, "fused", after a single process's first step on
-     the same global batch: finite losses equal on both ranks, step 1's
-     within TRAIN_LOSS_TOL of the single process's, LoRA moved and the
-     frozen weights untouched, each kernel's launches those of phase 5 a
-     micro-step, flash_causal_attention_diff only at the rank's heads
-     ([2, 16, 768, 128]); each rank prints its step walls, its all-reduces
-     a step and their bytes by axis, the seconds in them (the card
-     synchronised around each) and its peak memory; (c) at (2, 1), each
-     rank holding the whole tree, the Trainer compiled on both ranks for
-     TRAIN_7B_DATA_STEPS steps (the first from the host, then replays of
-     two graphs with the data gradient sum between them): each step's
-     gradients, trainables, moments, count and losses bit-equal to
-     make_train_step's eager mesh step (twice from the same seed, where
-     the two eager runs are), the logged losses, each rank's, step 1's
-     within TRAIN_LOSS_TOL of a single process's, each replay's card
+     flash_causal_attention at [2, 16, 640, 128], each replay's card
+     launches the key's eager call's, the all-reduce kernel as often on
+     both ranks); each rank prints predict_async's return time against its
+     device span (CUDA events), the capture, the pool, its peak memory, the
+     exchange area, its all-reduces a prefill and a decode pass and the
+     window's q/s and pair spread against the single process's; (c) the
+     same weights at (2, 1), each rank's Predictor compiled (one row a
+     rank of each batch, the rows gathered in complete()): the same rounds
+     and window, 6 batches of one key, ids equal to the single process's,
+     low-res logits within PARALLEL_FLOOR_FACTOR x (b)'s floor, each
+     request's rows bit-equal across its batches, each replay's card
+     launches the eager batch's, the same prints;
+ 12. multi-device LoRA training on torch.distributed, ranks on the one
+     card (spawned as in phase 11, the parent holding no model tensor
+     while they run), the Trainer compiled on every rank: (a)
+     anyref_tiny's seed-0 bf16 weights at mesh (1, 2), (2, 1) and (2, 2),
+     2 steps of 2 micro-batches of 2 a data rank ("fused", remat, warmup
+     0, a checkpoint every step): the second step a replay, bit-equal to
+     make_train_step's eager mesh step (gradients, trainables, moments,
+     count, losses) and launching what the first launched; the first
+     step's loss terms and reduced gradient, gathered, within
+     TRAIN_LOSS_TOL and TRAIN_GRAD_TOL (the CPU tests' limits) of a single
+     process on the card on the same global batch, every rank's losses
+     the logged ones, metrics.jsonl written once, and the (1, 2) run's
+     checkpoint-1 resumed by a single-process Trainer; (b) anyref_7b at
+     full width and depth at (1, 2), seed-0 bf16 weights made on the card
+     by each rank, which keeps its blocks, and (c) at (2, 1), each rank
+     holding the whole tree, the decoder cut to TRAIN_7B_DATA_LAYERS
+     layers: the Trainer for TRAIN_7B_STEPS steps of 2
+     micro-batches of 2 (the first from the host and captured, then
+     replays; at (2, 1) two graphs with the host's data gradient sum
+     between them), remat, "fused", after a single process's first step
+     on the same global batch: each step's gradients, trainables, moments,
+     count and losses bit-equal to the eager mesh step (twice from the
+     same seed, where the two eager runs are), the logged losses, each
+     rank's, step 1's within TRAIN_LOSS_TOL of the single process's, LoRA
+     moved and the frozen weights untouched, each kernel's launches those
+     of phase 5 a micro-step, flash_causal_attention_diff only at the
+     rank's heads ([2, 16, 768, 128] at (1, 2)), each replay's card
      launches the first step's; each rank prints the step walls against
-     the eager step's, the data sum's seconds, the capture, the pool and
-     its peak memory. Phase 2 also holds the training attention at [2,
-     16, 768, 128];
+     the eager step's, the capture, the pool, the exchange area, the
+     all-reduce launches a step, the host's data sum and its peak memory.
+     Phase 2 also holds the training attention at [2, 16, 768, 128];
  13. the Predictor's compiled request program (one CUDA graph a shape key,
      the decode loop a WHILE conditional node whose predicate the kernel of
      csrc/graph_loop.cu sets on the device): (a) at anyref_tiny, seed-0 bf16
@@ -487,11 +506,12 @@ def kept_pairs(L: int, kv_start) -> int:
 # the registered ops (ops/flash.py OPS): sample calls, opcheck, dispatch cost
 # ---------------------------------------------------------------------------
 def op_cases(torch, flash, device, dtype) -> dict:
-    """{op name: its arguments} for each anyref:: op, at small shapes its
-    kernel takes (heads of 64, widths multiples of 8, windows of 8 x 8, a
-    16 x 16 global grid), the float tensors in ``dtype`` (bf16 for the
-    kernels, fp32 on the CPU), from seed 0. The training backward gets the
-    log-sum-exp and delta of its forward on the same inputs."""
+    """{op name: its arguments} for each anyref:: op but those over a group
+    of ranks (flash.GROUP_OPS), at small shapes its kernel takes (heads
+    of 64, widths multiples of 8, windows of 8 x 8, a 16 x 16 global
+    grid), the float tensors in ``dtype`` (bf16 for the kernels, fp32 on
+    the CPU), from seed 0. The training backward gets the log-sum-exp and
+    delta of its forward on the same inputs."""
     g = torch.Generator().manual_seed(0)
 
     def r(*shape, scale=1.0, dt=None):
@@ -559,7 +579,8 @@ def check_ops(torch, flash) -> dict:
     the pairs' differences), "overhead_iqr_us" (its quartiles)}}."""
     t0 = time.time()
     cases = op_cases(torch, flash, "cuda", torch.bfloat16)
-    if set(cases) != set(flash.OPS):
+    # an op over a group of ranks is opchecked on its ranks (phase 11(0))
+    if set(cases) != set(flash.OPS) - set(flash.GROUP_OPS):
         fail(f"op cases {sorted(cases)} for ops {sorted(flash.OPS)}")
     for name, args in cases.items():
         op = getattr(torch.ops.anyref, name).default
@@ -5461,7 +5482,7 @@ EXPORT_MNT_TINY = 4
 # layers (the artifact carries the whole tree, ~0.4 GB a layer beside the
 # ~2.7 GB of the rest, written, read back and loaded inside the run's
 # limit), greedy, batch 1, in the 385 bucket of phase 4's prompts
-EXPORT_LAYERS_7B = 4
+EXPORT_LAYERS_7B = 2
 EXPORT_MNT_7B = 8
 EXPORT_PROMPT_LEN_7B = 385
 
@@ -6274,6 +6295,7 @@ def graph_key(torch, flash, pred, batch, what: str) -> dict:
     n_keys = len(pred.programs)
     first = fetched(pred, pred.predict_async(batch))
     eager_launches = read_launches(flash)
+    eager_reduces = flash.launch_counts()["all_reduce"]
     if len(pred.programs) != n_keys + 1:
         fail(f"{what}: the first call of a key captured "
              f"{len(pred.programs) - n_keys} programs, want 1")
@@ -6287,13 +6309,16 @@ def graph_key(torch, flash, pred, batch, what: str) -> dict:
         torch.cuda.set_sync_debug_mode(0)
     again = fetched(pred, handle)
     graph_launches = read_launches(flash)
-    cond = flash.launch_counts()["loop_condition"]
+    counts = flash.launch_counts()
+    cond = counts["loop_condition"]
     if pred.programs != programs or any(
             pred.programs[k] is not programs[k] for k in programs):
         fail(f"{what}: the second call of a key captured again")
-    if graph_launches != eager_launches:
-        fail(f"{what}: the replay launched {graph_launches}, the eager run "
-             f"{eager_launches}")
+    if graph_launches != eager_launches or \
+            counts["all_reduce"] != eager_reduces:
+        fail(f"{what}: the replay launched {graph_launches} and "
+             f"{counts['all_reduce']} all-reduces, the eager run "
+             f"{eager_launches} and {eager_reduces}")
     if cond != again["passes"] + 1:
         fail(f"{what}: the replay ran the loop's condition kernel {cond} "
              f"times for {again['passes']} passes, want passes + 1")
@@ -6303,7 +6328,8 @@ def graph_key(torch, flash, pred, batch, what: str) -> dict:
              f"run {first['ids'].tolist()}, {first['seg'].tolist()}, "
              f"{first['passes']}")
     return {"eager": first, "graph": again, "launches": graph_launches,
-            "conditions": cond}
+            "conditions": cond,
+            "all_reduces": (eager_reduces, counts["all_reduce"])}
 
 
 def following(torch, mods, pred, batch, ids, speculative: bool):
@@ -6722,12 +6748,13 @@ PARALLEL_MNT = 8
 PARALLEL_CAUSAL_SHAPE = (2, 16, 640, 128)
 
 
-def run_ranks(task: str, world: int, **kw) -> list:
+def run_ranks(task: str, world: int, timeout_s: float = PARALLEL_TIMEOUT_S,
+              **kw) -> list:
     """``task`` on ``world`` spawned ranks of cuda:0 over gloo (a FileStore
-    in a temporary directory, PARALLEL_TIMEOUT_S on every collective);
-    every rank's result in rank order. A rank that fails, or no result
-    within PARALLEL_JOIN_S, fails the run; every rank is joined or killed
-    before this returns."""
+    in a temporary directory, ``timeout_s`` on every collective and on the
+    all-reduce kernel's waits); every rank's result in rank order. A rank
+    that fails, or no result within PARALLEL_JOIN_S, fails the run; every
+    rank is joined or killed before this returns."""
     import multiprocessing as mp
     import queue
     import tempfile
@@ -6743,7 +6770,8 @@ def run_ranks(task: str, world: int, **kw) -> list:
     tmp = tempfile.mkdtemp(prefix="anyref_ranks_")
     procs = [ctx.Process(target=parallel_rank,
                          args=(r, world, os.path.join(tmp, "store"), task, kw,
-                               q), daemon=True) for r in range(world)]
+                               q, timeout_s), daemon=True)
+             for r in range(world)]
     for p in procs:
         p.start()
     results, error = {}, None
@@ -6774,9 +6802,9 @@ def run_ranks(task: str, world: int, **kw) -> list:
     return [results[r] for r in range(world)]
 
 
-def parallel_rank(rank, world, store, task, kw, q):
-    """A spawned rank: joins the process group, runs the task, puts
-    (rank, ok, result or traceback)."""
+def parallel_rank(rank, world, store, task, kw, q, timeout_s):
+    """A spawned rank: joins the process group (``timeout_s`` on its
+    collectives), runs the task, puts (rank, ok, result or traceback)."""
     import traceback
     import torch
     import torch.distributed as dist
@@ -6784,12 +6812,15 @@ def parallel_rank(rank, world, store, task, kw, q):
     try:
         from anyref_tpu_torch.parallel.mesh import init_process_group
         init_process_group(rank, world, f"file://{store}", "gloo",
-                           timeout_s=PARALLEL_TIMEOUT_S)
-        fn = {"tiny": parallel_tiny_rank, "7b": parallel_7b_rank,
+                           timeout_s=timeout_s)
+        fn = {"all_reduce": all_reduce_rank,
+              "all_reduce_timeout": absent_rank,
+              "tiny": parallel_tiny_rank, "7b": parallel_7b_rank,
               "7b_data": parallel_7b_data_rank,
-              "train_tiny": train_tiny_rank, "train_7b": train_7b_rank,
-              "train_7b_data": train_7b_data_rank}[task]
-        q.put((rank, True, fn(torch, rank, **kw)))
+              "train_tiny": train_tiny_rank, "train_7b": train_7b_rank}[task]
+        # each task closes its mesh (Mesh.close) before it returns
+        out = fn(torch, rank, **kw)
+        q.put((rank, True, out))
     except BaseException:
         q.put((rank, False, traceback.format_exc()))
     finally:
@@ -6797,58 +6828,426 @@ def parallel_rank(rank, world, store, task, kw, q):
             dist.destroy_process_group()
 
 
-def parallel_tiny_rank(torch, rank):
+# ---------------------------------------------------------------------------
+# phase 11(0): the all-reduce kernel (csrc/all_reduce.cu) on two ranks
+# ---------------------------------------------------------------------------
+# the kernel phase's collective timeout (the kernel's waits trap after it)
+ALL_REDUCE_TIMEOUT_S = 60.0
+# launches timed back to back a case, plain and library calls timed
+ALL_REDUCE_ITERS, ALL_REDUCE_HOST_ITERS = 20, 3
+# replays of one captured call, each checked
+ALL_REDUCE_REPLAYS = 100
+# the run where rank 1 never arrives: the kernel's wait bound, and the
+# margin past it within which rank 0 must have failed (the trap, its
+# report at the synchronize, the other context's time slices)
+ALL_REDUCE_TRAP_S, ALL_REDUCE_TRAP_MARGIN_S = 5.0, 15.0
+# the case the kernels line leads with: a prefill's row-parallel sum
+ALL_REDUCE_HEAD = ("prefill", "float32")
+
+
+def all_reduce_cases(vocab: int) -> tuple:
+    """(name, shape): one element, then the sums the programs issue at
+    anyref_7b, batch 2: a decode pass's and a verify chunk's hidden rows
+    (of 32 draft tokens), a prefill's (the 385 bucket + 255 image tokens),
+    training's (512 + 255 tokens), a decode pass's logits and training's
+    (the largest the programs issue; ``vocab`` the padded vocabulary)."""
+    return (("one element", (1,)), ("decode pass", (2, 1, 4096)),
+            ("verify chunk", (2, 32, 4096)), ("prefill", (2, 640, 4096)),
+            ("training", (2, 767, 4096)), ("decode logits", (2, 1, vocab)),
+            ("training logits", (2, 767, vocab)))
+
+
+def all_reduce_rank(torch, rank):
+    """Phase 11(0), one of two ranks on cuda:0 at mesh (1, 2): a 4-byte
+    all-reduce first (1 + 2 on both ranks); opcheck of anyref::all_reduce;
+    then each case of all_reduce_cases in fp32 and bf16, a draw of this
+    rank's own: the kernel's sum against gloo's on the CPU copies (the
+    plain version), its bits' digest, the kernel's time a call (CUDA
+    events over ALL_REDUCE_ITERS launches back to back), the plain
+    version's and gloo's on the card tensors (torch.distributed through
+    the host, the port's route before this kernel; host clock, the card
+    synchronised around each); then one call captured into a CUDA graph
+    and replayed ALL_REDUCE_REPLAYS times, each replay's output against
+    the eager call's, and the launch counter after the replays; then the
+    mesh closed and a second one made, summed over and closed
+    (mesh_cycle)."""
+    import hashlib
+    import torch.distributed as dist
+    from anyref_tpu_torch.config import anyref_7b
+    from anyref_tpu_torch.ops import flash
+    from anyref_tpu_torch.parallel.mesh import make_mesh
+    torch.cuda.set_device(0)
+    mesh = make_mesh(1, 2, device="cuda:0", timeout_s=ALL_REDUCE_TIMEOUT_S)
+    group = mesh.group("model")
+    key = flash.group_key(group)
+    x = torch.full((1,), float(rank + 1), device="cuda:0")
+    first = float(flash.all_reduce(x, key).item())
+    opcheck = torch.library.opcheck(torch.ops.anyref.all_reduce.default,
+                                    (x, key))
+    cases = []
+    for name, shape in all_reduce_cases(anyref_7b().llama.padded_vocab_size):
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device="cuda:0").manual_seed(
+                1000 * rank + len(cases))
+            x = torch.randn(shape, generator=g, device="cuda:0").to(dtype)
+            got = flash.all_reduce(x, key).cpu()
+            want = x.cpu()
+            t0 = time.perf_counter()
+            dist.all_reduce(want, group=group)
+            first_plain = time.perf_counter() - t0
+            err = float((got.float() - want.float()).abs().max())
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            e0.record()
+            for _ in range(ALL_REDUCE_ITERS):
+                flash.all_reduce(x, key)
+            e1.record()
+            torch.cuda.synchronize()
+            plain, library = [first_plain], []
+            for _ in range(ALL_REDUCE_HOST_ITERS):
+                c = x.cpu()
+                t0 = time.perf_counter()
+                dist.all_reduce(c, group=group)
+                plain.append(time.perf_counter() - t0)
+                c = x.clone()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dist.all_reduce(c, group=group)
+                torch.cuda.synchronize()
+                library.append(time.perf_counter() - t0)
+            cases.append({
+                "name": name, "dtype": str(dtype).split(".")[-1],
+                "shape": list(shape), "bytes": x.numel() * x.element_size(),
+                "equal": bool(torch.equal(got, want)), "max_abs_err": err,
+                "digest": hashlib.sha1(got.view(torch.uint8).numpy()
+                                       ).hexdigest(),
+                "ms": e0.elapsed_time(e1) / ALL_REDUCE_ITERS,
+                "plain_ms": 1e3 * float(np.median(plain)),
+                "library_ms": 1e3 * float(np.median(library))})
+    # one call captured, replayed
+    g = torch.Generator(device="cuda:0").manual_seed(7 + rank)
+    x = torch.randn(2, 640, 4096, generator=g, device="cuda:0")
+    ref = flash.all_reduce(x, key)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = flash.all_reduce(x, key)
+    flash.reset_launch_counts()
+    equal = 0
+    for _ in range(ALL_REDUCE_REPLAYS):
+        y.zero_()
+        graph.replay()
+        equal += bool(torch.equal(y, ref))
+    counted = flash.launch_counts()["all_reduce"]
+    return {"first": first, "opcheck": sorted(set(opcheck.values())),
+            "held_bytes": mesh.exchange.held_bytes, "cases": cases,
+            "replays_equal": equal, "replays_counted": counted,
+            "cycle": mesh_cycle(torch, mesh, key)}
+
+
+def mesh_cycle(torch, mesh, key) -> dict:
+    """Phase 11(0)'s close: the library's exchange bytes with the mesh
+    open, after Mesh.close, with a second (1, 2) mesh open (its 4-byte sum)
+    and after its close; whether the closed key raised."""
+    from anyref_tpu_torch.ops import flash
+    from anyref_tpu_torch.parallel.mesh import make_mesh
+    held = [flash.exchange_held_bytes()]
+    mesh.close()
+    held.append(flash.exchange_held_bytes())
+    x = torch.full((1,), float(mesh.coords["model"] + 1), device="cuda:0")
+    try:
+        flash.all_reduce(x, key)
+        stale = None
+    except ValueError as e:
+        stale = str(e)
+    again = make_mesh(1, 2, device="cuda:0", timeout_s=ALL_REDUCE_TIMEOUT_S)
+    held.append(flash.exchange_held_bytes())
+    second = float(flash.all_reduce(
+        x, flash.group_key(again.group("model"))).item())
+    again.close()
+    held.append(flash.exchange_held_bytes())
+    return {"held": held, "stale_key": stale, "second": second}
+
+
+def absent_rank(torch, rank, trap_s) -> dict:
+    """Phase 11(0)'s run where rank 1 never arrives, in ranks of its own
+    (rank 0's context is lost after it, and freeing a CUDA tensor there
+    aborts the process): both ranks of a new group make their exchange
+    with a wait bound of ``trap_s`` and open each other's; rank 0 launches
+    one all-reduce and synchronises (the seconds until that raised, and
+    its error), rank 1 launches none; both then meet at a host barrier, so
+    rank 1's area stays mapped."""
+    import torch.distributed as dist
+    from anyref_tpu_torch.ops import flash
+    torch.cuda.set_device(0)
+    group = dist.new_group([0, 1])
+    exchange = flash.DeviceExchange(rank, 2, "cuda:0", trap_s)
+    handles = [None, None]
+    dist.all_gather_object(handles, exchange.handle)
+    exchange.open(handles)
+    key = flash.register_group(group, exchange)
+    out = {"error": None, "seconds": None}
+    if rank == 0:
+        x = torch.ones(1, device="cuda:0")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        try:
+            flash.all_reduce(x, key)
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            out["error"] = str(e).strip().splitlines()[0]
+        out["seconds"] = time.time() - t0
+    dist.barrier()
+    return out
+
+
+def check_all_reduce(torch, mods) -> dict:
+    """Phase 11(0): two ranks on cuda:0. The 4-byte sum first (3.0 on both
+    ranks), opcheck, every case bit-equal to gloo's sum and the same bits
+    on both ranks, every captured replay equal to the eager call and
+    counted on the card, the mesh closed and a second one made and closed
+    with the library's exchange bytes back to 0 each time and the closed
+    key raising; then, in two new ranks, the run where rank 1 never
+    arrives: rank 0 must fail within ALL_REDUCE_TRAP_S +
+    ALL_REDUCE_TRAP_MARGIN_S. Prints
+    each case's time against its bytes bound, the plain version's and
+    gloo's. Returns the kernels line's entry (launches filled in later)."""
+    t0 = time.time()
+    ranks = run_ranks("all_reduce", 2, timeout_s=ALL_REDUCE_TIMEOUT_S)
+    for rank, res in enumerate(ranks):
+        what = f"phase 11(0): rank {rank}"
+        if res["first"] != 3.0:
+            fail(f"{what}: the 4-byte all-reduce of 1 and 2 gave "
+                 f"{res['first']}")
+        if res["opcheck"] != ["SUCCESS"]:
+            fail(f"{what}: opcheck of anyref::all_reduce {res['opcheck']}")
+        bad = [c for c in res["cases"] if not c["equal"]]
+        if bad:
+            fail(f"{what}: the kernel's sum differs from gloo's: "
+                 f"{[(c['name'], c['dtype'], c['max_abs_err']) for c in bad]}")
+        if res["replays_equal"] != ALL_REDUCE_REPLAYS or \
+                res["replays_counted"] != ALL_REDUCE_REPLAYS:
+            fail(f"{what}: {res['replays_equal']} of {ALL_REDUCE_REPLAYS} "
+                 f"replays equal to the eager call, "
+                 f"{res['replays_counted']} counted")
+        cycle, held = res["cycle"], res["held_bytes"]
+        if cycle["held"] != [held, 0, held, 0] or cycle["second"] != 3.0 \
+                or "closed" not in (cycle["stale_key"] or ""):
+            fail(f"{what}: exchange bytes open / closed / a second mesh "
+                 f"open / closed {cycle['held']} (want [{held}, 0, {held}, "
+                 f"0]), the second mesh's sum {cycle['second']}, the closed"
+                 f" key: {cycle['stale_key']}")
+    for a, b in zip(*(r["cases"] for r in ranks)):
+        if a["digest"] != b["digest"]:
+            fail(f"phase 11(0): {a['name']} {a['dtype']}: the ranks' sums "
+                 "differ")
+    rows = []
+    for c0, c1 in zip(*(r["cases"] for r in ranks)):
+        nbytes = 2 * (3 + 2) * c0["bytes"]
+        b_ms, b_by = bound(nbytes, 2 * np.prod(c0["shape"]),
+                           H100_FP32_OPS_PER_S)
+        row = {**{k: c0[k] for k in ("name", "dtype", "shape", "bytes",
+                                     "max_abs_err")},
+               "ms": c0["ms"], "ms_rank1": c1["ms"],
+               "plain_ms": c0["plain_ms"], "library_ms": c0["library_ms"],
+               "bound_ms": b_ms, "bound_by": b_by}
+        rows.append(row)
+        log(f"[all-reduce] {c0['name']} {c0['shape']} {c0['dtype']}: "
+            f"{c0['ms']:.4f} ms a call (rank 1 {c1['ms']:.4f}; "
+            f"{ALL_REDUCE_ITERS} back to back, CUDA events), bound "
+            f"{b_ms:.4f} ms ({b_by}: 2 ranks x 5 x {c0['bytes']} B through "
+            f"one card's HBM); plain (gloo on the CPU copies) "
+            f"{c0['plain_ms']:.4f} ms, gloo on the card tensors "
+            f"{c0['library_ms']:.4f} ms; bit-equal to gloo's sum on both "
+            f"ranks")
+    trap = run_ranks("all_reduce_timeout", 2, trap_s=ALL_REDUCE_TRAP_S)[0]
+    if trap["error"] is None or \
+            trap["seconds"] > ALL_REDUCE_TRAP_S + ALL_REDUCE_TRAP_MARGIN_S:
+        fail(f"phase 11(0): with rank 1 absent, rank 0's all-reduce "
+             f"{'returned' if trap['error'] is None else 'failed'} after "
+             f"{trap['seconds']:.2f} s (bound {ALL_REDUCE_TRAP_S} s + "
+             f"{ALL_REDUCE_TRAP_MARGIN_S} s): {trap['error']}")
+    log(f"[all-reduce] rank 1 absent: rank 0 failed after "
+        f"{trap['seconds']:.2f} s (wait bound {ALL_REDUCE_TRAP_S} s, margin "
+        f"{ALL_REDUCE_TRAP_MARGIN_S} s): {trap['error']}")
+    held = ranks[0]["held_bytes"]
+    log(f"[phase 11] (0) the all-reduce kernel on two ranks of cuda:0 (one "
+        f"card's contexts by time slices): 4-byte sum 3.0, opcheck, "
+        f"{len(rows)} cases bit-equal to gloo and across ranks, "
+        f"{ALL_REDUCE_REPLAYS} graph replays equal and counted, the mesh "
+        f"closed (exchange bytes {ranks[0]['cycle']['held']}: open, closed, "
+        f"a second mesh open, closed), the absent rank's trap; {held} "
+        f"bytes of exchange area a rank; {mods['card']}; in "
+        f"{time.time() - t0:.1f} s")
+    head = next(r for r in rows if (r["name"], r["dtype"]) == ALL_REDUCE_HEAD)
+    return {"name": "all_reduce", "route": "cuda",
+            "source": "anyref_tpu_torch/csrc/all_reduce.cu",
+            "replaces": "none: the all-reduce over \"model\" that XLA "
+                        "compiles into anyref_tpu/eval/runner.py:192 and "
+                        "anyref_tpu/train/trainer.py:84",
+            "launches": None, "shape": head["shape"],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")},
+            "exchange_bytes": held, "trap_s": trap["seconds"],
+            "other_shapes": rows}
+
+
+def parallel_tiny_rank(torch, rank, data, model, batches):
     """Phase 11(a), one rank: anyref_tiny's seed-0 bf16 weights (made on
-    the CPU, as phase 3's) sharded at (1, 2) on cuda:0, greedy and
-    speculative generate on tiny_batch on "unfused"."""
+    the CPU, as phase 3's) sharded at (data, model) on cuda:0; greedy and
+    speculative generate on tiny_batch on "unfused" (this rank's rows);
+    then a greedy and a speculative Predictor on "unfused", each key of
+    ``batches`` (text, crop) compiled: its first call eager and captured,
+    its second a replay (graph_key: no read, the eager run's launches, ids
+    and passes). Returns the mesh coordinates, the exchange's bytes, the
+    generated rows and each key's eager and replayed results."""
     from anyref_tpu_torch import params as tparams
     from anyref_tpu_torch.config import anyref_tiny
+    from anyref_tpu_torch.eval.runner import Predictor
     from anyref_tpu_torch.models import anyref
+    from anyref_tpu_torch.ops import flash
     from anyref_tpu_torch.parallel.mesh import make_mesh
     from anyref_tpu_torch.parallel.partition import shard_batch, shard_params
     cfg = anyref_tiny()
-    mesh = make_mesh(1, 2, device="cuda:0")
+    torch.cuda.set_device(0)
+    mesh = make_mesh(data, model, device="cuda:0",
+                     timeout_s=PARALLEL_TIMEOUT_S)
     p = _to_device(tparams.init(cfg, torch.Generator().manual_seed(0),
                                 torch.bfloat16, device="cpu"), "cuda:0")
     sp = shard_params(p, mesh, cfg)
     batch = shard_batch(tiny_batch(cfg), mesh)
-    out = {}
-    for name, kw in (("greedy", {}), ("speculative",
-                                      {"speculative": True,
-                                       "draft_len": 3})):
+    out = {"coords": mesh.coords, "exchange_bytes": mesh.exchange.held_bytes}
+    for name, kw in TINY_DECODES:
         g = anyref.generate(sp, cfg, batch, max_new_tokens=4,
                             encoder_path="unfused", mesh=mesh, **kw)
         out[name] = (g.output_ids.cpu().numpy(),
                      g.low_res_masks.float().cpu().numpy())
+    for name, kw in TINY_DECODES:
+        pred = Predictor(sp, cfg, max_new_tokens=GRAPH_MNT_TINY,
+                         encoder_path="unfused", mesh=mesh, **kw)
+        for kind, b in batches.items():
+            res = graph_key(torch, flash, pred, b,
+                            f"phase 11(a) at ({data}, {model}), rank {rank},"
+                            f" {name}, {kind}")
+            out[("program", name, kind)] = {
+                "eager": res["eager"], "graph": res["graph"],
+                "all_reduces": res["all_reduces"],
+                "capture_s": list(pred.programs.values())[-1].capture_s}
+    mesh.close()
     return out
 
 
+# phase 11(a)'s decodes: greedy, and speculative with drafts of 3
+TINY_DECODES = (("greedy", {}), ("speculative", {"speculative": True,
+                                                 "draft_len": 3}))
+# phase 11(a)'s meshes: two ranks, and four on the one card
+TINY_MESHES = ((1, 2), (2, 2))
+
+
 def parallel_tiny(torch, mods) -> None:
-    """Phase 11(a): anyref_tiny at (1, 2) on cuda:0 over gloo, greedy and
-    speculative, against the single-rank port on the CPU from the same
-    weights: ids equal, masks within SLICE_REL_TOL (phase 3's limit)."""
+    """Phase 11(a): anyref_tiny at (1, 2) and (2, 2) on cuda:0 (gloo for
+    the host, the all-reduce kernel over "model"), against the single-rank
+    port on the CPU from the same weights, each rank's rows against the
+    CPU's rows of its data coordinate: generate greedy and speculative (ids
+    equal, masks within SLICE_REL_TOL, phase 3's limit); the Predictor
+    compiled on every rank, greedy and speculative, on a text and a crop
+    key: the replay's ids and [SEG] slots equal to the CPU Predictor's,
+    its masks within SLICE_REL_TOL and bit-equal to the key's first call,
+    which launched as many all-reduces as the replay; the model ranks of
+    one data coordinate the same bits."""
     t0 = time.time()
     cfg = mods["anyref_tiny"]()
-    p_cpu = mods["tparams"].init(cfg, torch.Generator().manual_seed(0),
-                                 torch.bfloat16, device="cpu")
-    want = mods["anyref"].generate(p_cpu, cfg, tiny_batch(cfg),
+
+    def cpu_tree():
+        return mods["tparams"].init(cfg, torch.Generator().manual_seed(0),
+                                    torch.bfloat16, device="cpu")
+    want = mods["anyref"].generate(cpu_tree(), cfg, tiny_batch(cfg),
                                    max_new_tokens=4, device="cpu",
                                    encoder_path="unfused")
     w_ids, w_low = want.output_ids.numpy(), want.low_res_masks.float().numpy()
-    ranks = run_ranks("tiny", 2)
-    for rank, res in enumerate(ranks):
-        for name, (ids, low) in res.items():
-            rel = float(np.abs(low - w_low).max() / np.abs(w_low).max())
-            log(f"[parallel-tiny] rank {rank} {name}: ids {ids.tolist()} "
-                f"(CPU single rank {w_ids.tolist()}), mask max rel err "
-                f"{rel:.4g} (limit {SLICE_REL_TOL})")
-            if not np.array_equal(ids, w_ids):
-                fail(f"phase 11(a): rank {rank} {name} ids {ids.tolist()} "
-                     f"differ from the CPU single rank's {w_ids.tolist()}")
-            if not np.isfinite(low).all() or rel > SLICE_REL_TOL:
-                fail(f"phase 11(a): rank {rank} {name} masks off by {rel}")
-    log(f"[phase 11] (a) anyref_tiny at (1, 2) over gloo on cuda:0 in "
-        f"{time.time() - t0:.1f} s")
+    batches = graph_batches(cfg, mods, ("text", "crop"))
+    want_prog = {}
+    for name, kw in TINY_DECODES:
+        cpu = mods["Predictor"](cpu_tree(), cfg, max_new_tokens=GRAPH_MNT_TINY,
+                                device="cpu", encoder_path="unfused", **kw)
+        for kind, b in batches.items():
+            want_prog[(name, kind)] = fetched(cpu, cpu.predict_async(b))
+    for data, model in TINY_MESHES:
+        ranks = run_ranks("tiny", data * model, data=data, model=model,
+                          batches=batches)
+        what = f"phase 11(a) at ({data}, {model})"
+        for rank, res in enumerate(ranks):
+            d = res["coords"]["data"]
+            rows = slice(d * 2 // data, (d + 1) * 2 // data)
+            for name, _ in TINY_DECODES:
+                ids, low = res[name]
+                rel = float(np.abs(low - w_low[rows]).max()
+                            / np.abs(w_low[rows]).max())
+                log(f"[parallel-tiny] ({data}, {model}) rank {rank} {name} "
+                    f"generate: ids {ids.tolist()} (CPU single rank "
+                    f"{w_ids[rows].tolist()}), mask max rel err {rel:.4g} "
+                    f"(limit {SLICE_REL_TOL})")
+                if not np.array_equal(ids, w_ids[rows]):
+                    fail(f"{what}: rank {rank} {name} ids {ids.tolist()} "
+                         f"differ from the CPU single rank's "
+                         f"{w_ids[rows].tolist()}")
+                if not np.isfinite(low).all() or rel > SLICE_REL_TOL:
+                    fail(f"{what}: rank {rank} {name} masks off by {rel}")
+                for kind in batches:
+                    got = res[("program", name, kind)]
+                    g, w = got["graph"], want_prog[(name, kind)]
+                    w = {"ids": w["ids"][rows], "seg": w["seg"][rows],
+                         "low": w["low"][rows]}
+                    rel = mask_rel(g, w)
+                    bits = np.array_equal(g["low"], got["eager"]["low"])
+                    log(f"[parallel-tiny] ({data}, {model}) rank {rank} "
+                        f"{name} Predictor, {kind} key compiled (capture "
+                        f"{got['capture_s']:.3f} s): replay ids "
+                        f"{g['ids'].tolist()}, [SEG] {g['seg'].tolist()}, "
+                        f"{g['passes']} passes (CPU {w['ids'].tolist()}); "
+                        f"masks max rel err {rel:.4g}, bit-equal to the "
+                        f"first call {bits}; all-reduces {got['all_reduces']}"
+                        f" a call")
+                    if not (np.array_equal(g["ids"], w["ids"])
+                            and np.array_equal(g["seg"], w["seg"])):
+                        fail(f"{what}: rank {rank} {name} {kind}: the "
+                             f"compiled Predictor's ids {g['ids'].tolist()} "
+                             f"[SEG] {g['seg'].tolist()}, the CPU's "
+                             f"{w['ids'].tolist()} {w['seg'].tolist()}")
+                    if not bits or rel > SLICE_REL_TOL or \
+                            not np.isfinite(g["low"]).all():
+                        fail(f"{what}: rank {rank} {name} {kind}: masks off "
+                             f"by {rel}, bit-equal to the first call {bits}")
+                    if not got["all_reduces"] or \
+                            got["all_reduces"][0] != got["all_reduces"][1]:
+                        fail(f"{what}: rank {rank} {name} {kind}: "
+                             f"all-reduces eager, replay "
+                             f"{got['all_reduces']}")
+            first = ranks[d * model]
+            for key, val in res.items():
+                if key not in ("coords", "exchange_bytes") and not \
+                        same_result_bits(val, first[key]):
+                    fail(f"{what}: rank {rank} differs from rank {d * model}"
+                         f" at {key}")
+        log(f"[phase 11] (a) anyref_tiny at ({data}, {model}) on cuda:0, "
+            f"{data * model} ranks by time slices, the all-reduce kernel "
+            f"over \"model\" ({ranks[0]['exchange_bytes']} bytes of exchange"
+            f" area a rank), in {time.time() - t0:.1f} s")
+
+
+def same_result_bits(a, b) -> bool:
+    """Whether two nests of dicts, tuples and arrays hold the same bits
+    (floats, such as capture seconds, are not compared)."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(
+            same_result_bits(a[k], b[k]) for k in a if k != "capture_s")
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(same_result_bits(x, y)
+                                        for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        return np.array_equal(a, b)
+    return isinstance(a, float) or a == b
 
 
 def params_7b(torch, mods, cfg):
@@ -6862,11 +7261,15 @@ def params_7b(torch, mods, cfg):
 
 def record_seg_states(anyref) -> list:
     """Wrap anyref.project_seg_hidden to keep each generate's or training
-    forward's [SEG] states (fp32, on the host), in order."""
+    forward's [SEG] states (fp32, on the host), in order; a capture
+    records nothing."""
     inner, got = anyref.project_seg_hidden, []
 
     def project(params, hidden):
-        got.append(hidden.detach().float().cpu().numpy())
+        import torch
+        if not (hidden.is_cuda and
+                torch.cuda.is_current_stream_capturing()):
+            got.append(hidden.detach().float().cpu().numpy())
         return inner(params, hidden)
 
     anyref.project_seg_hidden = project
@@ -6933,31 +7336,28 @@ def serve_in_pairs(server, Request, images) -> list:
     return out
 
 
-class CollectiveMeter:
-    """Counts the all-reduces of a rank by region ("prefill", "decode": the
-    speculative loop, "other": the prompt's embedding and the first
-    token's logits), their bytes and the seconds they take (the card
-    synchronised before and after each, so that a call's time is its
-    own); the host broadcasts of the Server apart."""
+class OpMeter:
+    """Counts a rank's calls of the all-reduce op (ops/flash.py
+    ``all_reduce``) by region ("prefill", "decode": the decode loop,
+    "other": the prompt's embedding and the first token's logits) and
+    their bytes, on the host, outside a capture: a key's eager first call
+    (a replay runs no host code, and launches what the eager call
+    launched); the host broadcasts of the Server apart."""
 
-    def __init__(self, torch, dist, llama, anyref):
-        self.torch, self.region = torch, "other"
-        self.calls, self.bytes, self.seconds = {}, {}, {}
+    def __init__(self, torch, dist, flash, llama, anyref):
+        self.region = "other"
+        self.calls, self.bytes = {}, {}
         self.host_calls = 0
-        inner_ar, inner_bc = dist.all_reduce, dist.broadcast_object_list
+        inner_ar, inner_bc = flash.all_reduce, dist.broadcast_object_list
         inner_pf, inner_loop = llama.prefill, anyref.run_loop
 
-        def all_reduce(t, *a, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = inner_ar(t, *a, **kw)
-            torch.cuda.synchronize()
-            r = self.region
-            self.seconds[r] = self.seconds.get(r, 0.0) + (
-                time.perf_counter() - t0)
-            self.calls[r] = self.calls.get(r, 0) + 1
-            self.bytes[r] = self.bytes.get(r, 0) + t.numel() * t.element_size()
-            return out
+        def all_reduce(x, key):
+            if not torch.cuda.is_current_stream_capturing():
+                r = self.region
+                self.calls[r] = self.calls.get(r, 0) + 1
+                self.bytes[r] = self.bytes.get(r, 0) + (
+                    x.numel() * x.element_size())
+            return inner_ar(x, key)
 
         def broadcast_object_list(*a, **kw):
             self.host_calls += 1
@@ -6972,7 +7372,7 @@ class CollectiveMeter:
                     self.region = "other"
             return wrapped
 
-        dist.all_reduce = all_reduce
+        flash.all_reduce = all_reduce
         dist.broadcast_object_list = broadcast_object_list
         llama.prefill = within("prefill", inner_pf)
         anyref.run_loop = within("decode", inner_loop)
@@ -6980,21 +7380,28 @@ class CollectiveMeter:
 
 def parallel_7b_rank(torch, rank, images):
     """Phase 11(b), one rank: anyref_7b's weights made on the card (seed
-    0, [SEG] x 1000), sharded at (1, 2) on cuda:0; rank 0 serves the 4
-    requests through the leader Server (speculative, "fused", max_batch 2,
-    in pinned pairs), rank 1 follows. Returns the answers (rank 0), the
-    launch counts, the causal kernel's shapes, the collective counts and
-    times, the wall and the peak memory."""
+    0, [SEG] x 1000), sharded at (1, 2) on cuda:0; rank 0 serves
+    WARM_PATTERN's, DATA_PATTERN's, then WINDOW_PATTERN's pairs through
+    the leader Server (speculative, "fused", max_batch 2, each pair
+    submitted once the last was answered), rank 1 follows. Both
+    Predictors compile each key: its first batch eager and captured, the
+    rest replays, whose sums over "model" are launches of the all-reduce
+    kernel inside the graph. Host hooks see the eager first calls only
+    (OpMeter, the causal kernel's shapes, the decode passes, the [SEG]
+    states); BatchRecorder the batches before the window; the card's
+    counters the whole run. Returns those, the answers and the window's
+    ids and pair walls (rank 0), the keys' capture seconds, the pool, the
+    exchange area's bytes, the walls and the peak memory."""
     import torch.distributed as dist
+    from anyref_tpu_torch import params as tparams
+    from anyref_tpu_torch import serve as serve_mod
     from anyref_tpu_torch.config import anyref_7b
     from anyref_tpu_torch.models import anyref, llama
     from anyref_tpu_torch.ops import flash
     from anyref_tpu_torch.parallel.mesh import make_mesh
     from anyref_tpu_torch.parallel.partition import shard_params
-    from anyref_tpu_torch.serve import Request, Server, follow
-    from anyref_tpu_torch import params as tparams
     cfg = anyref_7b()
-    mesh = make_mesh(1, 2, device="cuda:0")
+    mesh = make_mesh(1, 2, device="cuda:0", timeout_s=PARALLEL_TIMEOUT_S)
     torch.cuda.set_device(0)
     t0 = time.time()
     sp = shard_params(params_7b(torch, {"tparams": tparams}, cfg), mesh, cfg)
@@ -7003,11 +7410,13 @@ def parallel_7b_rank(torch, rank, images):
     held = torch.cuda.memory_allocated()
     build_s = time.time() - t0
     torch.cuda.reset_peak_memory_stats()
-    meter = CollectiveMeter(torch, dist, llama, anyref)
+    meter = OpMeter(torch, dist, flash, llama, anyref)
     causal_marks = []
     inner_causal = llama.causal_attention
 
     def causal(q, *a, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            return inner_causal(q, *a, **kw)
         n0 = launch_mark(flash, "flash_causal_attention")
         out = inner_causal(q, *a, **kw)
         causal_marks.append((tuple(q.shape), n0,
@@ -7025,33 +7434,57 @@ def parallel_7b_rank(torch, rank, images):
         return carry
 
     anyref.run_loop = run_loop
+    rec = BatchRecorder(torch, flash, len(WARM_PATTERN + DATA_PATTERN))
+    preds, inner_sp = [], serve_mod.serving_predictor
+
+    def serving_predictor(*a, **kw):
+        pred = inner_sp(*a, **kw)
+        rec.attach(pred)
+        preds.append(pred)
+        return pred
+    serve_mod.serving_predictor = serving_predictor
     kw = dict(max_batch=2, speculative=True, max_new_tokens=PARALLEL_MNT,
               encoder_path="fused", mesh=mesh)
+    answers, window_ids, window_s, pair_s = None, None, None, None
     zero_launches(flash)
     t0 = time.time()
     if rank == 0:
-        server = Server(sp, cfg, **kw)
-        lows = record_low_res(server)
-        results = serve_in_pairs(server, Request, images)
+        server = serve_mod.Server(sp, cfg, **kw)
+        results = []
+        for pattern in (WARM_PATTERN, DATA_PATTERN):
+            results += serve_pattern(server, serve_mod.Request, images,
+                                     pattern)[0]
+        window, window_s, pair_s = serve_pattern(
+            server, serve_mod.Request, images, WINDOW_PATTERN)
         server.shutdown()
         answers = [{"ids": r["output_ids"], "mask": r["mask"]}
                    for r in results]
+        window_ids = [r["output_ids"] for r in window]
         batches = server.stats["batches"]
     else:
-        batches = follow(sp, cfg)
-        answers, lows = None, None
+        batches = serve_mod.follow(sp, cfg)
     torch.cuda.synchronize()
     wall = time.time() - t0
+    mesh.close()
     launches = read_launches(flash)
-    return {"answers": answers, "low_res": lows, "batches": batches,
-            "launches": launches, "causal_shapes": by_shape(causal_marks),
+    counts = flash.launch_counts()
+    pred = preds[0]
+    return {"answers": answers, "window_ids": window_ids,
+            "window_s": window_s, "pair_s": pair_s, "batches": batches,
+            "total_launches": launches, "all_reduces": counts["all_reduce"],
+            "conditions": counts["loop_condition"],
+            "causal_shapes": by_shape(causal_marks),
             "passes": passes, "wall_s": wall, "build_s": build_s,
             "init_peak_gib": init_peak / 2**30, "held_gib": held / 2**30,
-            "serve_peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
             "calls": meter.calls, "bytes": meter.bytes,
-            "seconds": meter.seconds, "host_broadcasts": meter.host_calls,
+            "host_broadcasts": meter.host_calls,
             "layout": sorted(sp["llama"]["layers"][0]["attn"]),
-            "seg_states": seg_states}
+            "seg_states": seg_states, "keys": len(pred.programs),
+            "capture_s": [p.capture_s for p in pred.programs.values()],
+            "pool_bytes": pred.graph_pool_bytes(),
+            "exchange_bytes": mesh.exchange.held_bytes,
+            **rec.summary()}
 
 
 def rel_l2(a, b) -> float:
@@ -7070,19 +7503,22 @@ WINDOW_PATTERN = (0, 1) * 25
 def serve_pattern(server, Request, images, pattern) -> tuple:
     """``pattern``'s pairs through ``server``, each submitted once the last
     was answered: (the answers in order, the seconds from the first submit
-    to the last answer)."""
-    out = []
+    to the last answer, each pair's seconds from its submit to its last
+    answer)."""
+    out, pairs = [], []
     t0 = time.time()
     for pair in pattern:
         i = 2 * pair
+        t1 = time.time()
         reqs = [server.submit(Request(image=im, text=t))
                 for im, t in zip(images[i:i + 2], TEXTS[i:i + 2])]
         out.extend(r.result(timeout=600) for r in reqs)
+        pairs.append(time.time() - t1)
     wall = time.time() - t0
     for i, r in enumerate(out):
         if not r or "error" in r:
-            fail(f"phase 11(c): answer {i}: {r}")
-    return out, wall
+            fail(f"phase 11: answer {i}: {r}")
+    return out, wall, pairs
 
 
 class BatchRecorder:
@@ -7091,12 +7527,14 @@ class BatchRecorder:
     stream (the batch's device span) and the launch counters queued before
     and after it without waiting (the card's launches of the batch); for
     each of the first ``limit`` fetches, the whole batch's fetched rows on
-    the host (after the gather of a data mesh). Later calls pass
-    through."""
+    the host (after the gather of a data mesh; a follower of a mesh
+    without one fetches nothing, and its batches' outputs are read at
+    ``summary``). Later calls pass through."""
 
     def __init__(self, torch, flash, limit):
         self.torch, self.flash, self.limit = torch, flash, limit
         self.batches, self.fetched, self.rows = [], [], []
+        self.outputs = []
 
     def _marks(self) -> dict:
         return {n: launch_mark(self.flash, n) for n in self.flash.COUNTED}
@@ -7121,6 +7559,7 @@ class BatchRecorder:
             e1.record()
             self.batches.append((ret, e0, e1, m0, self._marks(), key,
                                  replay))
+            self.outputs.append(handle[0])
             return handle
 
         def fetch(handle):
@@ -7139,13 +7578,16 @@ class BatchRecorder:
         a replay and its rows' requests (request_rows), and the fetched
         rows."""
         keys = list(dict.fromkeys(b[5] for b in self.batches))
+        fetched = self.fetched or [(meta.cpu().numpy(),
+                                    low.float().cpu().numpy())
+                                   for meta, low in self.outputs]
         return {"return_s": [b[0] for b in self.batches],
                 "device_ms": [b[1].elapsed_time(b[2]) for b in self.batches],
                 "launches": [{n: int(b[4][n] - b[3][n]) for n in b[3]}
                              for b in self.batches],
                 "key": [keys.index(b[5]) for b in self.batches],
                 "replay": [b[6] for b in self.batches],
-                "requests": self.rows, "fetched": self.fetched}
+                "requests": self.rows, "fetched": fetched}
 
 
 def parallel_7b_data_rank(torch, rank, images):
@@ -7165,7 +7607,7 @@ def parallel_7b_data_rank(torch, rank, images):
     from anyref_tpu_torch.parallel.mesh import make_mesh
     from anyref_tpu_torch.parallel.partition import shard_params
     cfg = anyref_7b()
-    mesh = make_mesh(2, 1, device="cuda:0")
+    mesh = make_mesh(2, 1, device="cuda:0", timeout_s=PARALLEL_TIMEOUT_S)
     torch.cuda.set_device(0)
     t0 = time.time()
     sp = shard_params(params_7b(torch, {"tparams": tparams}, cfg), mesh, cfg)
@@ -7184,7 +7626,7 @@ def parallel_7b_data_rank(torch, rank, images):
     serve_mod.serving_predictor = serving_predictor
     kw = dict(max_batch=2, speculative=True, max_new_tokens=PARALLEL_MNT,
               encoder_path="fused", mesh=mesh)
-    answers, window_ids, window_s = None, None, None
+    answers, window_ids, window_s, pair_s = None, None, None, None
     t0 = time.time()
     if rank == 0:
         server = serve_mod.Server(sp, cfg, **kw)
@@ -7192,8 +7634,8 @@ def parallel_7b_data_rank(torch, rank, images):
         for pattern in (WARM_PATTERN, DATA_PATTERN):
             results += serve_pattern(server, serve_mod.Request, images,
                                      pattern)[0]
-        window, window_s = serve_pattern(server, serve_mod.Request, images,
-                                         WINDOW_PATTERN)
+        window, window_s, pair_s = serve_pattern(
+            server, serve_mod.Request, images, WINDOW_PATTERN)
         server.shutdown()
         answers = [{"ids": r["output_ids"], "mask": r["mask"]}
                    for r in results]
@@ -7203,15 +7645,134 @@ def parallel_7b_data_rank(torch, rank, images):
         batches = serve_mod.follow(sp, cfg)
     torch.cuda.synchronize()
     wall = time.time() - t0
+    mesh.close()
     pred = preds[0]
     return {"answers": answers, "window_ids": window_ids,
-            "window_s": window_s, "batches": batches,
+            "window_s": window_s, "pair_s": pair_s, "batches": batches,
             "wall_s": wall, "build_s": build_s, "held_gib": held / 2**30,
             "keys": len(pred.programs),
             "capture_s": [p.capture_s for p in pred.programs.values()],
             "pool_bytes": pred.graph_pool_bytes(),
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
             **rec.summary()}
+
+
+def check_compiled_batches(res, what: str, ident, row: int) -> None:
+    """A rank's recorded batches of WARM_PATTERN + DATA_PATTERN, then
+    WINDOW_PATTERN's unrecorded, through a compiled Predictor (BatchRecorder
+    and the keys' programs in ``res``): one program a key, a key's first
+    batch eager (no run of the loop's condition kernel) and the rest
+    replays, at least two a key; each request's fetched row bit-equal to
+    its first (request_rows: the Server may order a pair either way); each
+    batch's card launches those of the first batch in which the rank ran
+    the same work (``ident`` of the batch's requests; where that was the
+    key's eager run, the loop's condition kernel passes + 1 times more,
+    the passes read from fetched row ``row``)."""
+    n_b = len(WARM_PATTERN + DATA_PATTERN)
+    if res["batches"] != n_b + len(WINDOW_PATTERN) or \
+            len(res["fetched"]) != n_b or len(res["launches"]) != n_b:
+        fail(f"{what} ran {res['batches']} batches, recorded "
+             f"{len(res['fetched'])}, want {n_b} and "
+             f"{len(WINDOW_PATTERN)} more")
+    n_keys = len(set(res["key"]))
+    if res["keys"] != n_keys or res["replay"] != [
+            res["key"].index(k) != i for i, k in enumerate(res["key"])]:
+        fail(f"{what}: {res['keys']} programs for {n_keys} keys, replays "
+             f"{res['replay']} of keys {res['key']}")
+    if sum(res["replay"]) < 2 * n_keys:
+        fail(f"{what}: {sum(res['replay'])} replays of {n_keys} keys")
+    own = [ident(reqs) for reqs in res["requests"]]
+    seen = {}
+    for i, (meta, low) in enumerate(res["fetched"]):
+        for r_i, req in enumerate(res["requests"][i]):
+            j, r = seen.setdefault(req, (i, r_i))
+            meta_j, low_j = res["fetched"][j]
+            if not (np.array_equal(meta[r_i], meta_j[r])
+                    and np.array_equal(low[r_i], low_j[r])):
+                fail(f"{what}: request {req} in batch {i} differs from "
+                     f"batch {j}: meta {meta[r_i].tolist()} against "
+                     f"{meta_j[r].tolist()}, low-res off by "
+                     f"{rel_l2(low[r_i], low_j[r])}")
+        got = res["launches"][i]
+        if not res["replay"][i] and got["loop_condition"] != 0:
+            fail(f"{what}: the eager batch {i} ran the loop's condition "
+                 f"kernel {got['loop_condition']} times")
+        j = own.index(own[i])
+        if i == j:
+            continue
+        want = res["launches"][j]
+        if not res["replay"][j]:     # the key's eager run
+            want = {**want, "loop_condition": int(meta[row, -1]) + 1}
+        if got != want:
+            fail(f"{what}: batch {i}, a replay, launched {got}, want "
+                 f"{want} (batch {j}'s, of the same requests)")
+
+
+def compiled_summary(res) -> str:
+    """The keys, capture, return times against device spans, a replay's
+    launches, the pool and the peak memory of check_compiled_batches'
+    ``res``, for a log line."""
+    rets = [round(1e3 * t, 2) for t in res["return_s"]]
+    devs = [round(t, 1) for t in res["device_ms"]]
+    return (f"keys {res['key']}; the first of each key eager, then captured "
+            f"in {[round(c, 3) for c in res['capture_s']]} s), "
+            f"{res['wall_s']:.2f} s wall; predict_async returns in {rets} ms "
+            f"against device spans {devs} ms (CUDA events around the call); "
+            f"each request bit-equal to its first batch, a replay launching "
+            f"(card counts) {json.dumps(res['launches'][-1])}; graph pool "
+            f"{res['pool_bytes'] / 2**30:.3f} GiB; peak memory "
+            f"{res['peak_gib']:.2f} GiB")
+
+
+def window_summary(n_win: int, seconds: float, pairs: list) -> str:
+    """q/s over a window and the spread of its pairs' seconds."""
+    q = np.quantile(pairs, [0, 0.5, 1])
+    return (f"{n_win / seconds:.3f} q/s ({seconds:.3f} s; a pair "
+            f"{q[0]:.4f} / {q[1]:.4f} / {q[2]:.4f} s min / median / max)")
+
+
+def check_served(lead, single, low_single, floor, solo, what: str,
+                 side: str) -> list:
+    """Rank 0's answers of WARM_PATTERN + DATA_PATTERN and the window's
+    against the single process's ids (``single``: the 4 requests through
+    the eager Server; ``solo``: the answers before the window, the
+    window's ids, its seconds and its pairs' of a compiled single-process
+    Server, whose ids must agree too); the warm batches' fetched low-res
+    logits within PARALLEL_FLOOR_FACTOR x ``floor`` of ``low_single``.
+    Returns those relative L2 errors."""
+    pattern = WARM_PATTERN + DATA_PATTERN
+    answers = lead["answers"]
+    for k, pair in enumerate(pattern):
+        for j in range(2):
+            a, r = answers[2 * k + j], single[2 * pair + j]
+            if not np.array_equal(a["ids"], r["output_ids"]):
+                fail(f"{what}: batch {k} request {2 * pair + j} ids "
+                     f"{a['ids'].tolist()} at {side}, "
+                     f"{r['output_ids'].tolist()} on one process")
+    errs = []
+    for k in range(len(WARM_PATTERN)):
+        low = lead["fetched"][k][1]
+        for row, req in enumerate(lead["requests"][k]):
+            err = rel_l2(low[row], low_single[req])
+            errs.append(err)
+            if not np.isfinite(low[row]).all() or \
+                    err > PARALLEL_FLOOR_FACTOR * floor:
+                fail(f"{what}: request {req} low-res logits off by {err}, "
+                     f"past {PARALLEL_FLOOR_FACTOR} x the floor {floor}")
+    for a, r in zip(answers, solo[0]):
+        if not np.array_equal(a["ids"], r["output_ids"]):
+            fail(f"{what}: the {side} answers differ from the compiled "
+                 "single process's")
+    for k, pair in enumerate(WINDOW_PATTERN):
+        for j in range(2):
+            want = single[2 * pair + j]["output_ids"]
+            for where, got in ((side, lead["window_ids"][2 * k + j]),
+                               ("(1, 1)", solo[1][2 * k + j])):
+                if not np.array_equal(got, want):
+                    fail(f"{what}: window pair {k} request {2 * pair + j} "
+                         f"ids {got.tolist()} at {where}, {want.tolist()} "
+                         "on one process")
+    return errs
 
 
 def parallel_7b_data(torch, mods, images, single, low_single, floor,
@@ -7236,111 +7797,27 @@ def parallel_7b_data(torch, mods, images, single, low_single, floor,
     ranks = run_ranks("7b_data", 2, images=images)
     spawn_s = time.time() - t0
     pattern = WARM_PATTERN + DATA_PATTERN
-    first = {}
-    for i, pair in enumerate(pattern):
-        first.setdefault(pair, i)
     for rank, res in enumerate(ranks):
-        what = f"phase 11(c): rank {rank}"
-        n_b = len(pattern)
-        if res["batches"] != n_b + len(WINDOW_PATTERN) or \
-                len(res["fetched"]) != n_b or len(res["launches"]) != n_b:
-            fail(f"{what} ran {res['batches']} batches, recorded "
-                 f"{len(res['fetched'])}, want {n_b} and "
-                 f"{len(WINDOW_PATTERN)} more")
-        n_keys = len(set(res["key"]))
-        if res["keys"] != n_keys or res["replay"] != [
-                res["key"].index(k) != i for i, k in enumerate(res["key"])]:
-            fail(f"{what}: {res['keys']} programs for {n_keys} keys, "
-                 f"replays {res['replay']} of keys {res['key']}")
-        if sum(res["replay"]) < 2 * n_keys:
-            fail(f"{what}: {sum(res['replay'])} replays of {n_keys} keys")
-        # a rank's own row is row `rank` of the batch; the Server may put
-        # a pair's requests in either order, so rows compare by request
-        own = [reqs[rank] for reqs in res["requests"]]
-        seen = {}
-        for i, (meta, low) in enumerate(res["fetched"]):
-            for row, req in enumerate(res["requests"][i]):
-                j, r = seen.setdefault(req, (i, row))
-                meta_j, low_j = res["fetched"][j]
-                if not (np.array_equal(meta[row], meta_j[r])
-                        and np.array_equal(low[row], low_j[r])):
-                    fail(f"{what}: request {req} in batch {i} differs from "
-                         f"batch {j}: meta {meta[row].tolist()} against "
-                         f"{meta_j[r].tolist()}, low-res off by "
-                         f"{rel_l2(low[row], low_j[r])}")
-            got = res["launches"][i]
-            if not res["replay"][i] and got["loop_condition"] != 0:
-                fail(f"{what}: the eager batch {i} ran the loop's "
-                     f"condition kernel {got['loop_condition']} times")
-            j = own.index(own[i])
-            if i == j:
-                continue
-            want = res["launches"][j]
-            if not res["replay"][j]:     # the key's eager run
-                want = {**want, "loop_condition": int(meta[rank, -1]) + 1}
-            if got != want:
-                fail(f"{what}: batch {i}, a replay, launched {got}, want "
-                     f"{want} (batch {j}'s, of the same request)")
-        rets = [round(1e3 * t, 2) for t in res["return_s"]]
-        devs = [round(t, 1) for t in res["device_ms"]]
+        check_compiled_batches(res, f"phase 11(c): rank {rank}",
+                               lambda reqs, r=rank: reqs[r], row=rank)
         log(f"[parallel-7b-data] rank {rank}: weights made in "
             f"{res['build_s']:.2f} s ({res['held_gib']:.2f} GiB held); "
-            f"{n_b} batches of one row a rank (pairs {list(pattern)}, "
-            f"keys {res['key']}; the first of each key eager, then captured "
-            f"in {[round(c, 3) for c in res['capture_s']]} s), "
-            f"{res['wall_s']:.2f}"
-            f" s wall; predict_async returns in {rets} ms against device "
-            f"spans {devs} ms (CUDA events around the call); each request "
-            f"bit-equal to its first batch, a replay launching "
-            f"(card counts) {json.dumps(res['launches'][-1])}; graph pool "
-            f"{res['pool_bytes'] / 2**30:.3f} GiB; peak memory "
-            f"{res['peak_gib']:.2f} GiB")
+            f"{len(pattern)} batches of one row a rank (pairs "
+            f"{list(pattern)}, {compiled_summary(res)}")
     lead = ranks[0]
-    answers = lead["answers"]
-    for k, pair in enumerate(pattern):
-        for j in range(2):
-            a, r = answers[2 * k + j], single[2 * pair + j]
-            if not np.array_equal(a["ids"], r["output_ids"]):
-                fail(f"phase 11(c): batch {k} request {2 * pair + j} ids "
-                     f"{a['ids'].tolist()} at (2, 1), "
-                     f"{r['output_ids'].tolist()} on one process")
-    errs = []
-    for k in range(len(WARM_PATTERN)):
-        low = lead["fetched"][k][1]
-        for row, req in enumerate(lead["requests"][k]):
-            err = rel_l2(low[row], low_single[req])
-            errs.append(err)
-            if not np.isfinite(low[row]).all() or \
-                    err > PARALLEL_FLOOR_FACTOR * floor:
-                fail(f"phase 11(c): request {req} low-res logits off by "
-                     f"{err}, past {PARALLEL_FLOOR_FACTOR} x the floor "
-                     f"{floor}")
-    n_req = 2 * len(pattern)
+    errs = check_served(lead, single, low_single, floor, solo,
+                        "phase 11(c)", "(2, 1)")
     n_win = 2 * len(WINDOW_PATTERN)
-    solo_answers, solo_window, solo_s = solo
-    for a, r in zip(answers, solo_answers):
-        if not np.array_equal(a["ids"], r["output_ids"]):
-            fail("phase 11(c): the (2, 1) answers differ from the compiled "
-                 "single process's")
-    for k, pair in enumerate(WINDOW_PATTERN):
-        for j in range(2):
-            want = single[2 * pair + j]["output_ids"]
-            for side, got in (("(2, 1)", lead["window_ids"][2 * k + j]),
-                              ("(1, 1)", solo_window[2 * k + j])):
-                if not np.array_equal(got, want):
-                    fail(f"phase 11(c): window pair {k} request "
-                         f"{2 * pair + j} ids {got.tolist()} at {side}, "
-                         f"{want.tolist()} on one process")
     log(f"[parallel-7b-data] ids equal to the single process's on all "
-        f"{n_req} checked answers and the window's {n_win} at (2, 1) and "
-        f"(1, 1); low-res rel L2 {[f'{e:.4g}' for e in errs]} "
+        f"{2 * len(pattern)} checked answers and the window's {n_win} at "
+        f"(2, 1) and (1, 1); low-res rel L2 {[f'{e:.4g}' for e in errs]} "
         f"(limit {PARALLEL_FLOOR_FACTOR} x {floor:.4g}); throughput window "
         f"of {n_win} requests, {len(WINDOW_PATTERN)} pairs, each submitted "
         f"once the last was answered, every key warm: the Server at (2, 1) "
-        f"{n_win / lead['window_s']:.3f} q/s ({lead['window_s']:.3f} s) "
-        f"against {n_win / solo_s:.3f} q/s at (1, 1) ({solo_s:.3f} s, a "
-        f"compiled single-process Server); {mods['card']}; gloo gathers "
-        f"the rows through the host: these are no NCCL figures")
+        f"{window_summary(n_win, lead['window_s'], lead['pair_s'])} against "
+        f"{window_summary(n_win, solo[2], solo[3])} at (1, 1) (a compiled "
+        f"single-process Server); {mods['card']}; gloo gathers the rows "
+        f"through the host: these are no NCCL figures")
     log(f"[phase 11] (c) anyref_7b at (2, 1), two ranks on cuda:0 over gloo,"
         f" compiled, in {time.time() - t0:.1f} s (ranks {spawn_s:.1f} s)")
 
@@ -7351,11 +7828,16 @@ def parallel_7b(torch, flash, mods) -> dict:
     with every input embedding of the decoder moved by one bf16 ulp for
     the bf16 floor: the low-res logits' relative L2 of the two runs, over
     the requests whose ids agree, or 2^-8, whichever is larger), its
-    weights freed; then two ranks on the card. Rank 0's ids must equal the single process's, its low-res
-    logits within PARALLEL_FLOOR_FACTOR x the floor, every kernel of the
-    "fused" path launched as many times a batch as phase 4 counts on both
-    ranks, the causal kernel at PARALLEL_CAUSAL_SHAPE. Returns rank 0's
-    launch counts."""
+    weights freed; phase 11(c)'s batches and window through a compiled
+    single-process Server; then two ranks on the card at (1, 2), each key
+    compiled on both (parallel_7b_rank). Rank 0's ids must equal the
+    single process's (eager and compiled), its low-res logits within
+    PARALLEL_FLOOR_FACTOR x the floor; on both ranks every kernel of the
+    "fused" path launched as many times a batch as phase 4 counts, the
+    causal kernel at PARALLEL_CAUSAL_SHAPE, each replay launching what the
+    key's eager call launched (check_compiled_batches), the all-reduce
+    kernel as often on both. Then phase 11(c). Returns rank 0's launch
+    counts of 11(b), the all-reduce's among them."""
     t_phase = time.time()
     cfg = mods["anyref_7b"]()
     images = request_images()
@@ -7392,10 +7874,12 @@ def parallel_7b(torch, flash, mods) -> dict:
     # phase 11(c)'s batches through a compiled single-process Server
     server = Server(params, cfg, max_batch=2, speculative=True,
                     max_new_tokens=PARALLEL_MNT, encoder_path="fused")
-    warm, _ = serve_pattern(server, Request, images, WARM_PATTERN)
-    timed, _ = serve_pattern(server, Request, images, DATA_PATTERN)
-    window, solo_s = serve_pattern(server, Request, images, WINDOW_PATTERN)
-    solo = (warm + timed, [r["output_ids"] for r in window], solo_s)
+    warm = serve_pattern(server, Request, images, WARM_PATTERN)[0]
+    timed = serve_pattern(server, Request, images, DATA_PATTERN)[0]
+    window, solo_s, solo_pairs = serve_pattern(server, Request, images,
+                                               WINDOW_PATTERN)
+    solo = (warm + timed, [r["output_ids"] for r in window], solo_s,
+            solo_pairs)
     server.shutdown()
     del params, server
     torch.cuda.empty_cache()
@@ -7415,71 +7899,77 @@ def parallel_7b(torch, flash, mods) -> dict:
     spawn_s = time.time() - t0
     lead = ranks[0]
     per_batch = launches_per_batch(flash, cfg)["fused"]
+    n_win = 2 * len(WINDOW_PATTERN)
     for rank, res in enumerate(ranks):
-        n_b = res["batches"]
-        if n_b != 2:
-            fail(f"phase 11(b): rank {rank} ran {n_b} batches, want 2")
+        what = f"phase 11(b): rank {rank}"
+        check_compiled_batches(res, what, lambda reqs: tuple(sorted(reqs)),
+                               row=0)
+        n_b, n_eager = res["batches"], res["keys"]
         for name, n in per_batch.items():
-            if res["launches"][name] != n * n_b or (n and not n_b):
-                fail(f"phase 11(b): rank {rank} {name}: "
-                     f"{res['launches'][name]} launches, want {n * n_b}")
-        want_shapes = {PARALLEL_CAUSAL_SHAPE: cfg.llama.num_layers * n_b}
+            if res["total_launches"][name] != n * n_b:
+                fail(f"{what} {name}: {res['total_launches'][name]} "
+                     f"launches, want {n * n_b}")
+        want_shapes = {PARALLEL_CAUSAL_SHAPE: cfg.llama.num_layers * n_eager}
         if res["causal_shapes"] != want_shapes:
-            fail(f"phase 11(b): rank {rank} causal kernel shapes "
+            fail(f"{what}: causal kernel shapes (the eager first calls) "
                  f"{res['causal_shapes']}, want {want_shapes}")
         if res["layout"] != ["k", "o", "q", "v"]:
-            fail(f"phase 11(b): rank {rank} layout {res['layout']}: the "
-                 "sharded tree must keep the plain layout")
+            fail(f"{what}: layout {res['layout']}: the sharded tree must "
+                 "keep the plain layout")
         passes = sum(res["passes"])
         per = {r: (res["calls"].get(r, 0), res["bytes"].get(r, 0))
                for r in ("prefill", "decode", "other")}
+        if not res["all_reduces"] or res["all_reduces"] != \
+                lead["all_reduces"] or not per["prefill"][0] or \
+                not per["decode"][0]:
+            fail(f"{what}: {res['all_reduces']} all-reduce launches on the "
+                 f"card (rank 0 {lead['all_reduces']}), {per} on the host: "
+                 "the sums over \"model\" did not run through the kernel")
         log(f"[parallel-7b] rank {rank}: weights made and sharded in "
             f"{res['build_s']:.2f} s (peak {res['init_peak_gib']:.2f} GiB, "
-            f"{res['held_gib']:.2f} GiB held after); 4 requests in {n_b} "
-            f"batches, {res['wall_s']:.2f} s wall, {passes} decode passes "
-            f"{res['passes']}; all-reduces a prefill "
-            f"{per['prefill'][0] / n_b:g} ({per['prefill'][1] / n_b / 2**20:.2f}"
-            f" MiB), a decode pass {per['decode'][0] / passes:g} "
+            f"{res['held_gib']:.2f} GiB held after; exchange area "
+            f"{res['exchange_bytes']} bytes); {n_b} batches (pairs "
+            f"{list(WARM_PATTERN + DATA_PATTERN)}, then the window's "
+            f"{len(WINDOW_PATTERN)}), {compiled_summary(res)}; the eager "
+            f"first calls' decode passes {res['passes']}, all-reduces a "
+            f"prefill {per['prefill'][0] / n_eager:g} "
+            f"({per['prefill'][1] / n_eager / 2**20:.2f} MiB), a decode pass "
+            f"{per['decode'][0] / passes:g} "
             f"({per['decode'][1] / passes / 2**20:.3f} MiB), other "
-            f"{per['other'][0] / n_b:g} a batch ("
-            f"{per['other'][1] / n_b / 2**20:.3f} MiB); seconds in "
-            f"all-reduces (card synchronised around each) "
-            f"{json.dumps({k: round(v, 4) for k, v in res['seconds'].items()})}"
-            f" of {res['wall_s']:.2f}; host broadcasts "
-            f"{res['host_broadcasts']}; peak serving memory "
-            f"{res['serve_peak_gib']:.2f} GiB; flash_causal_attention "
+            f"{per['other'][0] / n_eager:g} a batch "
+            f"({per['other'][1] / n_eager / 2**20:.3f} MiB); the card's "
+            f"all-reduce launches {res['all_reduces']} over {n_b} batches "
+            f"({res['all_reduces'] / n_b:g} a batch), loop condition "
+            f"{res['conditions']}; host broadcasts {res['host_broadcasts']}"
+            f"; flash_causal_attention "
             f"{json.dumps({str(list(k)): v for k, v in res['causal_shapes'].items()})}")
-    low_tp = by_request(lead["low_res"])
-    segs_tp = np.concatenate(lead["seg_states"])
-    for i in range(len(TEXTS)):
-        log(f"[parallel-7b] request {i} [SEG] states by slot, rel L2: 2 ranks"
-            f" against 1 {[f'{rel_l2(segs_tp[i, j], segs2[i, j]):.3g}' for j in range(segs2.shape[1])]}"
-            f"; inputs moved by one ulp {[f'{rel_l2(segs1[i, j], segs2[i, j]):.3g}' for j in range(segs2.shape[1])]}"
-            f"; norms {[f'{np.linalg.norm(segs2[i, j]):.4g}' for j in range(segs2.shape[1])]}")
-    log(f"[parallel-7b] [SEG] states, rel L2 by request: 2 ranks against "
-        f"the single process "
-        f"{[f'{rel_l2(segs_tp[i], segs2[i]):.3g}' for i in range(len(TEXTS))]}"
+    errs = check_served(lead, single, low2, floor, solo, "phase 11(b)",
+                        "(1, 2)")
+    # the [SEG] states of the eager first calls, by request
+    eager_rows = [reqs for reqs, replay in zip(lead["requests"],
+                                               lead["replay"]) if not replay]
+    seg_tp = {req: st for reqs, states in zip(eager_rows, lead["seg_states"])
+              for req, st in zip(reqs, states)}
+    log(f"[parallel-7b] [SEG] states of the eager first calls, rel L2 by "
+        f"request: 2 ranks against the single process "
+        f"{ {i: f'{rel_l2(seg_tp[i], segs2[i]):.3g}' for i in seg_tp} }"
         f", inputs moved by one ulp "
         f"{[f'{rel_l2(segs1[i], segs2[i]):.3g}' for i in range(len(TEXTS))]}")
-    for i, (a, r) in enumerate(zip(lead["answers"], single)):
-        if not np.array_equal(a["ids"], r["output_ids"]):
-            fail(f"phase 11(b): request {i} ids {a['ids'].tolist()} on 2 "
-                 f"ranks, {r['output_ids'].tolist()} on one process")
-        err = rel_l2(low_tp[i], low2[i])
-        log(f"[parallel-7b] request {i}: ids equal; low-res rel L2 {err:.4g}"
-            f" (limit {PARALLEL_FLOOR_FACTOR} x {floor:.4g}); mask "
-            f"pixels differing {int((a['mask'] != r['mask']).sum())} of "
-            f"{r['mask'].size}")
-        if not np.isfinite(low_tp[i]).all() or \
-                err > PARALLEL_FLOOR_FACTOR * floor:
-            fail(f"phase 11(b): request {i} low-res logits off by {err}, "
-                 f"past {PARALLEL_FLOOR_FACTOR} x the floor {floor}")
-    log(f"[parallel-7b] {mods['card']}; gloo reduces each CUDA all-reduce "
-        f"through the host: these are no NCCL figures")
-    log(f"[phase 11] (b) anyref_7b at (1, 2), two ranks on cuda:0 over gloo,"
-        f" in {time.time() - t_phase:.1f} s (ranks {spawn_s:.1f} s)")
+    log(f"[parallel-7b] ids equal to the single process's on all "
+        f"{len(lead['answers'])} checked answers and the window's {n_win} at "
+        f"(1, 2) and (1, 1); low-res rel L2 {[f'{e:.4g}' for e in errs]} "
+        f"(limit {PARALLEL_FLOOR_FACTOR} x {floor:.4g}); throughput window "
+        f"of {n_win} requests, {len(WINDOW_PATTERN)} pairs, each submitted "
+        f"once the last was answered, every key warm: the Server at (1, 2) "
+        f"{window_summary(n_win, lead['window_s'], lead['pair_s'])} against "
+        f"{window_summary(n_win, solo[2], solo[3])} at (1, 1) (a compiled "
+        f"single-process Server); {mods['card']}; two ranks share the card "
+        f"by time slices of their contexts: no figure of several cards")
+    log(f"[phase 11] (b) anyref_7b at (1, 2), two ranks on cuda:0, compiled, "
+        f"the all-reduce kernel over \"model\", in "
+        f"{time.time() - t_phase:.1f} s (ranks {spawn_s:.1f} s)")
     parallel_7b_data(torch, mods, images, single, low2, floor, solo)
-    return lead["launches"]
+    return {**lead["total_launches"], "all_reduce": lead["all_reduces"]}
 
 
 # ---------------------------------------------------------------------------
@@ -7513,6 +8003,8 @@ TRAIN_TINY_TEXTS = ("the cat", "the small red mug on the left", "a dog",
                     "the blue car", "the striped towel on the rail",
                     "a bowl")
 TRAIN_TINY_SIZES = IMAGE_SIZES * 2
+# phase 12(a)'s meshes: four ranks at (2, 2)
+TRAIN_TINY_MESHES = ((1, 2), (2, 1), (2, 2))
 
 
 def train_config(mods, out: str, **kw):
@@ -7564,40 +8056,176 @@ def first_grads(step) -> list:
     return got
 
 
+class CompiledSteps:
+    """Attached to a compiled Trainer (train/trainer.py ``_compiled_step``)
+    before it trains: StepRecorder on every step, and each step's gradient
+    as the update read it (GradHook on a step from the host; after a
+    replay the fp32 sums of the prefix's carry, which a hook on the
+    Trainer's GraphPool.capture keeps: the update rounds them in place);
+    the cache of the first step's working memory is released before the
+    capture. ``results`` after training: the walls, return times,
+    metrics, launches a step, the program's keys, graphs, capture and pool;
+    ``eager`` then runs train_eager_reference on the same mesh."""
+
+    def __init__(self, torch, m, trainer):
+        self.torch, self.m, self.trainer = torch, m, trainer
+        step = m["step"]
+        inner_capture, inner_graph = trainer._capture, trainer.graphs.capture
+        carries = []
+
+        def capture(program):
+            torch.cuda.empty_cache()
+            return inner_capture(program)
+
+        def graph_capture(fn):
+            g, out = inner_graph(fn)
+            if isinstance(out, dict) and "flat" in out:   # the prefix's carry
+                carries.append(out)
+            return g, out
+        trainer._capture, trainer.graphs.capture = capture, graph_capture
+        self.hook = GradHook(torch, step)
+        self.rec = StepRecorder(torch, m["flash"], step, trainer)
+        self.grads = []
+        hook, grads, inner_step = self.hook, self.grads, trainer.step_fn
+
+        def step_fn(state, frozen, batch):
+            n = hook.calls
+            out_ = inner_step(state, frozen, batch)
+            if hook.calls > n:        # a step from the host
+                grads.append([g.cpu() for g in hook.last])
+            else:                     # a replay: the sums the update read
+                leaves = step.tree_leaves((state.lora, state.dense))
+                parts = carries[-1]["flat"].split([t.numel() for t in leaves])
+                grads.append([g.view(t.shape).to(t.dtype).cpu()
+                              for g, t in zip(parts, leaves)])
+            return out_
+        trainer.step_fn = step_fn
+
+    def results(self) -> dict:
+        trainer, rec = self.trainer, self.rec
+        program = next(iter(trainer.programs.values()))
+        counts = self.m["flash"].launch_counts()
+        return {"metrics": [r["metrics"] for r in rec.steps],
+                "walls": [r["wall_s"] for r in rec.steps],
+                "return_s": [r["return_s"] for r in rec.steps],
+                "conditions": counts["loop_condition"],
+                "step_launches": [r["launches"] for r in rec.steps],
+                "keys": len(trainer.programs),
+                "graphs": len(program.graphs) + (program.then is not None),
+                "split": program.then is not None,
+                "capture_s": program.capture_s,
+                "pool_bytes": trainer.graph_pool_bytes(),
+                "exchange_bytes": (None if trainer.mesh.exchange is None
+                                   else trainer.mesh.exchange.held_bytes)}
+
+    def eager(self, cfg, tc, params, steps: int, mesh) -> dict:
+        """train_eager_reference on ``mesh`` over the recorded steps, once
+        the Trainer (which the wrappers hold, in a cycle) is dropped:
+        {"eager_walls", "bit_equal", "worst"}."""
+        torch, rec, grads = self.torch, self.rec, self.grads
+        self.trainer = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        eager = train_eager_reference(torch, self.m, cfg, tc, params, rec,
+                                      steps, mesh=mesh, grads=grads)
+        return {"eager_walls": eager["wall_s"],
+                "bit_equal": eager["bit_equal"], "worst": eager["worst"]}
+
+
+def check_compiled_steps(res, steps: int, what: str) -> None:
+    """A rank's compiled Trainer (CompiledSteps' results): one program of
+    three graphs (four with a data sum between them), the first step from
+    the host, each later one a replay that ran the loop's condition kernel
+    3 times (2 micro-steps) and otherwise launched what the first step
+    launched; every item bit-equal to the eager mesh step where the two
+    eager runs are (train_eager_reference)."""
+    graphs = 4 if res["split"] else 3
+    if res["keys"] != 1 or res["graphs"] != graphs:
+        fail(f"{what}: {res['keys']} programs of {res['graphs']} graphs, "
+             f"want 1 of {graphs}")
+    if res["conditions"] != (steps - 1) * 3:
+        fail(f"{what}: the loop's condition kernel ran {res['conditions']} "
+             f"times, want 3 a replay")
+    first = res["step_launches"][0]
+    for i, got in enumerate(res["step_launches"][1:], 2):
+        if got != {**first, "loop_condition": 3}:
+            fail(f"{what}: step {i}, a replay, launched {got}, the first "
+                 f"step {first}")
+    bits = res["bit_equal"]
+    if bits["compiled"] != bits["items"]:
+        fail(f"{what}: {bits['compiled']} of {bits['items']} items "
+             f"bit-equal to the eager mesh step")
+
+
+def compiled_steps_summary(res) -> str:
+    """The walls, capture, pool, exchange area and the comparison with the
+    eager mesh step of a compiled Trainer's rank, for a log line."""
+    med = float(np.median(res["walls"][1:]))
+    eager = float(np.median(res["eager_walls"]))
+    return (f"step walls {[round(w, 4) for w in res['walls']]} s (the first "
+            f"from the host, then the capture in {res['capture_s']:.3f} s); "
+            f"median of the {len(res['walls']) - 1} replays {med:.4f} s "
+            f"against {eager:.4f} s for the eager mesh step (median of "
+            f"{len(res['eager_walls'])}); step_fn returns in "
+            f"{[round(t, 4) for t in res['return_s']]} s; graph pool "
+            f"{res['pool_bytes'] / 2**30:.3f} GiB; exchange area "
+            f"{res['exchange_bytes']} bytes; peak memory "
+            f"{res['peak_gib']:.2f} GiB; against the eager mesh step: "
+            f"{json.dumps(res['bit_equal'])} bit-equal, worst "
+            f"{json.dumps(res['worst'])}")
+
+
 def train_tiny_rank(torch, rank, data, model, out, samples):
     """Phase 12(a), one rank: anyref_tiny's seed-0 bf16 weights (made on
-    the CPU) on cuda:0 at mesh (data, model), the Trainer for 2 steps
-    (warmup 0, a checkpoint every step; compiled at (2, 1), the second a
-    replay). Returns each step's batch and metrics, the first step's
-    reduced gradient gathered to whole leaves,
-    and whether this rank wrote the log."""
+    the CPU) on cuda:0 at mesh (data, model), the Trainer compiled for 2
+    steps (warmup 0, a checkpoint every step; the first from the host,
+    the second a replay; CompiledSteps), then the eager mesh step on the
+    same batches. Returns each step's batch and metrics, the first step's
+    reduced gradient gathered to whole leaves, the [SEG] states of the
+    first step, whether this rank wrote the log, and CompiledSteps'
+    results."""
     m = rank_mods()
     cfg = m["anyref_tiny"]()
     torch.cuda.set_device(0)
-    mesh = m["make_mesh"](data, model, device="cuda:0")
+    mesh = m["make_mesh"](data, model, device="cuda:0",
+                          timeout_s=PARALLEL_TIMEOUT_S)
     params = _to_device(m["tparams"].init(
         cfg, torch.Generator().manual_seed(0), torch.bfloat16,
         device="cpu"), "cuda:0")
     tc = train_config(m, out, max_steps=2, warmup_steps=0, save_steps=1)
+    # the Trainer cuts a "model" axis's blocks out of ``params`` in place:
+    # the eager reference starts from the same tree
     trainer = m["Trainer"](cfg, tc, params, dataset=samples, mesh=mesh)
+    if trainer.step_fn != trainer._compiled_step:
+        fail(f"phase 12(a) at ({data}, {model}): the Trainer does not "
+             "compile its step")
     grads = first_grads(m["step"])
-    steps = record_steps(trainer)
+    probe = CompiledSteps(torch, m, trainer)
     project = m["anyref"].project_seg_hidden
     seg = record_seg_states(m["anyref"])
     inner_capture = trainer._capture
 
     def capture(program):
-        # a compiled step (a mesh without a "model" axis) captures no
-        # host hook: the first step, from the host, recorded the states
+        # a capture runs no host hook: the first step, from the host,
+        # recorded the states
         m["anyref"].project_seg_hidden = project
         return inner_capture(program)
     trainer._capture = capture
+    torch.cuda.reset_peak_memory_stats()
     trainer.train()
+    torch.cuda.synchronize()
     g = grads[0]
     whole = m["partition"].gather_tree(
         list(g), m["partition"].trainable_spec(g), mesh)
-    return {"steps": steps, "writer": trainer.writer, "seg": seg[:2],
-            "grads": to_numpy(torch, whole) if rank == 0 else None}
+    res = {"steps": [(r["batch"], r["metrics"]) for r in probe.rec.steps],
+           "writer": trainer.writer, "seg": seg[:2],
+           "grads": to_numpy(torch, whole) if rank == 0 else None,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           **probe.results()}
+    del trainer, capture, inner_capture
+    res.update(probe.eager(cfg, tc, params, 2, mesh))
+    mesh.close()
+    return res
 
 
 def global_batch(rank_batches: list) -> dict:
@@ -7660,9 +8288,12 @@ def check_step_metrics(got: dict, want: dict, what: str) -> float:
 
 
 def train_parallel_tiny(torch, mods) -> None:
-    """Phase 12(a): anyref_tiny at (1, 2) and (2, 1), two ranks on cuda:0
-    over gloo, the Trainer for 2 steps of 2 micro-batches of 2 a data rank.
-    The first step's loss terms and reduced gradient (gathered) against a
+    """Phase 12(a): anyref_tiny at (1, 2), (2, 1) and (2, 2) on cuda:0
+    (gloo for the host and the data sum, the all-reduce kernel over
+    "model"), the Trainer compiled for 2 steps of 2 micro-batches of 2 a
+    data rank: the second step a replay bit-equal to the eager mesh step
+    and launching what the first launched (check_compiled_steps). The
+    first step's loss terms and reduced gradient (gathered) against a
     single process on the card on the same global batch; metrics.jsonl
     written once; the (1, 2) run's checkpoint-1 resumed by a single-process
     Trainer."""
@@ -7673,14 +8304,15 @@ def train_parallel_tiny(torch, mods) -> None:
                             seed=12)
     tmp = tempfile.mkdtemp(prefix="anyref_train12_")
     try:
-        for data, model in ((1, 2), (2, 1)):
+        for data, model in TRAIN_TINY_MESHES:
             out = os.path.join(tmp, f"run{data}{model}")
-            ranks = run_ranks("train_tiny", 2, data=data, model=model,
-                              out=out, samples=samples)
+            ranks = run_ranks("train_tiny", data * model, data=data,
+                              model=model, out=out, samples=samples)
             with open(os.path.join(out, "metrics.jsonl")) as f:
                 recs = [json.loads(line) for line in f]
             if [r["step"] for r in recs] != [1, 2] or \
-                    [r["writer"] for r in ranks] != [True, False]:
+                    [r["writer"] for r in ranks] != [True] + [False] * (
+                        data * model - 1):
                 fail(f"phase 12(a) at ({data}, {model}): metrics.jsonl "
                      f"steps {[r['step'] for r in recs]}, writers "
                      f"{[r['writer'] for r in ranks]}")
@@ -7691,8 +8323,16 @@ def train_parallel_tiny(torch, mods) -> None:
                     if rel > RANK_LOSS_TOL:
                         fail(f"phase 12(a): rank {rank} step {i + 1} losses "
                              f"{m}, rank 0 logged {recs[i]}")
+            for rank, res in enumerate(ranks):
+                check_compiled_steps(res, 2, f"phase 12(a) at ({data}, "
+                                     f"{model}), rank {rank}")
+                if res["split"] != (data > 1):
+                    fail(f"phase 12(a) at ({data}, {model}): rank {rank}'s "
+                         f"program split {res['split']}")
+                log(f"[train-parallel-tiny] ({data}, {model}) rank {rank}: "
+                    f"{compiled_steps_summary(res)}")
             firsts = [res["steps"][0][0] for res in ranks]
-            batch = global_batch(firsts[:data] if model == 1 else firsts[:1])
+            batch = global_batch(firsts[::model])
             params = _to_device(mods["tparams"].init(
                 cfg, torch.Generator().manual_seed(0), torch.bfloat16,
                 device="cpu"), "cuda")
@@ -7774,9 +8414,9 @@ def train_parallel_tiny(torch, mods) -> None:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
-    log(f"[phase 12] (a) anyref_tiny at (1, 2) and (2, 1) over gloo on "
-        f"cuda:0, the (1, 2) checkpoint resumed in one process, in "
-        f"{time.time() - t0:.1f} s")
+    log(f"[phase 12] (a) anyref_tiny at {list(TRAIN_TINY_MESHES)} on "
+        f"cuda:0, compiled, the all-reduce kernel over \"model\", the (1, 2) "
+        f"checkpoint resumed in one process, in {time.time() - t0:.1f} s")
 
 
 def to_cpu(tree):
@@ -7826,109 +8466,27 @@ class AxisMeter:
                 for axis in (k[1],)}
 
 
-def train_7b_rank(torch, rank, data, model, out, samples, steps):
-    """Phase 12(b) and (c), one rank: anyref_7b's seed-0 bf16 weights made
+def train_7b_rank(torch, rank, data, model, out, samples, steps, layers):
+    """Phase 12(b) and (c), one rank: anyref_7b's seed-0 bf16 weights, at
+    ``layers`` decoder layers, made
     on the card at mesh (data, model) (each rank makes the whole tree; at
-    model 2 the Trainer keeps its blocks), the Trainer for ``steps`` steps
-    of 2 micro-batches of 2 (warmup 1, remat, "fused"); the first step
-    warm, each later one metered. Returns each step's metrics and wall,
-    the all-reduces of the metered steps by axis, the training attention's
-    launch shapes, every kernel's launches, the frozen and LoRA checks and
+    model 2 the Trainer keeps its blocks, cut in place), the Trainer
+    compiled for ``steps`` steps of 2 micro-batches of 2 (warmup 1, remat,
+    "fused"): the first from the host and captured, the rest replays
+    (CompiledSteps; at data 2 two graphs with the host's data sum between
+    them, AxisMeter on steps 2 on). Then train_eager_reference on the
+    mesh. Returns CompiledSteps' results and the eager comparison, the
+    all-reduces by axis, every kernel's launches, the training attention's
+    shapes on the first step, the frozen and LoRA checks, the walls and
     the peak memory."""
     import torch.distributed as dist
     m = rank_mods()
-    cfg = m["anyref_7b"]()
-    torch.cuda.set_device(0)
-    mesh = m["make_mesh"](data, model, device="cuda:0")
-    t0 = time.time()
-    params = m["tparams"].init(
-        cfg, torch.Generator(device="cuda").manual_seed(0), torch.bfloat16)
-    tc = train_config(m, out, max_steps=steps, warmup_steps=1,
-                      save_steps=10 ** 9)
-    trainer = m["Trainer"](cfg, tc, params, dataset=samples, mesh=mesh)
-    del params
-    torch.cuda.synchronize()
-    build_s = time.time() - t0
-    init_peak = torch.cuda.max_memory_allocated() / 2**30
-    held = torch.cuda.memory_allocated() / 2**30
-    step = m["step"]
-    frozen = [fingerprint(t) for t in step.tree_leaves(trainer.frozen)[::7]]
-    lora0 = [t.detach().clone() for t in step.tree_leaves(trainer.state.lora)]
-    flash = m["flash"]
-    causal_marks = []   # the training attention's forward calls
-    inner_fwd = flash.causal_attention_diff_fwd
-
-    def causal_fwd(q, *a, **kw):
-        n0 = launch_mark(flash, "flash_causal_attention_diff")
-        out = inner_fwd(q, *a, **kw)
-        causal_marks.append((tuple(q.shape), n0, launch_mark(
-            flash, "flash_causal_attention_diff")))
-        return out
-    flash.causal_attention_diff_fwd = causal_fwd
-    meter = AxisMeter(torch, dist, mesh)
-    walls, metrics = [], []
-    inner_step = trainer.step_fn
-
-    def step_fn(state, frozen_, batch):
-        meter.step = len(walls) + 1 if walls else None
-        torch.cuda.synchronize()
-        t = time.time()
-        state, mt = inner_step(state, frozen_, batch)
-        torch.cuda.synchronize()
-        walls.append(time.time() - t)
-        metrics.append({k: float(v) for k, v in mt.items()})
-        meter.step = None
-        return state, mt
-    trainer.step_fn = step_fn
-    zero_launches(flash)
-    torch.cuda.reset_peak_memory_stats()
-    state = trainer.train()
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    moved = not all(torch.equal(a.detach(), b) for a, b in
-                    zip(step.tree_leaves(state.lora), lora0))
-    untouched = frozen == [fingerprint(t) for t in
-                           step.tree_leaves(trainer.frozen)[::7]]
-    return {"metrics": metrics, "walls": walls,
-            "collectives": {s: meter.by_step(s) for s in
-                            range(2, steps + 1)},
-            "causal_shapes": by_shape(causal_marks),
-            "launches": read_launches(flash),
-            "backward": flash.launch_counts()[
-                "flash_causal_attention_diff_backward"],
-            "lora_moved": moved, "frozen_untouched": untouched,
-            "build_s": build_s, "init_peak_gib": init_peak,
-            "held_gib": held, "peak_gib": peak,
-            "trainable_values": sum(t.numel() for t in step.tree_leaves(
-                (state.lora, state.dense))),
-            "writer": trainer.writer}
-
-
-TRAIN_7B_STEPS = 2   # the first warm, the other metered
-# phase 12(c): the first step from the host and captured, then replays
-TRAIN_7B_DATA_STEPS = 4
-
-
-def train_7b_data_rank(torch, rank, out, samples, steps):
-    """Phase 12(c), one rank: anyref_7b's seed-0 bf16 weights made on the
-    card on a (2, 1) mesh (each rank the whole tree), the Trainer compiled
-    for ``steps`` steps of 2 micro-batches of 2 (warmup 1, remat,
-    "fused"): the first from the host and captured (the cache of its
-    working memory released first), the rest replays of two graphs with
-    the data sum between them (AxisMeter, steps 2 on). Each step's
-    batch, metrics, trainables, moments, count (StepRecorder) and
-    gradients (those the update read: GradHook on the first step, after a
-    replay the fp32 sums of the carry, which a hook on the Trainer's
-    GraphPool.capture keeps) are recorded; then
-    train_eager_reference on the mesh. Returns the walls, the metrics, the
-    all-reduces by axis, the launches, the capture seconds, the pool and
-    the peak memory."""
-    import torch.distributed as dist
-    m = rank_mods()
-    cfg = m["anyref_7b"]()
+    cfg = at_depth(m["anyref_7b"](), layers)
     step, flash = m["step"], m["flash"]
     torch.cuda.set_device(0)
-    mesh = m["make_mesh"](2, 1, device="cuda:0")
+    mesh = m["make_mesh"](data, model, device="cuda:0",
+                          timeout_s=PARALLEL_TIMEOUT_S)
+    what = f"phase 12 at ({data}, {model})"
     t0 = time.time()
     params = m["tparams"].init(
         cfg, torch.Generator(device="cuda").manual_seed(0), torch.bfloat16)
@@ -7936,73 +8494,72 @@ def train_7b_data_rank(torch, rank, out, samples, steps):
                       save_steps=10 ** 9)
     trainer = m["Trainer"](cfg, tc, params, dataset=samples, mesh=mesh)
     if trainer.step_fn != trainer._compiled_step:
-        fail("phase 12(c): the Trainer at (2, 1) does not compile its step")
+        fail(f"{what}: the Trainer does not compile its step")
     torch.cuda.synchronize()
     build_s = time.time() - t0
     held = torch.cuda.memory_allocated() / 2**30
-    inner_capture, inner_graph = trainer._capture, trainer.graphs.capture
-    carries = []
+    frozen = [fingerprint(t) for t in step.tree_leaves(trainer.frozen)[::7]]
+    lora0 = [t.detach().clone() for t in step.tree_leaves(trainer.state.lora)]
+    causal_marks = []   # the training attention's forward calls, step 1's
+    inner_fwd = flash.causal_attention_diff_fwd
 
-    def capture(program):
-        torch.cuda.empty_cache()
-        return inner_capture(program)
-
-    def graph_capture(fn):
-        g, out = inner_graph(fn)
-        if isinstance(out, dict) and "flat" in out:     # the prefix's carry
-            carries.append(out)
-        return g, out
-    trainer._capture, trainer.graphs.capture = capture, graph_capture
-    hook = GradHook(torch, step)
-    rec = StepRecorder(torch, flash, step, trainer)
+    def causal_fwd(q, *a, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            return inner_fwd(q, *a, **kw)
+        n0 = launch_mark(flash, "flash_causal_attention_diff")
+        out_ = inner_fwd(q, *a, **kw)
+        causal_marks.append((tuple(q.shape), n0, launch_mark(
+            flash, "flash_causal_attention_diff")))
+        return out_
+    flash.causal_attention_diff_fwd = causal_fwd
+    probe = CompiledSteps(torch, m, trainer)
     meter = AxisMeter(torch, dist, mesh)
-    grads, inner_step = [], trainer.step_fn
+    inner_step, n_steps = trainer.step_fn, [0]
 
-    def step_fn(state, frozen, batch):
-        n = hook.calls
-        meter.step = len(grads) + 1 if grads else None
-        out_ = inner_step(state, frozen, batch)
+    def step_fn(state, frozen_, batch):
+        n_steps[0] += 1
+        meter.step = n_steps[0] if n_steps[0] > 1 else None
+        out_ = inner_step(state, frozen_, batch)
         meter.step = None
-        if hook.calls > n:        # a step from the host
-            grads.append([g.cpu() for g in hook.last])
-        else:                     # a replay: the sums the update read
-            leaves = step.tree_leaves((state.lora, state.dense))
-            parts = carries[-1]["flat"].split([t.numel() for t in leaves])
-            grads.append([g.view(t.shape).to(t.dtype).cpu()
-                          for g, t in zip(parts, leaves)])
         return out_
     trainer.step_fn = step_fn
     zero_launches(flash)
     torch.cuda.reset_peak_memory_stats()
-    trainer.train()
+    state = trainer.train()
     torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    counts = flash.launch_counts()
-    launches = read_launches(flash)
-    program = next(iter(trainer.programs.values()))
-    res = {"metrics": [r["metrics"] for r in rec.steps],
-           "walls": [r["wall_s"] for r in rec.steps],
-           "return_s": [r["return_s"] for r in rec.steps],
+    flash.causal_attention_diff_fwd = inner_fwd
+    res = {**probe.results(),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": read_launches(flash),
+           "backward": flash.launch_counts()[
+               "flash_causal_attention_diff_backward"],
+           "all_reduces": flash.launch_counts()["all_reduce"],
            "collectives": {k: meter.by_step(k) for k in range(2, steps + 1)},
-           "launches": launches,
-           "backward": counts["flash_causal_attention_diff_backward"],
-           "conditions": counts["loop_condition"],
-           "step_launches": [r["launches"] for r in rec.steps],
-           "keys": len(trainer.programs),
-           "graphs": len(program.graphs) + (program.then is not None),
-           "capture_s": program.capture_s,
-           "pool_bytes": trainer.graph_pool_bytes(), "build_s": build_s,
-           "held_gib": held, "peak_gib": peak, "writer": trainer.writer}
+           "causal_shapes": by_shape(causal_marks),
+           "lora_moved": not all(torch.equal(a.detach(), b) for a, b in zip(
+               step.tree_leaves(state.lora), lora0)),
+           "frozen_untouched": frozen == [
+               fingerprint(t) for t in step.tree_leaves(trainer.frozen)[::7]],
+           "trainable_values": sum(t.numel() for t in step.tree_leaves(
+               (state.lora, state.dense))),
+           "build_s": build_s, "held_gib": held, "writer": trainer.writer}
     # the wrappers of step_fn and _capture hold the Trainer, in a cycle
-    del trainer, program, inner_step, inner_capture, step_fn, capture
-    del inner_graph, graph_capture, carries
-    gc.collect()
-    torch.cuda.empty_cache()
-    eager = train_eager_reference(torch, m, cfg, tc, params, rec, steps,
-                                  mesh=mesh, grads=grads)
-    res["eager_walls"] = eager["wall_s"]
-    res["bit_equal"], res["worst"] = eager["bit_equal"], eager["worst"]
+    del trainer, state, inner_step, step_fn
+    res.update(probe.eager(cfg, tc, params, steps, mesh))
+    mesh.close()
     return res
+
+
+TRAIN_7B_STEPS = 4   # the first from the host and captured, then replays
+# phase 12(c)'s decoder layers (of 32), cut for the script's time limit;
+# 12(b), the "model" axis, runs all 32
+TRAIN_7B_DATA_LAYERS = 8
+
+
+def at_depth(cfg, layers: int):
+    """``cfg`` with its decoder cut to ``layers`` layers."""
+    return dataclasses.replace(cfg, llama=dataclasses.replace(
+        cfg.llama, num_layers=layers))
 
 
 def first_step_batch(mods, cfg, samples, data: int) -> dict:
@@ -8020,118 +8577,27 @@ def first_step_batch(mods, cfg, samples, data: int) -> dict:
     return global_batch(ranks)
 
 
-def train_parallel_7b_data(torch, mods) -> dict:
-    """Phase 12(c): the single process's first step on the first global
-    batch of a (2, 1) mesh (its weights freed before the ranks start),
-    then two ranks on cuda:0 over gloo, the Trainer compiled on both
-    (train_7b_data_rank), whose gradients, trainables, moments, count and
-    losses each rank holds against the eager mesh step. One program of four
-    graphs a rank; the logged losses step 1's within TRAIN_LOSS_TOL of the
-    single process's and each step's those of both ranks; every kernel's
-    launches those of phase 5 a micro-step, the loop's condition kernel 3
-    times a replay."""
-    import tempfile
-    t_phase = time.time()
-    cfg = mods["anyref_7b"]()
-    steps = TRAIN_7B_DATA_STEPS
-    samples = train_samples(cfg, mods, TEXTS * 2, IMAGE_SIZES * 2, seed=0)
-    params = mods["tparams"].init(
-        cfg, torch.Generator(device="cuda").manual_seed(0), torch.bfloat16)
-    torch.cuda.reset_peak_memory_stats()
-    want, grads, _ = single_step_grads(torch, mods, cfg, params,
-                                       first_step_batch(mods, cfg, samples,
-                                                        2), 2)
-    single_peak = torch.cuda.max_memory_allocated() / 2**30
-    del params, grads
-    torch.cuda.empty_cache()
-    out = tempfile.mkdtemp(prefix="anyref_train7b_")
-    try:
-        t0 = time.time()
-        ranks = run_ranks("train_7b_data", 2, out=out, samples=samples,
-                          steps=steps)
-        spawn_s = time.time() - t0
-        with open(os.path.join(out, "metrics.jsonl")) as f:
-            recs = [json.loads(line) for line in f]
-    finally:
-        shutil.rmtree(out, ignore_errors=True)
-    what = "phase 12(c)"
-    if [r["step"] for r in recs] != list(range(1, steps + 1)) or \
-            [r["writer"] for r in ranks] != [True, False]:
-        fail(f"{what}: metrics.jsonl steps {[r['step'] for r in recs]}, "
-             f"writers {[r['writer'] for r in ranks]}")
-    worst = check_step_metrics({k: recs[0][k] for k in want}, want,
-                               f"{what}, step 1")
-    for rank, res in enumerate(ranks):
-        for i, rec in enumerate(recs):
-            m = res["metrics"][i]
-            rel = max(abs(m[k] - rec[k]) / abs(rec[k]) for k in want)
-            if not all(np.isfinite(m[k]) for k in want) or \
-                    rel > RANK_LOSS_TOL:
-                fail(f"{what}: step {i + 1} logged {rec}, rank {rank} "
-                     f"returned {m}")
-    micro = steps * 2
-    replays = steps - 1
-    for rank, res in enumerate(ranks):
-        if res["keys"] != 1 or res["graphs"] != 4:
-            fail(f"{what}: rank {rank} holds {res['keys']} programs of "
-                 f"{res['graphs']} graphs, want 1 of 4")
-        check_train_launches(res["launches"], res["backward"], cfg, micro,
-                             f"{what}, rank {rank}")
-        if res["conditions"] != replays * 3:
-            fail(f"{what}: rank {rank} ran the loop's condition kernel "
-                 f"{res['conditions']} times, want 3 a replay")
-        first = res["step_launches"][0]
-        for i, got in enumerate(res["step_launches"][1:], 2):
-            if got != {**first, "loop_condition": 3}:
-                fail(f"{what}: rank {rank} step {i}, a replay, launched "
-                     f"{got}, the first step {first}")
-        med = float(np.median(res["walls"][1:]))
-        eager = float(np.median(res["eager_walls"]))
-        data_s = [res["collectives"][k].get("data", {}).get("s")
-                  for k in sorted(res["collectives"])]
-        log(f"[train-parallel-7b-data] rank {rank}: weights made in "
-            f"{res['build_s']:.2f} s ({res['held_gib']:.2f} GiB held by the "
-            f"Trainer); step walls {[round(w, 3) for w in res['walls']]} s "
-            f"(the first from the host, then the capture in "
-            f"{res['capture_s']:.3f} s); median of the {replays} replays "
-            f"{med:.4f} s against {eager:.4f} s for the eager mesh step "
-            f"(median of {len(res['eager_walls'])}); step_fn returns in "
-            f"{[round(t, 4) for t in res['return_s']]} s; the data gradient "
-            f"sum between the graphs {data_s} s a replay (card synchronised "
-            f"around each all-reduce; {json.dumps(res['collectives'])}); "
-            f"graph pool {res['pool_bytes'] / 2**30:.3f} GiB; peak memory "
-            f"{res['peak_gib']:.2f} GiB; against the eager mesh step: "
-            f"{json.dumps(res['bit_equal'])} bit-equal, worst "
-            f"{json.dumps(res['worst'])}")
-    log(f"[train-parallel-7b-data] (2, 1): logged losses "
-        f"{[round(r['loss'], 5) for r in recs]}, each both ranks' own; "
-        f"step 1 against the single process on the same global "
-        f"batch (4 rows x 2 micro-steps; peak {single_peak:.2f} GiB): worst "
-        f"loss-term rel err {worst:.3g} (limit {TRAIN_LOSS_TOL}); "
-        f"{mods['card']}; gloo reduces each CUDA all-reduce through the "
-        f"host: these are no NCCL figures")
-    log(f"[phase 12] (c) anyref_7b at (2, 1), two ranks on cuda:0 over gloo,"
-        f" compiled, in {time.time() - t_phase:.1f} s (ranks {spawn_s:.1f} s)")
-    return {"walls": [r["walls"] for r in ranks],
-            "eager_walls": [r["eager_walls"] for r in ranks],
-            "collectives": [r["collectives"] for r in ranks],
-            "capture_s": [r["capture_s"] for r in ranks],
-            "pool_bytes": [r["pool_bytes"] for r in ranks],
-            "peak_gib": [r["peak_gib"] for r in ranks]}
-
-
 def train_parallel_7b(torch, mods, data: int, model: int) -> dict:
-    """Phase 12(b) (data 1, model 2): the single process's first step on
-    the same global batch first (its weights freed before the ranks
-    start), then two ranks on cuda:0 over gloo. Finite losses equal on
-    both ranks, step 1's within TRAIN_LOSS_TOL of the single process's,
-    LoRA moved, frozen weights untouched, every kernel's launches those of
-    phase 5 a micro-step, the training attention at the rank's heads
-    only."""
+    """Phase 12(b) (data 1, model 2: the sums over "model" launches of the
+    all-reduce kernel inside the graphs) and (c) (data 2, model 1: the
+    host's data sum over gloo between two graphs): the single process's
+    first step on the mesh's first global batch (its weights freed before
+    the ranks start), then two ranks on cuda:0, the Trainer compiled on
+    both (train_7b_rank). On each rank the program and its replays as
+    check_compiled_steps holds them (bit-equal to the eager mesh step),
+    finite losses equal on both ranks and in metrics.jsonl, step 1's
+    within TRAIN_LOSS_TOL of the single process's, LoRA moved, frozen
+    weights untouched, every kernel's launches those of phase 5 a
+    micro-step, the training attention at the rank's heads, the
+    all-reduce kernel launched on a "model" axis only."""
     import tempfile
     t_phase = time.time()
-    what = f"phase 12({'b' if model == 2 else 'c'})"
+    tag = "b" if model == 2 else "c"
+    what = f"phase 12({tag})"
     cfg = mods["anyref_7b"]()
+    if data > 1:
+        cfg = at_depth(cfg, TRAIN_7B_DATA_LAYERS)
+    steps = TRAIN_7B_STEPS
     samples = train_samples(cfg, mods, TEXTS * 2, IMAGE_SIZES * 2, seed=0)
     params = mods["tparams"].init(
         cfg, torch.Generator(device="cuda").manual_seed(0), torch.bfloat16)
@@ -8148,57 +8614,69 @@ def train_parallel_7b(torch, mods, data: int, model: int) -> dict:
     try:
         t0 = time.time()
         ranks = run_ranks("train_7b", 2, data=data, model=model, out=out,
-                          samples=samples, steps=TRAIN_7B_STEPS)
+                          samples=samples, steps=steps,
+                          layers=cfg.llama.num_layers)
         spawn_s = time.time() - t0
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
     finally:
         shutil.rmtree(out, ignore_errors=True)
+    if [r["step"] for r in recs] != list(range(1, steps + 1)) or \
+            [r["writer"] for r in ranks] != [True, False]:
+        fail(f"{what}: metrics.jsonl steps {[r['step'] for r in recs]}, "
+             f"writers {[r['writer'] for r in ranks]}")
+    worst = check_step_metrics({k: recs[0][k] for k in want}, want,
+                               f"{what}, step 1")
     lcfg = cfg.llama
     want_shape = (2, lcfg.num_heads // model, -(-cfg.max_seq_len // 128) * 128,
                   lcfg.head_dim)
-    micro = TRAIN_7B_STEPS * 2
     for rank, res in enumerate(ranks):
+        where = f"{what}: rank {rank}"
+        for i, rec in enumerate(recs):
+            m = res["metrics"][i]
+            rel = max(abs(m[k] - rec[k]) / abs(rec[k]) for k in want)
+            if not all(np.isfinite(m[k]) for k in want) or \
+                    rel > RANK_LOSS_TOL:
+                fail(f"{where}: step {i + 1} logged {rec}, returned {m}")
+        check_compiled_steps(res, steps, where)
+        check_train_launches(res["launches"], res["backward"], cfg,
+                             steps * 2, where)
+        if res["split"] != (data > 1) or \
+                bool(res["all_reduces"]) != (model > 1):
+            fail(f"{where}: program split {res['split']}, "
+                 f"{res['all_reduces']} all-reduce launches")
+        if not res["lora_moved"] or not res["frozen_untouched"]:
+            fail(f"{where}: LoRA moved {res['lora_moved']}, frozen untouched"
+                 f" {res['frozen_untouched']}")
+        # the first step's, from the host: its micro-steps' passes and
+        # recomputes
+        if res["causal_shapes"] != {want_shape: 2 * lcfg.num_layers * 2}:
+            fail(f"{where}: training attention shapes "
+                 f"{res['causal_shapes']}, want {want_shape}")
         log(f"[train-parallel-7b] ({data}, {model}) rank {rank}: weights "
-            f"made in {res['build_s']:.2f} s (peak "
-            f"{res['init_peak_gib']:.2f} GiB, {res['held_gib']:.2f} GiB "
-            f"held by the Trainer), {res['trainable_values']} trainable "
-            f"values; step walls {[round(w, 3) for w in res['walls']]} s "
-            f"(the first warm); losses "
-            f"{[round(x['loss'], 5) for x in res['metrics']]}; all-reduces "
-            f"a metered step by axis (card synchronised around each) "
-            f"{json.dumps(res['collectives'])}; peak memory "
-            f"{res['peak_gib']:.2f} GiB; flash_causal_attention_diff "
+            f"made in {res['build_s']:.2f} s ({res['held_gib']:.2f} GiB held "
+            f"by the Trainer), {res['trainable_values']} trainable values; "
+            f"{compiled_steps_summary(res)}; all-reduce kernel launches "
+            f"{res['all_reduces']} ({res['all_reduces'] / steps:g} a step); "
+            f"host all-reduces of the replays by axis (card synchronised "
+            f"around each) {json.dumps(res['collectives'])}; "
+            f"flash_causal_attention_diff step 1 "
             f"{json.dumps({str(list(k)): v for k, v in res['causal_shapes'].items()})}"
             f", backward {res['backward']}")
-    worst = check_step_metrics(ranks[0]["metrics"][0], want,
-                               f"{what}, step 1")
-    for rank, res in enumerate(ranks):
-        for i, (a, b) in enumerate(zip(res["metrics"],
-                                       ranks[0]["metrics"])):
-            rel = max(abs(a[k] - b[k]) / abs(b[k]) for k in b)
-            if not all(np.isfinite(v) for v in a.values()) or \
-                    rel > RANK_LOSS_TOL:
-                fail(f"{what}: rank {rank} step {i + 1} losses {a}, rank 0 "
-                     f"{b}")
-        if not res["lora_moved"] or not res["frozen_untouched"]:
-            fail(f"{what}: rank {rank} LoRA moved {res['lora_moved']}, "
-                 f"frozen untouched {res['frozen_untouched']}")
-        check_train_launches(res["launches"], res["backward"], cfg, micro,
-                             f"{what}, rank {rank}")
-        if res["causal_shapes"] != {want_shape: 2 * lcfg.num_layers * micro}:
-            fail(f"{what}: rank {rank} training attention shapes "
-                 f"{res['causal_shapes']}, want {want_shape}")
-    log(f"[train-parallel-7b] ({data}, {model}): step 1 against the single "
-        f"process on the same global batch ({2 * data} rows x 2 "
-        f"micro-steps; {single_s:.2f} s, peak {single_peak:.2f} GiB): worst "
-        f"loss-term rel err {worst:.3g} (limit {TRAIN_LOSS_TOL}); "
-        f"{mods['card']}; gloo reduces each CUDA all-reduce through the "
-        f"host: these are no NCCL figures")
-    log(f"[phase 12] ({'b' if model == 2 else 'c'}) anyref_7b at ({data}, "
-        f"{model}), two ranks on cuda:0 over gloo, in "
-        f"{time.time() - t_phase:.1f} s (ranks {spawn_s:.1f} s)")
-    return {"walls": [r["walls"] for r in ranks],
-            "collectives": [r["collectives"] for r in ranks],
-            "peak_gib": [r["peak_gib"] for r in ranks]}
+    log(f"[train-parallel-7b] ({data}, {model}): logged losses "
+        f"{[round(r['loss'], 5) for r in recs]}, each both ranks' own; step "
+        f"1 against the single process on the same global batch "
+        f"({2 * data} rows x 2 micro-steps; {single_s:.2f} s, peak "
+        f"{single_peak:.2f} GiB): worst loss-term rel err {worst:.3g} (limit "
+        f"{TRAIN_LOSS_TOL}); {mods['card']}; two ranks share the card by "
+        f"time slices of their contexts: no figure of several cards")
+    log(f"[phase 12] ({tag}) anyref_7b at ({data}, {model}), "
+        f"{cfg.llama.num_layers} decoder layers, two ranks on "
+        f"cuda:0, compiled, in {time.time() - t_phase:.1f} s (ranks "
+        f"{spawn_s:.1f} s)")
+    return {k: [r[k] for r in ranks] for k in (
+        "walls", "eager_walls", "collectives", "capture_s", "pool_bytes",
+        "peak_gib", "all_reduces")}
 
 
 def tensor_bytes(tree) -> int:
@@ -8302,6 +8780,11 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
+    t_run = time.time()
+
+    def stamp(what: str) -> None:
+        log(f"[time] {what} done at {time.time() - t_run:.1f} s")
+
     # phase 1
     smi = subprocess.run(["nvidia-smi", "-i", "0",
                           "--query-gpu=name,power.limit",
@@ -8326,6 +8809,7 @@ def main() -> int:
                                               "attention": attention,
                                               "quant": quant})
     dispatch = check_ops(torch, flash)
+    stamp("phases 1-2")
     mods = {"anyref_7b": anyref_7b, "anyref_tiny": anyref_tiny,
             "tparams": tparams, "Server": Server,
             "Request": Request, "AnyRefTokenizer": AnyRefTokenizer,
@@ -8360,34 +8844,46 @@ def main() -> int:
     check_tiny_references(torch, tiny, "unfused", mods)
     check_tiny_references(torch, tiny512, "fused", mods)
     check_tiny_train(torch, tiny, mods)
+    stamp("phase 3")
     # phase 4
     launches, int8_step, phase10, phase13 = serve_7b(torch, flash, mods)
     torch.cuda.empty_cache()
+    stamp("phase 4 (with 7(b), 8(b)'s eval, 9(b), 10(b), 13(b))")
     # phase 5
     trained = train_7b(torch, flash, mods)
     torch.cuda.empty_cache()
+    stamp("phase 5")
     # phase 6
     checkpoint_phase(torch, flash, mods)
+    stamp("phase 6")
     # phase 7(a); 7(b) ran in phase 4, on its weights
     eval_tiny(torch, flash, mods, tiny, tiny512)
+    stamp("phase 7(a)")
     # phase 8(a), and (b)'s training (its inverse eval ran in phase 4)
     phase8_tiny(torch, flash, mods, tiny)
     train_7b_from_disk(torch, flash, mods)
     torch.cuda.empty_cache()
+    stamp("phase 8")
     # phase 9(a); (b) ran in phase 4, on its SAM weights
     sam_alone_tiny(torch, flash, mods, tiny, tiny512)
+    stamp("phase 9(a)")
     # phase 10(a); (b) ran in phase 4, on its weights before its first Server
     serving_tiny(torch, flash, mods, tiny, tiny512)
+    stamp("phase 10(a)")
     # phase 13(a); (b) ran in phase 4, on its weights
     graph_tiny(torch, flash, mods, tiny, tiny512)
-    # phase 11: two ranks on the one card
+    stamp("phase 13(a)")
+    # phase 11: ranks on the one card; (0) the all-reduce kernel first
+    all_reduce_entry = check_all_reduce(torch, mods)
     parallel_tiny(torch, mods)
     launches["parallel"] = parallel_7b(torch, flash, mods)
     torch.cuda.empty_cache()
+    stamp("phase 11")
     # phase 12: training on two ranks of the one card
     train_parallel_tiny(torch, mods)
     phase12 = {"(1, 2)": train_parallel_7b(torch, mods, 1, 2),
-               "(2, 1)": train_parallel_7b_data(torch, mods)}
+               "(2, 1)": train_parallel_7b(torch, mods, 2, 1)}
+    stamp("phase 12")
 
     # phase 14
     meta = {
@@ -8492,6 +8988,10 @@ def main() -> int:
             "dispatch_us": dispatch[name],
             "other_shapes": rows[1:],
         })
+    # the all-reduce over "model": its launches on phase 11(b)'s path, the
+    # (1, 2) Server's rank 0
+    kernels.append({**all_reduce_entry,
+                    "launches": launches["parallel"]["all_reduce"]})
     log(f"[phase 5] {json.dumps({k: trained[k] for k in ('compiled', 'eager')})}")
     log(f"[phase 10] (b) {json.dumps(phase10)}")
     log(f"[phase 12] {json.dumps(phase12)}")

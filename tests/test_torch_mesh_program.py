@@ -228,7 +228,9 @@ def test_data_mesh_dispatch_reads_nothing_and_complete_gathers(runs, kind):
 
 def test_model_axis_program_holds_collectives(runs):
     """At (1, 2) the same parts all-reduce over "model" (every decoder
-    layer): such a mesh stays eager on the card."""
+    layer): on the CPU through the all-reduce op's plain version, gloo's
+    all_reduce; on the card the op's kernel, which the program's graph
+    holds (tests/test_torch_model_program.py)."""
     for res in runs["ranks"]:
         calls = res["model_axis"]["text"]["program_calls"]
         assert len(calls) >= 2 * CFG.llama.num_layers, len(calls)

@@ -298,12 +298,15 @@ def test_serving_layout_refusals(tp):
             tlora.apply(tree, adapters, tlora.LoraConfig())
 
 
-@pytest.mark.parametrize("name", sorted(tflash.OPS))
+@pytest.mark.parametrize("name", sorted(set(tflash.OPS)
+                                         - set(tflash.GROUP_OPS)))
 def test_opcheck(name):
     """torch.library.opcheck of each anyref:: op at small CPU shapes
     (chip_smoke.op_cases in fp32): its schema (no aliasing, no undeclared
     mutation), its fake implementation's shapes, dtypes and strides against
-    the CPU implementation's, and its trace under AOT dispatch."""
+    the CPU implementation's, and its trace under AOT dispatch. The ops
+    over a group of ranks are opchecked on ranks
+    (tests/test_torch_model_program.py)."""
     args = chip_smoke.op_cases(torch, tflash, "cpu", torch.float32)[name]
     op = getattr(torch.ops.anyref, name).default
     result = torch.library.opcheck(op, args)
@@ -311,10 +314,11 @@ def test_opcheck(name):
 
 
 def test_every_launch_is_an_op():
-    """Thirteen ops, one for each unit that launches: the twelve kernels'
-    wrappers, the training attention's forward and backward as two; each
-    has a CUDA, a CPU and a fake implementation."""
-    assert len(tflash.OPS) == 13
+    """Fourteen ops, one for each unit that launches: the twelve kernels'
+    wrappers, the training attention's forward and backward as two, and
+    the all-reduce over a "model" group; each has a CUDA, a CPU and a fake
+    implementation."""
+    assert len(tflash.OPS) == 14
     for name in tflash.OPS:
         op = getattr(torch.ops.anyref, name).default
         for key in ("CUDA", "CPU", "Meta"):
@@ -323,4 +327,6 @@ def test_every_launch_is_an_op():
     wrappers = {k.__name__ for k in tflash.KERNELS}
     assert wrappers - set(tflash.OPS) == {"flash_causal_attention_diff"}
     assert set(tflash.OPS) - wrappers == {"causal_attention_diff_fwd",
-                                          "causal_attention_diff_bwd"}
+                                          "causal_attention_diff_bwd",
+                                          "all_reduce"}
+    assert set(tflash.GROUP_OPS) == {"all_reduce"}
